@@ -1,0 +1,12 @@
+"""EasyNLP PyTorch port: the EasyNLP-TPU toolkit on PyTorch and CUDA.
+
+A second package beside `easynlp_tpu` (the JAX reference, which it imports
+only for JAX-free host code: flags, config, tokenizer tables, TSV helpers).
+It mirrors that package's paths and names. Ported so far: `--mode=predict
+--app_name=text_classify` on BERT, with a hand-written CUDA attention kernel
+(see ROADMAP.md for what comes next).
+"""
+
+__version__ = "0.1.0"
+
+from easynlp_tpu_torch.utils.initializer import initialize_easynlp  # noqa: F401,E402

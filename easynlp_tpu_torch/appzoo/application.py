@@ -1,0 +1,74 @@
+"""Application base for the PyTorch port.
+
+Counterpart of easynlp_tpu/appzoo/application.py. An Application holds an
+`nn.Module` (which owns its parameters), the config and the torch.device the
+module lives on. `from_pretrained` reads `config.json` and
+`pytorch_model.bin` from a model directory.
+"""
+
+import torch
+
+from easynlp_tpu.utils.logger import logger
+from easynlp_tpu_torch.modelzoo.modeling_utils import (
+    available_checkpoint,
+    load_pytorch_state_dict,
+)
+
+
+class Application:
+    """Subclasses define
+      - load_config(model_dir) -> config
+      - build_module(config, args, dtype, device, **kw) -> nn.Module with
+        init_weights(generator)
+      - load_state_dict(module, state_dict): map a reference/HF checkpoint
+        onto the module
+      - model_input_keys: batch keys forwarded to the module."""
+
+    model_input_keys = ("input_ids", "attention_mask", "token_type_ids")
+
+    def __init__(self, module, config, device, label_mapping=None):
+        self.module = module
+        self.config = config
+        self.device = torch.device(device)
+        self.label_mapping = label_mapping or {}
+
+    def forward(self, batch):
+        """Inference forward on a dict of tensors already on self.device."""
+        return self.module(**{k: batch[k] for k in self.model_input_keys
+                              if k in batch})
+
+    @classmethod
+    def load_config(cls, model_dir, **kwargs):
+        raise NotImplementedError
+
+    @classmethod
+    def build_module(cls, config, args=None, dtype=torch.float32,
+                     device=None, **kwargs):
+        raise NotImplementedError
+
+    @classmethod
+    def load_state_dict(cls, module, state_dict):
+        raise NotImplementedError
+
+    @classmethod
+    def from_pretrained(cls, model_dir, args=None, label_mapping=None,
+                        dtype=torch.float32, device="cpu", seed=0, **kwargs):
+        """Config + weights from model_dir, in eval mode on `device`.
+        Parameters the checkpoint lacks keep their init from `seed`."""
+        device = torch.device(device)
+        config = cls.load_config(model_dir, **kwargs)
+        module = cls.build_module(config, args=args, dtype=dtype,
+                                  device=device, **kwargs)
+        module.init_weights(torch.Generator(device=device).manual_seed(seed))
+        flavour = available_checkpoint(model_dir)
+        if flavour == "pytorch":
+            cls.load_state_dict(module, load_pytorch_state_dict(model_dir))
+        elif flavour == "flax":
+            raise NotImplementedError(
+                "%s holds only a JAX flax_params.msgpack checkpoint; the "
+                "port reads pytorch_model.bin. Export it with the JAX "
+                "package's `--mode=export` (pytorch) first (ROADMAP A6)."
+                % model_dir)
+        else:
+            logger.warning("no weights found in %s; random init", model_dir)
+        return cls(module.eval(), config, device, label_mapping=label_mapping)

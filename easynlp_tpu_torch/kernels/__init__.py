@@ -1,0 +1,101 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one `csrc/<name>.cu` with a plain `extern "C"` launcher. On
+first use it is compiled with nvcc for Hopper (`sm_90a`) into a shared
+library under `build/kernels/` at the repository root (listed in
+.gitignore) and loaded with ctypes. The library's file name carries a hash of
+the sources and the flags, so an unchanged tree reuses it and an edited one
+rebuilds. Only the sources in this package are compiled; nothing is
+downloaded.
+
+Nothing here runs at import time: the CPU tests import every module on
+machines that have neither nvcc nor a card.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS = {}
+_BUILD_INFO = {}
+
+
+def available():
+    """True when a CUDA card is present, so the kernels can launch."""
+    import torch
+    return torch.cuda.is_available()
+
+
+def _nvcc():
+    for candidate in (shutil.which("nvcc"),
+                      os.path.join(os.environ.get("CUDA_HOME",
+                                                  "/usr/local/cuda"),
+                                   "bin", "nvcc")):
+        if candidate and os.path.exists(candidate):
+            return candidate
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; the "
+                       "CUDA toolkit is needed to build the port's kernels")
+
+
+def _digest(source):
+    h = hashlib.sha256()
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(source.name.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _build(name):
+    source = CSRC_DIR / (name + ".cu")
+    if not source.exists():
+        raise FileNotFoundError("no kernel source %s" % source)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / ("%s-%s.so" % (name, _digest(source)))
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return lib_path, {"seconds": 0.0, "cached": True, "log": log}
+    tmp = lib_path.with_name("%s.%d.tmp" % (lib_path.name, os.getpid()))
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError("nvcc failed (exit %d) building %s:\n%s\n%s"
+                           % (proc.returncode, source, " ".join(cmd),
+                              proc.stderr))
+    log = proc.stdout + proc.stderr
+    log_path.write_text(log)
+    os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or none
+    return lib_path, {"seconds": seconds, "cached": False, "log": log}
+
+
+def load(name):
+    """The ctypes library built from csrc/<name>.cu (built on first call)."""
+    with _LOCK:
+        if name not in _LIBS:
+            lib_path, info = _build(name)
+            _LIBS[name] = ctypes.CDLL(str(lib_path))
+            _BUILD_INFO[name] = dict(info, path=str(lib_path))
+        return _LIBS[name]
+
+
+def build_info(name):
+    """{'path', 'seconds', 'cached', 'log'} of a kernel loaded in this
+    process; 'log' holds nvcc's output, with the `-Xptxas -v` register and
+    shared-memory lines."""
+    return dict(_BUILD_INFO[name])

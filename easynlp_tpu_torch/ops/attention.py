@@ -1,0 +1,256 @@
+"""Multi-head attention for the PyTorch port: one `attention()` entry over a
+hand-written CUDA kernel and plain PyTorch paths.
+
+Counterpart of easynlp_tpu/ops/attention.py, with the same contract:
+q [B,Sq,H,D], k/v [B,Skv,H,D] (or heads-major with layout='bhsd'), a
+[B,Skv] or [1,Skv] key mask, causal masking with q_offset = Skv - Sq, and an
+additive bias that forces the plain path.
+
+Paths:
+
+1. `attention_reference` mirrors the JAX attention_reference, including its
+   bf16 score cast. It serves an additive bias, Skv above SHORT_MAX_KV_LEN,
+   head dims the kernel does not take, and every call under
+   --use_flash_attention=false.
+2. `short_attention_fwd` is the whole-sequence forward for Skv <= 512: the
+   CUDA kernel in csrc/short_attention_fwd.cu for a CUDA tensor, and its
+   plain twin `short_attention_fwd_reference` for a CPU tensor.
+
+The JAX package routes BERT lengths below 256 to XLA on a TPU. That window
+is a TPU tuning, so here every Skv <= 512 takes the kernel on a card; the
+card's own thresholds come from its measurements (PERF.md). The blocked
+flash kernels and ring attention are not ported yet (ROADMAP B3-B5, A24).
+"""
+
+import ctypes
+import math
+
+import torch
+
+NEG_INF = -1e30
+SHORT_MAX_KV_LEN = 512
+SHORT_MAX_HEAD_DIM = 128
+
+# --use_flash_attention true|false (wired by utils/initializer.py):
+# False sends every call to attention_reference; None (auto) and True take
+# the short path where it applies.
+_KERNEL_OVERRIDE = None
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_LAUNCHER = None
+
+
+def set_kernel_override(value):
+    """value: True or None (short path where it applies) or False (plain
+    attention_reference everywhere)."""
+    global _KERNEL_OVERRIDE
+    _KERNEL_OVERRIDE = value
+
+
+def use_kernels():
+    return _KERNEL_OVERRIDE is not False
+
+
+def attention_reference(q, k, v, kv_mask=None, causal=False, scale=None,
+                        bias=None):
+    """q [B,Sq,H,D], k/v [B,Skv,H,D], kv_mask [B|1,Skv], bias [B,H,Sq,Skv].
+    Mirrors easynlp_tpu.ops.attention.attention_reference."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    if kv_mask is not None:
+        logits = logits.masked_fill(kv_mask[:, None, None, :] == 0, NEG_INF)
+    if causal:
+        logits = logits.masked_fill(_causal_hidden(q.shape[1], k.shape[1],
+                                                   q.device), NEG_INF)
+    if q.dtype == torch.bfloat16:
+        # as in the JAX reference: the max-subtracted scores pass through bf16
+        logits = logits - logits.amax(dim=-1, keepdim=True)
+        logits = logits.to(torch.bfloat16)
+    probs = torch.softmax(logits.float(), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def _causal_hidden(sq, skv, device):
+    """[Sq,Skv] bool, True where key k lies after query q + (Skv - Sq)."""
+    qi = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    ki = torch.arange(skv, device=device)[None, :]
+    return ki > qi
+
+
+def short_attention_fwd_reference(q, k, v, kv_mask, causal=False, scale=None):
+    """Plain PyTorch twin of the CUDA kernel: the JAX `_short_probs` + P.V in
+    f32 from the given inputs, over the real Skv keys only (no padding, so a
+    fully masked row averages V over the real keys, as attention_reference
+    does). P stays f32, as in the kernel. Output in q's dtype."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = s.masked_fill(kv_mask[:, None, None, :] == 0, NEG_INF)
+    if causal:
+        s = s.masked_fill(_causal_hidden(q.shape[1], k.shape[1], q.device),
+                          NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def _check_short_args(q, k, v, kv_mask):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("short_attention_fwd takes 4-D q/k/v [B,S,H,D]")
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if k.shape != (b, skv, h, d) or v.shape != k.shape:
+        raise ValueError("q %s, k %s, v %s: batch, heads and head dim must "
+                         "agree" % (tuple(q.shape), tuple(k.shape),
+                                    tuple(v.shape)))
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError("short_attention_fwd takes float32 or bfloat16 "
+                         "q/k/v of one dtype, got %s/%s/%s"
+                         % (q.dtype, k.dtype, v.dtype))
+    if d % 8 or not 8 <= d <= SHORT_MAX_HEAD_DIM:
+        raise ValueError("head dim %d: the kernel takes a multiple of 8 up "
+                         "to %d" % (d, SHORT_MAX_HEAD_DIM))
+    if not 1 <= skv <= SHORT_MAX_KV_LEN:
+        raise ValueError("Skv=%d: the short kernel takes 1..%d keys"
+                         % (skv, SHORT_MAX_KV_LEN))
+    if kv_mask.dim() != 2 or kv_mask.shape[1] != skv \
+            or kv_mask.shape[0] not in (1, b):
+        raise ValueError("kv_mask %s: expected [%d,%d] or [1,%d]"
+                         % (tuple(kv_mask.shape), b, skv, skv))
+    if kv_mask.dtype not in (torch.int32, torch.bool):
+        raise ValueError("kv_mask dtype %s: expected int32 or bool"
+                         % kv_mask.dtype)
+    if len({q.device, k.device, v.device, kv_mask.device}) != 1:
+        raise ValueError("q, k, v and kv_mask must share one device")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "short_attention_fwd is forward-only: its backward kernel "
+            "(_short_bwd_kernel) is not ported yet (ROADMAP B2)")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError("%s: the head dim must be contiguous" % name)
+        if t.data_ptr() % 16 or any(_strides(t)[i] % vec for i in range(3)):
+            raise ValueError("%s: the kernel reads 16-byte rows; the data "
+                             "pointer and the batch/seq/head strides must be "
+                             "16-byte aligned" % name)
+
+
+def _strides(t):
+    """(batch, seq, head) element strides, in the launcher's order, with 0
+    for a dim of size 1 (never stepped over, so its stride does not
+    matter)."""
+    return [t.stride(i) if t.shape[i] > 1 else 0 for i in range(3)]
+
+
+def _launcher():
+    global _LAUNCHER
+    if _LAUNCHER is None:
+        from easynlp_tpu_torch import kernels
+        fn = kernels.load("short_attention_fwd").easynlp_short_attention_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_int64] * 13
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        _LAUNCHER = fn
+    return _LAUNCHER
+
+
+def short_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
+    """Whole-sequence attention forward (the port of the TPU kernel
+    `_short_fwd_kernel`).
+
+    q [B,Sq,H,D], k/v [B,Skv,H,D] with any strides whose head dim is
+    contiguous (BERT's projection views and bhsd tensors transposed to this
+    shape both qualify without a copy); kv_mask [B,Skv] or [1,Skv], int32 or
+    bool. Returns [B,Sq,H,D] in q's dtype; when q is dense the output takes
+    q's memory layout. A CUDA tensor launches the kernel (and counts it in
+    `short_attention_fwd.launches`); a CPU tensor takes the plain twin.
+    """
+    _check_short_args(q, k, v, kv_mask)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return short_attention_fwd_reference(q, k, v, kv_mask, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError("short_attention_fwd runs on cpu or cuda, got %s"
+                         % q.device)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if b > 65535 or h > 65535:
+        raise ValueError("B=%d, H=%d: the launch grid takes at most 65535 of "
+                         "each" % (b, h))
+    out = torch.empty_like(q, memory_format=torch.preserve_format)
+    if out.numel() == 0:
+        return out
+    if kv_mask.dtype != torch.int32 or kv_mask.stride(1) != 1:
+        kv_mask = kv_mask.to(torch.int32).contiguous()
+    mask_sb = kv_mask.stride(0) if kv_mask.shape[0] == b and b > 1 else 0
+    launch = _launcher()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    kv_mask.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
+                    b, h, sq, skv, d,
+                    *_strides(q), *_strides(k), *_strides(v),
+                    *_strides(out), mask_sb, int(bool(causal)),
+                    float(scale), stream)
+    if rc != 0:
+        raise RuntimeError("short_attention_fwd launch failed: CUDA error %d "
+                           "(B=%d Sq=%d Skv=%d H=%d D=%d %s)"
+                           % (rc, b, sq, skv, h, d, q.dtype))
+    short_attention_fwd.launches += 1
+    return out
+
+
+short_attention_fwd.launches = 0
+
+
+def _kernel_ready(t):
+    """t itself when the kernel can read it in place, else a dense copy."""
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
+            s % (16 // t.element_size()) for s in _strides(t)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def attention(q, k, v, kv_mask=None, causal=False, scale=None, bias=None,
+              impl="auto", layout="bshd"):
+    """Public MHA entry: q [B,Sq,H,D], k/v [B,Skv,H,D], kv_mask [B,Skv] or
+    [1,Skv]. layout='bhsd' takes and returns heads-major [B,H,S,D] tensors.
+
+    impl: 'auto' (the short path for Skv <= 512 and a head dim the kernel
+    takes, attention_reference otherwise), 'short' (the short path or an
+    error), 'reference'. 'flash' and 'ring' are not ported yet. An additive
+    `bias` forces the reference path."""
+    if impl in ("flash", "ring"):
+        raise NotImplementedError(
+            "attention(impl=%r) is not ported yet: the blocked flash kernels "
+            "are ROADMAP B3-B5, ring attention ROADMAP A24" % impl)
+    if impl not in ("auto", "short", "reference"):
+        raise ValueError("unknown attention impl %r" % impl)
+    if layout == "bhsd":
+        out = attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), kv_mask=kv_mask, causal=causal,
+                        scale=scale, bias=bias, impl=impl)
+        return out.transpose(1, 2)
+    if layout != "bshd":
+        raise ValueError("unknown layout %r" % layout)
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if kv_mask is None:
+        kv_mask = torch.ones((k.shape[0], k.shape[1]), dtype=torch.int32,
+                             device=k.device)
+    fits = (k.shape[1] <= SHORT_MAX_KV_LEN and d % 8 == 0
+            and d <= SHORT_MAX_HEAD_DIM and q.dtype in _DTYPE_CODES)
+    if bias is None and (impl == "short" or (
+            impl == "auto" and use_kernels() and fits)):
+        return short_attention_fwd(_kernel_ready(q), _kernel_ready(k),
+                                   _kernel_ready(v), kv_mask, causal, scale)
+    return attention_reference(q, k, v, kv_mask=kv_mask, causal=causal,
+                               scale=scale, bias=bias)

@@ -10,8 +10,10 @@ setup(
     version="0.1.0",
     description="TPU-native NLP & multi-modal toolkit (JAX/XLA/Pallas/pjit) "
                 "with the capabilities of EasyNLP",
-    packages=find_packages(include=["easynlp_tpu", "easynlp_tpu.*"]),
-    package_data={"easynlp_tpu": ["native_lib/*.so"]},
+    packages=find_packages(include=["easynlp_tpu", "easynlp_tpu.*",
+                                    "easynlp_tpu_torch", "easynlp_tpu_torch.*"]),
+    package_data={"easynlp_tpu": ["native_lib/*.so"],
+                  "easynlp_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy",
@@ -23,6 +25,7 @@ setup(
     entry_points={
         "console_scripts": [
             "easynlp=easynlp_tpu.cli:main",
+            "easynlp-torch=easynlp_tpu_torch.cli:main",
         ],
     },
 )
