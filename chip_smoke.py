@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py [--seed N]
 
-Run from the repository root. It builds the port's CUDA kernel from
-easynlp_tpu_torch/csrc, holds it against its plain PyTorch version at the
-main path's shapes, then drives the port's main path, `--mode=predict
---app_name=text_classify`, on a BERT-base model (bert-base-chinese widths,
-random truncated-normal weights from --seed) over a 256-row TSV, once with
-the kernel and once with --use_flash_attention=false, and compares the two.
-Every phase raises on failure, so any failure exits non-zero. The last line
-is {"ok": true, "device": {...}}; the line before it lists the kernels with
+Run from the repository root. It builds the port's CUDA kernels from
+easynlp_tpu_torch/csrc (one nvcc per source, all at once), holds each
+against its plain PyTorch version at the main paths' shapes, then drives the
+port's two main paths on a BERT-base model (bert-base-chinese widths, random
+truncated-normal weights from --seed): `--mode=predict
+--app_name=text_classify` over a 256-row TSV, and `--mode=train` for one
+epoch of 8 steps followed by `--mode=evaluate` and `--mode=predict` on the
+checkpoint it wrote. Each path runs with the kernels and with
+--use_flash_attention=false, and the two are compared. Every phase raises on
+failure, so any failure exits non-zero. The last line is
+{"ok": true, "device": {...}}; the line before it lists the kernels with
 their launch counts, errors and times. Imports nothing of JAX.
 """
 
@@ -24,8 +27,12 @@ import sys
 import tempfile
 import time
 
-KERNEL_SOURCE = "easynlp_tpu_torch/csrc/short_attention_fwd.cu"
-REPLACES = "easynlp_tpu/ops/attention.py:519"  # _short_fwd_kernel
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "short_attention_fwd": ("easynlp_tpu_torch/csrc/short_attention_fwd.cu",
+                            "easynlp_tpu/ops/attention.py:519"),
+    "short_attention_bwd": ("easynlp_tpu_torch/csrc/short_attention_bwd.cu",
+                            "easynlp_tpu/ops/attention.py:531"),
+}
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 
 # Tolerances. f32: 2e-5, the bound tests/test_attention.py holds the JAX short
@@ -44,11 +51,27 @@ ATOL_BF16 = 1.5e-2
 # logits and probabilities, about 10x that; labels must agree wherever the
 # kernel run's logit margin exceeds twice the bound.
 SLICE_ATOL = 5e-2
+# Backward, kernel against its f32 twin on the same inputs (q, k, v, the
+# forward output o, dO; bf16 ones cast to f32 for the twin). f32: 2e-5 +
+# 1e-5 |g| (sums in another order; dv grows to ~40 where one key carries a
+# whole row). bf16: the kernel computes in f32 and rounds dq/dk/dv once, so
+# it is off by at most 2^-8 |g| (bf16 keeps 8 significant bits) plus the
+# f32 sum-order error: 1e-4 + 2^-8 |g|.
+BWD_ATOL_F32, BWD_RTOL_F32 = 2e-5, 1e-5
+BWD_ATOL_BF16, BWD_RTOL_BF16 = 1e-4, 2 ** -8
+# Training: the kernel run and the plain run draw the same dropout masks
+# (same seed, and attention draws no random numbers), so their per-step
+# losses differ only by attention's rounding, compounded over 8 AdamW steps.
+# The predict path's largest logit gap, kernel against plain on an H100, is
+# 6.7e-3; the loss is a mean over 32 rows. Bound 2e-2.
+TRAIN_LOSS_ATOL = 2e-2
 
 SEQ_LEN = 128
 BATCH = 32
 N_ROWS = 256
+N_DEV_ROWS = 64
 N_LAYERS = 12
+LEARNING_RATE = 5e-5
 
 BERT_BASE_CHINESE = {  # bert-base-chinese config.json widths
     "architectures": ["BertForMaskedLM"], "model_type": "bert",
@@ -62,6 +85,7 @@ BERT_BASE_CHINESE = {  # bert-base-chinese config.json widths
 ENGLISH = ["the", "model", "good", "bad", "price", "service", "phone",
            "movie", "great", "not", "very", "and", "is", "it", "was", "ok"]
 N_CJK_PIECES = 1000
+MODEL_DIR = "bert-base-chinese-random"
 
 
 def log(msg):
@@ -100,16 +124,18 @@ def phase_build():
     from easynlp_tpu_torch import kernels
     log("== phase 1: build")
     t0 = time.perf_counter()
-    kernels.load("short_attention_fwd")
+    kernels.load_all(list(KERNELS))
     seconds = time.perf_counter() - t0
-    info = kernels.build_info("short_attention_fwd")
-    log("built %s -> %s: nvcc %.3f s, load %.3f s, cached=%s"
-        % (KERNEL_SOURCE, info["path"], info["seconds"], seconds,
-           info["cached"]))
-    for line in info["log"].splitlines():
-        if "Compiling entry" in line or "registers" in line \
-                or "spill" in line:
-            log("ptxas: " + line.strip())
+    for name, (source, _) in KERNELS.items():
+        info = kernels.build_info(name)
+        log("built %s -> %s: nvcc %.3f s, cached=%s"
+            % (source, info["path"], info["seconds"], info["cached"]))
+        for line in info["log"].splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                log("ptxas: " + line.strip())
+    log("both kernels built and loaded in %.3f s (nvcc runs in parallel)"
+        % seconds)
     return seconds
 
 
@@ -144,8 +170,9 @@ def _time_ms(torch, fn, iters=50, warmup=5):
 def phase_kernel(torch, seed):
     import numpy as np
     from easynlp_tpu_torch.ops import attention as A
-    log("== phase 2: kernel against plain version")
+    log("== phase 2: kernels against plain versions")
     rng = np.random.RandomState(seed)
+    worst_bwd = {}
 
     def lengths(b, skv, full_row_masked=False):
         out = rng.randint(1, skv + 1, size=b)
@@ -195,6 +222,7 @@ def phase_kernel(torch, seed):
                                          % (name, dtype, layout, err))
                 worst[(name, dtype)] = max(worst.get((name, dtype), 0.0),
                                            err)
+        _check_bwd(torch, A, rng, name, q, k, v, mask, causal, worst_bwd)
 
     timings = {}
     for name, b, sq, skv, h, d, lens, causal in cases[:2]:
@@ -216,8 +244,90 @@ def phase_kernel(torch, seed):
                 % (name, str(dtype).split(".")[1], ms, nbytes / ms / 1e6,
                    100 * nbytes / (ms * 1e-3) / PEAK_BYTES_PER_S,
                    flops / ms / 1e9, plain_ms, ref_ms))
-            timings[(name, dtype)] = (ms, plain_ms)
-    return worst, timings
+            timings[("short_attention_fwd", name, dtype)] = (ms, plain_ms)
+            timings[("short_attention_bwd", name, dtype)] = _time_bwd(
+                torch, A, name, tq, tk, tv, mask, causal, rng)
+    return {"short_attention_fwd": worst,
+            "short_attention_bwd": worst_bwd}, timings
+
+
+def _check_bwd(torch, A, rng, name, q, k, v, mask, causal, worst):
+    """The backward kernel against its f32 twin, f32 and bf16, in both
+    layouts; two runs on the same inputs must give the same bits."""
+    import numpy as np
+    do = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(
+        np.float32)).to(q.device)
+    for dtype, atol, rtol in ((torch.float32, BWD_ATOL_F32, BWD_RTOL_F32),
+                              (torch.bfloat16, BWD_ATOL_BF16,
+                               BWD_RTOL_BF16)):
+        tq, tk, tv, tdo = (t.to(dtype) for t in (q, k, v, do))
+        for layout in ("bshd", "bhsd"):
+            args = (tq, tk, tv)
+            o = A.short_attention_fwd(*args, mask, causal)
+            g_in = tdo
+            if layout == "bhsd":  # heads-major memory, read through strides
+                args = tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
+                             for t in args)
+                o = o.transpose(1, 2).contiguous().transpose(1, 2)
+                g_in = tdo.transpose(1, 2).contiguous().transpose(1, 2)
+            want = A.short_attention_bwd_reference(
+                tq.float(), tk.float(), tv.float(), mask, o.float(),
+                tdo.float(), causal)
+            got = A.short_attention_bwd(*args, mask, o, g_in, causal)
+            torch.cuda.synchronize()
+            err, excess = 0.0, 0.0
+            for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
+                if g.dtype != dtype or g.shape != w.shape:
+                    raise AssertionError("%s %s: got %s %s, want %s %s" % (
+                        name, gname, g.dtype, tuple(g.shape), dtype,
+                        tuple(w.shape)))
+                diff = (g.float() - w).abs()
+                err = max(err, diff.max().item())
+                excess = max(excess, (diff - atol - rtol * w.abs()).max()
+                             .item())
+            ok = excess <= 0
+            log("check bwd %-18s %-8s %-4s max_abs_err %.3e (bound %.1e + "
+                "%.1e |g|) %s" % (name, str(dtype).split(".")[1], layout,
+                                  err, atol, rtol, "ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("backward kernel disagrees with its "
+                                     "plain version: %s %s %s err %.3e"
+                                     % (name, dtype, layout, err))
+            again = A.short_attention_bwd(*args, mask, o, g_in, causal)
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                raise AssertionError("%s %s %s: two backward runs differ"
+                                     % (name, dtype, layout))
+            worst[(name, dtype)] = max(worst.get((name, dtype), 0.0), err)
+    log("check bwd %-18s two runs on the same inputs give the same bits"
+        % name)
+
+
+def _time_bwd(torch, A, name, tq, tk, tv, mask, causal, rng):
+    """Backward kernel, its twin, and autograd through attention_reference
+    (backward only, from a graph kept alive); CUDA events."""
+    import numpy as np
+    b, sq, h, d = tq.shape
+    skv = tk.shape[1]
+    do = torch.from_numpy(rng.standard_normal((b, sq, h, d)).astype(
+        np.float32)).to(tq.device).to(tq.dtype)
+    o = A.short_attention_fwd(tq, tk, tv, mask, causal)
+    ms = _time_ms(torch, lambda: A.short_attention_bwd(
+        tq, tk, tv, mask, o, do, causal))
+    plain_ms = _time_ms(torch, lambda: A.short_attention_bwd_reference(
+        tq, tk, tv, mask, o, do, causal))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out = A.attention_reference(*leaves, kv_mask=mask, causal=causal)
+    ref_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True))
+    nbytes = 8 * tq.numel() * tq.element_size() + mask.numel() * 4
+    flops = 10 * b * h * sq * skv * d
+    log("time bwd %-10s %-8s kernel %.4f ms (%.1f GB/s = %.1f%% of "
+        "3.35 TB/s, %.2f TFLOP/s); plain twin %.4f ms; autograd through "
+        "attention_reference %.4f ms"
+        % (name, str(tq.dtype).split(".")[1], ms, nbytes / ms / 1e6,
+           100 * nbytes / (ms * 1e-3) / PEAK_BYTES_PER_S, flops / ms / 1e9,
+           plain_ms, ref_ms))
+    return ms, plain_ms
 
 
 # --------------------------------------------------------------------------
@@ -295,14 +405,14 @@ def make_model_dir(torch, path, seed):
     return cjk
 
 
-def make_tsv(path, cjk, seed):
-    """N_ROWS generated sentences: common CJK characters with English words,
+def make_tsv(path, cjk, seed, n_rows=N_ROWS):
+    """n_rows generated sentences: common CJK characters with English words,
     digits and punctuation mixed in, 8..200 characters (longer ones are
     truncated to SEQ_LEN tokens, shorter ones padded)."""
     rng = random.Random(seed)
     common = cjk[:3000]
     with open(path, "w", encoding="utf-8") as f:
-        for i in range(N_ROWS):
+        for i in range(n_rows):
             parts = []
             for _ in range(rng.randint(8, 200)):
                 r = rng.random()
@@ -358,15 +468,15 @@ def read_output(path):
     return labels, np.array(probs), np.array(logits), ids
 
 
-def check_output(path):
+def check_output(path, n_rows=N_ROWS):
     import numpy as np
     labels, probs, logits, ids = read_output(path)
-    if len(labels) != N_ROWS or ids != [str(i) for i in range(N_ROWS)]:
+    if len(labels) != n_rows or ids != [str(i) for i in range(n_rows)]:
         raise AssertionError("%s: %d rows, want ids 0..%d in order"
-                             % (path, len(labels), N_ROWS - 1))
-    if probs.shape != (N_ROWS, 2) or logits.shape != (N_ROWS, 2):
+                             % (path, len(labels), n_rows - 1))
+    if probs.shape != (n_rows, 2) or logits.shape != (n_rows, 2):
         raise AssertionError("probabilities %s / logits %s, want (%d, 2)"
-                             % (probs.shape, logits.shape, N_ROWS))
+                             % (probs.shape, logits.shape, n_rows))
     if not (np.isfinite(probs).all() and np.isfinite(logits).all()):
         raise AssertionError("non-finite probabilities or logits")
     sums = np.abs(probs.sum(axis=1) - 1.0).max()
@@ -396,7 +506,7 @@ def phase_slice(torch, seed, workdir):
     import numpy as np
     from easynlp_tpu_torch.ops import attention as A
     log("== phase 3: the slice (text_classify predict, BERT-base)")
-    model_dir = os.path.join(workdir, "bert-base-chinese-random")
+    model_dir = os.path.join(workdir, MODEL_DIR)
     t0 = time.perf_counter()
     cjk = make_model_dir(torch, model_dir, seed)
     tsv = os.path.join(workdir, "predict.tsv")
@@ -452,7 +562,206 @@ def phase_slice(torch, seed, workdir):
         raise AssertionError("kernel and plain runs disagree: logits %.3e, "
                              "probabilities %.3e, label flips at rows %s"
                              % (d_logits, d_probs, flips))
-    return launches
+    return launches, cjk
+
+
+# --------------------------------------------------------------------------
+# phase 4: the training slice
+# --------------------------------------------------------------------------
+
+def _common_argv(use_kernel):
+    return ["--app_name=text_classify", "--device=cuda", "--dtype=bfloat16",
+            "--sequence_length=%d" % SEQ_LEN,
+            "--micro_batch_size=%d" % BATCH,
+            "--input_schema=id:str:1,sentence:str:1,label:str:1",
+            "--first_sequence=sentence", "--label_name=label",
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false")]
+
+
+def run_train(torch, model_dir, train_tsv, dev_tsv, ckpt, use_kernel, seed,
+              profile_dir=None):
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    argv = ["--mode=train", "--tables=%s,%s" % (train_tsv, dev_tsv)
+            if dev_tsv else "--tables=" + train_tsv,
+            "--pretrained_model_name_or_path=" + model_dir,
+            "--epoch_num=1", "--learning_rate=%g" % LEARNING_RATE,
+            "--optimizer_type=AdamW", "--logging_steps=1",
+            "--random_seed=%d" % seed] + _common_argv(use_kernel)
+    if ckpt:
+        argv.append("--checkpoint_dir=" + ckpt)
+    if profile_dir:
+        argv += ["--profile_dir=" + profile_dir, "--profile_steps=4"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = default_main_fn(initialize_easynlp(args_list=argv))
+    torch.cuda.synchronize()
+    # a summary only: dropping the trainer frees its model and optimizer
+    # state before the next run, whose peak memory is then its own
+    return {"records": trainer.step_records,
+            "save_s": trainer.save_seconds,
+            "skips": trainer.nonfinite_skips,
+            "total_s": time.perf_counter() - t0,
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+
+
+def describe_train(tag, run):
+    ms = [1e3 * r["seconds"] for r in run["records"]]
+    log("train %-7s %d steps x %d samples: step ms median %.3f, first %.3f, "
+        "min %.3f, max %.3f (host clock, each step ends in the guard's "
+        "read-back); %.2f samples/s at the median step; run with load, eval "
+        "and checkpoint %.3f s; checkpoint write %s s; peak device memory "
+        "%.3f GiB above the run's start; losses %s"
+        % (tag, len(ms), BATCH, statistics.median(ms), ms[0], min(ms),
+           max(ms), 1e3 * BATCH / statistics.median(ms), run["total_s"],
+           ", ".join("%.3f" % x for x in run["save_s"]), run["peak_gib"],
+           " ".join("%.4f" % r["loss"] for r in run["records"])))
+
+
+def device_share(trace_path, top=8):
+    """(device busy share, device busy ms, [(kernel, ms), ...]) from a
+    torch.profiler Chrome trace: the union of the device kernels' intervals
+    over the span from the first kernel's start to the last one's end (so
+    the profiler's own start-up is not counted as idle)."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") == "kernel")
+    if not kernels:
+        return None, None, []
+    busy, end = 0.0, -1.0
+    for a, b, _ in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = max(b for _, b, _ in kernels) - kernels[0][0]
+    by_name = {}
+    for a, b, name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    return busy / span, busy / 1e3, sorted(by_name.items(),
+                                           key=lambda kv: -kv[1])[:top]
+
+
+def phase_train(torch, seed, workdir, cjk):
+    import numpy as np
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 4: the training slice (text_classify train, evaluate, "
+        "predict; BERT-base)")
+    model_dir = os.path.join(workdir, MODEL_DIR)
+    train_tsv = os.path.join(workdir, "train.tsv")
+    dev_tsv = os.path.join(workdir, "dev.tsv")
+    make_tsv(train_tsv, cjk, seed + 1)
+    make_tsv(dev_tsv, cjk, seed + 2, n_rows=N_DEV_ROWS)
+    steps = N_ROWS // BATCH
+    eval_batches = -(-N_DEV_ROWS // BATCH)
+    ckpt_k = os.path.join(workdir, "ckpt_kernel")
+    ckpt_p = os.path.join(workdir, "ckpt_plain")
+
+    A.short_attention_fwd.launches = 0
+    A.short_attention_bwd.launches = 0
+    kernel_run = run_train(torch, model_dir, train_tsv, dev_tsv, ckpt_k,
+                           True, seed)
+    fwd, bwd = A.short_attention_fwd.launches, A.short_attention_bwd.launches
+    want_fwd = N_LAYERS * (steps + eval_batches)
+    log("train path launches: short_attention_bwd %d (want %d = %d layers x "
+        "%d steps), short_attention_fwd %d (want %d = %d layers x (%d steps "
+        "+ %d eval batches))" % (bwd, N_LAYERS * steps, N_LAYERS, steps, fwd,
+                                 want_fwd, N_LAYERS, steps, eval_batches))
+    if bwd != N_LAYERS * steps or fwd != want_fwd:
+        raise AssertionError("the training path launched fwd %d / bwd %d "
+                             "times, want %d / %d"
+                             % (fwd, bwd, want_fwd, N_LAYERS * steps))
+    runs = {"kernel": [kernel_run], "plain": []}
+    # the rest in turns on the same card: K P P K, the first K above
+    for use_kernel in (False, False, True):
+        before = (A.short_attention_fwd.launches,
+                  A.short_attention_bwd.launches)
+        run = run_train(torch, model_dir, train_tsv, dev_tsv,
+                        ckpt_k if use_kernel else ckpt_p, use_kernel, seed)
+        runs["kernel" if use_kernel else "plain"].append(run)
+        if not use_kernel and (A.short_attention_fwd.launches,
+                               A.short_attention_bwd.launches) != before:
+            raise AssertionError("--use_flash_attention=false still "
+                                 "launched a kernel")
+    for tag in ("kernel", "plain"):
+        for i, run in enumerate(runs[tag]):
+            describe_train("%s#%d" % (tag, i + 1), run)
+            recs = run["records"]
+            if len(recs) != steps or run["skips"]:
+                raise AssertionError("%s run: %d steps, %d non-finite skips"
+                                     % (tag, len(recs), run["skips"]))
+            if not all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                       for r in recs):
+                raise AssertionError("%s run: non-finite loss or grad norm"
+                                     % tag)
+    rec_k, rec_p = kernel_run["records"], runs["plain"][0]["records"]
+    d_loss = max(abs(a["loss"] - b["loss"]) for a, b in zip(rec_k, rec_p))
+    d_gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                  for a, b in zip(rec_k, rec_p))
+    log("kernel vs plain training run: max |d loss| per step %.3e (bound "
+        "%.1e); max relative grad-norm gap %.3e; lr %s"
+        % (d_loss, TRAIN_LOSS_ATOL, d_gnorm,
+           " ".join("%.3g" % r["lr"] for r in rec_k)))
+    if d_loss > TRAIN_LOSS_ATOL:
+        raise AssertionError("kernel and plain training runs disagree: "
+                             "loss gap %.3e" % d_loss)
+    medians = {tag: [statistics.median(r["seconds"] for r in run["records"])
+                     for run in runs[tag]] for tag in runs}
+    for tag, values in medians.items():
+        log("train %-6s step ms, median per run: %s; median of runs %.3f "
+            "(%.2f samples/s)" % (tag, " ".join("%.3f" % (1e3 * v)
+                                                for v in values),
+                                  1e3 * statistics.median(values),
+                                  BATCH / statistics.median(values)))
+    ms_k = statistics.median(medians["kernel"])
+    ms_p = statistics.median(medians["plain"])
+
+    # evaluate and predict on the checkpoint the kernel run wrote
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    results = default_main_fn(initialize_easynlp(args_list=[
+        "--mode=evaluate", "--tables=" + dev_tsv,
+        "--checkpoint_dir=" + ckpt_k] + _common_argv(True)))
+    names = [m for m, _ in results]
+    if names[:2] != ["accuracy", "f1"] or not np.isfinite(
+            [x for _, x in results]).all():
+        raise AssertionError("evaluate on the trained checkpoint: %s"
+                             % results)
+    final = [r for r in map(json.loads, open(os.path.join(
+        ckpt_k, "events.jsonl"))) if r["kind"] == "eval"][-1]
+    if abs(final["accuracy"] - dict(results)["accuracy"]) > 1e-9:
+        raise AssertionError("evaluate disagrees with the trainer's final "
+                             "evaluation: %s vs %s" % (results, final))
+    log("evaluate on the kernel run's checkpoint: %s"
+        % ", ".join("%s %.6f" % kv for kv in results))
+    out = os.path.join(workdir, "pred_trained.tsv")
+    default_main_fn(initialize_easynlp(args_list=[
+        "--mode=predict", "--tables=" + dev_tsv, "--outputs=" + out,
+        "--checkpoint_dir=" + ckpt_k,
+        "--output_schema=predictions,probabilities,logits",
+        "--append_cols=id"] + _common_argv(True)))
+    labels, _, _ = check_output(out, N_DEV_ROWS)
+    log("predict on the trained checkpoint: %d rows, labels %s"
+        % (len(labels), {x: labels.count(x) for x in sorted(set(labels))}))
+
+    # one more kernel run under torch.profiler (steps 3-6), for the device's
+    # share of the step; its step times are not reported
+    prof = os.path.join(workdir, "profile")
+    run_train(torch, model_dir, train_tsv, None, None, True, seed,
+              profile_dir=prof)
+    share, busy_ms, top = device_share(os.path.join(prof, "trace.json"))
+    if share is None:
+        log("profile: the trace holds no device kernels (not measured)")
+    else:
+        log("profile, kernel run, steps 3-6 (under the profiler): device "
+            "busy %.1f%% of the span of its kernels, %.3f ms busy per step; "
+            "device ms by kernel over the 4 steps: %s"
+            % (100 * share, busy_ms / 4, "; ".join(
+                "%s %.3f" % (n[:60], t) for n, t in top)))
+    return bwd, ms_k, ms_p
 
 
 def main():
@@ -471,17 +780,25 @@ def main():
     build_s = phase_build()
     worst, timings = phase_kernel(torch, seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        launches = phase_slice(torch, seed, workdir)
+        launches = {}
+        launches["short_attention_fwd"], cjk = phase_slice(torch, seed,
+                                                           workdir)
+        launches["short_attention_bwd"], ms_k, ms_p = phase_train(
+            torch, seed, workdir, cjk)
 
-    ms, plain_ms = timings[("slice-128", torch.bfloat16)]
     log("kernel build %.3f s" % build_s)
+    log("training step, median of runs: %.3f ms with the kernels, %.3f ms "
+        "plain" % (1e3 * ms_k, 1e3 * ms_p))
     log("card: %s" % card_line())
-    print(json.dumps({"kernels": [{
-        "name": "short_attention_fwd", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": worst[("slice-128", torch.bfloat16)],
-        "ms": ms, "plain_ms": plain_ms}]}))
+    entries = []
+    for name, (source, replaces) in KERNELS.items():
+        ms, plain_ms = timings[(name, "slice-128", torch.bfloat16)]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": worst[name][("slice-128", torch.bfloat16)],
+            "ms": ms, "plain_ms": plain_ms})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,10 @@
 """App dispatch + default main for the PyTorch port.
 
 Counterpart of easynlp_tpu/appzoo/api.py, reduced to what is ported: the
-predict branch (api.py `_predict_main`) for `text_classify`. Every other mode,
-app or app variant raises NotImplementedError naming its ROADMAP item.
+train, evaluate and predict branches for `text_classify`. Every other mode,
+app or app variant raises NotImplementedError naming its ROADMAP item. The
+datasets are the JAX package's own (JAX-free) ClassificationDataset, so both
+packages featurise and batch the same rows the same way.
 """
 
 import json
@@ -12,6 +14,7 @@ import torch
 
 from easynlp_tpu.utils.global_vars import get_args
 from easynlp_tpu.utils.io_utils import io
+from easynlp_tpu.utils.logger import logger
 
 
 def _lazy(path, name):
@@ -31,16 +34,24 @@ PREDICTOR_REGISTRY = {
         "easynlp_tpu_torch.appzoo.sequence_classification.predictor",
         "SequenceClassificationPredictor"),
 }
+DATASET_REGISTRY = {
+    "text_classify": _lazy(
+        "easynlp_tpu.appzoo.sequence_classification.data",
+        "ClassificationDataset"),
+}
+EVALUATOR_REGISTRY = {
+    "text_classify": _lazy(
+        "easynlp_tpu_torch.appzoo.sequence_classification.evaluator",
+        "SequenceClassificationEvaluator"),
+}
 
 _NOT_PORTED_MODES = {
-    "train": "ROADMAP A4-A7 (losses, optimizers, Trainer)",
-    "evaluate": "ROADMAP A5-A6 (Evaluator)",
     "export": "ROADMAP A26",
     "serve": "ROADMAP A17",
 }
 # user_defined_parameters switches that select another app variant
 _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
-                 "multi_label", "enable_lora")
+                 "multi_label", "enable_lora", "enable_controlnet")
 
 
 def _resolve(registry, app_name, udp):
@@ -58,17 +69,92 @@ def _resolve(registry, app_name, udp):
 
 def default_main_fn(args=None):
     args = args or get_args()
-    if args.mode != "predict":
+    udp = args.user_defined_parameters_dict
+    if args.mode == "predict":
+        return _predict_main(args, udp)
+    if args.mode == "train":
+        return _train_main(args, udp)
+    if args.mode == "evaluate":
+        return _evaluate_main(args, udp)
+    if args.mode in _NOT_PORTED_MODES:
         raise NotImplementedError(
             "--mode=%s is not ported yet (%s); the PyTorch port has "
-            "--mode=predict" % (args.mode, _NOT_PORTED_MODES.get(
-                args.mode, "ROADMAP A")))
-    return _predict_main(args, args.user_defined_parameters_dict)
+            "--mode=train|evaluate|predict"
+            % (args.mode, _NOT_PORTED_MODES[args.mode]))
+    raise ValueError("unknown mode %r" % args.mode)
+
+
+def _dtype(args):
+    return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+
+
+def _dataset_kwargs(args, tokenizer):
+    return dict(tokenizer=tokenizer, max_seq_length=args.sequence_length,
+                input_schema=args.input_schema,
+                first_sequence=args.first_sequence,
+                second_sequence=args.second_sequence,
+                label_name=args.label_name,
+                label_enumerate_values=args.label_enumerate_values)
+
+
+def _train_main(args, udp):
+    """api.py's train branch: train (and valid) dataset, evaluator, the app
+    from the pretrained directory, the Trainer."""
+    from easynlp_tpu_torch.core.trainer import Trainer
+    from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
+    model_cls = _resolve(MODEL_REGISTRY, args.app_name, udp)
+    dataset_cls = _resolve(DATASET_REGISTRY, args.app_name, udp)
+    evaluator_cls = _resolve(EVALUATOR_REGISTRY, args.app_name, udp)
+    if not args.pretrained_model_name_or_path:
+        raise ValueError("--mode=train needs --pretrained_model_name_or_path "
+                         "(or user_defined_parameters "
+                         "pretrain_model_name_or_path)")
+    tables = (args.tables or "").split(",")
+    tokenizer = BertTokenizer.from_pretrained(
+        args.pretrained_model_name_or_path)
+    kwargs = _dataset_kwargs(args, tokenizer)
+    train_dataset = dataset_cls(data_file=tables[0], is_training=True,
+                                **kwargs)
+    if args.label_enumerate_values is None and \
+            train_dataset.label_enumerate_values:
+        kwargs["label_enumerate_values"] = train_dataset.label_enumerate_values
+    evaluator = None
+    if len(tables) > 1 and tables[1]:
+        evaluator = evaluator_cls(dataset_cls(data_file=tables[1], **kwargs),
+                                  args=args)
+    app = model_cls.from_pretrained(
+        args.pretrained_model_name_or_path, args=args, dtype=_dtype(args),
+        device=args.device,
+        num_labels=max(len(train_dataset.label_enumerate_values), 2),
+        label_mapping=train_dataset.label_mapping)
+    trainer = Trainer(app, train_dataset, evaluator=evaluator, args=args,
+                      tokenizer=tokenizer)
+    trainer.train()
+    return trainer
+
+
+def _evaluate_main(args, udp):
+    """api.py's evaluate branch: the checkpoint's app on --tables."""
+    from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
+    model_cls = _resolve(MODEL_REGISTRY, args.app_name, udp)
+    dataset_cls = _resolve(DATASET_REGISTRY, args.app_name, udp)
+    evaluator_cls = _resolve(EVALUATOR_REGISTRY, args.app_name, udp)
+    tokenizer = BertTokenizer.from_pretrained(args.checkpoint_dir)
+    valid_dataset = dataset_cls(data_file=(args.tables or "").split(",")[0],
+                                **_dataset_kwargs(args, tokenizer))
+    app = model_cls.from_pretrained(
+        args.checkpoint_dir, args=args, dtype=_dtype(args),
+        device=args.device,
+        num_labels=max(len(valid_dataset.label_enumerate_values), 2))
+    results = evaluator_cls(valid_dataset, args=args).evaluate(app)
+    for metric, score in results:
+        logger.info("eval %s: %.6f", metric, score)
+    return results
 
 
 def _predict_main(args, udp):
     from easynlp_tpu_torch.core.predictor import PredictorManager
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    dtype = _dtype(args)
     model_cls = _resolve(MODEL_REGISTRY, args.app_name, udp)
     predictor_cls = _resolve(PREDICTOR_REGISTRY, args.app_name, udp)
     ckpt = args.predict_checkpoint_path or args.checkpoint_dir

@@ -3,7 +3,9 @@
 Counterpart of easynlp_tpu/appzoo/application.py. An Application holds an
 `nn.Module` (which owns its parameters), the config and the torch.device the
 module lives on. `from_pretrained` reads `config.json` and
-`pytorch_model.bin` from a model directory.
+`pytorch_model.bin` from a model directory; the Trainer computes
+`loss_fn(forward outputs, batch)` and writes `export_state_dict()` back as
+`pytorch_model.bin`.
 """
 
 import torch
@@ -22,6 +24,8 @@ class Application:
         init_weights(generator)
       - load_state_dict(module, state_dict): map a reference/HF checkpoint
         onto the module
+      - loss_fn(outputs, batch) -> {'loss': f32 scalar, ...} (training)
+      - export_state_dict() -> the weights under reference/HF names
       - model_input_keys: batch keys forwarded to the module."""
 
     model_input_keys = ("input_ids", "attention_mask", "token_type_ids")
@@ -33,9 +37,17 @@ class Application:
         self.label_mapping = label_mapping or {}
 
     def forward(self, batch):
-        """Inference forward on a dict of tensors already on self.device."""
+        """Forward on a dict of tensors already on self.device (in the
+        module's current train/eval mode)."""
         return self.module(**{k: batch[k] for k in self.model_input_keys
                               if k in batch})
+
+    @staticmethod
+    def loss_fn(outputs, batch):
+        raise NotImplementedError
+
+    def export_state_dict(self):
+        raise NotImplementedError
 
     @classmethod
     def load_config(cls, model_dir, **kwargs):

@@ -1,9 +1,8 @@
 """Text classification application for the PyTorch port.
 
 Counterpart of easynlp_tpu/appzoo/sequence_classification/model.py: BERT
-backbone -> pooled output -> dropout -> f32 linear head. Predict only for
-now: the loss and the multi-label variant come with training (ROADMAP A4,
-A5).
+backbone -> pooled output -> dropout -> f32 linear head, trained with
+cross-entropy. The multi-label variant is not ported yet (ROADMAP A5).
 """
 
 import torch
@@ -17,6 +16,7 @@ from easynlp_tpu_torch.modelzoo.models.bert.conversion import (
     normalize_keys,
     split_backbone,
 )
+from easynlp_tpu_torch.utils import losses
 
 
 class SequenceClassificationModule(nn.Module):
@@ -49,6 +49,20 @@ class SequenceClassificationModule(nn.Module):
 
 class SequenceClassification(Application):
     model_input_keys = ("input_ids", "attention_mask", "token_type_ids")
+
+    @staticmethod
+    def loss_fn(outputs, batch):
+        return {"loss": losses.cross_entropy(outputs["logits"],
+                                             batch["label_ids"])}
+
+    def export_state_dict(self):
+        """The module's weights under the reference/HF names: `bert.*` for
+        the backbone, `classifier.*` for the head."""
+        out = {"bert." + k: v
+               for k, v in self.module.backbone.state_dict().items()}
+        out.update({"classifier." + k: v
+                    for k, v in self.module.classifier.state_dict().items()})
+        return out
 
     @classmethod
     def load_config(cls, model_dir, **kwargs):

@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -92,6 +93,21 @@ def load(name):
             _LIBS[name] = ctypes.CDLL(str(lib_path))
             _BUILD_INFO[name] = dict(info, path=str(lib_path))
         return _LIBS[name]
+
+
+def load_all(names):
+    """Build the named kernels together (one nvcc per source, started at
+    once), then load each; returns {name: library}."""
+    names = [n for n in names if n not in _LIBS]
+    if names:
+        with ThreadPoolExecutor(max_workers=len(names)) as pool:
+            built = list(pool.map(_build, names))
+        with _LOCK:
+            for name, (lib_path, info) in zip(names, built):
+                if name not in _LIBS:
+                    _LIBS[name] = ctypes.CDLL(str(lib_path))
+                    _BUILD_INFO[name] = dict(info, path=str(lib_path))
+    return {n: _LIBS[n] for n in _LIBS}
 
 
 def build_info(name):

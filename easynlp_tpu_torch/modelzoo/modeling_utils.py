@@ -33,6 +33,18 @@ def load_pytorch_state_dict(model_dir_or_file):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def save_pytorch_state_dict(state_dict, save_directory):
+    """Write {name: tensor} as `pytorch_model.bin` (CPU f32 copies), the
+    counterpart of the JAX package's save_params: the port's checkpoints
+    keep the reference/HF names, so the port and HF read them back."""
+    io.makedirs(save_directory)
+    host = {k: v.detach().to("cpu", copy=True).contiguous()
+            for k, v in state_dict.items()}
+    with io.open(os.path.join(save_directory, PYTORCH_WEIGHTS_NAME),
+                 "wb") as f:
+        torch.save(host, f)
+
+
 def available_checkpoint(model_dir):
     """Which checkpoint flavour model_dir holds: 'pytorch' | 'flax' | None.
     The port reads only 'pytorch', so it wins when both exist."""

@@ -93,6 +93,15 @@ class BertTokenizer(PreTrainedTokenizer):
             return [0] * (len(ids_a) + 2)
         return [0] * (len(ids_a) + 2) + [1] * (len(ids_b) + 1)
 
+    def save_vocabulary(self, save_directory):
+        """vocab.txt, one token per line in id order (save_pretrained also
+        writes the special-token map and tokenizer_config.json)."""
+        path = os.path.join(save_directory, VOCAB_NAME)
+        with io.open(path, "w") as f:
+            for token, _ in sorted(self.vocab.items(), key=lambda kv: kv[1]):
+                f.write(token + "\n")
+        return (path,)
+
     @classmethod
     def from_pretrained(cls, model_dir, **kwargs):
         from easynlp_tpu.utils import get_pretrain_model_path

@@ -9,12 +9,16 @@ additive bias that forces the plain path.
 Paths:
 
 1. `attention_reference` mirrors the JAX attention_reference, including its
-   bf16 score cast. It serves an additive bias, Skv above SHORT_MAX_KV_LEN,
-   head dims the kernel does not take, and every call under
-   --use_flash_attention=false.
-2. `short_attention_fwd` is the whole-sequence forward for Skv <= 512: the
-   CUDA kernel in csrc/short_attention_fwd.cu for a CUDA tensor, and its
-   plain twin `short_attention_fwd_reference` for a CPU tensor.
+   bf16 score cast and the stop-gradient on the row max, so autograd through
+   it gives jax.grad's gradients. It serves an additive bias, Skv above
+   SHORT_MAX_KV_LEN, head dims the kernel does not take, and every call
+   under --use_flash_attention=false.
+2. `ShortAttention` is the whole-sequence path for Skv <= 512, an
+   autograd.Function over two kernels: `short_attention_fwd`
+   (csrc/short_attention_fwd.cu, the port of `_short_fwd_kernel`) and
+   `short_attention_bwd` (csrc/short_attention_bwd.cu, the port of
+   `_short_bwd_kernel`). A CPU tensor takes their plain twins
+   `short_attention_fwd_reference` and `short_attention_bwd_reference`.
 
 The JAX package routes BERT lengths below 256 to XLA on a TPU. That window
 is a TPU tuning, so here every Skv <= 512 takes the kernel on a card; the
@@ -37,7 +41,7 @@ SHORT_MAX_HEAD_DIM = 128
 _KERNEL_OVERRIDE = None
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_LAUNCHER = None
+_LAUNCHERS = {}
 
 
 def set_kernel_override(value):
@@ -66,8 +70,9 @@ def attention_reference(q, k, v, kv_mask=None, causal=False, scale=None,
         logits = logits.masked_fill(_causal_hidden(q.shape[1], k.shape[1],
                                                    q.device), NEG_INF)
     if q.dtype == torch.bfloat16:
-        # as in the JAX reference: the max-subtracted scores pass through bf16
-        logits = logits - logits.amax(dim=-1, keepdim=True)
+        # as in the JAX reference: the max-subtracted scores pass through
+        # bf16, and no gradient flows through the max (stop_gradient there)
+        logits = logits - logits.amax(dim=-1, keepdim=True).detach()
         logits = logits.to(torch.bfloat16)
     probs = torch.softmax(logits.float(), dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
@@ -82,20 +87,53 @@ def _causal_hidden(sq, skv, device):
     return ki > qi
 
 
-def short_attention_fwd_reference(q, k, v, kv_mask, causal=False, scale=None):
-    """Plain PyTorch twin of the CUDA kernel: the JAX `_short_probs` + P.V in
-    f32 from the given inputs, over the real Skv keys only (no padding, so a
-    fully masked row averages V over the real keys, as attention_reference
-    does). P stays f32, as in the kernel. Output in q's dtype."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    s = s.masked_fill(kv_mask[:, None, None, :] == 0, NEG_INF)
+def _hidden_keys(kv_mask, sq, skv, causal, device):
+    """[B|1,1,Sq,Skv] bool, True where a key is masked or causally hidden."""
+    hidden = (kv_mask == 0)[:, None, None, :]
     if causal:
-        s = s.masked_fill(_causal_hidden(q.shape[1], k.shape[1], q.device),
-                          NEG_INF)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
+        hidden = hidden | _causal_hidden(sq, skv, device)
+    return hidden
+
+
+def _short_probs(q, k, hidden, scale):
+    """f32 [B,H,Sq,Skv] probabilities over the real Skv keys only (no
+    padding, so a fully masked row averages over the real keys, as
+    attention_reference does). The max is detached, as JAX's is."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = s.masked_fill(hidden, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def short_attention_fwd_reference(q, k, v, kv_mask, causal=False, scale=None):
+    """Plain PyTorch twin of the forward kernel: the JAX `_short_probs` + P.V
+    in f32 from the given inputs. P stays f32, as in the kernel. Output in
+    q's dtype."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    hidden = _hidden_keys(kv_mask, q.shape[1], k.shape[1], causal, q.device)
+    p = _short_probs(q, k, hidden, scale)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def short_attention_bwd_reference(q, k, v, kv_mask, o, do, causal=False,
+                                  scale=None):
+    """Plain PyTorch twin of the backward kernel, in f32: P recomputed from
+    q and k, dV = P^T dO, dP = dO V^T, delta = rowsum(dO * O),
+    dS = P * (dP - delta) * scale zeroed at every masked or causally hidden
+    key, dQ = dS K, dK = dS^T Q. This is jax.grad of attention_reference: a
+    fully masked row gets dq = 0 and gives no dk (the JAX short kernel does
+    not zero dS there, ROADMAP C7). Returns (dq, dk, dv) in q's dtype."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    hidden = _hidden_keys(kv_mask, q.shape[1], k.shape[1], causal, q.device)
+    p = _short_probs(q, k, hidden, scale)
+    do32 = do.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v.float())
+    delta = (do32 * o.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = (p * (dp - delta) * scale).masked_fill(hidden, 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _check_short_args(q, k, v, kv_mask):
@@ -127,13 +165,12 @@ def _check_short_args(q, k, v, kv_mask):
                          % kv_mask.dtype)
     if len({q.device, k.device, v.device, kv_mask.device}) != 1:
         raise ValueError("q, k, v and kv_mask must share one device")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "short_attention_fwd is forward-only: its backward kernel "
-            "(_short_bwd_kernel) is not ported yet (ROADMAP B2)")
-    vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    _check_rows(q=q, k=k, v=v)
+
+
+def _check_rows(**tensors):
+    vec = 16 // next(iter(tensors.values())).element_size()
+    for name, t in tensors.items():
         if t.stride(3) != 1:
             raise ValueError("%s: the head dim must be contiguous" % name)
         if t.data_ptr() % 16 or any(_strides(t)[i] % vec for i in range(3)):
@@ -149,17 +186,28 @@ def _strides(t):
     return [t.stride(i) if t.shape[i] > 1 else 0 for i in range(3)]
 
 
-def _launcher():
-    global _LAUNCHER
-    if _LAUNCHER is None:
+def _launcher(name, n_pointers, n_strides):
+    """The ctypes launcher `easynlp_<name>` of csrc/<name>.cu: n_pointers
+    pointers, dtype + B/H/Sq/Skv/D, n_strides int64 strides, causal, scale,
+    stream."""
+    if name not in _LAUNCHERS:
         from easynlp_tpu_torch import kernels
-        fn = kernels.load("short_attention_fwd").easynlp_short_attention_fwd
+        fn = getattr(kernels.load(name), "easynlp_" + name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_int64] * 13
+        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6
+                       + [ctypes.c_int64] * n_strides
                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        _LAUNCHER = fn
-    return _LAUNCHER
+        _LAUNCHERS[name] = fn
+    return _LAUNCHERS[name]
+
+
+def _cuda_mask(kv_mask, b):
+    """(int32 mask with a contiguous key dim, its batch stride: 0 when one
+    row serves the whole batch)."""
+    if kv_mask.dtype != torch.int32 or kv_mask.stride(1) != 1:
+        kv_mask = kv_mask.to(torch.int32).contiguous()
+    return kv_mask, (kv_mask.stride(0) if kv_mask.shape[0] == b and b > 1
+                     else 0)
 
 
 def short_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
@@ -174,6 +222,12 @@ def short_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
     `short_attention_fwd.launches`); a CPU tensor takes the plain twin.
     """
     _check_short_args(q, k, v, kv_mask)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise ValueError(
+            "short_attention_fwd is the bare forward kernel and records no "
+            "gradient; call attention() or ShortAttention.apply, whose "
+            "backward is short_attention_bwd")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return short_attention_fwd_reference(q, k, v, kv_mask, causal, scale)
@@ -188,10 +242,8 @@ def short_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
     out = torch.empty_like(q, memory_format=torch.preserve_format)
     if out.numel() == 0:
         return out
-    if kv_mask.dtype != torch.int32 or kv_mask.stride(1) != 1:
-        kv_mask = kv_mask.to(torch.int32).contiguous()
-    mask_sb = kv_mask.stride(0) if kv_mask.shape[0] == b and b > 1 else 0
-    launch = _launcher()
+    kv_mask, mask_sb = _cuda_mask(kv_mask, b)
+    launch = _launcher("short_attention_fwd", 5, 13)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -209,6 +261,91 @@ def short_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
 
 
 short_attention_fwd.launches = 0
+
+
+def short_attention_bwd(q, k, v, kv_mask, o, do, causal=False, scale=None):
+    """Gradients of the whole-sequence attention (the port of the TPU kernel
+    `_short_bwd_kernel`): (dq, dk, dv) in q's dtype and q/k/v's layouts.
+
+    q/k/v/kv_mask as for short_attention_fwd; o is the forward's output and
+    do its gradient, both [B,Sq,H,D] with a contiguous head dim. A CUDA
+    tensor launches the three-pass kernel of csrc/short_attention_bwd.cu
+    (counted once in `short_attention_bwd.launches`); a CPU tensor takes the
+    plain twin short_attention_bwd_reference."""
+    _check_short_args(q, k, v, kv_mask)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("o %s and do %s must have q's shape %s"
+                         % (tuple(o.shape), tuple(do.shape), tuple(q.shape)))
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError("o (%s) and do (%s) must have q's dtype %s"
+                         % (o.dtype, do.dtype, q.dtype))
+    if o.device != q.device or do.device != q.device:
+        raise ValueError("o and do must be on q's device")
+    _check_rows(o=o, do=do)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return short_attention_bwd_reference(q, k, v, kv_mask, o, do, causal,
+                                             scale)
+    if q.device.type != "cuda":
+        raise ValueError("short_attention_bwd runs on cpu or cuda, got %s"
+                         % q.device)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if b > 65535 or h > 65535:
+        raise ValueError("B=%d, H=%d: the launch grid takes at most 65535 of "
+                         "each" % (b, h))
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.preserve_format)
+                  for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    # per-row softmax statistics and delta, written by the kernel's first
+    # pass: row max, 1/(sum of exp), rowsum(dO * O); f32 [B,H,Sq] each
+    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)
+    kv_mask, mask_sb = _cuda_mask(kv_mask, b)
+    launch = _launcher("short_attention_bwd", 10, 25)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    kv_mask.data_ptr(), o.data_ptr(), do.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    stats.data_ptr(), _DTYPE_CODES[q.dtype],
+                    b, h, sq, skv, d,
+                    *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+                    *_strides(do), *_strides(dq), *_strides(dk),
+                    *_strides(dv), mask_sb, int(bool(causal)), float(scale),
+                    stream)
+    if rc != 0:
+        raise RuntimeError("short_attention_bwd launch failed: CUDA error %d "
+                           "(B=%d Sq=%d Skv=%d H=%d D=%d %s)"
+                           % (rc, b, sq, skv, h, d, q.dtype))
+    short_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+short_attention_bwd.launches = 0
+
+
+class ShortAttention(torch.autograd.Function):
+    """Whole-sequence attention with its own backward, as the JAX custom VJP
+    `_short_attention` (attention.py:608-653): the forward kernel, then the
+    backward kernel from the saved q, k, v, mask and output. Saving the
+    output costs nothing in BERT: the output projection keeps the same
+    tensor for its own backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale):
+        o = short_attention_fwd(q, k, v, kv_mask, causal, scale)
+        ctx.save_for_backward(q, k, v, kv_mask, o)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, o = ctx.saved_tensors
+        dq, dk, dv = short_attention_bwd(q, k, v, kv_mask, o,
+                                         _kernel_ready(do), ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def _kernel_ready(t):
@@ -250,7 +387,7 @@ def attention(q, k, v, kv_mask=None, causal=False, scale=None, bias=None,
             and d <= SHORT_MAX_HEAD_DIM and q.dtype in _DTYPE_CODES)
     if bias is None and (impl == "short" or (
             impl == "auto" and use_kernels() and fits)):
-        return short_attention_fwd(_kernel_ready(q), _kernel_ready(k),
-                                   _kernel_ready(v), kv_mask, causal, scale)
+        return ShortAttention.apply(_kernel_ready(q), _kernel_ready(k),
+                                    _kernel_ready(v), kv_mask, causal, scale)
     return attention_reference(q, k, v, kv_mask=kv_mask, causal=causal,
                                scale=scale, bias=bias)

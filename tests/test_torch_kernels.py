@@ -1,9 +1,9 @@
-"""The port's kernel build and the CUDA kernel itself.
+"""The port's kernel build and the CUDA kernels themselves.
 
 This file imports no JAX, so the card's machine can run it:
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest
-The build tests run anywhere (a stand-in script plays nvcc); the kernel test
-is marked `gpu` and skips itself where there is no card.
+The build tests run anywhere (a stand-in script plays nvcc); the kernel tests
+are marked `gpu` and skip themselves where there is no card.
 """
 
 import os
@@ -102,6 +102,85 @@ def test_cuda_kernel_matches_plain_twin():
     assert got.is_contiguous()
     want = A.short_attention_fwd_reference(q, k, v, mask).transpose(1, 2)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+BWD_CASES = [  # B, Sq, Skv, H, D, per-row key lengths, causal
+    (2, 40, 40, 3, 16, [0, 33], False),     # fully masked row
+    (2, 1, 24, 2, 64, [20, 24], True),      # decode shape
+    (2, 37, 40, 2, 64, [40, 11], True),     # Sq != Skv, ragged
+    (2, 20, 12, 2, 32, [12, 5], True),      # q_offset < 0: rows see no key
+    (3, 70, 130, 2, 128, [130, 65, 1], False),
+    (2, 16, 16, 2, 40, [16, 9], False),     # D not a power of two
+    (4, 128, 128, 12, 64, [128, 100, 57, 1], False)]
+
+
+@pytest.mark.gpu
+def test_cuda_bwd_kernel_matches_plain_twin():
+    """The backward kernel against its plain twin on the card, on the same
+    inputs (q, k, v, the forward kernel's output o, dO; bf16 ones cast to
+    f32 for the twin).
+
+    f32: bound 2e-5 + 1e-5 |g| (sums in another order; dv reaches ~40 where
+    one key carries a whole row). bf16: the kernel computes in f32 and
+    rounds dq/dk/dv once, at most 2^-8 |g| (8 significant bits) plus the
+    f32 sum-order error: bound 1e-4 + 2^-8 |g|. Two runs give the same bits
+    (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda")
+    for i, (b, sq, skv, h, d, lengths, causal) in enumerate(BWD_CASES):
+        q, k, v, mask = _case(i, b, sq, skv, h, d, lengths, dev)
+        do = torch.from_numpy(np.random.RandomState(100 + i).standard_normal(
+            (b, sq, h, d)).astype(np.float32)).to(dev)
+        o = A.short_attention_fwd(q, k, v, mask, causal)
+        want = A.short_attention_bwd_reference(q, k, v, mask, o, do, causal)
+        before = A.short_attention_bwd.launches
+        got = A.short_attention_bwd(q, k, v, mask, o, do, causal)
+        torch.cuda.synchronize()
+        assert A.short_attention_bwd.launches == before + 1
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-5)
+        again = A.short_attention_bwd(q, k, v, mask, o, do, causal)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+        bq, bk, bv, bdo = (t.to(torch.bfloat16) for t in (q, k, v, do))
+        o16 = A.short_attention_fwd(bq, bk, bv, mask, causal)
+        want16 = A.short_attention_bwd_reference(
+            bq.float(), bk.float(), bv.float(), mask, o16.float(),
+            bdo.float(), causal)
+        got16 = A.short_attention_bwd(bq, bk, bv, mask, o16, bdo, causal)
+        for g, w in zip(got16, want16):
+            assert g.dtype == torch.bfloat16
+            torch.testing.assert_close(g.float(), w, atol=1e-4, rtol=2 ** -8)
+
+
+@pytest.mark.gpu
+def test_cuda_autograd_through_attention():
+    """attention() with requires_grad on the card: ShortAttention launches
+    both kernels once, in both layouts and with a [1,Skv] mask, and its
+    gradients match the plain twins' (dO strided through a reshape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda")
+    q, k, v, mask = _case(11, 2, 48, 48, 4, 64, [41], dev)
+    do = torch.from_numpy(np.random.RandomState(12).standard_normal(
+        (2, 48, 4, 64)).astype(np.float32)).to(dev)
+    for layout in ("bshd", "bhsd"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        args = ([t.transpose(1, 2) for t in leaves] if layout == "bhsd"
+                else leaves)
+        fwd = A.short_attention_fwd.launches
+        bwd = A.short_attention_bwd.launches
+        out = A.attention(*args, kv_mask=mask, layout=layout)
+        if layout == "bhsd":
+            out = out.transpose(1, 2)
+        (out * do).sum().backward()
+        torch.cuda.synchronize()
+        assert A.short_attention_fwd.launches == fwd + 1
+        assert A.short_attention_bwd.launches == bwd + 1
+        o = A.short_attention_fwd_reference(q, k, v, mask)
+        want = A.short_attention_bwd_reference(q, k, v, mask, o, do)
+        for t, w in zip(leaves, want):
+            torch.testing.assert_close(t.grad, w, atol=2e-5, rtol=1e-5)
 
 
 def test_chip_smoke_exits_nonzero_without_a_card():
