@@ -6,15 +6,18 @@
 Run from the repository root. It builds the port's CUDA kernels from
 easynlp_tpu_torch/csrc (one nvcc per source, all at once), holds each
 against its plain PyTorch version at the main paths' shapes, then drives the
-port's two main paths on a BERT-base model (bert-base-chinese widths, random
-truncated-normal weights from --seed): `--mode=predict
+port's three main paths. On a BERT-base model (bert-base-chinese widths,
+random truncated-normal weights from --seed): `--mode=predict
 --app_name=text_classify` over a 256-row TSV, and `--mode=train` for one
 epoch of 8 steps followed by `--mode=evaluate` and `--mode=predict` on the
-checkpoint it wrote. Each path runs with the kernels and with
---use_flash_attention=false, and the two are compared. Every phase raises on
-failure, so any failure exits non-zero. The last line is
-{"ok": true, "device": {...}}; the line before it lists the kernels with
-their launch counts, errors and times. Imports nothing of JAX.
+checkpoint it wrote. On a GPT-2 small model (HF `gpt2` widths and depth,
+random weights from --seed, a synthetic 50257-token byte-level BPE vocab):
+`--mode=predict --app_name=sequence_generation` over 16 prompts of 600-768
+tokens, greedy for 128 new tokens, and one beam-search batch. Each path runs
+with the kernels and with --use_flash_attention=false, and the two are
+compared. Every phase raises on failure, so any failure exits non-zero. The
+last line is {"ok": true, "device": {...}}; the line before it lists the
+kernels with their launch counts, errors and times. Imports nothing of JAX.
 """
 
 import argparse
@@ -32,7 +35,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                             "easynlp_tpu/ops/attention.py:519"),
     "short_attention_bwd": ("easynlp_tpu_torch/csrc/short_attention_bwd.cu",
                             "easynlp_tpu/ops/attention.py:531"),
+    "flash_attention_fwd": ("easynlp_tpu_torch/csrc/flash_attention_fwd.cu",
+                            "easynlp_tpu/ops/attention.py:127"),
 }
+# the shape each kernel's entry in the kernels line reports (bf16)
+KERNEL_LINE_CASE = {"short_attention_fwd": "slice-128",
+                    "short_attention_bwd": "slice-128",
+                    "flash_attention_fwd": "gpt2-prefill"}
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 
 # Tolerances. f32: 2e-5, the bound tests/test_attention.py holds the JAX short
@@ -65,6 +74,20 @@ BWD_ATOL_BF16, BWD_RTOL_BF16 = 1e-4, 2 ** -8
 # The predict path's largest logit gap, kernel against plain on an H100, is
 # 6.7e-3; the loss is a mean over 32 rows. Bound 2e-2.
 TRAIN_LOSS_ATOL = 2e-2
+# Flash forward against its twin on the same inputs: O as the short kernel
+# (f32 2e-5; bf16 1.5e-2, one rounding of O). LSE is f32 in both: 2e-5 +
+# 1e-6 |lse| for the sum order (|lse| <= ~20; a fully masked row's -1e30
+# must match too); from bf16 inputs the same scores, so 1e-4 + 1e-6 |lse|.
+LSE_ATOL_F32, LSE_ATOL_BF16, LSE_RTOL = 2e-5, 1e-4, 1e-6
+# Generation: the kernel run and the --use_flash_attention=false run are
+# both bf16 end to end and differ only in attention's rounding (the plain
+# path rounds max-subtracted scores and probabilities to bf16; the kernels
+# keep both in f32), a bf16 ulp (2^-8 relative) per layer, as in BERT; with
+# 0.02-std weights GPT-2's logits have std ~0.5, so 12 layers move them by
+# ~1e-2. Bound 5e-2 on the prefill logits; greedy tokens must agree at every
+# step where the plain run's top-2 margin exceeds twice the bound, until a
+# row's first near-tie (after it the two runs continue different texts).
+GEN_LOGITS_ATOL = 5e-2
 
 SEQ_LEN = 128
 BATCH = 32
@@ -72,6 +95,22 @@ N_ROWS = 256
 N_DEV_ROWS = 64
 N_LAYERS = 12
 LEARNING_RATE = 5e-5
+
+GPT2_SMALL = {  # HF gpt2 config.json: GPT-2 small, full width and depth
+    "model_type": "gpt2", "architectures": ["GPT2LMHeadModel"],
+    "vocab_size": 50257, "n_positions": 1024, "n_ctx": 1024, "n_embd": 768,
+    "n_layer": 12, "n_head": 12, "activation_function": "gelu_new",
+    "layer_norm_epsilon": 1e-5, "initializer_range": 0.02,
+    "resid_pdrop": 0.1, "embd_pdrop": 0.1, "attn_pdrop": 0.1,
+    "bos_token_id": 50256, "eos_token_id": 50256,
+}
+GPT2_MODEL_DIR = "gpt2-small-random"
+GEN_PROMPT_WIDTH = 768          # --sequence_length
+GEN_NEW_TOKENS = 128            # max_decoder_length
+GEN_BATCH = 8
+GEN_ROWS = 16
+GEN_BEAMS, GEN_BEAM_NEW_TOKENS = 4, 32
+GEN_LETTERS = "etaoinshrdlucmfwypvbgkqjxz"
 
 BERT_BASE_CHINESE = {  # bert-base-chinese config.json widths
     "architectures": ["BertForMaskedLM"], "model_type": "bert",
@@ -134,8 +173,8 @@ def phase_build():
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 log("ptxas: " + line.strip())
-    log("both kernels built and loaded in %.3f s (nvcc runs in parallel)"
-        % seconds)
+    log("%d kernels built and loaded in %.3f s (nvcc runs in parallel)"
+        % (len(KERNELS), seconds))
     return seconds
 
 
@@ -247,8 +286,121 @@ def phase_kernel(torch, seed):
             timings[("short_attention_fwd", name, dtype)] = (ms, plain_ms)
             timings[("short_attention_bwd", name, dtype)] = _time_bwd(
                 torch, A, name, tq, tk, tv, mask, causal, rng)
+    worst_flash = _check_flash(torch, A, rng, timings)
     return {"short_attention_fwd": worst,
-            "short_attention_bwd": worst_bwd}, timings
+            "short_attention_bwd": worst_bwd,
+            "flash_attention_fwd": worst_flash}, timings
+
+
+def _ranges_mask(torch, skv, ranges):
+    """int32 [B,Skv] key mask, 1 on each row's [start, end) slots."""
+    import numpy as np
+    idx = np.arange(skv)[None, :]
+    starts, ends = (np.asarray(x)[:, None] for x in zip(*ranges))
+    return torch.from_numpy(((idx >= starts) & (idx < ends)).astype(
+        np.int32)).cuda()
+
+
+def _flash_flops(b, sq, skv, h, d, causal):
+    """4·D FLOPs per (query, visible key) pair: QK^T and PV."""
+    if not causal:
+        return 4 * b * h * sq * skv * d
+    seen = sum(min(skv, max(0, q + skv - sq + 1)) for q in range(sq))
+    return 4 * b * h * seen * d
+
+
+def flash_cases(rng):
+    """The flash kernel's shapes: GPT-2 small's prefill (8 x 768, causal,
+    left-padded prompts of 600..768 tokens, so the pad rows are fully
+    masked) and decode (8 x 1 against 896 cache slots, the last 28 empty),
+    S=2048 and S=8192 (causal, padded), causal 37 x 600 (Sq != Skv) and a
+    fully masked row. Each: name, B, Sq, Skv, H, D, [(start, end) of each
+    row's real keys], causal."""
+    prompt = rng.randint(600, 769, size=8)
+    prompt[0] = 768
+    return [
+        ("gpt2-prefill", 8, 768, 768, 12, 64,
+         [(768 - n, 768) for n in prompt], True),
+        ("gpt2-decode", 8, 1, 896, 12, 64,
+         [(768 - n, 768 + 100) for n in prompt], False),
+        ("S2048-causal", 1, 2048, 2048, 12, 64, [(0, 1900)], True),
+        ("S8192-causal", 1, 8192, 8192, 12, 64, [(0, 8000)], True),
+        ("causal-37x600", 4, 37, 600, 12, 64,
+         [(0, n) for n in [600] + list(rng.randint(1, 601, size=3))], True),
+        ("masked-row-700", 4, 40, 700, 12, 64,
+         [(0, n) for n in [700] + list(rng.randint(1, 701, size=2)) + [0]],
+         False),
+    ]
+
+
+def _check_flash(torch, A, rng, timings):
+    """The flash forward kernel against its f32 twin (O and LSE), f32 and
+    bf16, bshd and heads-major memory, at flash_cases(); then its time
+    against the twin and bf16 attention_reference at each shape (f32 too at
+    the prefill's)."""
+    worst = {}
+    for name, b, sq, skv, h, d, ranges, causal in flash_cases(rng):
+        q, k, v, _ = _inputs(torch, rng, b, sq, skv, h, d, [skv] * b)
+        mask = _ranges_mask(torch, skv, ranges)
+        for dtype, atol, lse_atol in ((torch.float32, ATOL_F32, LSE_ATOL_F32),
+                                      (torch.bfloat16, ATOL_BF16,
+                                       LSE_ATOL_BF16)):
+            tq, tk, tv = (t.to(dtype) for t in (q, k, v))
+            want, want_lse = A.flash_attention_fwd_reference(
+                tq.float(), tk.float(), tv.float(), mask, causal)
+            for layout in ("bshd", "bhsd"):
+                args = (tq, tk, tv)
+                if layout == "bhsd":  # heads-major memory, read in place
+                    args = tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
+                                 for t in args)
+                got, lse = A.flash_attention_fwd(*args, mask, causal)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or got.shape != want.shape \
+                        or lse.shape != want_lse.shape:
+                    raise AssertionError("%s: got %s %s / lse %s" % (
+                        name, got.dtype, tuple(got.shape), tuple(lse.shape)))
+                err = (got.float() - want).abs().max().item()
+                lse_err = (lse - want_lse).abs().max().item()
+                lse_excess = ((lse - want_lse).abs() - lse_atol
+                              - LSE_RTOL * want_lse.abs()).max().item()
+                ok = err <= atol and lse_excess <= 0
+                log("check flash %-16s %-8s %-4s max_abs_err %.3e (atol %.1e);"
+                    " lse max_abs_err %.3e (bound %.1e + %.0e |lse|) %s"
+                    % (name, str(dtype).split(".")[1], layout, err, atol,
+                       lse_err, lse_atol, LSE_RTOL, "ok" if ok else "FAIL"))
+                if not ok:
+                    raise AssertionError("flash kernel disagrees with its "
+                                         "plain version: %s %s %s err %.3e, "
+                                         "lse err %.3e"
+                                         % (name, dtype, layout, err,
+                                            lse_err))
+                worst[(name, dtype)] = max(worst.get((name, dtype), 0.0),
+                                           err)
+            del want, want_lse
+        dtypes = ((torch.bfloat16, torch.float32) if name == "gpt2-prefill"
+                  else (torch.bfloat16,))
+        iters = 10 if skv >= 2048 else 50
+        for dtype in dtypes:
+            tq, tk, tv = (t.to(dtype) for t in (q, k, v))
+            ms = _time_ms(torch, lambda: A.flash_attention_fwd(
+                tq, tk, tv, mask, causal), iters=iters)
+            plain_ms = _time_ms(torch, lambda: A.flash_attention_fwd_reference(
+                tq, tk, tv, mask, causal), iters=iters)
+            ref_ms = _time_ms(torch, lambda: A.attention_reference(
+                tq, tk, tv, kv_mask=mask, causal=causal), iters=iters)
+            nbytes = (2 * q.numel() + 2 * k.numel()) * tq.element_size() \
+                + mask.numel() * 4 + b * h * sq * 4
+            flops = _flash_flops(b, sq, skv, h, d, causal)
+            log("time flash %-16s %-8s kernel %.4f ms (%.1f GB/s = %.2f%% of "
+                "3.35 TB/s, %.2f TFLOP/s on the visible keys); plain twin "
+                "%.4f ms; attention_reference %.4f ms"
+                % (name, str(dtype).split(".")[1], ms, nbytes / ms / 1e6,
+                   100 * nbytes / (ms * 1e-3) / PEAK_BYTES_PER_S,
+                   flops / ms / 1e9, plain_ms, ref_ms))
+            timings[("flash_attention_fwd", name, dtype)] = (ms, plain_ms)
+        del q, k, v, tq, tk, tv
+        torch.cuda.empty_cache()
+    return worst
 
 
 def _check_bwd(torch, A, rng, name, q, k, v, mask, causal, worst):
@@ -764,6 +916,405 @@ def phase_train(torch, seed, workdir, cjk):
     return bwd, ms_k, ms_p
 
 
+# --------------------------------------------------------------------------
+# phase 5: GPT-2 generation
+# --------------------------------------------------------------------------
+
+def gpt2_vocab():
+    """(tokens in id order, merges) of a synthetic 50257-entry byte-level
+    BPE vocabulary: GPT-2's 256 byte symbols, then 50000 merged tokens grown
+    from lowercase letters ("Ġ" marks a leading space), one letter per merge
+    level, then <|endoftext|> at id 50256 as in GPT-2. Id 0 is "!"."""
+    from easynlp_tpu_torch.modelzoo.models.gpt2.tokenization_gpt2 import (
+        bytes_to_unicode)
+    tokens = list(bytes_to_unicode().values())
+    known = set(tokens)
+    n_merges = GPT2_SMALL["vocab_size"] - 1 - len(tokens)
+    merges, level = [], ["Ġ"] + list(GEN_LETTERS)
+    while len(merges) < n_merges:
+        grown = []
+        for piece in level:
+            for c in GEN_LETTERS:
+                if len(merges) == n_merges:
+                    break
+                if piece + c not in known:
+                    merges.append((piece, c))
+                    known.add(piece + c)
+                    tokens.append(piece + c)
+                    grown.append(piece + c)
+        level = grown
+    tokens.append("<|endoftext|>")
+    assert len(tokens) == GPT2_SMALL["vocab_size"]
+    return tokens, merges
+
+
+def make_gpt2_model_dir(torch, path, seed):
+    """GPT-2 small widths and depth, the synthetic vocabulary, and
+    truncated-normal(0.02) weights from numpy under HF names (transformer.
+    prefix, Conv1D [in, out], the tied lm_head.weight), zero biases, unit
+    LayerNorms."""
+    import numpy as np
+    os.makedirs(path, exist_ok=True)
+    c = GPT2_SMALL
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    tokens, merges = gpt2_vocab()
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(tokens)}, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join("%s %s\n" % m for m in merges))
+    rng = np.random.default_rng(seed)
+    e, std = c["n_embd"], c["initializer_range"]
+    state = {}
+
+    def put(name, *shape, fill=None):
+        arr = (np.full(shape, fill, np.float32) if fill is not None
+               else _truncated_normal(rng, shape, std))
+        state["transformer." + name] = torch.from_numpy(arr)
+
+    put("wte.weight", c["vocab_size"], e)
+    put("wpe.weight", c["n_positions"], e)
+    for i in range(c["n_layer"]):
+        for ln in ("ln_1", "ln_2"):
+            put("h.%d.%s.weight" % (i, ln), e, fill=1.0)
+            put("h.%d.%s.bias" % (i, ln), e, fill=0.0)
+        for name, n_in, n_out in (("attn.c_attn", e, 3 * e),
+                                  ("attn.c_proj", e, e),
+                                  ("mlp.c_fc", e, 4 * e),
+                                  ("mlp.c_proj", 4 * e, e)):
+            put("h.%d.%s.weight" % (i, name), n_in, n_out)
+            put("h.%d.%s.bias" % (i, name), n_out, fill=0.0)
+    put("ln_f.weight", e, fill=1.0)
+    put("ln_f.bias", e, fill=0.0)
+    state["lm_head.weight"] = state["transformer.wte.weight"]
+    torch.save(state, os.path.join(path, "pytorch_model.bin"))
+
+
+def make_gen_tsv(path, tokenizer, seed, n_rows=GEN_ROWS):
+    """n_rows texts of random lowercase words, each grown until it is at
+    least a drawn 600..768 tokens long (the first row 768); the predictor
+    truncates at GEN_PROMPT_WIDTH. Returns the drawn lengths."""
+    rng = random.Random(seed)
+    targets = [GEN_PROMPT_WIDTH] + [rng.randint(600, GEN_PROMPT_WIDTH)
+                                    for _ in range(n_rows - 1)]
+    with open(path, "w", encoding="utf-8") as f:
+        for i, target in enumerate(targets):
+            words, n = [], 0
+            while n < target:
+                word = "".join(rng.choice(GEN_LETTERS)
+                               for _ in range(rng.randint(2, 9)))
+                n += len(tokenizer.tokenize((" " if words else "") + word))
+                words.append(word)
+            f.write("%d\t%s\n" % (i, " ".join(words)))
+    return targets
+
+
+def run_generate(torch, model_dir, tsv, out, use_kernel, udp):
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    argv = ["--mode=predict", "--app_name=sequence_generation",
+            "--device=cuda", "--dtype=bfloat16",
+            "--sequence_length=%d" % GEN_PROMPT_WIDTH,
+            "--micro_batch_size=%d" % GEN_BATCH, "--tables=" + tsv,
+            "--outputs=" + out, "--checkpoint_dir=" + model_dir,
+            "--input_schema=id:str:1,text:str:1", "--first_sequence=text",
+            "--output_schema=generated_ids", "--append_cols=id",
+            "--user_defined_parameters=" + udp,
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    manager = default_main_fn(initialize_easynlp(args_list=argv))
+    total = time.perf_counter() - t0
+    import numpy as np
+    ids, rows = [], []
+    with open(out, encoding="utf-8") as f:
+        for line in f:
+            cols = line.rstrip("\n").split("\t")
+            ids.append([int(x) for x in cols[0].split()])
+            rows.append(cols[1])
+    return {"rows": manager.n_rows, "run_s": manager.seconds,
+            "with_load_s": total,
+            "batch_s": list(manager.predictor.batch_seconds),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "ids": np.array(ids), "row_ids": rows}
+
+
+def generated_lengths(ids, width, eos):
+    """Per row: the generated tokens up to and including the first EOS."""
+    out = []
+    for row in ids:
+        gen = list(row[width:])
+        out.append(gen.index(eos) + 1 if eos in gen else len(gen))
+    return out
+
+
+def expected_flash_launches(ids, width, n_layer, eos, batch):
+    """Flash launches of a greedy run whose prompts and caches are past 512
+    keys: every layer of the prefill and of each decode step. A batch
+    decodes after each generated position but its last, which is the first
+    position where every row has emitted EOS, or the buffer's end."""
+    lens = generated_lengths(ids, width, eos)
+    calls = 0
+    for start in range(0, len(lens), batch):
+        calls += max(lens[start:start + batch])  # 1 prefill + (last - 1)
+    return n_layer * calls
+
+
+def check_generation(ids, n_rows, width, new_tokens, vocab, prompt_ids):
+    if ids.shape != (n_rows, width + new_tokens):
+        raise AssertionError("generated_ids %s, want (%d, %d)"
+                             % (ids.shape, n_rows, width + new_tokens))
+    if ids.min() < 0 or ids.max() >= vocab:
+        raise AssertionError("token ids outside [0, %d)" % vocab)
+    if not (ids[:, :width] == prompt_ids).all():
+        raise AssertionError("the prompt part of generated_ids is not the "
+                             "left-padded prompt")
+
+
+def describe_gen(tag, r, lens):
+    ms = [1e3 * s for s in r["batch_s"]]
+    n = sum(lens)
+    log("gen %-7s %d rows, %d generated tokens in %.4f s = %.2f tokens/s "
+        "(predict loop: read, tokenise, %d batches, write; %.4f s with model "
+        "load %.4f s); batch latency median %.3f ms, min %.3f, max %.3f "
+        "(host clock, tokens back on the host); peak device memory %.3f GiB"
+        % (tag, r["rows"], n, r["run_s"], n / r["run_s"], len(ms),
+           r["with_load_s"], r["with_load_s"] - r["run_s"],
+           statistics.median(ms), min(ms), max(ms), r["peak_gib"]))
+
+
+def _step_times(torch, prefill, decode, ids, mask, n_decode, runs=3):
+    """(prefill ms samples, decode ms samples): host clock around each call,
+    each ending in torch.cuda.synchronize()."""
+    pre, dec = [], []
+    with torch.inference_mode():
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(ids, mask)
+            torch.cuda.synchronize()
+            pre.append(1e3 * (time.perf_counter() - t0))
+            token = logits.argmax(-1, keepdim=True)
+            for _ in range(n_decode):
+                t0 = time.perf_counter()
+                logits, cache = decode(token, cache)
+                torch.cuda.synchronize()
+                dec.append(1e3 * (time.perf_counter() - t0))
+                token = logits.argmax(-1, keepdim=True)
+    return pre, dec
+
+
+def phase_generation(torch, seed, workdir):
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.sequence_generation.model import (
+        SequenceGeneration)
+    from easynlp_tpu_torch.modelzoo.models.gpt2 import GPT2Tokenizer
+    from easynlp_tpu_torch.modelzoo.models.gpt2.generation import (
+        make_gpt2_generation_fns)
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 5: GPT-2 generation (sequence_generation predict, GPT-2 "
+        "small)")
+    model_dir = os.path.join(workdir, GPT2_MODEL_DIR)
+    t0 = time.perf_counter()
+    make_gpt2_model_dir(torch, model_dir, seed)
+    tokenizer = GPT2Tokenizer.from_pretrained(model_dir)
+    tsv = os.path.join(workdir, "prompts.tsv")
+    make_gen_tsv(tsv, tokenizer, seed)
+    with open(tsv, encoding="utf-8") as f:
+        texts = [line.split("\t", 1)[1].rstrip("\n") for line in f]
+    enc = tokenizer(texts, max_length=GEN_PROMPT_WIDTH)
+    n_real = enc["attention_mask"].sum(axis=1)
+    prompt_ids = np.zeros((GEN_ROWS, GEN_PROMPT_WIDTH), np.int64)
+    for i, n in enumerate(n_real):
+        prompt_ids[i, GEN_PROMPT_WIDTH - n:] = enc["input_ids"][i, :n]
+    log("GPT-2 small model dir (%d-token vocab, %d merges) and %d prompts of "
+        "%d..%d tokens (mean %.1f) made from seed %d in %.3f s"
+        % (GPT2_SMALL["vocab_size"], GPT2_SMALL["vocab_size"] - 257,
+           GEN_ROWS, n_real.min(), n_real.max(), n_real.mean(), seed,
+           time.perf_counter() - t0))
+    if n_real.min() < 600 or n_real.max() != GEN_PROMPT_WIDTH:
+        raise AssertionError("prompt lengths %s, want 600..%d"
+                             % (n_real.tolist(), GEN_PROMPT_WIDTH))
+    eos, n_layer = GPT2_SMALL["eos_token_id"], GPT2_SMALL["n_layer"]
+    udp = "max_decoder_length=%d" % GEN_NEW_TOKENS
+
+    out_k = os.path.join(workdir, "gen_kernel.tsv")
+    out_p = os.path.join(workdir, "gen_plain.tsv")
+    A.flash_attention_fwd.launches = 0
+    A.short_attention_fwd.launches = 0
+    runs = {"kernel": [run_generate(torch, model_dir, tsv, out_k, True,
+                                    udp)]}
+    launches = A.flash_attention_fwd.launches
+    first = runs["kernel"][0]
+    want = expected_flash_launches(first["ids"], GEN_PROMPT_WIDTH, n_layer,
+                                   eos, GEN_BATCH)
+    log("flash_attention_fwd launches in the main path's run: %d (want %d = "
+        "%d layers x (prefill + decode steps) over %d batches); "
+        "short_attention_fwd %d" % (launches, want, n_layer,
+                                    GEN_ROWS // GEN_BATCH,
+                                    A.short_attention_fwd.launches))
+    if launches != want or launches == 0:
+        raise AssertionError("the generation path launched the flash kernel "
+                             "%d times, want %d" % (launches, want))
+    runs["plain"] = []
+    # the rest in turns on the same card: K P P K, the first K above
+    for use_kernel in (False, False, True):
+        before = A.flash_attention_fwd.launches
+        r = run_generate(torch, model_dir, tsv, out_k if use_kernel
+                         else out_p, use_kernel, udp)
+        runs["kernel" if use_kernel else "plain"].append(r)
+        if not use_kernel and A.flash_attention_fwd.launches != before:
+            raise AssertionError("--use_flash_attention=false still launched "
+                                 "the flash kernel")
+    for tag in ("kernel", "plain"):
+        for i, r in enumerate(runs[tag]):
+            check_generation(r["ids"], GEN_ROWS, GEN_PROMPT_WIDTH,
+                             GEN_NEW_TOKENS, GPT2_SMALL["vocab_size"],
+                             prompt_ids)
+            if r["row_ids"] != [str(i) for i in range(GEN_ROWS)]:
+                raise AssertionError("rows out of order: %s" % r["row_ids"])
+            describe_gen("%s#%d" % (tag, i + 1), r, generated_lengths(
+                r["ids"], GEN_PROMPT_WIDTH, eos))
+        rates = [sum(generated_lengths(r["ids"], GEN_PROMPT_WIDTH, eos))
+                 / r["run_s"] for r in runs[tag]]
+        log("gen %-6s median of %d runs: %.2f generated tokens/s (min %.2f, "
+            "max %.2f)" % (tag, len(rates), statistics.median(rates),
+                           min(rates), max(rates)))
+    for tag in ("kernel", "plain"):
+        if any(not np.array_equal(r["ids"], runs[tag][0]["ids"])
+               for r in runs[tag]):
+            raise AssertionError("two %s runs generated different tokens"
+                                 % tag)
+
+    # prefill logits, kernel against plain, and the plain run's margins
+    t0 = time.perf_counter()
+    app = SequenceGeneration.from_pretrained(
+        model_dir, dtype=torch.bfloat16, device="cuda")
+    load_s = time.perf_counter() - t0
+    ids_k, ids_p = runs["kernel"][0]["ids"], runs["plain"][0]["ids"]
+    width = GEN_PROMPT_WIDTH
+    mask_all = (np.arange(width)[None, :]
+                >= width - n_real[:, None]).astype(np.int32)
+    prefill, decode = make_gpt2_generation_fns(app.module,
+                                               width + GEN_NEW_TOKENS)
+    logits, margins = {}, []
+    with torch.inference_mode():
+        for use_kernel in (True, False):
+            A.set_kernel_override(None if use_kernel else False)
+            logits[use_kernel] = torch.cat([prefill(
+                torch.from_numpy(prompt_ids[s:s + GEN_BATCH]).cuda(),
+                torch.from_numpy(mask_all[s:s + GEN_BATCH]).cuda())[0]
+                for s in range(0, GEN_ROWS, GEN_BATCH)])
+        # the plain run's per-step top-2 margins, by teacher forcing its own
+        # tokens through the plain path in one forward per batch (bf16: it
+        # rounds like the run's decode steps, not bit for bit)
+        for s in range(0, GEN_ROWS, GEN_BATCH):
+            seq = torch.from_numpy(ids_p[s:s + GEN_BATCH]).cuda()
+            mask = torch.ones_like(seq, dtype=torch.int32)
+            mask[:, :width] = torch.from_numpy(mask_all[s:s + GEN_BATCH])
+            out = app.module(seq, attention_mask=mask)["logits"]
+            top2 = out[:, width - 1:-1].float().topk(2, dim=-1).values
+            margins.append((top2[..., 0] - top2[..., 1]).cpu().numpy())
+            del out
+        A.set_kernel_override(None)
+    margins = np.concatenate(margins)
+    d_logits = (logits[True] - logits[False]).abs().max().item()
+    decided, near_ties, compared = 0, 0, 0
+    for row in range(GEN_ROWS):
+        for j in range(GEN_NEW_TOKENS):
+            a, b = ids_k[row, width + j], ids_p[row, width + j]
+            if a != b:
+                if margins[row, j] > 2 * GEN_LOGITS_ATOL:
+                    raise AssertionError(
+                        "row %d step %d: kernel token %d, plain %d, at a "
+                        "top-2 margin of %.3e > %.1e" % (
+                            row, j, a, b, margins[row, j],
+                            2 * GEN_LOGITS_ATOL))
+                near_ties += 1
+                break
+            compared += 1
+            decided += margins[row, j] > 2 * GEN_LOGITS_ATOL
+            if a == eos:
+                break
+    log("kernel vs plain run: prefill logits max |d| %.3e (bound %.1e); "
+        "tokens agree at all %d steps compared before a row's first "
+        "divergence or EOS (%d of them at a plain-run teacher-forced top-2 "
+        "margin > %.1e); %d rows diverge, each at a near-tie (margin <= "
+        "%.1e); %d of %d rows identical"
+        % (d_logits, GEN_LOGITS_ATOL, compared, decided, 2 * GEN_LOGITS_ATOL,
+           near_ties, 2 * GEN_LOGITS_ATOL,
+           sum(np.array_equal(a, b) for a, b in zip(ids_k, ids_p)),
+           GEN_ROWS))
+    if d_logits > GEN_LOGITS_ATOL:
+        raise AssertionError("kernel and plain prefill logits differ by "
+                             "%.3e" % d_logits)
+
+    # prefill and decode step times on one batch, kernel and plain in turns
+    ids0 = torch.from_numpy(prompt_ids[:GEN_BATCH]).cuda()
+    mask0 = torch.from_numpy(mask_all[:GEN_BATCH]).cuda()
+    steps = {}
+    for use_kernel in (True, False, False, True):
+        A.set_kernel_override(None if use_kernel else False)
+        pre, dec = _step_times(torch, prefill, decode, ids0, mask0, 32)
+        steps.setdefault(use_kernel, ([], []))
+        steps[use_kernel][0].extend(pre)
+        steps[use_kernel][1].extend(dec)
+    A.set_kernel_override(None)
+    for use_kernel, (pre, dec) in steps.items():
+        log("step %-6s batch %d x %d-token prompt: prefill ms median %.3f "
+            "(min %.3f, max %.3f, %d runs); decode ms per token median %.3f "
+            "(min %.3f, max %.3f, %d steps against %d cache slots); host "
+            "clock, each call ends in a synchronize"
+            % ("kernel" if use_kernel else "plain", GEN_BATCH, width,
+               statistics.median(pre), min(pre), max(pre), len(pre),
+               statistics.median(dec), min(dec), max(dec), len(dec),
+               width + GEN_NEW_TOKENS))
+    log("model load (SequenceGeneration.from_pretrained, bf16 on the card) "
+        "%.3f s" % load_s)
+
+    # where the time goes: torch.profiler over a prefill and 32 decode steps
+    prof_path = os.path.join(workdir, "gen_trace.json")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _step_times(torch, prefill, decode, ids0, mask0, 32, runs=1)
+    prof.export_chrome_trace(prof_path)
+    share, busy_ms, top = device_share(prof_path)
+    if share is None:
+        log("profile: the trace holds no device kernels (not measured)")
+    else:
+        log("profile, kernel path, prefill + 32 decode steps (under the "
+            "profiler): device busy %.1f%% of the span of its kernels, "
+            "%.3f ms busy; device ms by kernel: %s"
+            % (100 * share, busy_ms, "; ".join(
+                "%s %.3f" % (n[:60], t) for n, t in top)))
+    del app, prefill, decode, logits
+    torch.cuda.empty_cache()
+
+    # one beam-search batch with the kernels
+    beam_tsv = os.path.join(workdir, "prompts_beam.tsv")
+    with open(tsv, encoding="utf-8") as f, \
+            open(beam_tsv, "w", encoding="utf-8") as g:
+        g.writelines(f.readlines()[:GEN_BATCH])
+    before = A.flash_attention_fwd.launches
+    beam = run_generate(torch, model_dir, beam_tsv,
+                        os.path.join(workdir, "gen_beam.tsv"), True,
+                        "max_decoder_length=%d num_beams=%d"
+                        % (GEN_BEAM_NEW_TOKENS, GEN_BEAMS))
+    beam_launches = A.flash_attention_fwd.launches - before
+    check_generation(beam["ids"], GEN_BATCH, width, GEN_BEAM_NEW_TOKENS,
+                     GPT2_SMALL["vocab_size"], prompt_ids[:GEN_BATCH])
+    describe_gen("beam", beam, generated_lengths(beam["ids"], width, eos))
+    log("beam run: %d beams x %d rows, %d flash launches (%d layers x "
+        "(prefill + decode steps))" % (GEN_BEAMS, GEN_BATCH, beam_launches,
+                                       n_layer))
+    if beam_launches == 0 or beam_launches % n_layer:
+        raise AssertionError("the beam run launched the flash kernel %d "
+                             "times" % beam_launches)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -785,6 +1336,8 @@ def main():
                                                            workdir)
         launches["short_attention_bwd"], ms_k, ms_p = phase_train(
             torch, seed, workdir, cjk)
+        launches["flash_attention_fwd"] = phase_generation(torch, seed,
+                                                           workdir)
 
     log("kernel build %.3f s" % build_s)
     log("training step, median of runs: %.3f ms with the kernels, %.3f ms "
@@ -792,11 +1345,12 @@ def main():
     log("card: %s" % card_line())
     entries = []
     for name, (source, replaces) in KERNELS.items():
-        ms, plain_ms = timings[(name, "slice-128", torch.bfloat16)]
+        case = KERNEL_LINE_CASE[name]
+        ms, plain_ms = timings[(name, case, torch.bfloat16)]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": worst[name][("slice-128", torch.bfloat16)],
+            "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 A second package beside `easynlp_tpu` (the JAX reference, which it imports
 only for JAX-free host code: flags, config, tokenizer tables, TSV helpers).
 It mirrors that package's paths and names. Ported so far:
-`--mode=train|evaluate|predict --app_name=text_classify` on BERT, with
-hand-written CUDA kernels for attention's forward and backward (see
-ROADMAP.md for what comes next).
+`--mode=train|evaluate|predict --app_name=text_classify` on BERT and
+`--mode=predict --app_name=sequence_generation` on GPT-2, with hand-written
+CUDA kernels for attention (the short forward and backward, the flash
+forward; see ROADMAP.md for what comes next).
 """
 
 __version__ = "0.1.0"

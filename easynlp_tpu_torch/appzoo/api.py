@@ -1,10 +1,11 @@
 """App dispatch + default main for the PyTorch port.
 
 Counterpart of easynlp_tpu/appzoo/api.py, reduced to what is ported: the
-train, evaluate and predict branches for `text_classify`. Every other mode,
-app or app variant raises NotImplementedError naming its ROADMAP item. The
-datasets are the JAX package's own (JAX-free) ClassificationDataset, so both
-packages featurise and batch the same rows the same way.
+train, evaluate and predict branches for `text_classify`, and the predict
+branch for `sequence_generation` (GPT-2). Every other mode, app or app
+variant raises NotImplementedError naming its ROADMAP item. The datasets are
+the JAX package's own (JAX-free) ClassificationDataset, so both packages
+featurise and batch the same rows the same way.
 """
 
 import json
@@ -15,6 +16,7 @@ import torch
 from easynlp_tpu.utils.global_vars import get_args
 from easynlp_tpu.utils.io_utils import io
 from easynlp_tpu.utils.logger import logger
+from easynlp_tpu_torch.modelzoo.models.auto import tokenizer_for
 
 
 def _lazy(path, name):
@@ -28,11 +30,17 @@ MODEL_REGISTRY = {
     "text_classify": _lazy(
         "easynlp_tpu_torch.appzoo.sequence_classification.model",
         "SequenceClassification"),
+    "sequence_generation": _lazy(
+        "easynlp_tpu_torch.appzoo.sequence_generation.model",
+        "SequenceGeneration"),
 }
 PREDICTOR_REGISTRY = {
     "text_classify": _lazy(
         "easynlp_tpu_torch.appzoo.sequence_classification.predictor",
         "SequenceClassificationPredictor"),
+    "sequence_generation": _lazy(
+        "easynlp_tpu_torch.appzoo.sequence_generation.predictor",
+        "SequenceGenerationPredictor"),
 }
 DATASET_REGISTRY = {
     "text_classify": _lazy(
@@ -48,6 +56,11 @@ EVALUATOR_REGISTRY = {
 _NOT_PORTED_MODES = {
     "export": "ROADMAP A26",
     "serve": "ROADMAP A17",
+}
+# apps ported for some modes only
+_NOT_PORTED_APP_MODES = {
+    ("sequence_generation", "train"): "the next slice, ROADMAP A15b",
+    ("sequence_generation", "evaluate"): "the next slice, ROADMAP A15b",
 }
 # user_defined_parameters switches that select another app variant
 _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
@@ -70,6 +83,12 @@ def _resolve(registry, app_name, udp):
 def default_main_fn(args=None):
     args = args or get_args()
     udp = args.user_defined_parameters_dict
+    if (args.app_name, args.mode) in _NOT_PORTED_APP_MODES:
+        raise NotImplementedError(
+            "--mode=%s --app_name=%s is not ported yet (%s); the port has "
+            "--mode=predict for it" % (
+                args.mode, args.app_name,
+                _NOT_PORTED_APP_MODES[(args.app_name, args.mode)]))
     if args.mode == "predict":
         return _predict_main(args, udp)
     if args.mode == "train":
@@ -101,7 +120,6 @@ def _train_main(args, udp):
     """api.py's train branch: train (and valid) dataset, evaluator, the app
     from the pretrained directory, the Trainer."""
     from easynlp_tpu_torch.core.trainer import Trainer
-    from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
     model_cls = _resolve(MODEL_REGISTRY, args.app_name, udp)
     dataset_cls = _resolve(DATASET_REGISTRY, args.app_name, udp)
     evaluator_cls = _resolve(EVALUATOR_REGISTRY, args.app_name, udp)
@@ -110,8 +128,7 @@ def _train_main(args, udp):
                          "(or user_defined_parameters "
                          "pretrain_model_name_or_path)")
     tables = (args.tables or "").split(",")
-    tokenizer = BertTokenizer.from_pretrained(
-        args.pretrained_model_name_or_path)
+    tokenizer = tokenizer_for(args.pretrained_model_name_or_path)
     kwargs = _dataset_kwargs(args, tokenizer)
     train_dataset = dataset_cls(data_file=tables[0], is_training=True,
                                 **kwargs)
@@ -135,11 +152,10 @@ def _train_main(args, udp):
 
 def _evaluate_main(args, udp):
     """api.py's evaluate branch: the checkpoint's app on --tables."""
-    from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
     model_cls = _resolve(MODEL_REGISTRY, args.app_name, udp)
     dataset_cls = _resolve(DATASET_REGISTRY, args.app_name, udp)
     evaluator_cls = _resolve(EVALUATOR_REGISTRY, args.app_name, udp)
-    tokenizer = BertTokenizer.from_pretrained(args.checkpoint_dir)
+    tokenizer = tokenizer_for(args.checkpoint_dir)
     valid_dataset = dataset_cls(data_file=(args.tables or "").split(",")[0],
                                 **_dataset_kwargs(args, tokenizer))
     app = model_cls.from_pretrained(
@@ -171,7 +187,9 @@ def _predict_main(args, udp):
         first_sequence=args.first_sequence,
         second_sequence=args.second_sequence,
         sequence_length=args.sequence_length,
-        batch_size=args.micro_batch_size)
+        batch_size=args.micro_batch_size,
+        user_defined_parameters=udp,
+        multi_label=bool(udp.get("multi_label")))
     manager = PredictorManager(
         predictor=predictor,
         input_file=(args.tables or "").split(",")[0],

@@ -14,7 +14,8 @@ from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
 
 class SequenceClassificationPredictor(Predictor):
     def __init__(self, model_dir, app, first_sequence=None,
-                 second_sequence=None, sequence_length=128, batch_size=32):
+                 second_sequence=None, sequence_length=128, batch_size=32,
+                 **_):
         self.tokenizer = BertTokenizer.from_pretrained(model_dir)
         self.first_sequence = first_sequence
         self.second_sequence = second_sequence

@@ -54,13 +54,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;      // 8 warps
 constexpr int kBlockQ = 32;        // query rows per tile
 constexpr int kBlockK = 64;        // keys per tile
 constexpr int kLdP = kBlockK + 4;  // row stride of the P and dS tiles
-constexpr float kNegInf = -1e30f;  // easynlp_tpu/ops/attention.py NEG_INF
 
 struct Params {
   const void* q;
@@ -89,41 +90,6 @@ struct Params {
   int q_offset;
   float scale;
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
-
-// Copies `rows` rows of D contiguous elements (row stride `stride` elements)
-// into shared memory as f32 with leading dimension `ld`. Rows at or past
-// `valid` are written as zeros. Each thread moves 16 bytes at a time: the
-// wrapper guarantees 16-byte aligned rows and D a multiple of 8.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          int64_t stride, int rows, int valid,
-                                          int D) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int per_row = D / kVec;
-  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
-    const int r = i / per_row;
-    const int c = (i - r * per_row) * kVec;
-    float* out = dst + r * ld + c;
-    if (r < valid) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + r * stride + c));
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) out[j] = to_float(e[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) out[j] = 0.f;
-    }
-  }
-}
 
 // The score of (query row, key) as the forward kernel forms it: -inf past
 // Skv (weight exactly 0), the finite -1e30 where masked or causally hidden.
@@ -231,7 +197,7 @@ short_attention_bwd_stats_kernel(const Params p) {
   const int32_t* mask = p.mask + b * p.m_sb;
   const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
 
-  load_rows(qs, ld, q + q0 * p.q_ss, p.q_ss, kBlockQ, min(kBlockQ, p.Sq - q0), D);
+  load_rows<kThreads>(qs, ld, q + q0 * p.q_ss, p.q_ss, kBlockQ, min(kBlockQ, p.Sq - q0), D);
 
   // Warp w owns rows 4w..4w+3: their delta now, their softmax stats below.
 #pragma unroll
@@ -256,7 +222,7 @@ short_attention_bwd_stats_kernel(const Params p) {
   }
   for (int k0 = 0; k0 < p.Skv; k0 += kBlockK) {
     __syncthreads();  // the previous tile's readers are done
-    load_rows(ks, ld, k + k0 * p.k_ss, p.k_ss, kBlockK, min(kBlockK, p.Skv - k0), D);
+    load_rows<kThreads>(ks, ld, k + k0 * p.k_ss, p.k_ss, kBlockK, min(kBlockK, p.Skv - k0), D);
     __syncthreads();
     float s[2][4], unused[2][4];
     score_tiles<false>(qs, nullptr, ks, nullptr, ld, D, r0, c0, s, unused);
@@ -364,8 +330,8 @@ short_attention_bwd_dkdv_kernel(const Params p) {
   const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
 
   const int kv_valid = min(kBlockK, p.Skv - k0);
-  load_rows(ks, ld, k + k0 * p.k_ss, p.k_ss, kBlockK, kv_valid, D);
-  load_rows(vs, ld, v + k0 * p.v_ss, p.v_ss, kBlockK, kv_valid, D);
+  load_rows<kThreads>(ks, ld, k + k0 * p.k_ss, p.k_ss, kBlockK, kv_valid, D);
+  load_rows<kThreads>(vs, ld, v + k0 * p.v_ss, p.v_ss, kBlockK, kv_valid, D);
 
   // This thread's accumulator tiles: keys kr0..kr0+3, columns c0 + 16 c.
   const int c0 = tid % 16;
@@ -382,8 +348,8 @@ short_attention_bwd_dkdv_kernel(const Params p) {
   for (int q0 = 0; q0 < p.Sq; q0 += kBlockQ) {
     const int q_valid = min(kBlockQ, p.Sq - q0);
     __syncthreads();  // the previous tile's readers are done
-    load_rows(qs, ld, q + q0 * p.q_ss, p.q_ss, kBlockQ, q_valid, D);
-    load_rows(dos, ld, dout + q0 * p.do_ss, p.do_ss, kBlockQ, q_valid, D);
+    load_rows<kThreads>(qs, ld, q + q0 * p.q_ss, p.q_ss, kBlockQ, q_valid, D);
+    load_rows<kThreads>(dos, ld, dout + q0 * p.do_ss, p.do_ss, kBlockQ, q_valid, D);
     load_stats(p, stat0, q0, rm, ri, rd);
     __syncthreads();
     p_ds_tile<kDPad>(p, mask, qs, dos, ks, vs, rm, ri, rd, q0, k0, ps, dss);
@@ -457,8 +423,8 @@ short_attention_bwd_dq_kernel(const Params p) {
   const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
 
   const int q_valid = min(kBlockQ, p.Sq - q0);
-  load_rows(qs, ld, q + q0 * p.q_ss, p.q_ss, kBlockQ, q_valid, D);
-  load_rows(dos, ld, dout + q0 * p.do_ss, p.do_ss, kBlockQ, q_valid, D);
+  load_rows<kThreads>(qs, ld, q + q0 * p.q_ss, p.q_ss, kBlockQ, q_valid, D);
+  load_rows<kThreads>(dos, ld, dout + q0 * p.do_ss, p.do_ss, kBlockQ, q_valid, D);
   load_stats(p, stat0, q0, rm, ri, rd);
 
   // This thread's accumulator tile: rows r0, r0+1 (the rows of its dS
@@ -474,8 +440,8 @@ short_attention_bwd_dq_kernel(const Params p) {
   for (int k0 = 0; k0 < p.Skv; k0 += kBlockK) {
     const int kv_valid = min(kBlockK, p.Skv - k0);
     __syncthreads();  // the previous tile's readers are done
-    load_rows(ks, ld, k + k0 * p.k_ss, p.k_ss, kBlockK, kv_valid, D);
-    load_rows(vs, ld, v + k0 * p.v_ss, p.v_ss, kBlockK, kv_valid, D);
+    load_rows<kThreads>(ks, ld, k + k0 * p.k_ss, p.k_ss, kBlockK, kv_valid, D);
+    load_rows<kThreads>(vs, ld, v + k0 * p.v_ss, p.v_ss, kBlockK, kv_valid, D);
     __syncthreads();
     p_ds_tile<kDPad>(p, mask, qs, dos, ks, vs, rm, ri, rd, q0, k0, nullptr, dss);
     __syncthreads();

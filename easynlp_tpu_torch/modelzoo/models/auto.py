@@ -1,0 +1,31 @@
+"""Tokenizer routing by a checkpoint's model_type, for the PyTorch port.
+
+Counterpart of easynlp_tpu/appzoo/api.py::_tokenizer_for over
+easynlp_tpu/modelzoo/models/auto/auto_factory.py, reduced to the ported
+families: GPT-2's byte-level BPE for `gpt2`, WordPiece otherwise (as the JAX
+route falls back to BertTokenizer for an unknown model_type or a directory
+with no config.json).
+"""
+
+import json
+import os
+
+from easynlp_tpu.utils.io_utils import io
+
+
+def model_type_of(model_dir):
+    """config.json's model_type under model_dir, or None."""
+    from easynlp_tpu.utils import get_pretrain_model_path
+    path = os.path.join(get_pretrain_model_path(model_dir), "config.json")
+    if not io.exists(path):
+        return None
+    with io.open(path) as f:
+        return json.load(f).get("model_type")
+
+
+def tokenizer_for(model_dir):
+    if model_type_of(model_dir) == "gpt2":
+        from easynlp_tpu_torch.modelzoo.models.gpt2 import GPT2Tokenizer
+        return GPT2Tokenizer.from_pretrained(model_dir)
+    from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
+    return BertTokenizer.from_pretrained(model_dir)

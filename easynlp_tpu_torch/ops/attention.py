@@ -10,20 +10,27 @@ Paths:
 
 1. `attention_reference` mirrors the JAX attention_reference, including its
    bf16 score cast and the stop-gradient on the row max, so autograd through
-   it gives jax.grad's gradients. It serves an additive bias, Skv above
-   SHORT_MAX_KV_LEN, head dims the kernel does not take, and every call
-   under --use_flash_attention=false.
+   it gives jax.grad's gradients. It serves an additive bias, head dims the
+   kernels do not take, Skv above SHORT_MAX_KV_LEN when a gradient is
+   needed, and every call under --use_flash_attention=false.
 2. `ShortAttention` is the whole-sequence path for Skv <= 512, an
    autograd.Function over two kernels: `short_attention_fwd`
    (csrc/short_attention_fwd.cu, the port of `_short_fwd_kernel`) and
    `short_attention_bwd` (csrc/short_attention_bwd.cu, the port of
    `_short_bwd_kernel`). A CPU tensor takes their plain twins
    `short_attention_fwd_reference` and `short_attention_bwd_reference`.
+3. `flash_attention_fwd` is the blocked forward for any Skv
+   (csrc/flash_attention_fwd.cu, the port of `_fwd_kernel`), returning O and
+   the f32 LSE; a CPU tensor takes `flash_attention_fwd_reference`. It
+   serves Skv > 512 when no gradient is needed (GPT-2 prefill and decode
+   past 512 keys). Its backward kernels are not ported yet (ROADMAP B4/B5),
+   so with a gradient 'auto' keeps attention_reference above 512.
 
-The JAX package routes BERT lengths below 256 to XLA on a TPU. That window
-is a TPU tuning, so here every Skv <= 512 takes the kernel on a card; the
-card's own thresholds come from its measurements (PERF.md). The blocked
-flash kernels and ring attention are not ported yet (ROADMAP B3-B5, A24).
+The JAX package routes BERT lengths below 256 to XLA on a TPU and reaches
+its flash kernel only from Skv = 8192. Those windows are TPU tunings, so
+here every Skv <= 512 takes the short kernels on a card and every longer
+one the flash forward; the card's own thresholds come from its
+measurements (PERF.md). Ring attention is not ported yet (ROADMAP A24).
 """
 
 import ctypes
@@ -33,11 +40,11 @@ import torch
 
 NEG_INF = -1e30
 SHORT_MAX_KV_LEN = 512
-SHORT_MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128
 
 # --use_flash_attention true|false (wired by utils/initializer.py):
 # False sends every call to attention_reference; None (auto) and True take
-# the short path where it applies.
+# the kernel paths where they apply.
 _KERNEL_OVERRIDE = None
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,7 +52,7 @@ _LAUNCHERS = {}
 
 
 def set_kernel_override(value):
-    """value: True or None (short path where it applies) or False (plain
+    """value: True or None (kernel paths where they apply) or False (plain
     attention_reference everywhere)."""
     global _KERNEL_OVERRIDE
     _KERNEL_OVERRIDE = value
@@ -136,9 +143,30 @@ def short_attention_bwd_reference(q, k, v, kv_mask, o, do, causal=False,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _check_short_args(q, k, v, kv_mask):
+def flash_attention_fwd_reference(q, k, v, kv_mask, causal=False,
+                                  scale=None):
+    """Plain PyTorch twin of the flash forward kernel, in f32 from the given
+    inputs: (O in q's dtype [B,Sq,H,D], LSE f32 [B,H,Sq]), LSE the logsumexp
+    of the masked, scaled scores.
+
+    A fully masked row (every key masked or causally hidden) follows
+    attention_reference: O is the mean of V over the real Skv keys, and its
+    scores are all -1e30, so its LSE is -1e30 + log(Skv) in exact
+    arithmetic, which f32 rounds to -1e30. A backward that forms
+    P = exp(s - LSE) from it gets weight 1 for every key of such a row, not
+    1/Skv (the flash backward kernels, ROADMAP B4/B5, must not)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    hidden = _hidden_keys(kv_mask, q.shape[1], k.shape[1], causal, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = s.masked_fill(hidden, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype), lse
+
+
+def _check_args(name, q, k, v, kv_mask, max_kv_len=None):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("short_attention_fwd takes 4-D q/k/v [B,S,H,D]")
+        raise ValueError("%s takes 4-D q/k/v [B,S,H,D]" % name)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     if k.shape != (b, skv, h, d) or v.shape != k.shape:
@@ -147,15 +175,16 @@ def _check_short_args(q, k, v, kv_mask):
                                     tuple(v.shape)))
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise ValueError("short_attention_fwd takes float32 or bfloat16 "
-                         "q/k/v of one dtype, got %s/%s/%s"
-                         % (q.dtype, k.dtype, v.dtype))
-    if d % 8 or not 8 <= d <= SHORT_MAX_HEAD_DIM:
+        raise ValueError("%s takes float32 or bfloat16 q/k/v of one dtype, "
+                         "got %s/%s/%s" % (name, q.dtype, k.dtype, v.dtype))
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
         raise ValueError("head dim %d: the kernel takes a multiple of 8 up "
-                         "to %d" % (d, SHORT_MAX_HEAD_DIM))
-    if not 1 <= skv <= SHORT_MAX_KV_LEN:
-        raise ValueError("Skv=%d: the short kernel takes 1..%d keys"
-                         % (skv, SHORT_MAX_KV_LEN))
+                         "to %d" % (d, MAX_HEAD_DIM))
+    if skv < 1:
+        raise ValueError("Skv=%d: %s needs at least one key" % (skv, name))
+    if max_kv_len is not None and skv > max_kv_len:
+        raise ValueError("Skv=%d: %s takes 1..%d keys"
+                         % (skv, name, max_kv_len))
     if kv_mask.dim() != 2 or kv_mask.shape[1] != skv \
             or kv_mask.shape[0] not in (1, b):
         raise ValueError("kv_mask %s: expected [%d,%d] or [1,%d]"
@@ -221,7 +250,7 @@ def short_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
     q's memory layout. A CUDA tensor launches the kernel (and counts it in
     `short_attention_fwd.launches`); a CPU tensor takes the plain twin.
     """
-    _check_short_args(q, k, v, kv_mask)
+    _check_args("short_attention_fwd", q, k, v, kv_mask, SHORT_MAX_KV_LEN)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise ValueError(
@@ -272,7 +301,7 @@ def short_attention_bwd(q, k, v, kv_mask, o, do, causal=False, scale=None):
     tensor launches the three-pass kernel of csrc/short_attention_bwd.cu
     (counted once in `short_attention_bwd.launches`); a CPU tensor takes the
     plain twin short_attention_bwd_reference."""
-    _check_short_args(q, k, v, kv_mask)
+    _check_args("short_attention_bwd", q, k, v, kv_mask, SHORT_MAX_KV_LEN)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("o %s and do %s must have q's shape %s"
                          % (tuple(o.shape), tuple(do.shape), tuple(q.shape)))
@@ -325,6 +354,60 @@ def short_attention_bwd(q, k, v, kv_mask, o, do, causal=False, scale=None):
 short_attention_bwd.launches = 0
 
 
+def flash_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
+    """Blocked attention forward for any Skv (the port of the TPU kernel
+    `_fwd_kernel`): (O [B,Sq,H,D] in q's dtype, LSE f32 [B,H,Sq]).
+
+    q [B,Sq,H,D], k/v [B,Skv,H,D] with any strides whose head dim is
+    contiguous (GPT-2's fused-projection views and a per-layer KV cache
+    qualify without a copy); kv_mask [B,Skv] or [1,Skv], int32 or bool;
+    causal masking with q_offset = Skv - Sq. A CUDA tensor launches
+    csrc/flash_attention_fwd.cu (and counts it in
+    `flash_attention_fwd.launches`); a CPU tensor takes the plain twin
+    flash_attention_fwd_reference. It records no gradient: the flash
+    backward kernels are ROADMAP B4/B5."""
+    _check_args("flash_attention_fwd", q, k, v, kv_mask)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "flash_attention_fwd records no gradient: the flash backward "
+            "kernels are not ported yet (ROADMAP B4/B5)")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_fwd_reference(q, k, v, kv_mask, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_fwd runs on cpu or cuda, got %s"
+                         % q.device)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if b > 65535 or h > 65535:
+        raise ValueError("B=%d, H=%d: the launch grid takes at most 65535 of "
+                         "each" % (b, h))
+    out = torch.empty_like(q, memory_format=torch.preserve_format)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    kv_mask, mask_sb = _cuda_mask(kv_mask, b)
+    launch = _launcher("flash_attention_fwd", 6, 13)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    kv_mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    _DTYPE_CODES[q.dtype], b, h, sq, skv, d,
+                    *_strides(q), *_strides(k), *_strides(v),
+                    *_strides(out), mask_sb, int(bool(causal)),
+                    float(scale), stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention_fwd launch failed: CUDA error %d "
+                           "(B=%d Sq=%d Skv=%d H=%d D=%d %s)"
+                           % (rc, b, sq, skv, h, d, q.dtype))
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
 class ShortAttention(torch.autograd.Function):
     """Whole-sequence attention with its own backward, as the JAX custom VJP
     `_short_attention` (attention.py:608-653): the forward kernel, then the
@@ -361,15 +444,16 @@ def attention(q, k, v, kv_mask=None, causal=False, scale=None, bias=None,
     """Public MHA entry: q [B,Sq,H,D], k/v [B,Skv,H,D], kv_mask [B,Skv] or
     [1,Skv]. layout='bhsd' takes and returns heads-major [B,H,S,D] tensors.
 
-    impl: 'auto' (the short path for Skv <= 512 and a head dim the kernel
-    takes, attention_reference otherwise), 'short' (the short path or an
-    error), 'reference'. 'flash' and 'ring' are not ported yet. An additive
-    `bias` forces the reference path."""
-    if impl in ("flash", "ring"):
+    impl: 'auto' (for a head dim the kernels take: the short path for
+    Skv <= 512, the flash forward above it when no input needs a gradient,
+    attention_reference otherwise), 'short' (the short path or an error),
+    'flash' (the flash forward or an error; it has no backward yet, ROADMAP
+    B4/B5), 'reference'. 'ring' is not ported yet. An additive `bias`
+    forces the reference path."""
+    if impl == "ring":
         raise NotImplementedError(
-            "attention(impl=%r) is not ported yet: the blocked flash kernels "
-            "are ROADMAP B3-B5, ring attention ROADMAP A24" % impl)
-    if impl not in ("auto", "short", "reference"):
+            "attention(impl='ring') is not ported yet (ROADMAP A24)")
+    if impl not in ("auto", "short", "flash", "reference"):
         raise ValueError("unknown attention impl %r" % impl)
     if layout == "bhsd":
         out = attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -383,11 +467,21 @@ def attention(q, k, v, kv_mask=None, causal=False, scale=None, bias=None,
     if kv_mask is None:
         kv_mask = torch.ones((k.shape[0], k.shape[1]), dtype=torch.int32,
                              device=k.device)
-    fits = (k.shape[1] <= SHORT_MAX_KV_LEN and d % 8 == 0
-            and d <= SHORT_MAX_HEAD_DIM and q.dtype in _DTYPE_CODES)
-    if bias is None and (impl == "short" or (
-            impl == "auto" and use_kernels() and fits)):
+    if bias is not None or impl == "reference":
+        return attention_reference(q, k, v, kv_mask=kv_mask, causal=causal,
+                                   scale=scale, bias=bias)
+    # flash_attention_fwd raises on a gradient (ROADMAP B4/B5); auto keeps
+    # attention_reference then
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    auto = (impl == "auto" and use_kernels() and d % 8 == 0
+            and d <= MAX_HEAD_DIM and q.dtype in _DTYPE_CODES)
+    if impl == "short" or (auto and k.shape[1] <= SHORT_MAX_KV_LEN):
         return ShortAttention.apply(_kernel_ready(q), _kernel_ready(k),
                                     _kernel_ready(v), kv_mask, causal, scale)
+    if impl == "flash" or (auto and not grad):
+        return flash_attention_fwd(_kernel_ready(q), _kernel_ready(k),
+                                   _kernel_ready(v), kv_mask, causal,
+                                   scale)[0]
     return attention_reference(q, k, v, kv_mask=kv_mask, causal=causal,
-                               scale=scale, bias=bias)
+                               scale=scale)

@@ -1,0 +1,220 @@
+"""The port's flash attention forward against the JAX package's.
+
+Inputs are made with numpy from a seed and handed to both packages. JAX runs
+its blocked `_fwd_kernel` in Pallas interpret mode on the CPU (as
+test_attention.py runs it) with 32 x 32 blocks, so every case here spans
+several query and key blocks; the port runs the kernel's plain twin
+flash_attention_fwd_reference on CPU tensors. Bounds: f32, O and LSE within
+2e-5 (test_attention.py's bound for the JAX flash kernel against its
+reference). bf16 inputs: within 2e-2 of JAX's bf16 flash kernel, which
+rounds P to bf16 before P.V (2^-9 relative per weight, so at most
+2^-9 * max|v| ~ 8e-3 here) and O to bf16 (half an ulp of |o| < 4, 2^-7);
+the twin keeps P in f32 and is held in f32.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from easynlp_tpu.ops import attention as jax_attn
+from easynlp_tpu_torch.ops import attention as A
+
+ATOL = 2e-5
+BF16_ATOL = 2e-2
+BLOCK = 32
+
+
+def _case(seed, b, sq, skv, h, d, lengths):
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+               for s in (sq, skv, skv))
+    mask = np.arange(skv)[None, :] < np.asarray(lengths)[:, None]
+    return q, k, v, mask
+
+
+def _jax_flash(q, k, v, mask, causal, dtype=jnp.float32):
+    out = jax_attn.attention(*(jnp.asarray(x, dtype) for x in (q, k, v)),
+                             kv_mask=jnp.asarray(mask), causal=causal,
+                             impl="flash", block_q=BLOCK, block_k=BLOCK)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _jax_lse(q, k, v, mask, causal):
+    """_flash_fwd's LSE [B,H,Sq] for the real rows, q/k/v padded to block
+    multiples as attention() pads them (a padded key is masked and adds
+    exp(-1e30 - m) = 0 to a real row's sum)."""
+    sq, skv = q.shape[1], k.shape[1]
+    pq, pk = (-sq) % BLOCK, (-skv) % BLOCK
+    pad = ((0, 0), (0, pq), (0, 0), (0, 0))
+    kpad = ((0, 0), (0, pk), (0, 0), (0, 0))
+    _, lse = jax_attn._flash_fwd(
+        jnp.asarray(np.pad(q, pad)), jnp.asarray(np.pad(k, kpad)),
+        jnp.asarray(np.pad(v, kpad)), jnp.asarray(np.pad(mask,
+                                                         ((0, 0), (0, pk)))),
+        causal, 1.0 / np.sqrt(q.shape[-1]), BLOCK, BLOCK, None)
+    return np.asarray(lse)[:, :, 0, :sq]
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+CASES = {  # name: (seed, B, Sq, Skv, H, D, per-row key lengths, causal)
+    "ragged-40": (1, 2, 40, 40, 2, 16, [40, 33], False),
+    "ragged-100": (2, 2, 100, 100, 3, 16, [100, 61], False),
+    "causal-70": (3, 2, 70, 70, 2, 16, [70, 52], True),
+    "causal-32x64": (4, 2, 32, 64, 2, 8, [64, 47], True),
+    "decode-1x600": (5, 2, 1, 600, 2, 16, [600, 317], False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_flash_twin_matches_jax_flash(name):
+    seed, b, sq, skv, h, d, lengths, causal = CASES[name]
+    q, k, v, mask = _case(seed, b, sq, skv, h, d, lengths)
+    want = _jax_flash(q, k, v, mask, causal)
+    got, lse = A.flash_attention_fwd(*_torch(q, k, v, mask), causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(q, k, v, mask, causal),
+                               atol=ATOL)
+    # and the reference path, which the twin follows everywhere
+    ref = A.attention_reference(*_torch(q, k, v, mask), causal=causal)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL)
+
+    got16, _ = A.flash_attention_fwd(
+        *(t.to(torch.bfloat16) for t in _torch(q, k, v)),
+        torch.from_numpy(mask), causal)
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_allclose(got16.float().numpy(),
+                               _jax_flash(q, k, v, mask, causal,
+                                          jnp.bfloat16), atol=BF16_ATOL)
+
+
+def test_bhsd_layout_matches_jax_flash():
+    q, k, v, mask = _case(6, 2, 48, 48, 2, 16, [48, 30])
+    want = _jax_flash(q, k, v, mask, False)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in _torch(q, k, v))
+    with torch.no_grad():
+        got = A.attention(qh, kh, vh, kv_mask=torch.from_numpy(mask),
+                          impl="flash", layout="bhsd")
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), want, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fully_masked_row_does_not_copy_the_jax_flash_kernel(causal):
+    """A query row whose keys are all masked: the port gives the mean of V
+    over the real Skv keys, as attention_reference. JAX's flash path pads
+    K/V to the block multiple (40 -> 64 keys) and its padded keys join the
+    average, so its row is reference * 40/64 (ROADMAP C1). Under causal
+    masking its tile skipping cuts the average further: rows of the first
+    query block visit only the first 32 keys. Both write LSE -1e30 there:
+    -1e30 + log(40) rounds to -1e30 in f32, so a backward that forms
+    exp(s - LSE) would weigh every key 1, not 1/40 (ROADMAP C10)."""
+    q, k, v, mask = _case(7, 2, 40, 40, 2, 8, [40, 0])
+    ref = A.attention_reference(*_torch(q, k, v, mask), causal=causal)
+    got, lse = A.flash_attention_fwd(*_torch(q, k, v, mask), causal)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL)
+    np.testing.assert_allclose(got.numpy()[1], np.broadcast_to(
+        v[1].mean(axis=0), got.shape[1:]), atol=ATOL)
+    want = _jax_flash(q, k, v, mask, causal)
+    np.testing.assert_allclose(want[0], ref.numpy()[0], atol=ATOL)
+    first = BLOCK if causal else 0  # rows that see only the first block
+    np.testing.assert_allclose(want[1, :first], np.broadcast_to(
+        v[1, :BLOCK].mean(axis=0), want[1, :first].shape), atol=ATOL)
+    np.testing.assert_allclose(want[1, first:], ref.numpy()[1, first:]
+                               * 40 / 64, atol=ATOL)
+    assert (lse.numpy()[1] == np.float32(-1e30)).all()
+    assert (_jax_lse(q, k, v, mask, causal)[1] == np.float32(-1e30)).all()
+
+
+@pytest.mark.parametrize("sq,skv", [(37, 100), (20, 12)])
+def test_causal_sq_ne_skv_with_padding_matches_jax_fallback(sq, skv):
+    """Causal with Sq != Skv where block padding would shift the diagonal:
+    JAX falls back to its XLA path (attention.py:782-786, ROADMAP C2); the
+    port applies q_offset = Skv - Sq directly. (20, 12) has rows with
+    q + q_offset < 0, which see no key."""
+    q, k, v, mask = _case(8, 2, sq, skv, 2, 16, [skv, skv - 5])
+    want = _jax_flash(q, k, v, mask, True)
+    got, _ = A.flash_attention_fwd(*_torch(q, k, v, mask), True)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+@pytest.fixture
+def spies(monkeypatch):
+    calls = {"short": 0, "flash": 0}
+    for name, fn_name in (("short", "short_attention_fwd"),
+                          ("flash", "flash_attention_fwd")):
+        real = getattr(A, fn_name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(A, fn_name, spy)
+    A.set_kernel_override(None)
+    yield calls
+    A.set_kernel_override(None)
+
+
+@pytest.mark.parametrize("skv,override,d,bias,want", [
+    (520, None, 16, False, "flash"),
+    (2048, True, 16, False, "flash"),
+    (512, None, 16, False, "short"),
+    (520, False, 16, False, "reference"),   # --use_flash_attention=false
+    (520, None, 12, False, "reference"),    # head dim the kernels refuse
+    (520, None, 16, True, "reference"),     # a bias forces the plain path
+])
+def test_auto_dispatch_without_grad(spies, skv, override, d, bias, want):
+    A.set_kernel_override(override)
+    q, k, v, mask = _case(9, 1, 4, skv, 2, d, [skv - 3])
+    tq, tk, tv, tm = _torch(q, k, v, mask)
+    tb = torch.zeros((1, 2, 4, skv)) if bias else None
+    with torch.no_grad():
+        out = A.attention(tq, tk, tv, kv_mask=tm, causal=True, bias=tb)
+    assert spies == {"short": int(want == "short"),
+                     "flash": int(want == "flash")}
+    ref = A.attention_reference(tq, tk, tv, kv_mask=tm, causal=True)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
+
+
+def test_auto_with_grad_keeps_the_reference_above_512(spies):
+    """Training is unchanged: with a gradient, auto sends Skv > 512 to
+    attention_reference (the flash backward is ROADMAP B4/B5), and the
+    gradient is that of the reference."""
+    q, k, v, mask = _case(10, 1, 8, 600, 2, 16, [590])
+    leaves = [t.requires_grad_(True) for t in _torch(q, k, v)]
+    out = A.attention(*leaves, kv_mask=torch.from_numpy(mask), causal=True)
+    out.sum().backward()
+    assert spies == {"short": 0, "flash": 0}
+    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in leaves)
+
+
+def test_flash_with_grad_raises():
+    q, k, v, mask = _case(11, 1, 8, 600, 2, 16, [600])
+    tq, tk, tv, tm = _torch(q, k, v, mask)
+    tq.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="B4/B5"):
+        A.attention(tq, tk, tv, kv_mask=tm, impl="flash")
+    with pytest.raises(NotImplementedError, match="B4/B5"):
+        A.flash_attention_fwd(tq, tk, tv, tm)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "mask_shape", "mask_dtype",
+                                 "head_dim_stride", "no_keys"])
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    b, s, h, d = 2, 16, 2, 16
+    q, k, v = _torch(*_case(12, b, s, s, h, d, [s, s])[:3])
+    mask = torch.ones((b, s), dtype=torch.int32)
+    if bad == "head_dim":
+        q, k, v = _torch(*_case(12, b, s, s, h, 12, [s, s])[:3])
+    elif bad == "mask_shape":
+        mask = torch.ones((3, s), dtype=torch.int32)
+    elif bad == "mask_dtype":
+        mask = torch.ones((b, s), dtype=torch.float32)
+    elif bad == "head_dim_stride":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "no_keys":
+        k, v, mask = k[:, :0], v[:, :0], mask[:, :0]
+    with pytest.raises(ValueError):
+        A.flash_attention_fwd(q, k, v, mask)

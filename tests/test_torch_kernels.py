@@ -183,6 +183,68 @@ def test_cuda_autograd_through_attention():
             torch.testing.assert_close(t.grad, w, atol=2e-5, rtol=1e-5)
 
 
+FLASH_CASES = [  # B, Sq, Skv, H, D, per-row key lengths, causal
+    (2, 40, 40, 3, 16, [0, 33], False),       # fully masked row
+    (2, 70, 70, 2, 64, [70, 51], True),       # causal, ragged
+    (2, 1, 600, 2, 64, [600, 411], False),    # decode against a long cache
+    (2, 37, 600, 2, 64, [600, 0], True),      # causal Sq != Skv, masked row
+    (2, 20, 12, 2, 32, [12, 5], True),        # q_offset < 0: rows see no key
+    (3, 100, 100, 2, 128, [100, 65, 1], False),
+    (2, 16, 130, 2, 40, [130, 9], False),     # D not a power of two
+    (1, 1100, 1100, 4, 64, [1100], True)]
+
+
+@pytest.mark.gpu
+def test_cuda_flash_fwd_matches_plain_twin():
+    """The flash forward kernel against its plain twin on the card: O and
+    LSE. f32: O within 2e-5 (the JAX flash kernel's bound against its
+    reference in test_attention.py), LSE within 2e-5 + 1e-6 |lse| (a fully
+    masked row's -1e30 must match too). bf16 inputs: O within 1.5e-2 of the
+    f32 twin on the same bf16 inputs (the kernel rounds only O: half an ulp
+    of |o| < 4), LSE within 1e-4 (computed in f32 from the same inputs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda")
+    for i, (b, sq, skv, h, d, lengths, causal) in enumerate(FLASH_CASES):
+        q, k, v, mask = _case(i, b, sq, skv, h, d, lengths, dev)
+        want, want_lse = A.flash_attention_fwd_reference(q, k, v, mask,
+                                                         causal)
+        before = A.flash_attention_fwd.launches
+        got, lse = A.flash_attention_fwd(q, k, v, mask, causal)
+        torch.cuda.synchronize()
+        assert A.flash_attention_fwd.launches == before + 1
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=1e-6)
+        bq, bk, bv = (t.to(torch.bfloat16) for t in (q, k, v))
+        got16, lse16 = A.flash_attention_fwd(bq, bk, bv, mask, causal)
+        want16, want_lse16 = A.flash_attention_fwd_reference(
+            bq.float(), bk.float(), bv.float(), mask, causal)
+        assert got16.dtype == torch.bfloat16
+        torch.testing.assert_close(got16.float(), want16, atol=1.5e-2,
+                                   rtol=0)
+        torch.testing.assert_close(lse16, want_lse16, atol=1e-4, rtol=1e-6)
+    # GPT-2's layouts, read in place: q/k/v as views of one fused
+    # [B,S,3,H,D] projection (prefill), and q against a [B,T,H,D] cache
+    # (decode) under auto dispatch
+    b, s, h, d = 2, 600, 4, 64
+    qkv = torch.randn(b, s, 3, h, d, device=dev, dtype=torch.bfloat16)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[1, :77] = 0
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    with torch.no_grad():
+        before = A.flash_attention_fwd.launches
+        got = A.attention(q, k, v, kv_mask=mask, causal=True)
+        assert A.flash_attention_fwd.launches == before + 1
+    want, _ = A.flash_attention_fwd_reference(q.float(), k.float(),
+                                              v.float(), mask, True)
+    torch.testing.assert_close(got.float(), want, atol=1.5e-2, rtol=0)
+    with torch.no_grad():
+        got = A.attention(q[:, -1:], k, v, kv_mask=mask)
+    want, _ = A.flash_attention_fwd_reference(q[:, -1:].float(), k.float(),
+                                              v.float(), mask)
+    torch.testing.assert_close(got.float(), want, atol=1.5e-2, rtol=0)
+
+
 def test_chip_smoke_exits_nonzero_without_a_card():
     """Without a card chip_smoke.py exits non-zero and prints no result
     line (on a card it is run on its own, not from the tests)."""
