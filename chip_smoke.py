@@ -13,11 +13,17 @@ epoch of 8 steps followed by `--mode=evaluate` and `--mode=predict` on the
 checkpoint it wrote. On a GPT-2 small model (HF `gpt2` widths and depth,
 random weights from --seed, a synthetic 50257-token byte-level BPE vocab):
 `--mode=predict --app_name=sequence_generation` over 16 prompts of 600-768
-tokens, greedy for 128 new tokens, and one beam-search batch. Each path runs
-with the kernels and with --use_flash_attention=false, and the two are
-compared. Every phase raises on failure, so any failure exits non-zero. The
-last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launch counts, errors and times. Imports nothing of JAX.
+tokens, greedy for 128 new tokens, and one beam-search batch. On a BART-base
+model (HF `facebook/bart-base` widths and depth, dropout 0, random weights
+from --seed, a synthetic 50265-token byte-level BPE vocab):
+`--mode=train --app_name=sequence_generation` for 8 AdamW steps of 8
+articles of 1024 tokens with 64-token targets, then `--mode=evaluate` on 16
+rows with greedy decoding. Each path runs with the kernels and with
+--use_flash_attention=false, and the two are compared. Every phase raises on
+failure, so any failure exits non-zero. The last line is {"ok": true,
+"device": {...}}; the line before it lists the kernels with their launches
+in the BART training run, errors, times (kernel, plain twin, the PyTorch
+library call) and bounds. Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
@@ -30,19 +36,37 @@ import sys
 import tempfile
 import time
 
-KERNELS = {  # name: (source, the TPU kernel it replaces)
-    "short_attention_fwd": ("easynlp_tpu_torch/csrc/short_attention_fwd.cu",
+# csrc/<name>.cu, each built by one nvcc
+KERNEL_SOURCES = ("short_attention_fwd", "short_attention_bwd",
+                  "flash_attention_fwd", "flash_attention_bwd")
+# one entry per TPU kernel: (the wrapper that launches it, its source, the
+# TPU kernel it replaces). flash_attention_bwd.cu ports two TPU kernels.
+KERNELS = {
+    "short_attention_fwd": ("short_attention_fwd",
+                            "easynlp_tpu_torch/csrc/short_attention_fwd.cu",
                             "easynlp_tpu/ops/attention.py:519"),
-    "short_attention_bwd": ("easynlp_tpu_torch/csrc/short_attention_bwd.cu",
+    "short_attention_bwd": ("short_attention_bwd",
+                            "easynlp_tpu_torch/csrc/short_attention_bwd.cu",
                             "easynlp_tpu/ops/attention.py:531"),
-    "flash_attention_fwd": ("easynlp_tpu_torch/csrc/flash_attention_fwd.cu",
+    "flash_attention_fwd": ("flash_attention_fwd",
+                            "easynlp_tpu_torch/csrc/flash_attention_fwd.cu",
                             "easynlp_tpu/ops/attention.py:127"),
+    "flash_attention_bwd_dkdv": ("flash_attention_bwd",
+                                 "easynlp_tpu_torch/csrc/flash_attention_bwd.cu",
+                                 "easynlp_tpu/ops/attention.py:232"),
+    "flash_attention_bwd_dq": ("flash_attention_bwd",
+                               "easynlp_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "easynlp_tpu/ops/attention.py:286"),
 }
-# the shape each kernel's entry in the kernels line reports (bf16)
-KERNEL_LINE_CASE = {"short_attention_fwd": "slice-128",
-                    "short_attention_bwd": "slice-128",
-                    "flash_attention_fwd": "gpt2-prefill"}
+# the shape each entry of the kernels line reports (bf16): the shapes the
+# BART training path gives each kernel
+KERNEL_LINE_CASE = {"short_attention_fwd": "bart-decoder",
+                    "short_attention_bwd": "bart-decoder",
+                    "flash_attention_fwd": "bart-encoder",
+                    "flash_attention_bwd_dkdv": "bart-encoder",
+                    "flash_attention_bwd_dq": "bart-encoder"}
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores, data sheet
 
 # Tolerances. f32: 2e-5, the bound tests/test_attention.py holds the JAX short
 # kernel to against its reference. bf16: the kernel computes in f32 from the
@@ -163,18 +187,18 @@ def phase_build():
     from easynlp_tpu_torch import kernels
     log("== phase 1: build")
     t0 = time.perf_counter()
-    kernels.load_all(list(KERNELS))
+    kernels.load_all(list(KERNEL_SOURCES))
     seconds = time.perf_counter() - t0
-    for name, (source, _) in KERNELS.items():
+    for name in KERNEL_SOURCES:
         info = kernels.build_info(name)
-        log("built %s -> %s: nvcc %.3f s, cached=%s"
-            % (source, info["path"], info["seconds"], info["cached"]))
+        log("built easynlp_tpu_torch/csrc/%s.cu -> %s: nvcc %.3f s, cached=%s"
+            % (name, info["path"], info["seconds"], info["cached"]))
         for line in info["log"].splitlines():
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 log("ptxas: " + line.strip())
-    log("%d kernels built and loaded in %.3f s (nvcc runs in parallel)"
-        % (len(KERNELS), seconds))
+    log("%d kernel sources built and loaded in %.3f s (nvcc runs in "
+        "parallel)" % (len(KERNEL_SOURCES), seconds))
     return seconds
 
 
@@ -206,6 +230,71 @@ def _time_ms(torch, fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def _bound(nbytes, flops):
+    """(the least ms the card could take, what bounds it): the bytes the
+    function must move over 3.35 TB/s against its operations over the bf16
+    tensor cores' 989 TFLOP/s."""
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_BF16_FLOPS
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
+
+
+def _pairs(mask, b, sq, skv, h, causal):
+    """(query, key) pairs this data needs, over all heads: each row's
+    visible keys (masked or causally hidden ones excluded); a row that sees
+    no key averages all Skv."""
+    import numpy as np
+    m = np.broadcast_to(mask.cpu().numpy().astype(bool), (b, skv))
+    seen = m[:, None, :]
+    if causal:
+        qi = np.arange(sq)[:, None] + (skv - sq)
+        seen = seen & (np.arange(skv)[None, :] <= qi)[None]
+    per_row = np.broadcast_to(seen, (b, sq, skv)).sum(-1)
+    return h * int(np.where(per_row == 0, skv, per_row).sum())
+
+
+def _sdpa_mask(torch, mask, sq, skv, causal):
+    """The boolean [B,1,Sq,Skv] mask (True = attend) of the same function
+    for torch's scaled_dot_product_attention."""
+    keep = mask.bool()[:, None, None, :]
+    if causal:
+        qi = torch.arange(sq, device=mask.device)[:, None] + (skv - sq)
+        keep = keep & (torch.arange(skv, device=mask.device)[None, :] <= qi)
+    return keep
+
+
+def _sdpa_backend(torch, q, k, v, keep):
+    """The backend scaled_dot_product_attention picks for these inputs (a
+    label for the log)."""
+    from torch.nn.attention import SDPBackend
+    names = {int(v): n for n, v in SDPBackend.__members__.items()}
+    try:
+        return names.get(int(torch._fused_sdp_choice(q, k, v, keep, 0.0,
+                                                     False)), "?")
+    except (AttributeError, RuntimeError, TypeError) as err:
+        return "unknown (%s)" % type(err).__name__
+
+
+def _time_sdpa(torch, tq, tk, tv, mask, causal, do, iters):
+    """PyTorch's one call for the same function, the yardstick of
+    `library_ms` (a measurement only: the port never calls it):
+    scaled_dot_product_attention with the same boolean mask, forward, and
+    backward from a kept graph. (forward ms, backward ms, backend)."""
+    F = torch.nn.functional
+    keep = _sdpa_mask(torch, mask, tq.shape[1], tk.shape[1], causal)
+    q, k, v = (t.transpose(1, 2) for t in (tq, tk, tv))
+    backend = _sdpa_backend(torch, q, k, v, keep)
+    fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=keep), iters=iters)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+    g = do.transpose(1, 2)
+    bwd = _time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, g, retain_graph=True), iters=iters)
+    return fwd, bwd, backend
+
+
 def phase_kernel(torch, seed):
     import numpy as np
     from easynlp_tpu_torch.ops import attention as A
@@ -223,6 +312,8 @@ def phase_kernel(torch, seed):
     cases = [  # name, B, Sq, Skv, H, D, per-row key lengths, causal
         ("slice-128", 32, 128, 128, 12, 64, lengths(32, 128), False),
         ("slice-512", 8, 512, 512, 12, 64, lengths(8, 512), False),
+        # BART-base's decoder self-attention: 64-token targets, causal
+        ("bart-decoder", 8, 64, 64, 12, 64, lengths(8, 64), True),
         ("decode-causal", 4, 1, 24, 12, 64, lengths(4, 24), True),
         ("ragged-40-masked-row", 4, 40, 40, 12, 64, lengths(4, 40, True),
          False),
@@ -264,7 +355,7 @@ def phase_kernel(torch, seed):
         _check_bwd(torch, A, rng, name, q, k, v, mask, causal, worst_bwd)
 
     timings = {}
-    for name, b, sq, skv, h, d, lens, causal in cases[:2]:
+    for name, b, sq, skv, h, d, lens, causal in cases[:3]:
         q, k, v, mask = _inputs(torch, rng, b, sq, skv, h, d, lens)
         for dtype in (torch.bfloat16, torch.float32):
             tq, tk, tv = (t.to(dtype) for t in (q, k, v))
@@ -274,22 +365,33 @@ def phase_kernel(torch, seed):
                 tq, tk, tv, mask, causal))
             ref_ms = _time_ms(torch, lambda: A.attention_reference(
                 tq, tk, tv, kv_mask=mask, causal=causal))
+            do = torch.randn_like(tq)
+            lib_fwd, lib_bwd, backend = _time_sdpa(torch, tq, tk, tv, mask,
+                                                   causal, do, 50)
             nbytes = (2 * q.numel() + 2 * k.numel()) * tq.element_size() \
                 + mask.numel() * 4
-            flops = 4 * b * h * sq * skv * d
-            log("time %-10s %-8s kernel %.4f ms (%.1f GB/s = %.1f%% of "
-                "3.35 TB/s, %.2f TFLOP/s); plain twin %.4f ms; "
-                "attention_reference %.4f ms"
+            pairs = _pairs(mask, b, sq, skv, h, causal)
+            bound_ms, bound_by = _bound(nbytes, 4 * pairs * d)
+            log("time %-12s %-8s kernel %.4f ms (%.1f GB/s = %.1f%% of "
+                "3.35 TB/s, %.2f TFLOP/s on the visible pairs; bound %.4f ms "
+                "by %s); plain twin %.4f ms; attention_reference %.4f ms; "
+                "SDPA forward %.4f ms (%s)"
                 % (name, str(dtype).split(".")[1], ms, nbytes / ms / 1e6,
                    100 * nbytes / (ms * 1e-3) / PEAK_BYTES_PER_S,
-                   flops / ms / 1e9, plain_ms, ref_ms))
-            timings[("short_attention_fwd", name, dtype)] = (ms, plain_ms)
+                   4 * pairs * d / ms / 1e9, bound_ms, bound_by, plain_ms,
+                   ref_ms, lib_fwd, backend))
+            timings[("short_attention_fwd", name, dtype)] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_fwd,
+                bound_ms=bound_ms, bound_by=bound_by)
             timings[("short_attention_bwd", name, dtype)] = _time_bwd(
-                torch, A, name, tq, tk, tv, mask, causal, rng)
+                torch, A, name, tq, tk, tv, mask, causal, rng, lib_bwd)
     worst_flash = _check_flash(torch, A, rng, timings)
+    worst_flash_bwd = _check_flash_bwd(torch, A, rng, timings)
     return {"short_attention_fwd": worst,
             "short_attention_bwd": worst_bwd,
-            "flash_attention_fwd": worst_flash}, timings
+            "flash_attention_fwd": worst_flash,
+            "flash_attention_bwd_dkdv": worst_flash_bwd,
+            "flash_attention_bwd_dq": worst_flash_bwd}, timings
 
 
 def _ranges_mask(torch, skv, ranges):
@@ -301,24 +403,29 @@ def _ranges_mask(torch, skv, ranges):
         np.int32)).cuda()
 
 
-def _flash_flops(b, sq, skv, h, d, causal):
-    """4·D FLOPs per (query, visible key) pair: QK^T and PV."""
-    if not causal:
-        return 4 * b * h * sq * skv * d
-    seen = sum(min(skv, max(0, q + skv - sq + 1)) for q in range(sq))
-    return 4 * b * h * seen * d
+def bart_source_ranges(rng):
+    """Per-row real keys of BART-base's encoder at --sequence_length=1024:
+    1024, 700, 313, then random lengths."""
+    lens = [1024, 700, 313] + list(rng.randint(1, 1025, size=5))
+    return [(0, n) for n in lens]
 
 
 def flash_cases(rng):
-    """The flash kernel's shapes: GPT-2 small's prefill (8 x 768, causal,
-    left-padded prompts of 600..768 tokens, so the pad rows are fully
-    masked) and decode (8 x 1 against 896 cache slots, the last 28 empty),
-    S=2048 and S=8192 (causal, padded), causal 37 x 600 (Sq != Skv) and a
-    fully masked row. Each: name, B, Sq, Skv, H, D, [(start, end) of each
-    row's real keys], causal."""
+    """The flash forward's shapes: BART-base's encoder self-attention
+    (8 x 1024, padded rows) and cross-attention (8 x 64 targets against
+    1024 source keys) and the cross-attention of a decode step (8 x 1);
+    GPT-2 small's prefill (8 x 768, causal, left-padded prompts of 600..768
+    tokens, so the pad rows are fully masked) and decode (8 x 1 against 896
+    cache slots, the last 28 empty), S=2048 and S=8192 (causal, padded),
+    causal 37 x 600 (Sq != Skv) and a fully masked row. Each: name, B, Sq,
+    Skv, H, D, [(start, end) of each row's real keys], causal."""
+    src = bart_source_ranges(rng)
     prompt = rng.randint(600, 769, size=8)
     prompt[0] = 768
     return [
+        ("bart-encoder", 8, 1024, 1024, 12, 64, src, False),
+        ("bart-cross", 8, 64, 1024, 12, 64, src, False),
+        ("bart-decode-cross", 8, 1, 1024, 12, 64, src, False),
         ("gpt2-prefill", 8, 768, 768, 12, 64,
          [(768 - n, 768) for n in prompt], True),
         ("gpt2-decode", 8, 1, 896, 12, 64,
@@ -388,17 +495,181 @@ def _check_flash(torch, A, rng, timings):
                 tq, tk, tv, mask, causal), iters=iters)
             ref_ms = _time_ms(torch, lambda: A.attention_reference(
                 tq, tk, tv, kv_mask=mask, causal=causal), iters=iters)
+            lib_ms, _, backend = _time_sdpa(torch, tq, tk, tv, mask, causal,
+                                            torch.randn_like(tq), iters)
             nbytes = (2 * q.numel() + 2 * k.numel()) * tq.element_size() \
                 + mask.numel() * 4 + b * h * sq * 4
-            flops = _flash_flops(b, sq, skv, h, d, causal)
-            log("time flash %-16s %-8s kernel %.4f ms (%.1f GB/s = %.2f%% of "
-                "3.35 TB/s, %.2f TFLOP/s on the visible keys); plain twin "
-                "%.4f ms; attention_reference %.4f ms"
+            flops = 4 * _pairs(mask, b, sq, skv, h, causal) * d
+            bound_ms, bound_by = _bound(nbytes, flops)
+            log("time flash %-17s %-8s kernel %.4f ms (%.1f GB/s = %.2f%% of "
+                "3.35 TB/s, %.2f TFLOP/s on the visible pairs; bound %.4f ms "
+                "by %s); plain twin %.4f ms; attention_reference %.4f ms; "
+                "SDPA forward %.4f ms (%s)"
                 % (name, str(dtype).split(".")[1], ms, nbytes / ms / 1e6,
                    100 * nbytes / (ms * 1e-3) / PEAK_BYTES_PER_S,
-                   flops / ms / 1e9, plain_ms, ref_ms))
-            timings[("flash_attention_fwd", name, dtype)] = (ms, plain_ms)
+                   flops / ms / 1e9, bound_ms, bound_by, plain_ms, ref_ms,
+                   lib_ms, backend))
+            timings[("flash_attention_fwd", name, dtype)] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
         del q, k, v, tq, tk, tv
+        torch.cuda.empty_cache()
+    return worst
+
+
+def flash_bwd_cases(rng):
+    """The flash backward's shapes: BART-base's encoder (8 x 1024, rows of
+    1024/700/313/... real keys) and cross-attention (8 x 64 x 1024), GPT-2
+    small's prefill (8 x 768, causal, left-padded, so its pad rows are
+    fully masked), ragged causal 37 x 600, a fully masked batch row and
+    S=8192 causal. Each: name, B, Sq, Skv, H, D, ranges, causal."""
+    src = bart_source_ranges(rng)
+    prompt = rng.randint(600, 769, size=8)
+    prompt[0] = 768
+    return [
+        ("bart-encoder", 8, 1024, 1024, 12, 64, src, False),
+        ("bart-cross", 8, 64, 1024, 12, 64, src, False),
+        ("gpt2-prefill", 8, 768, 768, 12, 64,
+         [(768 - n, 768) for n in prompt], True),
+        ("causal-37x600", 4, 37, 600, 12, 64,
+         [(0, n) for n in [600] + list(rng.randint(1, 601, size=3))], True),
+        ("masked-row-700", 4, 40, 700, 12, 64,
+         [(0, n) for n in [700] + list(rng.randint(1, 701, size=2)) + [0]],
+         False),
+        ("S8192-causal", 1, 8192, 8192, 12, 64, [(0, 8000)], True),
+    ]
+
+
+def _flash_bwd_split(torch, A, args, calls=5):
+    """Device ms per call of the flash backward's three kernels (pre-pass,
+    dK/dV, dQ) from torch.profiler, or None when the trace holds none."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            A.flash_attention_bwd(*args)
+        torch.cuda.synchronize()
+    parts = {"pre": 0.0, "dkdv": 0.0, "dq": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        for part, key in (("pre", "flash_attention_bwd_pre_kernel"),
+                          ("dkdv", "attention_bwd_dkdv_kernel"),
+                          ("dq", "attention_bwd_dq_kernel")):
+            if key in e.key:
+                parts[part] += us / 1e3 / calls
+    return parts if all(parts.values()) else None
+
+
+def _check_flash_bwd(torch, A, rng, timings):
+    """The flash backward kernels against their f32 twin (dq, dk, dv from
+    the same q, k, v, kernel O and LSE, dO), f32 and bf16, at
+    flash_bwd_cases(); two runs must give the same bits. Then, bf16, the
+    kernels' time against the twin, autograd through bf16
+    attention_reference (backward only) and SDPA's backward, with each
+    kernel's share from the profiler at the BART encoder's shape."""
+    import numpy as np
+    worst = {}
+    for name, b, sq, skv, h, d, ranges, causal in flash_bwd_cases(rng):
+        q, k, v, _ = _inputs(torch, rng, b, sq, skv, h, d, [skv] * b)
+        mask = _ranges_mask(torch, skv, ranges)
+        do = torch.from_numpy(rng.standard_normal((b, sq, h, d)).astype(
+            np.float32)).cuda()
+        for dtype, atol, rtol in ((torch.float32, BWD_ATOL_F32,
+                                   BWD_RTOL_F32),
+                                  (torch.bfloat16, BWD_ATOL_BF16,
+                                   BWD_RTOL_BF16)):
+            tq, tk, tv, tdo = (t.to(dtype) for t in (q, k, v, do))
+            o, lse = A.flash_attention_fwd(tq, tk, tv, mask, causal)
+            want = A.flash_attention_bwd_reference(
+                tq.float(), tk.float(), tv.float(), mask, o.float(), lse,
+                tdo.float(), causal)
+            got = A.flash_attention_bwd(tq, tk, tv, mask, o, lse, tdo, causal)
+            torch.cuda.synchronize()
+            err, excess = 0.0, 0.0
+            for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
+                if g.dtype != dtype or g.shape != w.shape:
+                    raise AssertionError("%s %s: got %s %s, want %s %s" % (
+                        name, gname, g.dtype, tuple(g.shape), dtype,
+                        tuple(w.shape)))
+                diff = (g.float() - w).abs()
+                err = max(err, diff.max().item())
+                excess = max(excess, (diff - atol - rtol * w.abs()).max()
+                             .item())
+            del want
+            ok = excess <= 0
+            log("check flash bwd %-16s %-8s max_abs_err %.3e (bound %.1e + "
+                "%.1e |g|) %s" % (name, str(dtype).split(".")[1], err, atol,
+                                  rtol, "ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("flash backward kernels disagree with "
+                                     "their plain version: %s %s err %.3e"
+                                     % (name, dtype, err))
+            again = A.flash_attention_bwd(tq, tk, tv, mask, o, lse, tdo,
+                                          causal)
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                raise AssertionError("%s %s: two flash backward runs differ"
+                                     % (name, dtype))
+            worst[(name, dtype)] = max(worst.get((name, dtype), 0.0), err)
+            del got, again
+        # bf16 timings (the BART path's dtype)
+        tq, tk, tv, tdo = (t.to(torch.bfloat16) for t in (q, k, v, do))
+        o, lse = A.flash_attention_fwd(tq, tk, tv, mask, causal)
+        args = (tq, tk, tv, mask, o, lse, tdo, causal)
+        iters = 3 if skv >= 2048 else 20
+        ms = _time_ms(torch, lambda: A.flash_attention_bwd(*args),
+                      iters=iters, warmup=2)
+        plain_ms = _time_ms(torch, lambda: A.flash_attention_bwd_reference(
+            *args), iters=iters, warmup=1)
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (tq, tk, tv)]
+        out = A.attention_reference(*leaves, kv_mask=mask, causal=causal)
+        ref_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, tdo, retain_graph=True), iters=iters, warmup=1)
+        del out, leaves
+        lib_fwd, lib_bwd, backend = _time_sdpa(torch, tq, tk, tv, mask,
+                                               causal, tdo, iters)
+        pairs = _pairs(mask, b, sq, skv, h, causal)
+        # read q, o, dO, k, v, the mask and LSE; write dq, dk, dv
+        elem = tq.element_size()
+        side = mask.numel() * 4 + lse.numel() * 4
+        nbytes = (4 * tq.numel() + 4 * tk.numel()) * elem + side
+        bound_ms, bound_by = _bound(nbytes, 10 * pairs * d)
+        log("time flash bwd %-16s bfloat16 kernels %.4f ms (%.2f TFLOP/s "
+            "on 10 x pairs x D; bound %.4f ms by %s); plain twin %.4f ms; "
+            "autograd through attention_reference %.4f ms; SDPA backward "
+            "%.4f ms, forward + backward %.4f ms (%s)"
+            % (name, ms, 10 * pairs * d / ms / 1e9, bound_ms, bound_by,
+               plain_ms, ref_ms, lib_bwd, lib_fwd + lib_bwd, backend))
+        split = _flash_bwd_split(torch, A, args) \
+            if name == KERNEL_LINE_CASE["flash_attention_bwd_dkdv"] else None
+        if split is not None:
+            log("profile flash bwd %s: pre-pass %.4f ms, dK/dV %.4f ms, dQ "
+                "%.4f ms per call (device time)" % (name, split["pre"],
+                                                    split["dkdv"],
+                                                    split["dq"]))
+            parts = {"dkdv": split["pre"] + split["dkdv"], "dq": split["dq"]}
+        else:
+            if name == KERNEL_LINE_CASE["flash_attention_bwd_dkdv"]:
+                log("profile flash bwd %s: the trace holds no device "
+                    "kernels; both entries carry the whole backward's time"
+                    % name)
+            parts = {"dkdv": ms, "dq": ms}
+        # each entry's own work, from q, o, dO, k, v, the mask and LSE:
+        # dK/dV needs Q K^T, dO V^T, P^T dO, dS^T Q and writes dk, dv; dQ
+        # needs Q K^T, dO V^T, dS K and writes dq. plain_ms and library_ms
+        # are the whole backward's (one call computes all three).
+        for entry, part, n_mm, written in (
+                ("flash_attention_bwd_dkdv", "dkdv", 4, 2 * tk.numel()),
+                ("flash_attention_bwd_dq", "dq", 3, tq.numel())):
+            part_bytes = (3 * tq.numel() + 2 * tk.numel() + written) * elem \
+                + side
+            b_ms, b_by = _bound(part_bytes, 2 * n_mm * pairs * d)
+            timings[(entry, name, torch.bfloat16)] = dict(
+                ms=parts[part], plain_ms=plain_ms, library_ms=lib_bwd,
+                bound_ms=b_ms, bound_by=b_by)
+        del q, k, v, do, tq, tk, tv, tdo, o, lse, args
         torch.cuda.empty_cache()
     return worst
 
@@ -454,9 +725,10 @@ def _check_bwd(torch, A, rng, name, q, k, v, mask, causal, worst):
         % name)
 
 
-def _time_bwd(torch, A, name, tq, tk, tv, mask, causal, rng):
+def _time_bwd(torch, A, name, tq, tk, tv, mask, causal, rng, library_ms):
     """Backward kernel, its twin, and autograd through attention_reference
-    (backward only, from a graph kept alive); CUDA events."""
+    (backward only, from a graph kept alive); CUDA events. library_ms: the
+    SDPA backward at the same shape."""
     import numpy as np
     b, sq, h, d = tq.shape
     skv = tk.shape[1]
@@ -472,14 +744,17 @@ def _time_bwd(torch, A, name, tq, tk, tv, mask, causal, rng):
     ref_ms = _time_ms(torch, lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True))
     nbytes = 8 * tq.numel() * tq.element_size() + mask.numel() * 4
-    flops = 10 * b * h * sq * skv * d
-    log("time bwd %-10s %-8s kernel %.4f ms (%.1f GB/s = %.1f%% of "
-        "3.35 TB/s, %.2f TFLOP/s); plain twin %.4f ms; autograd through "
-        "attention_reference %.4f ms"
+    flops = 10 * _pairs(mask, b, sq, skv, h, causal) * d
+    bound_ms, bound_by = _bound(nbytes, flops)
+    log("time bwd %-12s %-8s kernel %.4f ms (%.1f GB/s = %.1f%% of "
+        "3.35 TB/s, %.2f TFLOP/s on the visible pairs; bound %.4f ms by %s); "
+        "plain twin %.4f ms; autograd through attention_reference %.4f ms; "
+        "SDPA backward %.4f ms"
         % (name, str(tq.dtype).split(".")[1], ms, nbytes / ms / 1e6,
            100 * nbytes / (ms * 1e-3) / PEAK_BYTES_PER_S, flops / ms / 1e9,
-           plain_ms, ref_ms))
-    return ms, plain_ms
+           bound_ms, bound_by, plain_ms, ref_ms, library_ms))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 # --------------------------------------------------------------------------
@@ -1315,6 +1590,385 @@ def phase_generation(torch, seed, workdir):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 6: BART-base seq2seq fine-tuning and evaluation
+# --------------------------------------------------------------------------
+
+BART_BASE = {  # HF facebook/bart-base config.json, dropout set to 0
+    "model_type": "bart", "architectures": ["BartModel"],
+    "vocab_size": 50265, "d_model": 768, "encoder_layers": 6,
+    "decoder_layers": 6, "encoder_attention_heads": 12,
+    "decoder_attention_heads": 12, "encoder_ffn_dim": 3072,
+    "decoder_ffn_dim": 3072, "max_position_embeddings": 1024,
+    "activation_function": "gelu", "dropout": 0.0, "attention_dropout": 0.0,
+    "activation_dropout": 0.0, "init_std": 0.02, "scale_embedding": False,
+    "normalize_before": False, "add_final_layer_norm": False,
+    "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+    "decoder_start_token_id": 2, "forced_eos_token_id": 2,
+    "is_encoder_decoder": True,
+}
+BART_MODEL_DIR = "bart-base-random"
+BART_SEQ_LEN = 1024        # --sequence_length: sources are truncated here
+BART_TARGET_TOKENS = 64    # the dataset's max_target_length (JAX default)
+BART_BATCH = 8
+BART_STEPS = 8
+BART_DEV_ROWS = 16
+BART_LR = 5e-5
+# Training, kernel run against the --use_flash_attention=false run, per-step
+# loss: both are bf16 end to end and differ only in attention's rounding
+# (the plain path rounds max-subtracted scores and probabilities to bf16,
+# the kernels keep both in f32), about a bf16 ulp (2^-8 relative) per layer
+# through 12 layers, compounded over 8 AdamW steps. The loss is a mean over
+# ~500 target tokens near ln(50265) = 10.8, where a 1e-2 relative logit
+# change moves it by ~1e-2. Bound 5e-2.
+BART_LOSS_ATOL = 5e-2
+
+
+def bart_vocab():
+    """(tokens in id order, merges): the synthetic GPT-2 vocabulary of
+    gpt2_vocab() (<|endoftext|> at 50256, the EOS and pad token of the GPT-2
+    tokenizer that BART checkpoints get), extended to BART's 50265 entries
+    with BART's own specials."""
+    tokens, merges = gpt2_vocab()
+    tokens += ["<s>", "<pad>", "</s>", "<unk>", "<mask>", "<extra_0>",
+               "<extra_1>", "<extra_2>"]
+    assert len(tokens) == BART_BASE["vocab_size"]
+    return tokens, merges
+
+
+def make_bart_model_dir(torch, path, seed):
+    """BART-base widths and depth, the synthetic vocabulary, and
+    truncated-normal(0.02) weights from numpy under HF names (`model.`
+    prefix, shared/embed_tokens/lm_head tied, final_logits_bias [1,V]),
+    zero biases, unit LayerNorms."""
+    import numpy as np
+    os.makedirs(path, exist_ok=True)
+    c = BART_BASE
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    tokens, merges = bart_vocab()
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(tokens)}, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join("%s %s\n" % m for m in merges))
+    rng = np.random.default_rng(seed)
+    e, ffn = c["d_model"], c["encoder_ffn_dim"]
+    state = {}
+
+    def put(name, *shape, fill=None):
+        arr = (np.full(shape, fill, np.float32) if fill is not None
+               else _truncated_normal(rng, shape, c["init_std"]))
+        state[name] = torch.from_numpy(arr)
+
+    put("model.shared.weight", c["vocab_size"], e)
+    for side, n in (("encoder", c["encoder_layers"]),
+                    ("decoder", c["decoder_layers"])):
+        pre = "model.%s." % side
+        state[pre + "embed_tokens.weight"] = state["model.shared.weight"]
+        put(pre + "embed_positions.weight", c["max_position_embeddings"] + 2,
+            e)
+        put(pre + "layernorm_embedding.weight", e, fill=1.0)
+        put(pre + "layernorm_embedding.bias", e, fill=0.0)
+        attns = ("self_attn", "encoder_attn") if side == "decoder" \
+            else ("self_attn",)
+        for i in range(n):
+            lp = pre + "layers.%d." % i
+            for attn in attns:
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    put(lp + "%s.%s.weight" % (attn, proj), e, e)
+                    put(lp + "%s.%s.bias" % (attn, proj), e, fill=0.0)
+                put(lp + attn + "_layer_norm.weight", e, fill=1.0)
+                put(lp + attn + "_layer_norm.bias", e, fill=0.0)
+            put(lp + "fc1.weight", ffn, e)
+            put(lp + "fc1.bias", ffn, fill=0.0)
+            put(lp + "fc2.weight", e, ffn)
+            put(lp + "fc2.bias", e, fill=0.0)
+            put(lp + "final_layer_norm.weight", e, fill=1.0)
+            put(lp + "final_layer_norm.bias", e, fill=0.0)
+    state["lm_head.weight"] = state["model.shared.weight"]
+    put("final_logits_bias", 1, c["vocab_size"], fill=0.0)
+    torch.save(state, os.path.join(path, "pytorch_model.bin"))
+
+
+def make_bart_tsv(path, tokenizer, seed, n_rows, article_tokens=1100,
+                  summary_tokens=70):
+    """n_rows of (id, article, summary): articles of random lowercase words
+    past article_tokens tokens (truncated to 1024 by the dataset), summaries
+    past summary_tokens (truncated to 63 + EOS). Words come from a fixed
+    list of 4000, so the tokenizer's cache serves most of them."""
+    rng = random.Random(seed)
+    words = ["".join(rng.choice(GEN_LETTERS) for _ in range(rng.randint(2, 9)))
+             for _ in range(4000)]
+    cost = {w: len(tokenizer.tokenize(" " + w)) for w in words}
+
+    def text(target):
+        out, n = [], 0
+        while n < target:
+            w = rng.choice(words)
+            out.append(w)
+            n += cost[w]
+        return " ".join(out)
+
+    with open(path, "w", encoding="utf-8") as f:
+        for i in range(n_rows):
+            f.write("%d\t%s\t%s\n" % (i, text(article_tokens),
+                                        text(summary_tokens)))
+
+
+def _bart_argv(use_kernel):
+    return ["--app_name=sequence_generation", "--device=cuda",
+            "--dtype=bfloat16", "--sequence_length=%d" % BART_SEQ_LEN,
+            "--micro_batch_size=%d" % BART_BATCH,
+            "--input_schema=id:str:1,article:str:1,summary:str:1",
+            "--first_sequence=article", "--second_sequence=summary",
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false")]
+
+
+def run_bart_train(torch, model_dir, train_tsv, ckpt, use_kernel, seed,
+                   profile_dir=None):
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    argv = ["--mode=train", "--tables=" + train_tsv,
+            "--pretrained_model_name_or_path=" + model_dir,
+            "--epoch_num=1", "--learning_rate=%g" % BART_LR,
+            "--optimizer_type=AdamW", "--logging_steps=1",
+            "--random_seed=%d" % seed] + _bart_argv(use_kernel)
+    if ckpt:
+        argv.append("--checkpoint_dir=" + ckpt)
+    if profile_dir:
+        argv += ["--profile_dir=" + profile_dir, "--profile_steps=4"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = default_main_fn(initialize_easynlp(args_list=argv))
+    torch.cuda.synchronize()
+    return {"records": trainer.step_records,
+            "save_s": trainer.save_seconds,
+            "skips": trainer.nonfinite_skips,
+            "total_s": time.perf_counter() - t0,
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+
+
+def run_bart_evaluate(torch, ckpt, dev_tsv, use_kernel):
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = default_main_fn(initialize_easynlp(args_list=[
+        "--mode=evaluate", "--tables=" + dev_tsv, "--checkpoint_dir=" + ckpt]
+        + _bart_argv(use_kernel)))
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def phase_bart(torch, seed, workdir):
+    import numpy as np
+    from easynlp_tpu_torch.modelzoo.models.gpt2 import GPT2Tokenizer
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 6: BART-base seq2seq fine-tuning (sequence_generation "
+        "train, evaluate)")
+    model_dir = os.path.join(workdir, BART_MODEL_DIR)
+    t0 = time.perf_counter()
+    make_bart_model_dir(torch, model_dir, seed)
+    tokenizer = GPT2Tokenizer.from_pretrained(model_dir)
+    train_tsv = os.path.join(workdir, "bart_train.tsv")
+    dev_tsv = os.path.join(workdir, "bart_dev.tsv")
+    make_bart_tsv(train_tsv, tokenizer, seed + 5, BART_BATCH * BART_STEPS)
+    make_bart_tsv(dev_tsv, tokenizer, seed + 6, BART_DEV_ROWS)
+    with open(train_tsv, encoding="utf-8") as f:
+        first = f.readline().rstrip("\n").split("\t")
+    n_src = len(tokenizer.tokenize(first[1]))
+    n_tgt = len(tokenizer.tokenize(first[2]))
+    log("BART-base model dir (%d-token vocab) and %d + %d article rows made "
+        "from seed %d in %.3f s; row 0: %d article tokens (truncated to %d), "
+        "%d summary tokens (truncated to %d with EOS)"
+        % (BART_BASE["vocab_size"], BART_BATCH * BART_STEPS, BART_DEV_ROWS,
+           seed, time.perf_counter() - t0, n_src, BART_SEQ_LEN, n_tgt,
+           BART_TARGET_TOKENS))
+    if n_src <= BART_SEQ_LEN or n_tgt < BART_TARGET_TOKENS:
+        raise AssertionError("articles must pass %d tokens and summaries %d"
+                             % (BART_SEQ_LEN, BART_TARGET_TOKENS))
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+
+    def counts():
+        return {w: getattr(A, w).launches for w in wrappers}
+
+    ckpt = os.path.join(workdir, "bart_ckpt")
+
+    # the main path: every count set to 0 just before, read just after
+    for w in wrappers:
+        getattr(A, w).launches = 0
+    runs = {"kernel": [run_bart_train(torch, model_dir, train_tsv, ckpt,
+                                      True, seed)]}
+    launches = counts()
+    layers = BART_BASE["encoder_layers"]
+    want = {"flash_attention_fwd": 2 * layers * BART_STEPS,
+            "flash_attention_bwd": 2 * layers * BART_STEPS,
+            "short_attention_fwd": layers * BART_STEPS,
+            "short_attention_bwd": layers * BART_STEPS}
+    log("BART training path launches: %s (want %s: per step 12 flash "
+        "forward and backward = 6 encoder self-attention + 6 cross-attention "
+        "layers, 6 short forward and backward = the decoder's causal "
+        "self-attention, x %d steps)" % (launches, want, BART_STEPS))
+    if launches != want:
+        raise AssertionError("the BART training path launched %s, want %s"
+                             % (launches, want))
+    runs["plain"] = []
+    # the rest in turns on the same card: K P P K, the first K above
+    for use_kernel in (False, False, True):
+        before = counts()
+        runs["kernel" if use_kernel else "plain"].append(run_bart_train(
+            torch, model_dir, train_tsv, None, use_kernel, seed))
+        if not use_kernel and counts() != before:
+            raise AssertionError("--use_flash_attention=false still "
+                                 "launched a kernel")
+    for tag in ("kernel", "plain"):
+        for i, run in enumerate(runs[tag]):
+            recs = run["records"]
+            ms = [1e3 * r["seconds"] for r in recs]
+            log("bart %-7s %d steps x %d rows of %d + %d tokens: step ms "
+                "median %.3f, first %.3f, min %.3f, max %.3f (host clock, "
+                "each step ends in the guard's read-back); %.2f samples/s at "
+                "the median; run with load and checkpoint %.3f s; peak device "
+                "memory %.3f GiB above the run's start; losses %s"
+                % ("%s#%d" % (tag, i + 1), len(ms), BART_BATCH, BART_SEQ_LEN,
+                   BART_TARGET_TOKENS, statistics.median(ms), ms[0], min(ms),
+                   max(ms), 1e3 * BART_BATCH / statistics.median(ms),
+                   run["total_s"], run["peak_gib"],
+                   " ".join("%.4f" % r["loss"] for r in recs)))
+            if len(recs) != BART_STEPS or run["skips"]:
+                raise AssertionError("%s run: %d steps, %d non-finite skips"
+                                     % (tag, len(recs), run["skips"]))
+            if not all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                       for r in recs):
+                raise AssertionError("%s run: non-finite loss or grad norm"
+                                     % tag)
+    rec_k, rec_p = runs["kernel"][0]["records"], runs["plain"][0]["records"]
+    d_loss = max(abs(a["loss"] - b["loss"]) for a, b in zip(rec_k, rec_p))
+    d_gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                  for a, b in zip(rec_k, rec_p))
+    log("kernel vs plain BART training run: max |d loss| per step %.3e "
+        "(bound %.1e); max relative grad-norm gap %.3e"
+        % (d_loss, BART_LOSS_ATOL, d_gnorm))
+    if d_loss > BART_LOSS_ATOL:
+        raise AssertionError("kernel and plain BART training runs disagree: "
+                             "loss gap %.3e" % d_loss)
+    medians = {tag: [statistics.median(r["seconds"] for r in run["records"]
+                                       [1:]) for run in runs[tag]]
+               for tag in runs}
+    for tag, values in medians.items():
+        log("bart %-6s step ms (steps 2-8), median per run: %s; median of "
+            "runs %.3f (%.2f samples/s); peak device memory %s GiB"
+            % (tag, " ".join("%.3f" % (1e3 * v) for v in values),
+               1e3 * statistics.median(values),
+               BART_BATCH / statistics.median(values),
+               " ".join("%.3f" % r["peak_gib"] for r in runs[tag])))
+
+    # evaluate on the kernel run's checkpoint: greedy, 64 tokens at most
+    evals = {}
+    for use_kernel in (True, False):
+        before = counts()
+        results, seconds = run_bart_evaluate(torch, ckpt, dev_tsv, use_kernel)
+        used = {w: counts()[w] - before[w] for w in wrappers}
+        evals[use_kernel] = results
+        scores = [x for _, x in results]
+        log("bart evaluate %-6s %d rows: %s in %.3f s; launches %s"
+            % ("kernel" if use_kernel else "plain", BART_DEV_ROWS,
+               ", ".join("%s %.6f" % kv for kv in results), seconds, used))
+        if [m for m, _ in results] != ["bleu", "rouge_l"] or not all(
+                np.isfinite(x) and 0.0 <= x <= 1.0 for x in scores):
+            raise AssertionError("BART evaluate: %s" % results)
+        if use_kernel and not (used["flash_attention_fwd"]
+                               and used["short_attention_fwd"]):
+            raise AssertionError("BART evaluate did not launch the forward "
+                                 "kernels: %s" % used)
+        if not use_kernel and any(used.values()):
+            raise AssertionError("--use_flash_attention=false evaluate "
+                                 "launched a kernel: %s" % used)
+
+    # With random weights and the head tied to the decoder's embedding, the
+    # first step predicts the start token again, which is BART's EOS (2),
+    # so evaluate stops after one step. Drive the decode loop through all
+    # 64 positions as well: the app's greedy generate with EOS banned
+    # (min_length), on the same 16 sources, kernel and plain.
+    from easynlp_tpu_torch.appzoo.sequence_generation.model import (
+        SequenceGeneration)
+    app = SequenceGeneration.from_pretrained(ckpt, dtype=torch.bfloat16,
+                                             device="cuda")
+    with open(dev_tsv, encoding="utf-8") as f:
+        texts = [line.split("\t")[1] for line in f]
+    enc = tokenizer(texts, max_length=BART_SEQ_LEN)
+    gen = {}
+    for use_kernel in (True, False):
+        A.set_kernel_override(None if use_kernel else False)
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen[use_kernel] = np.concatenate([app.generate(
+            enc["input_ids"][s:s + BART_BATCH],
+            enc["attention_mask"][s:s + BART_BATCH],
+            max_length=BART_TARGET_TOKENS,
+            min_length=BART_TARGET_TOKENS).cpu().numpy()
+            for s in range(0, BART_DEV_ROWS, BART_BATCH)])
+        seconds = time.perf_counter() - t0
+        used = {w: counts()[w] - before[w] for w in wrappers}
+        batches = BART_DEV_ROWS // BART_BATCH
+        calls = BART_TARGET_TOKENS - 1  # the start token's, then 62 decodes
+        want = {"short_attention_fwd": batches * layers * calls,
+                "flash_attention_fwd": batches * layers * (1 + calls),
+                "short_attention_bwd": 0, "flash_attention_bwd": 0}
+        if not use_kernel:
+            want = dict.fromkeys(wrappers, 0)
+        log("bart generate %-6s %d rows x %d positions, greedy, EOS banned: "
+            "%.3f s (%.3f ms per position of %d rows, encoder included, "
+            "host clock); "
+            "launches %s (want %s: per batch the encoder's 6 flash forwards, "
+            "and per decoder step 6 flash cross-attention forwards over "
+            "1024 keys and 6 short self-attention forwards over the %d-slot "
+            "cache)" % ("kernel" if use_kernel else "plain", BART_DEV_ROWS,
+                        BART_TARGET_TOKENS, seconds,
+                        1e3 * seconds / (batches * calls), BART_BATCH, used,
+                        want, BART_TARGET_TOKENS))
+        if used != want:
+            raise AssertionError("BART generate launched %s, want %s"
+                                 % (used, want))
+        if gen[use_kernel].shape != (BART_DEV_ROWS, BART_TARGET_TOKENS) or \
+                gen[use_kernel].min() < 0 or \
+                gen[use_kernel].max() >= BART_BASE["vocab_size"]:
+            raise AssertionError("BART generate gave %s ids in [%d, %d]" % (
+                gen[use_kernel].shape, gen[use_kernel].min(),
+                gen[use_kernel].max()))
+    A.set_kernel_override(None)
+    same = (gen[True] == gen[False]).all(axis=1)
+    first = [int(np.argmin(a == b)) if not s else BART_TARGET_TOKENS
+             for a, b, s in zip(gen[True], gen[False], same)]
+    log("bart generate kernel vs plain: %d of %d rows identical; first "
+        "differing position per row %s (random 0.02-std weights give "
+        "near-uniform logits, so near-ties split the two runs)"
+        % (int(same.sum()), BART_DEV_ROWS, first))
+    del app
+
+    # one more kernel run under torch.profiler (steps 3-6), for the device's
+    # share of the step; its step times are not reported
+    prof = os.path.join(workdir, "bart_profile")
+    run_bart_train(torch, model_dir, train_tsv, None, True, seed,
+                   profile_dir=prof)
+    share, busy_ms, top = device_share(os.path.join(prof, "trace.json"))
+    if share is None:
+        log("profile: the trace holds no device kernels (not measured)")
+    else:
+        log("profile, BART kernel run, steps 3-6 (under the profiler): "
+            "device busy %.1f%% of the span of its kernels, %.3f ms busy per "
+            "step; device ms by kernel over the 4 steps: %s"
+            % (100 * share, busy_ms / 4, "; ".join(
+                "%s %.3f" % (n[:60], t) for n, t in top)))
+    launches["flash_attention_bwd_dkdv"] = launches["flash_attention_bwd"]
+    launches["flash_attention_bwd_dq"] = launches["flash_attention_bwd"]
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -1331,27 +1985,26 @@ def main():
     build_s = phase_build()
     worst, timings = phase_kernel(torch, seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        launches = {}
-        launches["short_attention_fwd"], cjk = phase_slice(torch, seed,
-                                                           workdir)
-        launches["short_attention_bwd"], ms_k, ms_p = phase_train(
-            torch, seed, workdir, cjk)
-        launches["flash_attention_fwd"] = phase_generation(torch, seed,
-                                                           workdir)
+        _, cjk = phase_slice(torch, seed, workdir)
+        _, ms_k, ms_p = phase_train(torch, seed, workdir, cjk)
+        phase_generation(torch, seed, workdir)
+        launches = phase_bart(torch, seed, workdir)
 
     log("kernel build %.3f s" % build_s)
-    log("training step, median of runs: %.3f ms with the kernels, %.3f ms "
-        "plain" % (1e3 * ms_k, 1e3 * ms_p))
+    log("BERT training step, median of runs: %.3f ms with the kernels, %.3f "
+        "ms plain" % (1e3 * ms_k, 1e3 * ms_p))
     log("card: %s" % card_line())
     entries = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (_, source, replaces) in KERNELS.items():
         case = KERNEL_LINE_CASE[name]
-        ms, plain_ms = timings[(name, case, torch.bfloat16)]
+        t = timings[(name, case, torch.bfloat16)]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": worst[name][(case, torch.bfloat16)],
-            "ms": ms, "plain_ms": plain_ms})
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """App dispatch + default main for the PyTorch port.
 
 Counterpart of easynlp_tpu/appzoo/api.py, reduced to what is ported: the
-train, evaluate and predict branches for `text_classify`, and the predict
-branch for `sequence_generation` (GPT-2). Every other mode, app or app
-variant raises NotImplementedError naming its ROADMAP item. The datasets are
-the JAX package's own (JAX-free) ClassificationDataset, so both packages
-featurise and batch the same rows the same way.
+train, evaluate and predict branches for `text_classify` (BERT), and for
+`sequence_generation` the train and evaluate branches on BART and the
+predict branch on GPT-2. Every other mode, app, backbone or app variant
+raises NotImplementedError naming its ROADMAP item. The datasets are
+the port's copies of the JAX package's, so both packages featurise and batch
+the same rows the same way.
 """
 
 import json
@@ -13,10 +14,10 @@ import os
 
 import torch
 
-from easynlp_tpu.utils.global_vars import get_args
-from easynlp_tpu.utils.io_utils import io
-from easynlp_tpu.utils.logger import logger
-from easynlp_tpu_torch.modelzoo.models.auto import tokenizer_for
+from easynlp_tpu_torch.modelzoo.models.auto import model_type_of, tokenizer_for
+from easynlp_tpu_torch.utils.global_vars import get_args
+from easynlp_tpu_torch.utils.io_utils import io
+from easynlp_tpu_torch.utils.logger import logger
 
 
 def _lazy(path, name):
@@ -44,24 +45,26 @@ PREDICTOR_REGISTRY = {
 }
 DATASET_REGISTRY = {
     "text_classify": _lazy(
-        "easynlp_tpu.appzoo.sequence_classification.data",
+        "easynlp_tpu_torch.appzoo.sequence_classification.data",
         "ClassificationDataset"),
+    "sequence_generation": _lazy(
+        "easynlp_tpu_torch.appzoo.sequence_generation.data",
+        "SequenceGenerationDataset"),
 }
 EVALUATOR_REGISTRY = {
     "text_classify": _lazy(
         "easynlp_tpu_torch.appzoo.sequence_classification.evaluator",
         "SequenceClassificationEvaluator"),
+    "sequence_generation": _lazy(
+        "easynlp_tpu_torch.appzoo.sequence_generation.evaluator",
+        "SequenceGenerationEvaluator"),
 }
 
 _NOT_PORTED_MODES = {
     "export": "ROADMAP A26",
     "serve": "ROADMAP A17",
 }
-# apps ported for some modes only
-_NOT_PORTED_APP_MODES = {
-    ("sequence_generation", "train"): "the next slice, ROADMAP A15b",
-    ("sequence_generation", "evaluate"): "the next slice, ROADMAP A15b",
-}
+_ENCODER_DECODER = ("t5", "mt5", "bart", "pegasus", "randeng")
 # user_defined_parameters switches that select another app variant
 _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
                  "multi_label", "enable_lora", "enable_controlnet")
@@ -80,15 +83,38 @@ def _resolve(registry, app_name, udp):
     return registry[app_name]()
 
 
+def _check_generation_backbone(args):
+    """sequence_generation trains and evaluates encoder-decoder backbones
+    and predicts with decoder-only ones, in the port as far as it goes."""
+    if args.app_name != "sequence_generation":
+        return
+    path = (args.pretrained_model_name_or_path if args.mode == "train"
+            else args.predict_checkpoint_path or args.checkpoint_dir)
+    if not path:
+        return
+    seq2seq = (model_type_of(path) or "t5") in _ENCODER_DECODER
+    if args.mode == "train" and not seq2seq:
+        raise NotImplementedError(
+            "--mode=train --app_name=sequence_generation on a decoder-only "
+            "checkpoint: the JAX package does not train GPT-2 through this "
+            "app (its trainer passes decoder_input_ids, which its "
+            "GPT2LMHeadModel does not take), so neither does the port")
+    if args.mode == "evaluate" and not seq2seq:
+        raise NotImplementedError(
+            "--mode=evaluate --app_name=sequence_generation on a "
+            "decoder-only checkpoint is not ported yet (ROADMAP A15b); the "
+            "port evaluates encoder-decoder backbones")
+    if args.mode == "predict" and seq2seq:
+        raise NotImplementedError(
+            "--mode=predict --app_name=sequence_generation on an "
+            "encoder-decoder checkpoint is not ported yet (ROADMAP A18b); "
+            "the port predicts with GPT-2")
+
+
 def default_main_fn(args=None):
     args = args or get_args()
     udp = args.user_defined_parameters_dict
-    if (args.app_name, args.mode) in _NOT_PORTED_APP_MODES:
-        raise NotImplementedError(
-            "--mode=%s --app_name=%s is not ported yet (%s); the port has "
-            "--mode=predict for it" % (
-                args.mode, args.app_name,
-                _NOT_PORTED_APP_MODES[(args.app_name, args.mode)]))
+    _check_generation_backbone(args)
     if args.mode == "predict":
         return _predict_main(args, udp)
     if args.mode == "train":
@@ -143,7 +169,7 @@ def _train_main(args, udp):
         args.pretrained_model_name_or_path, args=args, dtype=_dtype(args),
         device=args.device,
         num_labels=max(len(train_dataset.label_enumerate_values), 2),
-        label_mapping=train_dataset.label_mapping)
+        label_mapping=getattr(train_dataset, "label_mapping", None))
     trainer = Trainer(app, train_dataset, evaluator=evaluator, args=args,
                       tokenizer=tokenizer)
     trainer.train()

@@ -10,11 +10,11 @@ module lives on. `from_pretrained` reads `config.json` and
 
 import torch
 
-from easynlp_tpu.utils.logger import logger
 from easynlp_tpu_torch.modelzoo.modeling_utils import (
     available_checkpoint,
     load_pytorch_state_dict,
 )
+from easynlp_tpu_torch.utils.logger import logger
 
 
 class Application:
@@ -64,7 +64,7 @@ class Application:
 
     @classmethod
     def from_pretrained(cls, model_dir, args=None, label_mapping=None,
-                        dtype=torch.float32, device="cpu", seed=0, **kwargs):
+                        dtype=torch.float32, device="cuda", seed=0, **kwargs):
         """Config + weights from model_dir, in eval mode on `device`.
         Parameters the checkpoint lacks keep their init from `seed`."""
         device = torch.device(device)

@@ -14,8 +14,8 @@ import time
 
 import numpy as np
 
-from easynlp_tpu.utils.logger import logger
 from easynlp_tpu_torch.core.evaluator import Evaluator
+from easynlp_tpu_torch.utils.logger import logger
 
 
 class SequenceClassificationEvaluator(Evaluator):

@@ -8,7 +8,6 @@ cross-entropy. The multi-label variant is not ported yet (ROADMAP A5).
 import torch
 from torch import nn
 
-from easynlp_tpu.utils.logger import logger
 from easynlp_tpu_torch.appzoo.application import Application
 from easynlp_tpu_torch.modelzoo.modeling_utils import truncated_normal_
 from easynlp_tpu_torch.modelzoo.models.bert import BertConfig, BertModel
@@ -17,6 +16,7 @@ from easynlp_tpu_torch.modelzoo.models.bert.conversion import (
     split_backbone,
 )
 from easynlp_tpu_torch.utils import losses
+from easynlp_tpu_torch.utils.logger import logger
 
 
 class SequenceClassificationModule(nn.Module):

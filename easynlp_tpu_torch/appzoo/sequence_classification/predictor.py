@@ -7,9 +7,9 @@ import os
 
 import numpy as np
 
-from easynlp_tpu.utils.io_utils import io
 from easynlp_tpu_torch.core.predictor import Predictor, PyModelPredictor
 from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
+from easynlp_tpu_torch.utils.io_utils import io
 
 
 class SequenceClassificationPredictor(Predictor):

@@ -11,8 +11,8 @@ import contextlib
 import numpy as np
 import torch
 
-from easynlp_tpu.data.dataset import DataLoader
-from easynlp_tpu.utils.global_vars import get_args
+from easynlp_tpu_torch.data.dataset import DataLoader
+from easynlp_tpu_torch.utils.global_vars import get_args
 
 
 @contextlib.contextmanager

@@ -14,10 +14,10 @@ import time
 import numpy as np
 import torch
 
-from easynlp_tpu.utils import parse_row_by_schema
-from easynlp_tpu.utils.global_vars import get_args
-from easynlp_tpu.utils.io_utils import io
-from easynlp_tpu.utils.logger import logger
+from easynlp_tpu_torch.utils import parse_row_by_schema
+from easynlp_tpu_torch.utils.global_vars import get_args
+from easynlp_tpu_torch.utils.io_utils import io
+from easynlp_tpu_torch.utils.logger import logger
 
 
 class Predictor:

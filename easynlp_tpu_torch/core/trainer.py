@@ -2,8 +2,8 @@
 
 Counterpart of easynlp_tpu/core/trainer.py on one device:
 
-- the shuffled, drop-last DataLoader of the JAX package (the same batches in
-  the same order for the same seed), global batch = micro batch x
+- the shuffled, drop-last DataLoader (the port's copy of the JAX package's:
+  the same batches in the same order for the same seed), global batch = micro batch x
   gradient_accumulation_steps;
 - the optimizer from core/optimizers.get_optimizer with
   t_total = ceil(steps per epoch) x epochs, built with max_grad_norm=0: the
@@ -35,15 +35,15 @@ import time
 import numpy as np
 import torch
 
-from easynlp_tpu.data.dataset import DataLoader
-from easynlp_tpu.utils.global_vars import get_args
-from easynlp_tpu.utils.io_utils import io
-from easynlp_tpu.utils.logger import logger
 from easynlp_tpu_torch.core.optimizers import get_optimizer, global_norm
+from easynlp_tpu_torch.data.dataset import DataLoader
 from easynlp_tpu_torch.modelzoo.modeling_utils import (
     load_pytorch_state_dict,
     save_pytorch_state_dict,
 )
+from easynlp_tpu_torch.utils.global_vars import get_args
+from easynlp_tpu_torch.utils.io_utils import io
+from easynlp_tpu_torch.utils.logger import logger
 from easynlp_tpu_torch.utils.statistics import Statistics
 
 META_NAME = "meta.json"

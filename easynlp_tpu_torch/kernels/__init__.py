@@ -49,40 +49,48 @@ def _nvcc():
                        "CUDA toolkit is needed to build the port's kernels")
 
 
-def _digest(source):
+def compile_library(source, build_dir, compiler, flags, digest_paths):
+    """Compile one source file into a shared library
+    `build_dir/<stem>-<hash>.so`, the hash taken over `digest_paths` (the
+    source and what it includes) and the flags, so an unchanged tree reuses
+    the library and an edited one rebuilds. `compiler` is called for the
+    compiler's path only when a build is needed. The library is written
+    under a temporary name and renamed into place, so a concurrent build
+    sees all of it or none. Returns (path, {'seconds', 'cached', 'log'})."""
+    source = Path(source)
+    if not source.exists():
+        raise FileNotFoundError("no source %s" % source)
     h = hashlib.sha256()
-    for path in sorted(CSRC_DIR.glob("*.cu*")):
+    for path in sorted(set(map(Path, digest_paths)) | {source}):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(source.name.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def _build(name):
-    source = CSRC_DIR / (name + ".cu")
-    if not source.exists():
-        raise FileNotFoundError("no kernel source %s" % source)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / ("%s-%s.so" % (name, _digest(source)))
+    h.update(" ".join(flags).encode())
+    build_dir = Path(build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = build_dir / ("%s-%s.so" % (source.stem, h.hexdigest()[:16]))
     log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return lib_path, {"seconds": 0.0, "cached": True, "log": log}
     tmp = lib_path.with_name("%s.%d.tmp" % (lib_path.name, os.getpid()))
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [compiler(), *flags, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError("nvcc failed (exit %d) building %s:\n%s\n%s"
-                           % (proc.returncode, source, " ".join(cmd),
+        raise RuntimeError("%s failed (exit %d) building %s:\n%s\n%s"
+                           % (cmd[0], proc.returncode, source, " ".join(cmd),
                               proc.stderr))
     log = proc.stdout + proc.stderr
     log_path.write_text(log)
-    os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or none
+    os.replace(tmp, lib_path)
     return lib_path, {"seconds": seconds, "cached": False, "log": log}
+
+
+def _build(name):
+    return compile_library(CSRC_DIR / (name + ".cu"), BUILD_DIR, _nvcc,
+                           NVCC_FLAGS, CSRC_DIR.glob("*.cu*"))
 
 
 def load(name):

@@ -10,7 +10,7 @@ import os
 
 import torch
 
-from easynlp_tpu.utils.io_utils import io
+from easynlp_tpu_torch.utils.io_utils import io
 
 PARAMS_NAME = "flax_params.msgpack"
 PYTORCH_WEIGHTS_NAME = "pytorch_model.bin"

@@ -1,7 +1,7 @@
-"""BERT config for the PyTorch port: the JAX package's PretrainedConfig
-(which imports no JAX), so reference config.json files load unchanged."""
+"""BERT config for the PyTorch port, on the port's PretrainedConfig (HF
+attribute names), so reference config.json files load unchanged."""
 
-from easynlp_tpu.modelzoo.configuration_utils import PretrainedConfig
+from easynlp_tpu_torch.modelzoo.configuration_utils import PretrainedConfig
 
 
 class BertConfig(PretrainedConfig):

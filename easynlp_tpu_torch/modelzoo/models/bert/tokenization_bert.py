@@ -2,21 +2,21 @@
 
 Counterpart of easynlp_tpu/modelzoo/models/bert/tokenization_bert.py, which
 the port cannot import: that package's `__init__` pulls in the JAX model.
-Built on the same JAX-free pieces (tokenization_utils and the native
-FastWordPiece), so it gives the same ids.
+Built on the port's copies of the same pieces (tokenization_utils and the
+native FastWordPiece), so it gives the same ids.
 """
 
 import json
 import os
 
-from easynlp_tpu.modelzoo.tokenization_utils import (
+from easynlp_tpu_torch.modelzoo.tokenization_utils import (
     VOCAB_NAME,
     BasicTokenizer,
     PreTrainedTokenizer,
     WordpieceTokenizer,
     load_vocab,
 )
-from easynlp_tpu.utils.io_utils import io
+from easynlp_tpu_torch.utils.io_utils import io
 
 
 class BertTokenizer(PreTrainedTokenizer):
@@ -40,7 +40,7 @@ class BertTokenizer(PreTrainedTokenizer):
                 os.environ.get("EASYNLP_FAST_TOKENIZER", "1") != "0" and \
                 str(vocab_file).endswith(".txt") and \
                 os.path.exists(vocab_file):
-            from easynlp_tpu.data.fast_tokenizer import FastWordPiece, available
+            from easynlp_tpu_torch.data.fast_tokenizer import FastWordPiece, available
             if available():
                 self._fast = FastWordPiece(
                     vocab_file, do_lower_case=do_lower_case,
@@ -104,7 +104,7 @@ class BertTokenizer(PreTrainedTokenizer):
 
     @classmethod
     def from_pretrained(cls, model_dir, **kwargs):
-        from easynlp_tpu.utils import get_pretrain_model_path
+        from easynlp_tpu_torch.utils import get_pretrain_model_path
         model_dir = get_pretrain_model_path(model_dir)
         vocab_file = (model_dir if str(model_dir).endswith(".txt")
                       else os.path.join(model_dir, VOCAB_NAME))

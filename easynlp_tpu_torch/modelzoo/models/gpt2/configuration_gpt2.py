@@ -3,13 +3,13 @@
 Counterpart of easynlp_tpu/modelzoo/models/gpt2/configuration_gpt2.py, which
 the port cannot import (that package's `__init__` pulls in the JAX model).
 Same HF attribute names (n_embd/n_layer/n_head, ...) and the same canonical
-aliases, on the JAX package's JAX-free PretrainedConfig, so a reference
+aliases, on the port's PretrainedConfig, so a reference
 config.json loads unchanged. Like the JAX config it leaves pad_token_id at
 PretrainedConfig's 0, which is the ordinary token "!" in GPT-2's vocabulary
 (ROADMAP C9).
 """
 
-from easynlp_tpu.modelzoo.configuration_utils import PretrainedConfig
+from easynlp_tpu_torch.modelzoo.configuration_utils import PretrainedConfig
 
 
 class GPT2Config(PretrainedConfig):

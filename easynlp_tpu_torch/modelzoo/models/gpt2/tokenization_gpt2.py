@@ -1,9 +1,8 @@
 """GPT-2 byte-level BPE tokenizer for the PyTorch port.
 
-Counterpart of easynlp_tpu/modelzoo/models/gpt2/tokenization_gpt2.py, which
-the port cannot import (that package's `__init__` pulls in the JAX model).
-The same vocab.json + merges.txt files, byte-to-unicode table, regex
-pre-tokenisation and BPE merge loop on the JAX-free tokenization_utils base,
+Counterpart of easynlp_tpu/modelzoo/models/gpt2/tokenization_gpt2.py. The
+same vocab.json + merges.txt files, byte-to-unicode table, regex
+pre-tokenisation and BPE merge loop on the port's tokenization_utils base,
 so it gives the same ids. Its pad token is the EOS token, as there.
 """
 
@@ -11,8 +10,8 @@ import json
 import os
 import re
 
-from easynlp_tpu.modelzoo.tokenization_utils import PreTrainedTokenizer
-from easynlp_tpu.utils.io_utils import io
+from easynlp_tpu_torch.modelzoo.tokenization_utils import PreTrainedTokenizer
+from easynlp_tpu_torch.utils.io_utils import io
 
 # GPT-2 pre-tokenisation pattern ('s, 't, numbers, letters, other, spaces)
 _PAT = re.compile(
@@ -112,9 +111,22 @@ class GPT2Tokenizer(PreTrainedTokenizer):
     def create_token_type_ids_from_sequences(self, ids_a, ids_b=None):
         return [0] * (len(ids_a) + (len(ids_b) if ids_b else 0))
 
+    def save_vocabulary(self, save_directory):
+        """vocab.json and merges.txt (save_pretrained also writes the
+        special-token map and tokenizer_config.json)."""
+        vocab_path = os.path.join(save_directory, "vocab.json")
+        merges_path = os.path.join(save_directory, "merges.txt")
+        with io.open(vocab_path, "w") as f:
+            json.dump(self.encoder, f, ensure_ascii=False)
+        with io.open(merges_path, "w") as f:
+            f.write("#version: 0.2\n")
+            for pair, _ in sorted(self.bpe_ranks.items(), key=lambda kv: kv[1]):
+                f.write(" ".join(pair) + "\n")
+        return vocab_path, merges_path
+
     @classmethod
     def from_pretrained(cls, model_dir, **kwargs):
-        from easynlp_tpu.utils import get_pretrain_model_path
+        from easynlp_tpu_torch.utils import get_pretrain_model_path
         model_dir = get_pretrain_model_path(model_dir)
         return cls(os.path.join(model_dir, "vocab.json"),
                    os.path.join(model_dir, "merges.txt"), **kwargs)

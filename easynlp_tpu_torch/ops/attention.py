@@ -1,5 +1,5 @@
-"""Multi-head attention for the PyTorch port: one `attention()` entry over a
-hand-written CUDA kernel and plain PyTorch paths.
+"""Multi-head attention for the PyTorch port: one `attention()` entry over
+hand-written CUDA kernels and plain PyTorch paths.
 
 Counterpart of easynlp_tpu/ops/attention.py, with the same contract:
 q [B,Sq,H,D], k/v [B,Skv,H,D] (or heads-major with layout='bhsd'), a
@@ -11,25 +11,26 @@ Paths:
 1. `attention_reference` mirrors the JAX attention_reference, including its
    bf16 score cast and the stop-gradient on the row max, so autograd through
    it gives jax.grad's gradients. It serves an additive bias, head dims the
-   kernels do not take, Skv above SHORT_MAX_KV_LEN when a gradient is
-   needed, and every call under --use_flash_attention=false.
+   kernels do not take, and every call under --use_flash_attention=false.
 2. `ShortAttention` is the whole-sequence path for Skv <= 512, an
    autograd.Function over two kernels: `short_attention_fwd`
    (csrc/short_attention_fwd.cu, the port of `_short_fwd_kernel`) and
    `short_attention_bwd` (csrc/short_attention_bwd.cu, the port of
    `_short_bwd_kernel`). A CPU tensor takes their plain twins
    `short_attention_fwd_reference` and `short_attention_bwd_reference`.
-3. `flash_attention_fwd` is the blocked forward for any Skv
-   (csrc/flash_attention_fwd.cu, the port of `_fwd_kernel`), returning O and
-   the f32 LSE; a CPU tensor takes `flash_attention_fwd_reference`. It
-   serves Skv > 512 when no gradient is needed (GPT-2 prefill and decode
-   past 512 keys). Its backward kernels are not ported yet (ROADMAP B4/B5),
-   so with a gradient 'auto' keeps attention_reference above 512.
+3. `FlashAttention` is the blocked path for any Skv, an autograd.Function
+   over `flash_attention_fwd` (csrc/flash_attention_fwd.cu, the port of
+   `_fwd_kernel`: O and the f32 LSE) and `flash_attention_bwd`
+   (csrc/flash_attention_bwd.cu, the port of `_bwd_dkdv_kernel` and
+   `_bwd_dq_kernel`). A CPU tensor takes `flash_attention_fwd_reference`
+   and `flash_attention_bwd_reference`. It serves Skv > 512, with or
+   without a gradient (BART's encoder and cross-attention, GPT-2 past 512
+   keys).
 
 The JAX package routes BERT lengths below 256 to XLA on a TPU and reaches
 its flash kernel only from Skv = 8192. Those windows are TPU tunings, so
 here every Skv <= 512 takes the short kernels on a card and every longer
-one the flash forward; the card's own thresholds come from its
+one the flash kernels; the card's own thresholds come from its
 measurements (PERF.md). Ring attention is not ported yet (ROADMAP A24).
 """
 
@@ -39,6 +40,8 @@ import math
 import torch
 
 NEG_INF = -1e30
+# a row whose LSE is below this saw no visible key (its LSE is -1e30)
+MASKED_ROW_LSE = 0.5 * NEG_INF
 SHORT_MAX_KV_LEN = 512
 MAX_HEAD_DIM = 128
 
@@ -154,7 +157,7 @@ def flash_attention_fwd_reference(q, k, v, kv_mask, causal=False,
     scores are all -1e30, so its LSE is -1e30 + log(Skv) in exact
     arithmetic, which f32 rounds to -1e30. A backward that forms
     P = exp(s - LSE) from it gets weight 1 for every key of such a row, not
-    1/Skv (the flash backward kernels, ROADMAP B4/B5, must not)."""
+    1/Skv (flash_attention_bwd does not)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     hidden = _hidden_keys(kv_mask, q.shape[1], k.shape[1], causal, q.device)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -162,6 +165,33 @@ def flash_attention_fwd_reference(q, k, v, kv_mask, causal=False,
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype), lse
+
+
+def flash_attention_bwd_reference(q, k, v, kv_mask, o, lse, do,
+                                  causal=False, scale=None):
+    """Plain PyTorch twin of the flash backward kernel, in f32 from the
+    given inputs: P = exp(s - LSE) from the forward's LSE [B,H,Sq],
+    dV = P^T dO, dP = dO V^T, delta = rowsum(dO * O),
+    dS = P * (dP - delta) * scale zeroed at every masked or causally hidden
+    key, dQ = dS K, dK = dS^T Q. A fully masked row (LSE below
+    MASKED_ROW_LSE: its LSE is -1e30) takes P = 1/Skv at every key, as
+    attention_reference gives it, not exp(0) = 1 (ROADMAP C10): dq = 0,
+    no dk, dO/Skv to every key's dv. Returns (dq, dk, dv) in q's dtype."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    skv = k.shape[1]
+    hidden = _hidden_keys(kv_mask, q.shape[1], skv, causal, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = s.masked_fill(hidden, NEG_INF)
+    lse = lse.float()[..., None]
+    p = torch.where(lse < MASKED_ROW_LSE, 1.0 / skv, torch.exp(s - lse))
+    do32 = do.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v.float())
+    delta = (do32 * o.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = (p * (dp - delta) * scale).masked_fill(hidden, 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _check_args(name, q, k, v, kv_mask, max_kv_len=None):
@@ -302,15 +332,7 @@ def short_attention_bwd(q, k, v, kv_mask, o, do, causal=False, scale=None):
     (counted once in `short_attention_bwd.launches`); a CPU tensor takes the
     plain twin short_attention_bwd_reference."""
     _check_args("short_attention_bwd", q, k, v, kv_mask, SHORT_MAX_KV_LEN)
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError("o %s and do %s must have q's shape %s"
-                         % (tuple(o.shape), tuple(do.shape), tuple(q.shape)))
-    if o.dtype != q.dtype or do.dtype != q.dtype:
-        raise ValueError("o (%s) and do (%s) must have q's dtype %s"
-                         % (o.dtype, do.dtype, q.dtype))
-    if o.device != q.device or do.device != q.device:
-        raise ValueError("o and do must be on q's device")
-    _check_rows(o=o, do=do)
+    _check_grad_args("short_attention_bwd", q, o, do)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return short_attention_bwd_reference(q, k, v, kv_mask, o, do, causal,
@@ -364,14 +386,15 @@ def flash_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
     causal masking with q_offset = Skv - Sq. A CUDA tensor launches
     csrc/flash_attention_fwd.cu (and counts it in
     `flash_attention_fwd.launches`); a CPU tensor takes the plain twin
-    flash_attention_fwd_reference. It records no gradient: the flash
-    backward kernels are ROADMAP B4/B5."""
+    flash_attention_fwd_reference. It records no gradient: FlashAttention
+    pairs it with flash_attention_bwd."""
     _check_args("flash_attention_fwd", q, k, v, kv_mask)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention_fwd records no gradient: the flash backward "
-            "kernels are not ported yet (ROADMAP B4/B5)")
+        raise ValueError(
+            "flash_attention_fwd is the bare forward kernel and records no "
+            "gradient; call attention() or FlashAttention.apply, whose "
+            "backward is flash_attention_bwd")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, kv_mask, causal, scale)
@@ -408,6 +431,83 @@ def flash_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
 flash_attention_fwd.launches = 0
 
 
+def _check_grad_args(name, q, o, do):
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("%s: o %s and do %s must have q's shape %s"
+                         % (name, tuple(o.shape), tuple(do.shape),
+                            tuple(q.shape)))
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError("%s: o (%s) and do (%s) must have q's dtype %s"
+                         % (name, o.dtype, do.dtype, q.dtype))
+    if o.device != q.device or do.device != q.device:
+        raise ValueError("%s: o and do must be on q's device" % name)
+    _check_rows(o=o, do=do)
+
+
+def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, causal=False,
+                        scale=None):
+    """Gradients of the blocked attention (the port of the TPU kernels
+    `_bwd_dkdv_kernel` and `_bwd_dq_kernel`): (dq, dk, dv) in q's dtype and
+    q/k/v's layouts.
+
+    q/k/v/kv_mask as for flash_attention_fwd; o and lse are its outputs
+    (lse f32 [B,H,Sq]) and do the gradient of o, [B,Sq,H,D] with a
+    contiguous head dim. A CUDA tensor launches the three kernels of
+    csrc/flash_attention_bwd.cu (counted once in
+    `flash_attention_bwd.launches`); a CPU tensor takes the plain twin
+    flash_attention_bwd_reference."""
+    _check_args("flash_attention_bwd", q, k, v, kv_mask)
+    _check_grad_args("flash_attention_bwd", q, o, do)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError("lse %s %s on %s: expected float32 [%d,%d,%d] on "
+                         "q's device" % (tuple(lse.shape), lse.dtype,
+                                         lse.device, b, h, sq))
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, kv_mask, o, lse, do,
+                                             causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd runs on cpu or cuda, got %s"
+                         % q.device)
+    if b > 65535 or h > 65535:
+        raise ValueError("B=%d, H=%d: the launch grid takes at most 65535 of "
+                         "each" % (b, h))
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.preserve_format)
+                  for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    # delta [B,H,Sq], then the sum of dO over each 128-row chunk's fully
+    # masked rows [B,H,ceil(Sq/128),D]: written by the kernel's pre-pass
+    scratch = torch.empty(b * h * (sq + -(-sq // 128) * d),
+                          dtype=torch.float32, device=q.device)
+    lse = lse.contiguous()
+    kv_mask, mask_sb = _cuda_mask(kv_mask, b)
+    launch = _launcher("flash_attention_bwd", 11, 25)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    kv_mask.data_ptr(), o.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), scratch.data_ptr(), _DTYPE_CODES[q.dtype],
+                    b, h, sq, skv, d,
+                    *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+                    *_strides(do), *_strides(dq), *_strides(dk),
+                    *_strides(dv), mask_sb, int(bool(causal)), float(scale),
+                    stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention_bwd launch failed: CUDA error %d "
+                           "(B=%d Sq=%d Skv=%d H=%d D=%d %s)"
+                           % (rc, b, sq, skv, h, d, q.dtype))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
 class ShortAttention(torch.autograd.Function):
     """Whole-sequence attention with its own backward, as the JAX custom VJP
     `_short_attention` (attention.py:608-653): the forward kernel, then the
@@ -431,6 +531,27 @@ class ShortAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class FlashAttention(torch.autograd.Function):
+    """Blocked attention with its own backward, as the JAX custom VJP
+    `_flash_attention` (attention.py:425): the forward kernel, saving q, k,
+    v, the mask, O and the f32 LSE, then the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, kv_mask, causal, scale)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, o, lse,
+                                         _kernel_ready(do), ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def _kernel_ready(t):
     """t itself when the kernel can read it in place, else a dense copy."""
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
@@ -444,12 +565,11 @@ def attention(q, k, v, kv_mask=None, causal=False, scale=None, bias=None,
     """Public MHA entry: q [B,Sq,H,D], k/v [B,Skv,H,D], kv_mask [B,Skv] or
     [1,Skv]. layout='bhsd' takes and returns heads-major [B,H,S,D] tensors.
 
-    impl: 'auto' (for a head dim the kernels take: the short path for
-    Skv <= 512, the flash forward above it when no input needs a gradient,
+    impl: 'auto' (for a head dim and dtype the kernels take: the short path
+    for Skv <= 512, the flash path above it, with or without a gradient;
     attention_reference otherwise), 'short' (the short path or an error),
-    'flash' (the flash forward or an error; it has no backward yet, ROADMAP
-    B4/B5), 'reference'. 'ring' is not ported yet. An additive `bias`
-    forces the reference path."""
+    'flash' (the flash path or an error), 'reference'. 'ring' is not ported
+    yet. An additive `bias` forces the reference path."""
     if impl == "ring":
         raise NotImplementedError(
             "attention(impl='ring') is not ported yet (ROADMAP A24)")
@@ -470,18 +590,13 @@ def attention(q, k, v, kv_mask=None, causal=False, scale=None, bias=None,
     if bias is not None or impl == "reference":
         return attention_reference(q, k, v, kv_mask=kv_mask, causal=causal,
                                    scale=scale, bias=bias)
-    # flash_attention_fwd raises on a gradient (ROADMAP B4/B5); auto keeps
-    # attention_reference then
-    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad)
     auto = (impl == "auto" and use_kernels() and d % 8 == 0
             and d <= MAX_HEAD_DIM and q.dtype in _DTYPE_CODES)
     if impl == "short" or (auto and k.shape[1] <= SHORT_MAX_KV_LEN):
         return ShortAttention.apply(_kernel_ready(q), _kernel_ready(k),
                                     _kernel_ready(v), kv_mask, causal, scale)
-    if impl == "flash" or (auto and not grad):
-        return flash_attention_fwd(_kernel_ready(q), _kernel_ready(k),
-                                   _kernel_ready(v), kv_mask, causal,
-                                   scale)[0]
+    if impl == "flash" or auto:
+        return FlashAttention.apply(_kernel_ready(q), _kernel_ready(k),
+                                    _kernel_ready(v), kv_mask, causal, scale)
     return attention_reference(q, k, v, kv_mask=kv_mask, causal=causal,
                                scale=scale)

@@ -1,7 +1,7 @@
 """Runtime initialisation for the PyTorch port.
 
 Counterpart of easynlp_tpu/utils/initializer.py: parse the shared flag
-surface (easynlp_tpu.utils.arguments, plus the port's --device), set the
+surface (utils/arguments.py, plus the port's --device), set the
 global args, seed numpy/random/torch, resolve the device and wire
 --use_flash_attention to the attention kernel override. One process drives
 one device; multi-GPU is ROADMAP A23.
@@ -12,13 +12,13 @@ import random
 import numpy as np
 import torch
 
-from easynlp_tpu.utils.arguments import parse_args
-from easynlp_tpu.utils.global_vars import (
+from easynlp_tpu_torch.ops.attention import set_kernel_override
+from easynlp_tpu_torch.utils.arguments import parse_args
+from easynlp_tpu_torch.utils.global_vars import (
     parse_user_defined_parameters,
     set_global_args,
 )
-from easynlp_tpu.utils.logger import init_logger, logger
-from easynlp_tpu_torch.ops.attention import set_kernel_override
+from easynlp_tpu_torch.utils.logger import init_logger, logger
 
 
 def _add_port_args(parser):
@@ -75,7 +75,7 @@ def initialize_easynlp(extra_args_provider=None, args_list=None):
         args.pretrained_model_name_or_path = \
             args.user_defined_parameters_dict.get("pretrain_model_name_or_path")
     if args.pretrained_model_name_or_path:
-        from easynlp_tpu.utils import get_pretrain_model_path
+        from easynlp_tpu_torch.utils import get_pretrain_model_path
         args.pretrained_model_name_or_path = get_pretrain_model_path(
             args.pretrained_model_name_or_path)
 

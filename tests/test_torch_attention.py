@@ -148,13 +148,19 @@ def test_auto_dispatch(monkeypatch, override, skv, takes_short):
 
 @pytest.mark.parametrize("impl", ["flash", "ring"])
 def test_unported_impls_raise(impl):
-    """'ring' is not ported; 'flash' has no backward yet, so it raises when
-    an input needs a gradient (test_torch_flash_attention.py covers it
-    without one)."""
+    """'ring' is not ported and raises. 'flash' is, backward included
+    (FlashAttention): with an input that needs a gradient it now gives
+    attention_reference's gradient instead of raising."""
     tq, tk, tv = _torch(*_qkv(15, 1, 8, 8, 2, 8))
     tq.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.attention(tq, tk, tv, impl=impl)
+    if impl == "ring":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            A.attention(tq, tk, tv, impl=impl)
+        return
+    A.attention(tq, tk, tv, impl=impl).sum().backward()
+    rq = tq.detach().clone().requires_grad_(True)
+    A.attention_reference(rq, tk, tv).sum().backward()
+    np.testing.assert_allclose(tq.grad.numpy(), rq.grad.numpy(), atol=ATOL)
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "long", "mask_shape",

@@ -179,24 +179,34 @@ def test_auto_dispatch_without_grad(spies, skv, override, d, bias, want):
 
 
 def test_auto_with_grad_keeps_the_reference_above_512(spies):
-    """Training is unchanged: with a gradient, auto sends Skv > 512 to
-    attention_reference (the flash backward is ROADMAP B4/B5), and the
-    gradient is that of the reference."""
+    """With a gradient, auto now takes the flash path above 512 keys too
+    (FlashAttention: the forward, then flash_attention_bwd), and the
+    gradient is that of attention_reference."""
     q, k, v, mask = _case(10, 1, 8, 600, 2, 16, [590])
     leaves = [t.requires_grad_(True) for t in _torch(q, k, v)]
     out = A.attention(*leaves, kv_mask=torch.from_numpy(mask), causal=True)
     out.sum().backward()
-    assert spies == {"short": 0, "flash": 0}
-    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in leaves)
+    assert spies == {"short": 0, "flash": 1}
+    ref_leaves = [t.requires_grad_(True) for t in _torch(q, k, v)]
+    A.attention_reference(*ref_leaves, kv_mask=torch.from_numpy(mask),
+                          causal=True).sum().backward()
+    for t, r in zip(leaves, ref_leaves):
+        assert t.grad.abs().sum() > 0
+        np.testing.assert_allclose(t.grad.numpy(), r.grad.numpy(), atol=ATOL)
 
 
 def test_flash_with_grad_raises():
+    """impl='flash' with a gradient runs FlashAttention and gives the
+    reference's gradient; only the bare forward kernel, which records no
+    gradient, still raises on an input that needs one."""
     q, k, v, mask = _case(11, 1, 8, 600, 2, 16, [600])
     tq, tk, tv, tm = _torch(q, k, v, mask)
     tq.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B4/B5"):
-        A.attention(tq, tk, tv, kv_mask=tm, impl="flash")
-    with pytest.raises(NotImplementedError, match="B4/B5"):
+    A.attention(tq, tk, tv, kv_mask=tm, impl="flash").sum().backward()
+    rq = torch.from_numpy(q).requires_grad_(True)
+    A.attention_reference(rq, tk, tv, kv_mask=tm).sum().backward()
+    np.testing.assert_allclose(tq.grad.numpy(), rq.grad.numpy(), atol=ATOL)
+    with pytest.raises(ValueError, match="FlashAttention"):
         A.flash_attention_fwd(tq, tk, tv, tm)
 
 

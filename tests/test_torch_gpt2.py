@@ -272,6 +272,6 @@ def test_model_dir_round_trip(tmp_path):
     torch.save(state, os.path.join(tmp_path, "pytorch_model.bin"))
     (tmp_path / "config.json").write_text(json.dumps(
         dict(TINY, model_type="gpt2")))
-    app = SequenceGeneration.from_pretrained(str(tmp_path))
+    app = SequenceGeneration.from_pretrained(str(tmp_path), device="cpu")
     for k, v in app.module.transformer.state_dict().items():
         assert torch.equal(v, model.transformer.state_dict()[k]), k

@@ -245,6 +245,60 @@ def test_cuda_flash_fwd_matches_plain_twin():
     torch.testing.assert_close(got.float(), want, atol=1.5e-2, rtol=0)
 
 
+@pytest.mark.gpu
+def test_cuda_flash_bwd_matches_plain_twin():
+    """The flash backward kernels against their plain twin on the card, on
+    the same inputs (q, k, v, the forward kernel's O and LSE, dO; bf16 ones
+    cast to f32 for the twin), at FLASH_CASES' shapes: fully masked rows,
+    ragged and causal edges, Sq != Skv, q_offset < 0, D = 40 and 128.
+
+    f32: bound 2e-5 + 1e-5 |g| (sums in another order). bf16: the kernels
+    compute in f32 and round dq/dk/dv once: 1e-4 + 2^-8 |g|. Two runs give
+    the same bits (no atomics). Then autograd through attention() at
+    Skv = 600 launches the forward and the backward once each and matches
+    the twins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda")
+    for i, (b, sq, skv, h, d, lengths, causal) in enumerate(FLASH_CASES):
+        q, k, v, mask = _case(i, b, sq, skv, h, d, lengths, dev)
+        do = torch.from_numpy(np.random.RandomState(200 + i).standard_normal(
+            (b, sq, h, d)).astype(np.float32)).to(dev)
+        o, lse = A.flash_attention_fwd(q, k, v, mask, causal)
+        want = A.flash_attention_bwd_reference(q, k, v, mask, o, lse, do,
+                                               causal)
+        before = A.flash_attention_bwd.launches
+        got = A.flash_attention_bwd(q, k, v, mask, o, lse, do, causal)
+        torch.cuda.synchronize()
+        assert A.flash_attention_bwd.launches == before + 1
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-5)
+        again = A.flash_attention_bwd(q, k, v, mask, o, lse, do, causal)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+        bq, bk, bv, bdo = (t.to(torch.bfloat16) for t in (q, k, v, do))
+        o16, lse16 = A.flash_attention_fwd(bq, bk, bv, mask, causal)
+        want16 = A.flash_attention_bwd_reference(
+            bq.float(), bk.float(), bv.float(), mask, o16.float(), lse16,
+            bdo.float(), causal)
+        got16 = A.flash_attention_bwd(bq, bk, bv, mask, o16, lse16, bdo,
+                                      causal)
+        for g, w in zip(got16, want16):
+            assert g.dtype == torch.bfloat16
+            torch.testing.assert_close(g.float(), w, atol=1e-4, rtol=2 ** -8)
+    q, k, v, mask = _case(13, 2, 40, 600, 4, 64, [600, 333], dev)
+    do = torch.randn(2, 40, 4, 64, device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fwd, bwd = A.flash_attention_fwd.launches, A.flash_attention_bwd.launches
+    (A.attention(*leaves, kv_mask=mask) * do).sum().backward()
+    torch.cuda.synchronize()
+    assert A.flash_attention_fwd.launches == fwd + 1
+    assert A.flash_attention_bwd.launches == bwd + 1
+    o, lse = A.flash_attention_fwd_reference(q, k, v, mask)
+    want = A.flash_attention_bwd_reference(q, k, v, mask, o, lse, do)
+    for t, w in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w, atol=2e-5, rtol=1e-5)
+
+
 def test_chip_smoke_exits_nonzero_without_a_card():
     """Without a card chip_smoke.py exits non-zero and prints no result
     line (on a card it is run on its own, not from the tests)."""

@@ -154,7 +154,8 @@ def test_port_cli_imports_no_jax(fixture_dir):
         "import sys\n"
         "from easynlp_tpu_torch.cli import main\n"
         "assert main(%r) == 0\n"
-        "bad = [m for m in ('jax', 'flax') if m in sys.modules]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'easynlp_tpu')"
+        " or m.startswith('easynlp_tpu.')]\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n" % (predict_argv(fixture_dir, out,
                                                "--device=cpu"),))
@@ -164,6 +165,38 @@ def test_port_cli_imports_no_jax(fixture_dir):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
     assert len(read_predictions(out)[0]) == 32
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """Static scan of every module of easynlp_tpu_torch/ and chip_smoke.py:
+    no import statement, and no module path handed to importlib as a
+    string, names jax, flax, optax or easynlp_tpu (the port keeps its own
+    copies of what it shares with the JAX package)."""
+    import ast
+    import glob
+    import re
+    module = re.compile(r"(jax|flax|optax|easynlp_tpu)(\.\w+)*")
+    dotted = re.compile(r"(jax|flax|optax|easynlp_tpu)(\.\w+)+")
+    files = sorted(glob.glob(os.path.join(REPO, "easynlp_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 40
+    found = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names, banned = [], module
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            elif isinstance(node, ast.Constant) and isinstance(node.value,
+                                                               str):
+                names, banned = [node.value], dotted  # "flax" is a word
+            found += ["%s:%d %s" % (os.path.relpath(path, REPO), node.lineno,
+                                    n) for n in names if banned.fullmatch(n)]
+    assert not found, found
 
 
 def test_device_cuda_never_falls_back_to_cpu():

@@ -440,16 +440,24 @@ def test_unported_training_options_raise(tiny, flag):
 
 
 def test_train_cli_imports_no_jax_or_sklearn(tiny):
+    """--mode=train, then --mode=evaluate on its checkpoint, in a fresh
+    process: neither loads jax, flax, optax, sklearn or any module of the
+    JAX package."""
     ckpt = os.path.join(tiny, "nojax")
+    evaluate = ["--mode=evaluate", "--tables=%s/dev.tsv" % tiny,
+                "--checkpoint_dir=" + ckpt, "--micro_batch_size=16",
+                "--device=cpu", *_common(tiny)]
     code = (
         "import sys\n"
         "from easynlp_tpu_torch.cli import main\n"
         "assert main(%r) == 0\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'sklearn') "
-        "if m in sys.modules]\n"
+        "assert main(%r) == 0\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
+        "'sklearn', 'easynlp_tpu') or m.startswith('easynlp_tpu.')]\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n" % (train_argv(tiny, ckpt, "--device=cpu",
-                                             "--micro_batch_size=16"),))
+                                             "--micro_batch_size=16"),
+                                   evaluate))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=REPO))
