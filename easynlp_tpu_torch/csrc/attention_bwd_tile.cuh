@@ -1,6 +1,7 @@
 // The tile walks shared by the port's two attention backward kernels
-// (short_attention_bwd.cu, flash_attention_bwd.cu): plain CUDA C++ for
-// Hopper (sm_90a), f32 FMAs on the CUDA cores.
+// (short_attention_bwd.cu, and flash_attention_bwd.cu for f32 inputs; its
+// bf16 inputs take attention_bwd_mma.cuh): plain CUDA C++ for Hopper
+// (sm_90a), f32 FMAs on the CUDA cores.
 //
 // Both compute the gradients of
 //   O = softmax(Q K^T * scale, masked by kv_mask, optionally causal with

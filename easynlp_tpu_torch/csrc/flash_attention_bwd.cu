@@ -7,8 +7,9 @@
 //   O = softmax(Q K^T * scale, masked by kv_mask, optionally causal with
 //       q_offset = Skv - Sq) V
 // for any Skv, from q, k, v, the forward's O and its f32 LSE [B,H,Sq]
-// (flash_attention_fwd.cu), with f32 arithmetic throughout and dq/dk/dv in
-// the input dtype (f32 or bf16):
+// (flash_attention_fwd.cu), with f32 scores, statistics and sums and
+// dq/dk/dv in the input dtype (f32 or bf16; from bf16 inputs P and dS are
+// rounded to bf16 once, as tensor-core operands):
 //   P  = exp(s - LSE), masked keys at the finite -1e30, keys past Skv at 0
 //   dV = P^T dO,  dP = dO V^T,  delta = rowsum(dO * O)
 //   dS = P * (dP - delta) * scale, zeroed at every masked or causally
@@ -26,10 +27,7 @@
 // (B=8, S=1024, H=12, D=64, bf16) needs 10*B*H*S*S*D = 64.4 GFLOP (Q K^T,
 // dO V^T, dS^T Q, P^T dO and dS K, counted once each) over about 100 MB of
 // q/k/v/o/dO/dq/dk/dv: ~640 FLOP per byte, above the bf16 tensor cores'
-// ridge. This first version multiplies with f32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), and recomputes Q K^T and dO V^T in both of its passes,
-// so it is bound by FMA issue and shared-memory reads, as the other kernels
-// of the port are.
+// ridge, so it is bound by operations.
 //
 // What the design does about it. On the TPU the grid runs in order, and
 // each kernel keeps one block's accumulators in VMEM across a sequential
@@ -42,12 +40,14 @@
 //   dK/dV (the port of _bwd_dkdv_kernel), one block per (b, h, 64-key
 //     tile), walking the query tiles from the first one that sees the key
 //     tile under causal masking;
-//   dQ (the port of _bwd_dq_kernel), one block per (b, h, 32-query tile),
+//   dQ (the port of _bwd_dq_kernel), one block per (b, h, query tile),
 //     walking the key tiles up to its last row's diagonal.
-// The two walks are attention_bwd_tile.cuh's, which short_attention_bwd.cu
-// shares; K/V (dK/dV pass) and Q/dO (dQ pass) stay in shared memory as f32
-// while the other side streams through. Tensor cores (mma.sync, then wgmma
-// with TMA) and one fused pass are the next steps.
+// bf16 inputs take attention_bwd_mma.cuh's passes: mma.sync tensor-core
+// products on bf16 tiles that cp.async streams through a two-stage ring,
+// with P and dS kept in registers (its head comment has the design). f32
+// inputs take attention_bwd_tile.cuh's f32-FMA walks on the CUDA cores,
+// which short_attention_bwd.cu shares: they hold the f32 twin to 2e-5,
+// which bf16 or TF32 tensor-core products cannot.
 //
 // Built by easynlp_tpu_torch/kernels with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -58,6 +58,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_bwd_mma.cuh"
 #include "attention_bwd_tile.cuh"
 
 namespace {
@@ -116,20 +117,41 @@ flash_attention_bwd_pre_kernel(const Params p) {
   }
 }
 
-template <typename T, int kDPad>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_pre_pass(const Params& p, cudaStream_t stream) {
   flash_attention_bwd_pre_kernel<T>
       <<<dim3(p.n_chunks, p.H, p.B), kThreads, 0, stream>>>(p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_grads<T, kDPad, true>(p, stream);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_for_head_dim(const Params& p, cudaStream_t stream) {
-  if (p.D <= 32) return launch<T, 32>(p, stream);
-  if (p.D <= 64) return launch<T, 64>(p, stream);
-  return launch<T, 128>(p, stream);
+// f32: the CUDA-core walks, per padded head dim.
+template <int kDPad>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  const cudaError_t err = launch_pre_pass<float>(p, stream);
+  if (err != cudaSuccess) return err;
+  return launch_grads<float, kDPad, true>(p, stream);
+}
+
+// bf16: the tensor-core passes, the head dim zero-filled up to a multiple
+// of the MMA depth (16).
+template <int kDPad>
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  const cudaError_t err = launch_pre_pass<__nv_bfloat16>(p, stream);
+  if (err != cudaSuccess) return err;
+  return launch_grads_mma<kDPad>(p, stream);
+}
+
+cudaError_t launch_for_head_dim_f32(const Params& p, cudaStream_t stream) {
+  if (p.D <= 32) return launch_f32<32>(p, stream);
+  if (p.D <= 64) return launch_f32<64>(p, stream);
+  return launch_f32<128>(p, stream);
+}
+
+cudaError_t launch_for_head_dim_bf16(const Params& p, cudaStream_t stream) {
+  if (p.D <= 16) return launch_bf16<16>(p, stream);
+  if (p.D <= 32) return launch_bf16<32>(p, stream);
+  if (p.D <= 64) return launch_bf16<64>(p, stream);
+  return launch_bf16<128>(p, stream);
 }
 
 }  // namespace
@@ -175,9 +197,7 @@ extern "C" int easynlp_flash_attention_bwd(
   p.row_delta = scratch;
   p.masked_dout_sum = scratch + static_cast<int64_t>(B) * H * Sq;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_for_head_dim<float>(p, s));
-  if (dtype == 1) {
-    return static_cast<int>(launch_for_head_dim<__nv_bfloat16>(p, s));
-  }
+  if (dtype == 0) return static_cast<int>(launch_for_head_dim_f32(p, s));
+  if (dtype == 1) return static_cast<int>(launch_for_head_dim_bf16(p, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -167,6 +167,20 @@ def flash_attention_fwd_reference(q, k, v, kv_mask, causal=False,
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype), lse
 
 
+def _flash_bwd_p_ds(q, k, v, kv_mask, o, lse, do, causal, scale):
+    """f32 P and dS [B,H,Sq,Skv] of the flash backward twin."""
+    skv = k.shape[1]
+    hidden = _hidden_keys(kv_mask, q.shape[1], skv, causal, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = s.masked_fill(hidden, NEG_INF)
+    lse = lse.float()[..., None]
+    p = torch.where(lse < MASKED_ROW_LSE, 1.0 / skv, torch.exp(s - lse))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = (p * (dp - delta) * scale).masked_fill(hidden, 0.0)
+    return p, ds
+
+
 def flash_attention_bwd_reference(q, k, v, kv_mask, o, lse, do,
                                   causal=False, scale=None):
     """Plain PyTorch twin of the flash backward kernel, in f32 from the
@@ -178,20 +192,29 @@ def flash_attention_bwd_reference(q, k, v, kv_mask, o, lse, do,
     attention_reference gives it, not exp(0) = 1 (ROADMAP C10): dq = 0,
     no dk, dO/Skv to every key's dv. Returns (dq, dk, dv) in q's dtype."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    skv = k.shape[1]
-    hidden = _hidden_keys(kv_mask, q.shape[1], skv, causal, q.device)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    s = s.masked_fill(hidden, NEG_INF)
-    lse = lse.float()[..., None]
-    p = torch.where(lse < MASKED_ROW_LSE, 1.0 / skv, torch.exp(s - lse))
-    do32 = do.float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v.float())
-    delta = (do32 * o.float()).sum(-1).transpose(1, 2)[..., None]
-    ds = (p * (dp - delta) * scale).masked_fill(hidden, 0.0)
+    p, ds = _flash_bwd_p_ds(q, k, v, kv_mask, o, lse, do, causal, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_attention_bwd_rss(q, k, v, kv_mask, o, lse, do, causal=False,
+                            scale=None):
+    """The root-sum-square of the terms that make up each gradient of
+    flash_attention_bwd_reference, f32 (dq, dk, dv): sqrt(sum_k (dS K)^2)
+    per element of dq, sqrt(sum_q (dS Q)^2) of dk, sqrt(sum_q (P dO)^2) of
+    dv. The bf16 kernels round each P and dS to bf16 before the sum, so
+    their error is a sum of those terms each perturbed by at most 2^-8 of
+    itself; its spread scales with this (chip_smoke.py and
+    tests/test_torch_kernels.py state the bound)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _flash_bwd_p_ds(q, k, v, kv_mask, o, lse, do, causal, scale)
+    ds2 = ds * ds
+    dv = torch.einsum("bhqk,bqhd->bkhd", p * p, do.float().square())
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds2, k.float().square())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds2, q.float().square())
+    return dq.sqrt(), dk.sqrt(), dv.sqrt()
 
 
 def _check_args(name, q, k, v, kv_mask, max_kv_len=None):
@@ -232,7 +255,7 @@ def _check_rows(**tensors):
     for name, t in tensors.items():
         if t.stride(3) != 1:
             raise ValueError("%s: the head dim must be contiguous" % name)
-        if t.data_ptr() % 16 or any(_strides(t)[i] % vec for i in range(3)):
+        if t.data_ptr() % 16 or any(x % vec for x in _strides(t)):
             raise ValueError("%s: the kernel reads 16-byte rows; the data "
                              "pointer and the batch/seq/head strides must be "
                              "16-byte aligned" % name)
@@ -242,7 +265,7 @@ def _strides(t):
     """(batch, seq, head) element strides, in the launcher's order, with 0
     for a dim of size 1 (never stepped over, so its stride does not
     matter)."""
-    return [t.stride(i) if t.shape[i] > 1 else 0 for i in range(3)]
+    return [x if n > 1 else 0 for n, x in zip(t.shape[:3], t.stride()[:3])]
 
 
 def _launcher(name, n_pointers, n_strides):

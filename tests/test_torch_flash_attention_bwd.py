@@ -10,7 +10,9 @@ _bwd_dkdv_kernel and _bwd_dq_kernel; and jax.grad of attention_reference.
 
 f32 bound: 2e-5 (the bound tests/test_attention.py holds the JAX flash
 kernel to against its reference; the gradients here are below 20 in
-magnitude, so about 1e-6 relative).
+magnitude, so about 1e-6 relative). The bf16 kernels' bound, which the card
+check uses, is pinned here against an emulation of their rounding points
+and against autograd through bf16 attention_reference.
 """
 
 import jax
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from easynlp_tpu.ops import attention as jax_attn
 from easynlp_tpu_torch.ops import attention as A
 
@@ -149,3 +152,77 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
         do = do[:, :-1]
     with pytest.raises(ValueError):
         A.flash_attention_bwd(q, k, v, mask, o, lse, do)
+
+
+def _tensor_core_rounding(q, k, v, mask, o, lse, do, causal):
+    """The bf16 flash backward kernels' arithmetic in plain PyTorch, at
+    their rounding points (csrc/attention_bwd_mma.cuh): f32 scores and dP
+    from the bf16 inputs, P = exp(s * scale - LSE), 0 at hidden keys and on
+    fully masked rows, dS = P (dP - delta) scale, P and dS rounded to bf16
+    before f32 sums, each fully masked row's dO / Skv added to dv in f32
+    (the pre-pass), and dq/dk/dv rounded to bf16. Returns f32 tensors."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    skv = k.shape[1]
+    hidden = A._hidden_keys(mask, q.shape[1], skv, causal, q.device)
+    q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
+    masked = (lse < A.MASKED_ROW_LSE)[..., None]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.where(hidden | masked, 0.0, torch.exp(s - lse[..., None]))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    delta = (do * o).sum(-1).transpose(1, 2)[..., None]
+    p16, ds16 = (x.bfloat16().float() for x in (p, p * (dp - delta) * scale))
+    masked_do = torch.einsum("bhq,bqhd->bhd", masked[..., 0].float(), do)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p16, do) \
+        + masked_do[:, None] / skv
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, q)
+    return [g.bfloat16().float() for g in (dq, dk, dv)]
+
+
+def _largest_error_over_bound(got, want, rss):
+    """max |got - want| / bound over dq, dk, dv, the bound the card check
+    holds the bf16 flash backward to (chip_smoke.py, FLASH_BWD_*_BF16)."""
+    worst = 0.0
+    for g, w, r in zip(got, want, rss):
+        bound = chip_smoke.FLASH_BWD_ATOL_BF16 \
+            + chip_smoke.FLASH_BWD_RTOL_BF16 * w.abs() \
+            + chip_smoke.FLASH_BWD_RSS_BF16 * r
+        worst = max(worst, ((g.float() - w).abs() / bound).max().item())
+    return worst
+
+
+BUDGET_CASES = {
+    # name: (seed, B, Sq, Skv, H, D, per-row key lengths, causal)
+    "fully-masked-row": (11, 2, 40, 150, 2, 64, [150, 0], False),
+    "causal-offset-60-ragged": (12, 2, 70, 130, 2, 64, [130, 97], True),
+    "causal-offset-minus-10": (13, 2, 50, 40, 2, 32, [40, 29], True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUDGET_CASES))
+def test_bf16_rounding_points_stay_within_the_card_bound(name):
+    """The bf16 error budget the card check relies on. The kernels'
+    rounding points, emulated in plain PyTorch, stay within chip_smoke.py's
+    bound (1e-5 + 2^-8 |g| + 2.5 x 2^-8 R) of the f32 twin on the same bf16
+    inputs, and no less tightly than autograd through bf16
+    attention_reference, which rounds the same P and dS and also the
+    scores and dP."""
+    seed, b, sq, skv, h, d, lengths, causal = BUDGET_CASES[name]
+    q, k, v, do, mask = (torch.from_numpy(x) for x in
+                         _inputs(seed, b, sq, skv, h, d, lengths))
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    o, lse = A.flash_attention_fwd_reference(q, k, v, mask, causal)
+    args = (q.float(), k.float(), v.float(), mask, o.float(), lse,
+            do.float(), causal)
+    want = A.flash_attention_bwd_reference(*args)
+    rss = A.flash_attention_bwd_rss(*args)
+    emulated = _tensor_core_rounding(q, k, v, mask, o, lse, do, causal)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = A.attention_reference(*leaves, kv_mask=mask, causal=causal)
+    plain = torch.autograd.grad(out, leaves, do)
+    ours = _largest_error_over_bound(emulated, want, rss)
+    theirs = _largest_error_over_bound(plain, want, rss)
+    assert ours <= 1.0, ours
+    assert ours <= theirs, (ours, theirs)
+    # the bound is not vacuous: the last rounding alone moves dq/dk/dv
+    assert ours > 0.1, ours

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from easynlp_tpu_torch import kernels
 from easynlp_tpu_torch.ops import attention as A
 
@@ -191,7 +192,28 @@ FLASH_CASES = [  # B, Sq, Skv, H, D, per-row key lengths, causal
     (2, 20, 12, 2, 32, [12, 5], True),        # q_offset < 0: rows see no key
     (3, 100, 100, 2, 128, [100, 65, 1], False),
     (2, 16, 130, 2, 40, [130, 9], False),     # D not a power of two
-    (1, 1100, 1100, 4, 64, [1100], True)]
+    (1, 1100, 1100, 4, 64, [1100], True),
+    (2, 50, 90, 2, 8, [90, 31], False),       # D = 8, zero-filled to 16
+    # causal, q_offset = 170 across several 64-row and 64-key tiles
+    (2, 130, 300, 2, 64, [300, 211], True)]
+
+
+def _assert_flash_bwd_bf16(got, q, k, v, mask, o, lse, do, causal):
+    """got (bf16 dq, dk, dv) within the bf16 flash backward's bound of the
+    f32 twin on the same (bf16) inputs: chip_smoke.py's, derived there
+    beside FLASH_BWD_RSS_BF16 (1e-5 + 2^-8 |g| + 2.5 x 2^-8 R, R from
+    flash_attention_bwd_rss)."""
+    args = (q.float(), k.float(), v.float(), mask, o.float(), lse,
+            do.float(), causal)
+    want = A.flash_attention_bwd_reference(*args)
+    rss = A.flash_attention_bwd_rss(*args)
+    for g, w, r, name in zip(got, want, rss, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16
+        bound = chip_smoke.FLASH_BWD_ATOL_BF16 \
+            + chip_smoke.FLASH_BWD_RTOL_BF16 * w.abs() \
+            + chip_smoke.FLASH_BWD_RSS_BF16 * r
+        excess = ((g.float() - w).abs() - bound).max().item()
+        assert excess <= 0, "%s off by %.3e past its bound" % (name, excess)
 
 
 @pytest.mark.gpu
@@ -250,13 +272,23 @@ def test_cuda_flash_bwd_matches_plain_twin():
     """The flash backward kernels against their plain twin on the card, on
     the same inputs (q, k, v, the forward kernel's O and LSE, dO; bf16 ones
     cast to f32 for the twin), at FLASH_CASES' shapes: fully masked rows,
-    ragged and causal edges, Sq != Skv, q_offset < 0, D = 40 and 128.
+    ragged and causal edges, Sq != Skv, q_offset < 0 and > 0 across several
+    tiles, D = 8, 40 and 128; then q/k/v read through GPT-2's
+    fused-projection strides (views of one [B,S,3,H,D] tensor).
 
-    f32: bound 2e-5 + 1e-5 |g| (sums in another order). bf16: the kernels
-    compute in f32 and round dq/dk/dv once: 1e-4 + 2^-8 |g|. Two runs give
-    the same bits (no atomics). Then autograd through attention() at
-    Skv = 600 launches the forward and the backward once each and matches
-    the twins."""
+    f32 takes the CUDA-core walk: bound 2e-5 + 1e-5 |g| (sums in another
+    order). bf16 takes the tensor-core passes, which round each P and dS
+    term to bf16 (at most 2^-8 of itself) before an f32 sum, then dq/dk/dv:
+    the error is at most 2^-8 |g| from the last rounding plus a sum of
+    terms x_j y_j each moved by at most 2^-8 of itself, whose spread over
+    random inputs is about 0.43 x 2^-8 R, R = sqrt(sum_j (x_j y_j)^2)
+    (flash_attention_bwd_rss); bound 1e-5 + 2^-8 |g| + 2.5 x 2^-8 R, which
+    autograd through bf16 attention_reference (it also rounds the scores
+    and dP) exceeds on the same inputs (chip_smoke.py checks that at its
+    shapes; tests/test_torch_flash_attention_bwd.py on the CPU). Two runs
+    give the same bits in both dtypes (no atomics). Then autograd through
+    attention() at Skv = 600 launches the forward and the backward once
+    each and matches the twins."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
     dev = torch.device("cuda")
@@ -277,14 +309,30 @@ def test_cuda_flash_bwd_matches_plain_twin():
         assert all(torch.equal(a, g) for a, g in zip(again, got))
         bq, bk, bv, bdo = (t.to(torch.bfloat16) for t in (q, k, v, do))
         o16, lse16 = A.flash_attention_fwd(bq, bk, bv, mask, causal)
-        want16 = A.flash_attention_bwd_reference(
-            bq.float(), bk.float(), bv.float(), mask, o16.float(), lse16,
-            bdo.float(), causal)
         got16 = A.flash_attention_bwd(bq, bk, bv, mask, o16, lse16, bdo,
                                       causal)
-        for g, w in zip(got16, want16):
-            assert g.dtype == torch.bfloat16
-            torch.testing.assert_close(g.float(), w, atol=1e-4, rtol=2 ** -8)
+        _assert_flash_bwd_bf16(got16, bq, bk, bv, mask, o16, lse16, bdo,
+                               causal)
+        again16 = A.flash_attention_bwd(bq, bk, bv, mask, o16, lse16, bdo,
+                                        causal)
+        assert all(torch.equal(a, g) for a, g in zip(again16, got16))
+    # GPT-2's layout: q/k/v as views of one fused [B,S,3,H,D] projection,
+    # read in place through its strides; dq/dk/dv come back dense
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(2, 600, 3, 4, 64, device=dev).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        mask = torch.ones(2, 600, dtype=torch.int32, device=dev)
+        mask[1, :77] = 0
+        do = torch.randn(2, 600, 4, 64, device=dev).to(dtype)
+        o, lse = A.flash_attention_fwd(q, k, v, mask, True)
+        got = A.flash_attention_bwd(q, k, v, mask, o, lse, do, True)
+        if dtype == torch.float32:
+            want = A.flash_attention_bwd_reference(q, k, v, mask, o, lse, do,
+                                                   True)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-5)
+        else:
+            _assert_flash_bwd_bf16(got, q, k, v, mask, o, lse, do, True)
     q, k, v, mask = _case(13, 2, 40, 600, 4, 64, [600, 333], dev)
     do = torch.randn(2, 40, 4, 64, device=dev)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
