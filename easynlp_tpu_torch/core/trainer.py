@@ -59,6 +59,10 @@ def refuse_unported_options(args):
     if float(getattr(args, "ema_decay", 0.0) or 0.0) > 0.0:
         raise NotImplementedError("--ema_decay is not ported yet "
                                   "(ROADMAP A6b)")
+    if (getattr(args, "num_host_prefetch", None) or 0) > 0:
+        raise NotImplementedError("--num_host_prefetch (host-to-device "
+                                  "prefetch) is not ported yet (ROADMAP "
+                                  "A6c)")
     if getattr(args, "async_save", False):
         raise NotImplementedError("--async_save is not ported yet "
                                   "(ROADMAP A6b)")

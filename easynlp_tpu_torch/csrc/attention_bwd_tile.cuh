@@ -1,7 +1,8 @@
-// The tile walks shared by the port's two attention backward kernels
-// (short_attention_bwd.cu, and flash_attention_bwd.cu for f32 inputs; its
-// bf16 inputs take attention_bwd_mma.cuh): plain CUDA C++ for Hopper
-// (sm_90a), f32 FMAs on the CUDA cores.
+// The tile walks shared by the port's two attention backward kernels for
+// f32 inputs (short_attention_bwd.cu, flash_attention_bwd.cu; bf16 inputs
+// take the tensor cores: attention_bwd_mma.cuh and short_attention_bwd.cu's
+// one-block kernel): plain CUDA C++ for Hopper (sm_90a), f32 FMAs on the
+// CUDA cores.
 //
 // Both compute the gradients of
 //   O = softmax(Q K^T * scale, masked by kv_mask, optionally causal with
@@ -31,7 +32,9 @@
 //     pre-pass writes. With that, the dK/dV pass may start at the first
 //     query tile that sees the key tile under causal masking.
 // q/k/v/o/dO are read through (batch, seq, head) element strides and
-// dq/dk/dv written with their own; the ragged edges are masked here.
+// dq/dk/dv written with their own; the ragged edges are masked here. The
+// flash backward's pre-pass (delta and the masked rows' dO sums) is here
+// too: the bf16 short backward past 128 keys runs it as well.
 
 #pragma once
 
@@ -442,6 +445,70 @@ cudaError_t launch_grads(const Params& p, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   return launch_one(attention_bwd_dq_kernel<T, kDPad, kFlash>, q_grid,
                     smem_grads<kDPad>(), p, stream);
+}
+
+constexpr int kPreRows = 128;  // query rows per pre-pass block
+
+// The flash backward's pre-pass (flash_attention_bwd.cu, and the bf16
+// short backward past 128 keys): delta of each row of one (b, h, 128-row
+// chunk), and the sum of dO over its fully masked rows (LSE below
+// kMaskedRowLse; D floats per chunk), which the dK/dV pass turns into their
+// dv term.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_bwd_pre_kernel(const Params p) {
+  __shared__ float part[kThreads / 32][128];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int r0 = blockIdx.x * kPreRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int D = p.D;
+  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+
+  // lane owns columns lane + 32 j of every row its warp visits
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i = warp; i < kPreRows; i += kThreads / 32) {
+    const int row = r0 + i;
+    if (row >= p.Sq) break;  // warp-uniform
+    float dov[4], delta = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = lane + 32 * j;
+      dov[j] = 0.f;
+      if (d < D) {
+        dov[j] = to_float(dout[row * p.do_ss + d]);
+        delta = fmaf(dov[j], to_float(o[row * p.o_ss + d]), delta);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) delta += __shfl_xor_sync(0xffffffffu, delta, off);
+    if (lane == 0) p.row_delta[stat0 + row] = delta;
+    if (p.lse[stat0 + row] < kMaskedRowLse) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] += dov[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) part[warp][lane + 32 * j] = acc[j];
+  __syncthreads();
+  if (tid < D) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) sum += part[w][tid];
+    p.masked_dout_sum[((static_cast<int64_t>(b) * p.H + h) * p.n_chunks + blockIdx.x) * D +
+                      tid] = sum;
+  }
+}
+
+template <typename T>
+cudaError_t launch_pre_pass(const Params& p, cudaStream_t stream) {
+  flash_attention_bwd_pre_kernel<T>
+      <<<dim3(p.n_chunks, p.H, p.B), kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -34,9 +34,11 @@
 // grid dimension. Blocks on Hopper run in no order and nothing carries over
 // between them, so the two kernels become loops inside blocks, with no
 // atomics (two runs give the same bits), in three launches:
-//   pre-pass, one block per (b, h, 128-query chunk): delta = rowsum(dO * O)
-//     per row, and the sum of dO over the chunk's fully masked rows
-//     (LSE < -5e29), which the dK/dV pass turns into their dv term;
+//   pre-pass (attention_bwd_tile.cuh, which the bf16 short backward past
+//     128 keys runs too), one block per (b, h, 128-query chunk):
+//     delta = rowsum(dO * O) per row, and the sum of dO over the chunk's
+//     fully masked rows (LSE < -5e29), which the dK/dV pass turns into
+//     their dv term;
 //   dK/dV (the port of _bwd_dkdv_kernel), one block per (b, h, 64-key
 //     tile), walking the query tiles from the first one that sees the key
 //     tile under causal masking;
@@ -62,67 +64,6 @@
 #include "attention_bwd_tile.cuh"
 
 namespace {
-
-constexpr int kPreRows = 128;  // query rows per pre-pass block
-
-// Pre-pass: delta of each row of one (b, h, 128-row chunk), and the sum of
-// dO over its fully masked rows (D floats per chunk).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_pre_kernel(const Params p) {
-  __shared__ float part[kThreads / 32][128];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int r0 = blockIdx.x * kPreRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int D = p.D;
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
-
-  // lane owns columns lane + 32 j of every row its warp visits
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int i = warp; i < kPreRows; i += kThreads / 32) {
-    const int row = r0 + i;
-    if (row >= p.Sq) break;  // warp-uniform
-    float dov[4], delta = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = lane + 32 * j;
-      dov[j] = 0.f;
-      if (d < D) {
-        dov[j] = to_float(dout[row * p.do_ss + d]);
-        delta = fmaf(dov[j], to_float(o[row * p.o_ss + d]), delta);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) delta += __shfl_xor_sync(0xffffffffu, delta, off);
-    if (lane == 0) p.row_delta[stat0 + row] = delta;
-    if (p.lse[stat0 + row] < kMaskedRowLse) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] += dov[j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) part[warp][lane + 32 * j] = acc[j];
-  __syncthreads();
-  if (tid < D) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) sum += part[w][tid];
-    p.masked_dout_sum[((static_cast<int64_t>(b) * p.H + h) * p.n_chunks + blockIdx.x) * D +
-                      tid] = sum;
-  }
-}
-
-template <typename T>
-cudaError_t launch_pre_pass(const Params& p, cudaStream_t stream) {
-  flash_attention_bwd_pre_kernel<T>
-      <<<dim3(p.n_chunks, p.H, p.B), kThreads, 0, stream>>>(p);
-  return cudaGetLastError();
-}
 
 // f32: the CUDA-core walks, per padded head dim.
 template <int kDPad>

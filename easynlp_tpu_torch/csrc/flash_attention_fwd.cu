@@ -7,8 +7,9 @@
 //         q_offset = Skv - Sq) V
 //   LSE = log(sum(exp(masked scores)))  (f32, [B,H,Sq]; read by the flash
 //         backward kernels, ROADMAP B4/B5)
-// for any Skv, with f32 scores, f32 probabilities and f32 accumulation and O
-// in the input dtype (f32 or bf16). Masked scores take the JAX package's
+// for any Skv, with f32 scores, statistics and accumulation and O in the
+// input dtype (f32 or bf16; the bf16 tensor-core route rounds P to bf16
+// before P V, as _fwd_kernel does). Masked scores take the JAX package's
 // finite NEG_INF (-1e30); keys past Skv take weight exactly 0, so a query
 // row whose keys are all masked averages V over the real Skv keys, as
 // attention_reference does. (JAX pads K/V to the block size first and its
@@ -16,31 +17,33 @@
 // In such a row every score is -1e30, so its LSE is -1e30 + log(Skv), which
 // rounds to -1e30 in f32.
 //
-// What bounds it on this card: GPT-2 small's prefill (B=8, S=768, H=12,
-// D=64, causal, bf16) needs 2*B*H*S*S*D = 7.2 GFLOP over the unmasked half
-// of the scores and reads 28 MB of q/k/v, about 250 FLOP per byte, at the
-// ridge of the H100's bf16 tensor cores. Its decode step (one query against
-// a 896-slot cache) does 2 FLOP per byte of K/V read: device memory bounds
-// it. This first version multiplies with f32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), so prefill is bound by FMA throughput and
-// shared-memory reads, and decode, where a query tile of 32 rows holds one
-// real row, by the latency of one block walking the cache alone.
+// What bounds it on this card: at BART-base's encoder (B=8, S=1024, H=12,
+// D=64, bf16) it needs 4*B*H*S*S*D = 25.8 GFLOP over ~50 MB of q/k/v/o,
+// about 500 FLOP per byte, above the H100's bf16 tensor-core ridge (~295):
+// operations bound it. GPT-2 small's prefill (8 x 768, causal) is near the
+// ridge. Its decode step (one query against a 896-slot cache) does 2 FLOP
+// per byte of K/V read: device memory bounds it.
 //
-// What the design does about it: no score or probability leaves shared
-// memory, and K/V stream through shared memory in 64-key tiles with an
-// online softmax (running max and sum per row), so nothing is held whole
-// and Skv is unbounded. One block owns one (batch, head, 32-query tile);
-// the tile walk is attention_fwd_tile.cuh, shared with the short forward.
-// Under causal masking a block stops after the tile holding its last row's
-// diagonal (as _fwd_kernel's loop bound does), unless one of its rows has
-// seen no visible key by then (a fully masked row, or a row with
-// q + q_offset < 0): such a row averages all Skv keys, so the block walks on.
-// q_offset is applied directly, for Sq != Skv too (JAX falls back to XLA
-// there, ROADMAP C2). q/k/v/o are read and written through (batch, seq,
-// head) element strides, so GPT-2's fused-projection views and a per-layer
-// [B,T,H,D] KV cache are read in place; the ragged edge is masked here, with
-// no padding copy. A split-KV decode kernel, and tensor cores (mma.sync,
-// then wgmma with TMA), are the next steps.
+// Two routes, a rule on dtype:
+//   bf16: attention_fwd_mma.cuh's tensor-core kernel (mma.sync m16n8k16,
+//     64-query tiles, K/V streamed through a cp.async ring, the online
+//     softmax in registers, P rounded to bf16 before P V as _fwd_kernel
+//     rounds it; its head comment has the design), at every Sq: at GPT-2's
+//     decode shape (8 x 1 x 896), where a 64-query tile holds one real row,
+//     it still takes less time than the walk below did (PERF.md);
+//   f32: the CUDA-core walk below (f32 FMAs over 32-query tiles, P kept
+//     f32). It alone meets the f32 twin's 2e-5 bound.
+// Both keep no score or probability outside the block, stream K/V in 64-key
+// tiles with an online softmax (running max and sum per row), so Skv is
+// unbounded. Under causal masking a block stops after the tile holding its
+// last row's diagonal (as _fwd_kernel's loop bound does), unless one of its
+// rows has seen no visible key by then (a fully masked row, or a row with
+// q + q_offset < 0): such a row averages all Skv keys, so the block walks
+// on. q_offset is applied directly, for Sq != Skv too (JAX falls back to
+// XLA there, ROADMAP C2). q/k/v/o are read and written through (batch,
+// seq, head) element strides, so GPT-2's fused-projection views and a
+// per-layer [B,T,H,D] KV cache are read in place; the ragged edge is masked
+// here, with no padding copy. A split-KV decode kernel is the next step.
 //
 // Built by easynlp_tpu_torch/kernels with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -51,6 +54,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_fwd_mma.cuh"
 #include "attention_fwd_tile.cuh"
 
 namespace {
@@ -91,19 +95,20 @@ flash_attention_fwd_kernel(const fwd::Params p) {
   }
 }
 
-template <typename T>
-cudaError_t launch_for_head_dim(const fwd::Params& p, cudaStream_t stream) {
-  if (p.D <= 32) return fwd::launch<32>(flash_attention_fwd_kernel<T, 32>, p, stream);
-  if (p.D <= 64) return fwd::launch<64>(flash_attention_fwd_kernel<T, 64>, p, stream);
-  return fwd::launch<128>(flash_attention_fwd_kernel<T, 128>, p, stream);
+// f32: the CUDA-core walk, per padded head dim.
+cudaError_t launch_f32(const fwd::Params& p, cudaStream_t stream) {
+  if (p.D <= 32) return fwd::launch<32>(flash_attention_fwd_kernel<float, 32>, p, stream);
+  if (p.D <= 64) return fwd::launch<64>(flash_attention_fwd_kernel<float, 64>, p, stream);
+  return fwd::launch<128>(flash_attention_fwd_kernel<float, 128>, p, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last (D)
-// dimension is contiguous. m_sb is the mask's batch stride (0 broadcasts one
-// row over the batch). lse is a contiguous f32 [B,H,Sq]. Returns a
-// cudaError_t: 0 when the launch was accepted.
+// dtype: 0 = float32 (the CUDA-core walk), 1 = bfloat16 (the tensor
+// cores). Strides are in elements; the last (D) dimension is contiguous.
+// m_sb is the mask's batch stride (0 broadcasts one row over the batch).
+// lse is a contiguous f32 [B,H,Sq]. Returns a cudaError_t: 0 when the
+// launch was accepted.
 extern "C" int easynlp_flash_attention_fwd(
     const void* q, const void* k, const void* v, const int32_t* mask, void* o,
     float* lse, int dtype, int B, int H, int Sq, int Skv, int D,
@@ -120,9 +125,9 @@ extern "C" int easynlp_flash_attention_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_for_head_dim<float>(p, s));
+  if (dtype == 0) return static_cast<int>(launch_f32(p, s));
   if (dtype == 1) {
-    return static_cast<int>(launch_for_head_dim<__nv_bfloat16>(p, s));
+    return static_cast<int>(fwd::launch_fwd_mma_for_head_dim<true>(p, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

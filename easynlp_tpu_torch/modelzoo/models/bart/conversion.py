@@ -6,7 +6,9 @@ BART `pytorch_model.bin` needs only key normalisation (normalize_keys): the
 `embed_tokens.weight` filled from `shared.weight` where absent, the tied
 `lm_head.weight` and `shared.weight` dropped (the head reads the decoder's
 embedding, as in the JAX model), and `final_logits_bias` taken as [1,V]
-(zeros where absent). The result loads with strict=True.
+(zeros where absent), and `layernorm_embedding` dropped where the config
+has none (use_layernorm_embedding=False). The result loads with
+strict=True.
 `state_dict_from_jax` goes the other way from the JAX package's own layout
 (the inverse of easynlp_tpu/modelzoo/models/bart/conversion.py's
 convert_bart_state_dict).
@@ -31,6 +33,9 @@ def normalize_keys(state_dict, config):
         key = "model.%s.embed_tokens.weight" % side
         if key not in s and shared is not None:
             s[key] = shared
+    if not config.use_layernorm_embedding:
+        # the model has none, and the JAX conversion skips them too
+        s = {k: v for k, v in s.items() if ".layernorm_embedding." not in k}
     bias = s.get("final_logits_bias")
     s["final_logits_bias"] = (
         torch.zeros(1, config.vocab_size) if bias is None
@@ -54,10 +59,11 @@ def state_dict_from_jax(params, config):
         base = "model.%s." % side
         put(base + "embed_tokens.weight", tree["embed_tokens"]["embedding"])
         put(base + "embed_positions.weight", tree["embed_positions"])
-        put(base + "layernorm_embedding.weight",
-            tree["layernorm_embedding"]["scale"])
-        put(base + "layernorm_embedding.bias",
-            tree["layernorm_embedding"]["bias"])
+        if config.use_layernorm_embedding:
+            put(base + "layernorm_embedding.weight",
+                tree["layernorm_embedding"]["scale"])
+            put(base + "layernorm_embedding.bias",
+                tree["layernorm_embedding"]["bias"])
         layers = tree["layers"]
         attns = ("self_attn", "encoder_attn") if side == "decoder" \
             else ("self_attn",)

@@ -146,7 +146,8 @@ class BartLayer(nn.Module):
 
 
 class BartStack(nn.Module):
-    """Token and learned position embeddings, layernorm_embedding, layers."""
+    """Token and learned position embeddings, layernorm_embedding (where
+    config.use_layernorm_embedding is set), layers."""
 
     def __init__(self, config, is_decoder, dtype=torch.float32, device=None):
         super().__init__()
@@ -158,8 +159,10 @@ class BartStack(nn.Module):
         self.embed_positions = nn.Embedding(
             c.max_position_embeddings + c.position_offset, c.d_model,
             device=device)
-        self.layernorm_embedding = nn.LayerNorm(c.d_model, eps=LN_EPS,
-                                                device=device)
+        # as in the JAX model: only where the config asks for it
+        self.layernorm_embedding = (
+            nn.LayerNorm(c.d_model, eps=LN_EPS, device=device)
+            if c.use_layernorm_embedding else None)
         self.dropout = nn.Dropout(c.dropout)
         n = c.decoder_layers if is_decoder else c.encoder_layers
         self.layers = nn.ModuleList(
@@ -173,7 +176,9 @@ class BartStack(nn.Module):
         if c.scale_embedding:
             x = x * math.sqrt(c.d_model)
         x = x + self.embed_positions(positions + c.position_offset)
-        x = self.dropout(self.layernorm_embedding(x)).to(self.dtype)
+        if self.layernorm_embedding is not None:
+            x = self.layernorm_embedding(x)
+        x = self.dropout(x).to(self.dtype)
         for i, layer in enumerate(self.layers):
             x = layer(x, self_mask, enc_hidden, enc_mask, cache, i)
         return x

@@ -27,6 +27,15 @@ Paths:
    without a gradient (BART's encoder and cross-attention, GPT-2 past 512
    keys).
 
+Routes on a card, a rule on dtype and shape (the kernels' head comments
+state the same): f32 takes the CUDA-core walks everywhere, the only ones
+that meet the f32 twins' 2e-5 bound. bf16 takes `mma.sync` tensor-core
+kernels: the flash forward at every Sq (decode included: PERF.md); the
+short backward in one block per (b, h) for Sq, Skv <=
+SHORT_BWD_ONE_BLOCK_LEN and through the flash backward's passes above; the
+flash backward always. The short forward runs on the CUDA cores in both
+dtypes (ROADMAP B1).
+
 The JAX package routes BERT lengths below 256 to XLA on a TPU and reaches
 its flash kernel only from Skv = 8192. Those windows are TPU tunings, so
 here every Skv <= 512 takes the short kernels on a card and every longer
@@ -44,6 +53,10 @@ NEG_INF = -1e30
 MASKED_ROW_LSE = 0.5 * NEG_INF
 SHORT_MAX_KV_LEN = 512
 MAX_HEAD_DIM = 128
+# bf16 short backward calls with Sq and Skv at most this take the one-block
+# tensor-core kernel (code 1 of csrc/short_attention_bwd.cu); larger ones
+# the flash backward's tensor-core passes (code 2).
+SHORT_BWD_ONE_BLOCK_LEN = 128
 
 # --use_flash_attention true|false (wired by utils/initializer.py):
 # False sends every call to attention_reference; None (auto) and True take
@@ -165,6 +178,21 @@ def flash_attention_fwd_reference(q, k, v, kv_mask, causal=False,
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype), lse
+
+
+def flash_attention_fwd_rss(q, k, v, kv_mask, causal=False, scale=None):
+    """The root-sum-square of the terms that make up each element of O in
+    flash_attention_fwd_reference, f32 [B,Sq,H,D]: sqrt(sum_k (P_k v_k)^2)
+    with P the normalised probabilities. The bf16 tensor-core forward rounds
+    each unnormalised probability to bf16 before P V (the normalisation is
+    a common factor of the row), so its error is a sum of those terms each
+    moved by at most 2^-8 of itself; its spread scales with this
+    (chip_smoke.py and tests/test_torch_kernels.py state the bound)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    hidden = _hidden_keys(kv_mask, q.shape[1], k.shape[1], causal, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.softmax(s.masked_fill(hidden, NEG_INF), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p * p, v.float().square()).sqrt()
 
 
 def _flash_bwd_p_ds(q, k, v, kv_mask, o, lse, do, causal, scale):
@@ -351,9 +379,12 @@ def short_attention_bwd(q, k, v, kv_mask, o, do, causal=False, scale=None):
 
     q/k/v/kv_mask as for short_attention_fwd; o is the forward's output and
     do its gradient, both [B,Sq,H,D] with a contiguous head dim. A CUDA
-    tensor launches the three-pass kernel of csrc/short_attention_bwd.cu
-    (counted once in `short_attention_bwd.launches`); a CPU tensor takes the
-    plain twin short_attention_bwd_reference."""
+    tensor launches csrc/short_attention_bwd.cu (counted once in
+    `short_attention_bwd.launches`) on the route `_short_bwd_route` picks:
+    f32, the three CUDA-core passes; bf16 with Sq, Skv <=
+    SHORT_BWD_ONE_BLOCK_LEN, one tensor-core block per (b, h); larger bf16,
+    the flash backward's tensor-core passes after an LSE pass. A CPU tensor
+    takes the plain twin short_attention_bwd_reference."""
     _check_args("short_attention_bwd", q, k, v, kv_mask, SHORT_MAX_KV_LEN)
     _check_grad_args("short_attention_bwd", q, o, do)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -372,9 +403,13 @@ def short_attention_bwd(q, k, v, kv_mask, o, do, causal=False, scale=None):
                   for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk, dv
-    # per-row softmax statistics and delta, written by the kernel's first
-    # pass: row max, 1/(sum of exp), rowsum(dO * O); f32 [B,H,Sq] each
-    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)
+    route = _short_bwd_route(q.dtype, sq, skv)
+    # f32 scratch the kernels write: route 0 the row max, 1/(sum of exp) and
+    # delta, route 2 the LSE, delta and each 128-row chunk's masked-row dO
+    # sum [B,H,ceil(Sq/128),D]; route 1 none
+    n_stats = {0: 3 * sq, 1: 0, 2: 2 * sq + -(-sq // 128) * d}[route]
+    stats = torch.empty(b * h * n_stats, dtype=torch.float32,
+                        device=q.device)
     kv_mask, mask_sb = _cuda_mask(kv_mask, b)
     launch = _launcher("short_attention_bwd", 10, 25)
     with torch.cuda.device(q.device):
@@ -382,8 +417,7 @@ def short_attention_bwd(q, k, v, kv_mask, o, do, causal=False, scale=None):
         rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     kv_mask.data_ptr(), o.data_ptr(), do.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    stats.data_ptr(), _DTYPE_CODES[q.dtype],
-                    b, h, sq, skv, d,
+                    stats.data_ptr(), route, b, h, sq, skv, d,
                     *_strides(q), *_strides(k), *_strides(v), *_strides(o),
                     *_strides(do), *_strides(dq), *_strides(dk),
                     *_strides(dv), mask_sb, int(bool(causal)), float(scale),
@@ -399,6 +433,15 @@ def short_attention_bwd(q, k, v, kv_mask, o, do, causal=False, scale=None):
 short_attention_bwd.launches = 0
 
 
+def _short_bwd_route(dtype, sq, skv):
+    """csrc/short_attention_bwd.cu's route (its dtype code): 0 f32 on the
+    CUDA cores; 1 bf16 in one tensor-core block per (b, h); 2 bf16 through
+    the flash backward's tensor-core passes."""
+    if dtype == torch.float32:
+        return 0
+    return 1 if max(sq, skv) <= SHORT_BWD_ONE_BLOCK_LEN else 2
+
+
 def flash_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
     """Blocked attention forward for any Skv (the port of the TPU kernel
     `_fwd_kernel`): (O [B,Sq,H,D] in q's dtype, LSE f32 [B,H,Sq]).
@@ -408,7 +451,8 @@ def flash_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
     qualify without a copy); kv_mask [B,Skv] or [1,Skv], int32 or bool;
     causal masking with q_offset = Skv - Sq. A CUDA tensor launches
     csrc/flash_attention_fwd.cu (and counts it in
-    `flash_attention_fwd.launches`); a CPU tensor takes the plain twin
+    `flash_attention_fwd.launches`): f32 on the CUDA cores, bf16 on the
+    tensor cores. A CPU tensor takes the plain twin
     flash_attention_fwd_reference. It records no gradient: FlashAttention
     pairs it with flash_attention_bwd."""
     _check_args("flash_attention_fwd", q, k, v, kv_mask)

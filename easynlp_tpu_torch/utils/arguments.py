@@ -115,7 +115,10 @@ def _add_easynlp_args(parser: argparse.ArgumentParser) -> None:
                        help="The hand-written attention kernels: auto/true "
                             "where they apply, false for the plain PyTorch "
                             "attention everywhere")
-    group.add_argument("--num_host_prefetch", default=2, type=int)
+    group.add_argument("--num_host_prefetch", default=None, type=int,
+                       help="The JAX Trainer's device prefetch depth (not "
+                            "ported: a value above 0 raises). Unset means "
+                            "not given")
     group.add_argument("--data_workers", default=0, type=int,
                        help="Threads for per-item featurisation inside the "
                             "DataLoader")

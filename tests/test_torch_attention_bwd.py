@@ -11,7 +11,12 @@ f32 bounds: 2e-5 against jax.grad(attention_reference) (the same f32
 einsums summed in another order; the gradients here are below 20 in
 magnitude, so 2e-5 is about 1e-6 relative). 5e-4 against JAX's short
 kernel, the bound tests/test_attention.py holds that kernel's gradients to.
+The bf16 tensor-core routes' bound, which the card check uses, is pinned
+here against an emulation of their rounding points and against autograd
+through bf16 attention_reference.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from easynlp_tpu.ops import attention as jax_attn
 from easynlp_tpu_torch.ops import attention as A
 
@@ -220,3 +226,82 @@ def test_bwd_wrapper_checks_o_and_do():
         A.short_attention_bwd(tq, tk, tv, tm, o[:, :4], tdo)
     with pytest.raises(ValueError, match="dtype"):
         A.short_attention_bwd(tq, tk, tv, tm, o, tdo.double())
+
+
+def _tensor_core_rounding(q, k, v, mask, o, do, causal):
+    """The bf16 short backward's arithmetic in plain PyTorch, at the
+    rounding points of its tensor-core routes (csrc/short_attention_bwd.cu):
+    f32 scores and dP from the bf16 inputs, P the f32 softmax over the real
+    keys (uniform over them on a fully masked row), dS = P (dP - delta)
+    scale zeroed at hidden keys, P and dS rounded to bf16 before f32 sums,
+    dq/dk/dv rounded to bf16. Returns f32 tensors."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    hidden = A._hidden_keys(mask, q.shape[1], k.shape[1], causal, q.device)
+    q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.softmax(s.masked_fill(hidden, A.NEG_INF), dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    delta = (do * o).sum(-1).transpose(1, 2)[..., None]
+    ds = (p * (dp - delta) * scale).masked_fill(hidden, 0.0)
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p16, do)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, q)
+    return [g.bfloat16().float() for g in (dq, dk, dv)]
+
+
+def _largest_error_over_bound(got, want, rss):
+    """max |got - want| / bound over dq, dk, dv: the flash backward's bf16
+    bound, which the card check holds the short backward's tensor-core
+    routes to (chip_smoke.py, FLASH_BWD_*_BF16)."""
+    worst = 0.0
+    for g, w, r in zip(got, want, rss):
+        bound = chip_smoke.FLASH_BWD_ATOL_BF16 \
+            + chip_smoke.FLASH_BWD_RTOL_BF16 * w.abs() \
+            + chip_smoke.FLASH_BWD_RSS_BF16 * r
+        worst = max(worst, ((g.float() - w).abs() / bound).max().item())
+    return worst
+
+
+BUDGET_CASES = {
+    # name: (seed, B, Sq, Skv, H, D, per-row key lengths, causal); the
+    # first two take the one-block route on a card, the third the flash
+    # route
+    "bert-128-ragged": (31, 2, 128, 128, 2, 64, [128, 77], False),
+    "decoder-64-causal-masked-row": (32, 2, 64, 64, 2, 64, [64, 0], True),
+    "ragged-256": (33, 2, 256, 256, 2, 64, [256, 190], False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUDGET_CASES))
+def test_bf16_rounding_points_stay_within_the_card_bound(name):
+    """The bf16 error budget of the short backward on the tensor cores.
+    Its rounding points, emulated in plain PyTorch, stay within the flash
+    backward's bound (1e-5 + 2^-8 |g| + 2.5 x 2^-8 R, R from
+    flash_attention_bwd_rss given the forward twin's LSE) of the f32 twin on
+    the same bf16 inputs; the bound of one rounding of the output (1e-4 +
+    2^-8 |g|, which the CUDA-core walk met) no longer holds; and autograd
+    through bf16 attention_reference, which also rounds the scores and dP,
+    exceeds the new bound."""
+    seed, b, sq, skv, h, d, lengths, causal = BUDGET_CASES[name]
+    q, k, v, do, mask = (torch.from_numpy(x) for x in
+                         _inputs(seed, b, sq, skv, h, d, lengths))
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    o32, lse = A.flash_attention_fwd_reference(q.float(), k.float(),
+                                               v.float(), mask, causal)
+    o = o32.bfloat16()
+    args = (q.float(), k.float(), v.float(), mask, o.float(), do.float(),
+            causal)
+    want = A.short_attention_bwd_reference(*args)
+    rss = A.flash_attention_bwd_rss(*args[:5], lse, *args[5:])
+    emulated = _tensor_core_rounding(q, k, v, mask, o, do, causal)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = A.attention_reference(*leaves, kv_mask=mask, causal=causal)
+    plain = torch.autograd.grad(out, leaves, do)
+    ours = _largest_error_over_bound(emulated, want, rss)
+    theirs = _largest_error_over_bound(plain, want, rss)
+    assert 0.1 < ours <= 1.0, ours
+    assert theirs > 1.0, theirs
+    one_rounding = max(((g - w).abs() - 1e-4 - 2 ** -8 * w.abs()).max().item()
+                       for g, w in zip(emulated, want))
+    assert one_rounding > 0, one_rounding

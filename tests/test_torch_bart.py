@@ -185,6 +185,38 @@ def test_generation_matches_jax(tiny, num_beams, lengths, width):
     assert len(set(got[:, 1:].ravel().tolist())) >= 2  # not a vacuous run
 
 
+def test_post_ln_without_layernorm_embedding_matches_jax():
+    """ROADMAP C12: a BART whose config turns off the embedding LayerNorm
+    (use_layernorm_embedding=False, post-LN) builds none and applies none,
+    as the JAX model does. The HF checkpoint still carries the weights; both
+    conversions skip them. Logits within 1e-4 at f32 on a padded batch, and
+    the JAX params convert back to the port's state dict."""
+    cfg = dict(TINY, use_layernorm_embedding=False)
+    jax_cfg = JaxBartConfig(**cfg)
+    state = hf_state_dict(jax_cfg, seed=3)
+    params = convert_bart_state_dict(state, jax_cfg)
+    config = BartConfig(**cfg)
+    model = BartForConditionalGeneration(config).eval()
+    model.load_state_dict(normalize_keys(
+        {k: torch.from_numpy(v) for k, v in state.items()}, config),
+        strict=True)
+    assert model.model.encoder.layernorm_embedding is None
+    ids, mask = _batch(4, [9, 5], 9)
+    dec, dec_mask = _batch(5, [6, 3], 6)
+    want = JaxBart.from_config(jax_cfg, dtype=jnp.float32).apply(
+        {"params": params}, input_ids=jnp.asarray(ids),
+        attention_mask=jnp.asarray(mask), decoder_input_ids=jnp.asarray(dec),
+        decoder_attention_mask=jnp.asarray(dec_mask), deterministic=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids), torch.from_numpy(mask),
+                    torch.from_numpy(dec), torch.from_numpy(dec_mask))
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               np.asarray(want["logits"]), atol=ATOL)
+    back = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                               config)
+    model.load_state_dict(back, strict=True)
+
+
 def test_pegasus_layout_is_refused():
     with pytest.raises(NotImplementedError, match="A18"):
         BartForConditionalGeneration(PegasusConfig(**TINY))

@@ -9,14 +9,19 @@ flash_attention_fwd_reference on CPU tensors. Bounds: f32, O and LSE within
 reference). bf16 inputs: within 2e-2 of JAX's bf16 flash kernel, which
 rounds P to bf16 before P.V (2^-9 relative per weight, so at most
 2^-9 * max|v| ~ 8e-3 here) and O to bf16 (half an ulp of |o| < 4, 2^-7);
-the twin keeps P in f32 and is held in f32.
+the twin keeps P in f32 and is held in f32. The bf16 tensor-core kernel's
+bound, which the card check uses, is pinned here against an emulation of
+its rounding points and against bf16 attention_reference.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from easynlp_tpu.ops import attention as jax_attn
 from easynlp_tpu_torch.ops import attention as A
 
@@ -228,3 +233,61 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
         k, v, mask = k[:, :0], v[:, :0], mask[:, :0]
     with pytest.raises(ValueError):
         A.flash_attention_fwd(q, k, v, mask)
+
+
+def _tensor_core_rounding(q, k, v, mask, causal):
+    """The bf16 tensor-core flash forward's arithmetic in plain PyTorch, at
+    its rounding points (csrc/attention_fwd_mma.cuh): f32 scores from the
+    bf16 inputs, p = exp(s - m) in f32 with m the row max (the kernel's
+    running max rescales whole rows, so each rounding moves p by the same
+    relative amount), l = the sum of the f32 p, p rounded to bf16 before an
+    f32 P V, O = P V / l rounded to bf16. Returns f32 [B,Sq,H,D]."""
+    hidden = A._hidden_keys(mask, q.shape[1], k.shape[1], causal, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+    s = s.masked_fill(hidden, A.NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(), v.float()) \
+        / p.sum(dim=-1, keepdim=True)
+    return o.transpose(1, 2).bfloat16().float()
+
+
+def _largest_error_over_bound(got, want, rss):
+    """max |got - want| / bound, the bound the card check holds the bf16
+    tensor-core forward to (chip_smoke.py, FLASH_FWD_*_BF16)."""
+    bound = chip_smoke.FLASH_FWD_ATOL_BF16 \
+        + chip_smoke.FLASH_FWD_RTOL_BF16 * want.abs() \
+        + chip_smoke.FLASH_FWD_RSS_BF16 * rss
+    return ((got.float() - want).abs() / bound).max().item()
+
+
+BUDGET_CASES = {
+    # name: (seed, B, Sq, Skv, H, D, per-row key lengths, causal)
+    "ragged-256": (21, 2, 256, 256, 2, 64, [256, 177], False),
+    "causal-masked-row-256": (22, 2, 256, 256, 2, 64, [256, 0], True),
+    "causal-100x256": (23, 2, 100, 256, 2, 64, [256, 140], True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUDGET_CASES))
+def test_bf16_rounding_points_stay_within_the_card_bound(name):
+    """The bf16 error budget of the tensor-core forward. Its rounding
+    points, emulated in plain PyTorch, stay within chip_smoke.py's bound
+    (1e-5 + 2^-8 |o| + 2.5 x 2^-8 R, R from flash_attention_fwd_rss) of the
+    f32 twin on the same bf16 inputs, while bf16 attention_reference, which
+    also rounds the max-subtracted scores and the normalised probabilities,
+    does not at these sizes. The bound is not vacuous: the emulation uses
+    more than a tenth of it."""
+    seed, b, sq, skv, h, d, lengths, causal = BUDGET_CASES[name]
+    q, k, v, mask = _torch(*_case(seed, b, sq, skv, h, d, lengths))
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    args = (q.float(), k.float(), v.float(), mask, causal)
+    want, _ = A.flash_attention_fwd_reference(*args)
+    rss = A.flash_attention_fwd_rss(*args)
+    ours = _largest_error_over_bound(
+        _tensor_core_rounding(q, k, v, mask, causal), want, rss)
+    theirs = _largest_error_over_bound(
+        A.attention_reference(q, k, v, kv_mask=mask, causal=causal), want,
+        rss)
+    assert 0.1 < ours <= 1.0, ours
+    assert theirs > 1.0, theirs

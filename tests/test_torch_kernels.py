@@ -112,20 +112,48 @@ BWD_CASES = [  # B, Sq, Skv, H, D, per-row key lengths, causal
     (2, 20, 12, 2, 32, [12, 5], True),      # q_offset < 0: rows see no key
     (3, 70, 130, 2, 128, [130, 65, 1], False),
     (2, 16, 16, 2, 40, [16, 9], False),     # D not a power of two
-    (4, 128, 128, 12, 64, [128, 100, 57, 1], False)]
+    (4, 128, 128, 12, 64, [128, 100, 57, 1], False),
+    # the bf16 routes' boundary: one block per (b, h) up to 128 keys and
+    # queries, the flash backward's passes from 129
+    (2, 128, 128, 2, 8, [128, 3], True),    # D = 8, zero-filled to 16
+    (2, 129, 129, 2, 8, [129, 3], True),
+    (2, 128, 128, 2, 128, [128, 0], False),  # D = 128, a fully masked row
+    (2, 200, 300, 2, 40, [300, 0], True)]   # causal Sq != Skv past 128
+
+
+def _assert_bwd_bf16(got, q, k, v, mask, o, do, causal):
+    """got (bf16 dq, dk, dv of the short backward) within the flash
+    backward's bf16 bound of the f32 twin on the same (bf16) inputs, with R
+    from flash_attention_bwd_rss given the forward twin's LSE."""
+    args = (q.float(), k.float(), v.float(), mask, o.float(), do.float(),
+            causal)
+    _, lse = A.flash_attention_fwd_reference(*args[:4], causal)
+    want = A.short_attention_bwd_reference(*args)
+    rss = A.flash_attention_bwd_rss(*args[:5], lse, *args[5:])
+    for g, w, r, name in zip(got, want, rss, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16
+        bound = chip_smoke.FLASH_BWD_ATOL_BF16 \
+            + chip_smoke.FLASH_BWD_RTOL_BF16 * w.abs() \
+            + chip_smoke.FLASH_BWD_RSS_BF16 * r
+        excess = ((g.float() - w).abs() - bound).max().item()
+        assert excess <= 0, "%s off by %.3e past its bound" % (name, excess)
 
 
 @pytest.mark.gpu
 def test_cuda_bwd_kernel_matches_plain_twin():
     """The backward kernel against its plain twin on the card, on the same
     inputs (q, k, v, the forward kernel's output o, dO; bf16 ones cast to
-    f32 for the twin).
+    f32 for the twin), at BWD_CASES' shapes: fully masked rows, ragged and
+    causal edges, Sq = 1, Sq != Skv, D = 8, 40 and 128, and both sides of
+    the bf16 routes' 128/129 boundary; then q/k/v read through GPT-2's
+    fused-projection strides.
 
-    f32: bound 2e-5 + 1e-5 |g| (sums in another order; dv reaches ~40 where
-    one key carries a whole row). bf16: the kernel computes in f32 and
-    rounds dq/dk/dv once, at most 2^-8 |g| (8 significant bits) plus the
-    f32 sum-order error: bound 1e-4 + 2^-8 |g|. Two runs give the same bits
-    (no atomics)."""
+    f32 takes the CUDA-core walk: bound 2e-5 + 1e-5 |g| (sums in another
+    order; dv reaches ~40 where one key carries a whole row). bf16 takes the
+    tensor cores, which round P and dS to bf16 before their products: the
+    flash backward's bound 1e-5 + 2^-8 |g| + 2.5 x 2^-8 R (chip_smoke.py,
+    derived beside FLASH_BWD_RSS_BF16). Two runs give the same bits in both
+    dtypes (no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
     dev = torch.device("cuda")
@@ -145,13 +173,21 @@ def test_cuda_bwd_kernel_matches_plain_twin():
         assert all(torch.equal(a, g) for a, g in zip(again, got))
         bq, bk, bv, bdo = (t.to(torch.bfloat16) for t in (q, k, v, do))
         o16 = A.short_attention_fwd(bq, bk, bv, mask, causal)
-        want16 = A.short_attention_bwd_reference(
-            bq.float(), bk.float(), bv.float(), mask, o16.float(),
-            bdo.float(), causal)
         got16 = A.short_attention_bwd(bq, bk, bv, mask, o16, bdo, causal)
-        for g, w in zip(got16, want16):
-            assert g.dtype == torch.bfloat16
-            torch.testing.assert_close(g.float(), w, atol=1e-4, rtol=2 ** -8)
+        _assert_bwd_bf16(got16, bq, bk, bv, mask, o16, bdo, causal)
+        again16 = A.short_attention_bwd(bq, bk, bv, mask, o16, bdo, causal)
+        assert all(torch.equal(a, g) for a, g in zip(again16, got16))
+    # GPT-2's layout: q/k/v as views of one fused [B,S,3,H,D] projection,
+    # read in place through its strides, on both bf16 routes
+    for s_len in (128, 200):
+        qkv = torch.randn(2, s_len, 3, 4, 64, device=dev).bfloat16()
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        mask = torch.ones(2, s_len, dtype=torch.int32, device=dev)
+        mask[1, :77] = 0
+        do = torch.randn(2, s_len, 4, 64, device=dev).bfloat16()
+        o = A.short_attention_fwd(q, k, v, mask, True)
+        got = A.short_attention_bwd(q, k, v, mask, o, do, True)
+        _assert_bwd_bf16(got, q, k, v, mask, o, do, True)
 
 
 @pytest.mark.gpu
@@ -216,14 +252,31 @@ def _assert_flash_bwd_bf16(got, q, k, v, mask, o, lse, do, causal):
         assert excess <= 0, "%s off by %.3e past its bound" % (name, excess)
 
 
+def _assert_fwd_bf16(got, q, k, v, mask, causal):
+    """got (bf16 O of the flash forward) within the tensor-core forward's
+    bound of the f32 twin on the same (bf16) inputs: chip_smoke.py's,
+    derived there beside FLASH_FWD_RSS_BF16 (1e-5 + 2^-8 |o| +
+    2.5 x 2^-8 R, R from flash_attention_fwd_rss)."""
+    args = (q.float(), k.float(), v.float(), mask, causal)
+    want, _ = A.flash_attention_fwd_reference(*args)
+    bound = chip_smoke.FLASH_FWD_ATOL_BF16 \
+        + chip_smoke.FLASH_FWD_RTOL_BF16 * want.abs() \
+        + chip_smoke.FLASH_FWD_RSS_BF16 * A.flash_attention_fwd_rss(*args)
+    assert got.dtype == torch.bfloat16
+    excess = ((got.float() - want).abs() - bound).max().item()
+    assert excess <= 0, "O off by %.3e past its bound" % excess
+
+
 @pytest.mark.gpu
 def test_cuda_flash_fwd_matches_plain_twin():
     """The flash forward kernel against its plain twin on the card: O and
-    LSE. f32: O within 2e-5 (the JAX flash kernel's bound against its
-    reference in test_attention.py), LSE within 2e-5 + 1e-6 |lse| (a fully
-    masked row's -1e30 must match too). bf16 inputs: O within 1.5e-2 of the
-    f32 twin on the same bf16 inputs (the kernel rounds only O: half an ulp
-    of |o| < 4), LSE within 1e-4 (computed in f32 from the same inputs)."""
+    LSE. f32 (the CUDA-core walk): O within 2e-5 (the JAX flash kernel's
+    bound against its reference in test_attention.py), LSE within 2e-5 +
+    1e-6 |lse| (a fully masked row's -1e30 must match too). bf16 inputs (the
+    tensor cores, which round P to bf16 before P V): O within 1e-5 +
+    2^-8 |o| + 2.5 x 2^-8 R of the f32 twin on the same bf16 inputs
+    (chip_smoke.py, FLASH_FWD_*_BF16), LSE within 1e-4 (computed in f32
+    from the same inputs); two bf16 runs give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
     dev = torch.device("cuda")
@@ -239,12 +292,12 @@ def test_cuda_flash_fwd_matches_plain_twin():
         torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=1e-6)
         bq, bk, bv = (t.to(torch.bfloat16) for t in (q, k, v))
         got16, lse16 = A.flash_attention_fwd(bq, bk, bv, mask, causal)
-        want16, want_lse16 = A.flash_attention_fwd_reference(
+        _, want_lse16 = A.flash_attention_fwd_reference(
             bq.float(), bk.float(), bv.float(), mask, causal)
-        assert got16.dtype == torch.bfloat16
-        torch.testing.assert_close(got16.float(), want16, atol=1.5e-2,
-                                   rtol=0)
+        _assert_fwd_bf16(got16, bq, bk, bv, mask, causal)
         torch.testing.assert_close(lse16, want_lse16, atol=1e-4, rtol=1e-6)
+        again16, _ = A.flash_attention_fwd(bq, bk, bv, mask, causal)
+        assert torch.equal(again16, got16)
     # GPT-2's layouts, read in place: q/k/v as views of one fused
     # [B,S,3,H,D] projection (prefill), and q against a [B,T,H,D] cache
     # (decode) under auto dispatch
@@ -257,14 +310,10 @@ def test_cuda_flash_fwd_matches_plain_twin():
         before = A.flash_attention_fwd.launches
         got = A.attention(q, k, v, kv_mask=mask, causal=True)
         assert A.flash_attention_fwd.launches == before + 1
-    want, _ = A.flash_attention_fwd_reference(q.float(), k.float(),
-                                              v.float(), mask, True)
-    torch.testing.assert_close(got.float(), want, atol=1.5e-2, rtol=0)
+    _assert_fwd_bf16(got, q, k, v, mask, True)
     with torch.no_grad():
         got = A.attention(q[:, -1:], k, v, kv_mask=mask)
-    want, _ = A.flash_attention_fwd_reference(q[:, -1:].float(), k.float(),
-                                              v.float(), mask)
-    torch.testing.assert_close(got.float(), want, atol=1.5e-2, rtol=0)
+    _assert_fwd_bf16(got, q[:, -1:], k, v, mask, False)
 
 
 @pytest.mark.gpu

@@ -439,6 +439,21 @@ def test_unported_training_options_raise(tiny, flag):
                              "--micro_batch_size=16", flag))
 
 
+def test_host_prefetch_depth_is_refused(tiny):
+    """ROADMAP C13: the port has no host-to-device prefetcher yet (A6c), so
+    --num_host_prefetch given above 0 raises instead of being ignored; a run
+    that does not give it trains (test_training_trajectory_matches_jax), and
+    0 asks for nothing the port lacks."""
+    with pytest.raises(NotImplementedError, match="A6c"):
+        _run_port(train_argv(tiny, os.path.join(tiny, "prefetch"),
+                             "--micro_batch_size=16",
+                             "--num_host_prefetch=2"))
+    trainer = _run_port(train_argv(tiny, os.path.join(tiny, "prefetch0"),
+                                   "--micro_batch_size=16",
+                                   "--num_host_prefetch=0"))
+    assert trainer.global_step == 4
+
+
 def test_train_cli_imports_no_jax_or_sklearn(tiny):
     """--mode=train, then --mode=evaluate on its checkpoint, in a fresh
     process: neither loads jax, flax, optax, sklearn or any module of the
