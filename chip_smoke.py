@@ -69,16 +69,15 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores, data sheet
 
 # Tolerances. f32: 2e-5, the bound tests/test_attention.py holds the JAX short
-# kernel to against its reference. bf16: the kernel computes in f32 from the
-# bf16 inputs and rounds only its output to bf16, so against the f32 plain
-# version on the same bf16 inputs it is off by at most half a bf16 ulp of |o|
-# (|o| < 4 here, so < 2^-7 = 7.8e-3); 1.5e-2 leaves room for f32 sum order.
+# kernel to against its reference. Both bf16 forwards (short and flash) run
+# on the tensor cores and round each unnormalised probability to bf16 before
+# P V: they take the bound derived beside FLASH_FWD_RSS_BF16 below.
 ATOL_F32 = 2e-5
-ATOL_BF16 = 1.5e-2
 # Slice: the kernel run and the --use_flash_attention=false run are both
 # bf16 end to end and differ only in attention's rounding (the plain path
 # rounds max-subtracted scores and the probabilities to bf16, the kernel
-# keeps both in f32). Each of 12 layers moves its output by about a bf16 ulp
+# keeps the scores in f32 and rounds each unnormalised probability once).
+# Each of 12 layers moves its output by about a bf16 ulp
 # (2^-8 relative), LayerNorm keeps activations O(1), and the 0.02-std head
 # maps a pooled change of ~1e-2 to a logit change of ~5e-3. Bound 5e-2 on
 # logits and probabilities, about 10x that; labels must agree wherever the
@@ -135,7 +134,7 @@ FLASH_FWD_RSS_BF16 = 2.5 * 2 ** -8
 # 6.7e-3; the loss is a mean over 32 rows. Bound 2e-2.
 TRAIN_LOSS_ATOL = 2e-2
 # Flash forward against its twin on the same inputs: O as the short kernel
-# (f32 2e-5; bf16 1.5e-2, one rounding of O). LSE is f32 in both: 2e-5 +
+# (f32 2e-5; bf16 the bound above). LSE is f32 in both: 2e-5 +
 # 1e-6 |lse| for the sum order (|lse| <= ~20; a fully masked row's -1e30
 # must match too); from bf16 inputs the same scores, so 1e-4 + 1e-6 |lse|.
 LSE_ATOL_F32, LSE_ATOL_BF16, LSE_RTOL = 2e-5, 1e-4, 1e-6
@@ -333,6 +332,24 @@ def _time_sdpa(torch, tq, tk, tv, mask, causal, do, iters):
     return fwd, bwd, backend
 
 
+def _sdpa_device_ms(torch, tq, tk, tv, mask, causal, calls=20):
+    """The device time of one scaled_dot_product_attention forward on the
+    same inputs: every kernel it launches, from the profiler (its PyTorch
+    operators, which hold the same time again, left out)."""
+    keep = _sdpa_mask(torch, mask, tq.shape[1], tk.shape[1], causal)
+    q, k, v = (t.transpose(1, 2) for t in (tq, tk, tv))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep)
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / calls
+
+
 def phase_kernel(torch, seed):
     import numpy as np
     from easynlp_tpu_torch.ops import attention as A
@@ -357,40 +374,27 @@ def phase_kernel(torch, seed):
          False),
         ("causal-37x40", 4, 37, 40, 12, 64, lengths(4, 40), True),
     ]
+    # The bf16 kernel's key-tile skip, from a stream of their own (so the
+    # timed inputs below do not depend on them): every row's second key
+    # tile masked, which the kernel skips; and a fully masked batch row past
+    # 64 keys, which walks every tile.
+    skip_rng = np.random.RandomState(seed + 1)
+    skip_cases = [
+        ("masked-tail-128", 32, 128, 128, 12, 64,
+         skip_rng.randint(1, 61, size=32), False),
+        ("masked-row-200", 4, 200, 200, 12, 64,
+         np.r_[200, skip_rng.randint(1, 201, size=2), 0], False),
+    ]
     worst = {}
-    for name, b, sq, skv, h, d, lens, causal in cases:
-        q, k, v, mask = _inputs(torch, rng, b, sq, skv, h, d, lens)
-        for dtype, atol in ((torch.float32, ATOL_F32),
-                            (torch.bfloat16, ATOL_BF16)):
-            tq, tk, tv = (t.to(dtype) for t in (q, k, v))
-            want = A.short_attention_fwd_reference(
-                tq.float(), tk.float(), tv.float(), mask, causal)
-            for layout in ("bshd", "bhsd"):
-                if layout == "bshd":
-                    got = A.short_attention_fwd(tq, tk, tv, mask, causal)
-                else:
-                    hq, hk, hv = (t.transpose(1, 2).contiguous()
-                                  for t in (tq, tk, tv))
-                    got = A.attention(hq, hk, hv, kv_mask=mask,
-                                      causal=causal, impl="short",
-                                      layout="bhsd").transpose(1, 2)
-                torch.cuda.synchronize()
-                if got.dtype != dtype or got.shape != want.shape:
-                    raise AssertionError("%s: got %s %s, want %s %s" % (
-                        name, got.dtype, tuple(got.shape), dtype,
-                        tuple(want.shape)))
-                err = (got.float() - want).abs().max().item()
-                ok = err <= atol
-                log("check %-22s %-8s %-4s max_abs_err %.3e (atol %.1e) %s"
-                    % (name, str(dtype).split(".")[1], layout, err, atol,
-                       "ok" if ok else "FAIL"))
-                if not ok:
-                    raise AssertionError("kernel disagrees with its plain "
-                                         "version: %s %s %s err %.3e"
-                                         % (name, dtype, layout, err))
-                worst[(name, dtype)] = max(worst.get((name, dtype), 0.0),
-                                           err)
-        _check_bwd(torch, A, rng, name, q, k, v, mask, causal, worst_bwd)
+    for case_rng, group in ((rng, cases), (skip_rng, skip_cases)):
+        for name, b, sq, skv, h, d, lens, causal in group:
+            q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
+            for dtype in (torch.float32, torch.bfloat16):
+                worst[(name, dtype)] = _check_short_fwd(
+                    torch, A, name, q.to(dtype), k.to(dtype), v.to(dtype),
+                    mask, causal)
+            _check_bwd(torch, A, case_rng, name, q, k, v, mask, causal,
+                       worst_bwd)
 
     timings = {}
     for name, b, sq, skv, h, d, lens, causal in cases[:3]:
@@ -410,14 +414,35 @@ def phase_kernel(torch, seed):
                 + mask.numel() * 4
             pairs = _pairs(mask, b, sq, skv, h, causal)
             bound_ms, bound_by = _bound(nbytes, 4 * pairs * d)
-            log("time %-12s %-8s kernel %.4f ms (%.1f GB/s = %.1f%% of "
-                "3.35 TB/s, %.2f TFLOP/s on the visible pairs; bound %.4f ms "
-                "by %s); plain twin %.4f ms; attention_reference %.4f ms; "
-                "SDPA forward %.4f ms (%s)"
-                % (name, str(dtype).split(".")[1], ms, nbytes / ms / 1e6,
-                   100 * nbytes / (ms * 1e-3) / PEAK_BYTES_PER_S,
-                   4 * pairs * d / ms / 1e9, bound_ms, bound_by, plain_ms,
-                   ref_ms, lib_fwd, backend))
+            # the profiler's word on the route: bf16 on the tensor cores,
+            # f32 on the CUDA cores, and the kernel's device time
+            want_name, refused = ((SHORT_FWD_MMA_NAME, SHORT_FWD_CUDA_CORE_NAME)
+                                  if dtype == torch.bfloat16 else
+                                  (SHORT_FWD_CUDA_CORE_NAME, SHORT_FWD_MMA_NAME))
+            dev = _routed("the %s short forward at %s" % (dtype, name),
+                          _device_ms(torch, lambda: A.short_attention_fwd(
+                              tq, tk, tv, mask, causal)),
+                          (("kernel", want_name),), (refused,))["kernel"]
+            before = ""
+            if dtype == torch.bfloat16 and name in CUDA_CORE_SHORT_FWD_MS:
+                was = CUDA_CORE_SHORT_FWD_MS[name]
+                before = " (the CUDA-core walk before: %.4f ms, %.2fx)" % (
+                    was, was / ms)
+            log("profile %-12s %-8s %s %.4f ms per call (device time; no %s "
+                "in the trace)" % (name, str(dtype).split(".")[1], want_name,
+                                   dev, refused))
+            log("time %-12s %-8s kernel %.4f ms%s, device %.4f ms (%.1f GB/s "
+                "= %.1f%% of 3.35 TB/s, %.2f TFLOP/s on the visible pairs, "
+                "on the device time; bound %.4f ms by %s); plain twin %.4f "
+                "ms; attention_reference %.4f ms; SDPA forward %.4f ms, "
+                "device %.4f ms (%s)"
+                % (name, str(dtype).split(".")[1], ms, before, dev,
+                   nbytes / dev / 1e6,
+                   100 * nbytes / (dev * 1e-3) / PEAK_BYTES_PER_S,
+                   4 * pairs * d / dev / 1e9, bound_ms, bound_by, plain_ms,
+                   ref_ms, lib_fwd,
+                   _sdpa_device_ms(torch, tq, tk, tv, mask, causal),
+                   backend))
             timings[("short_attention_fwd", name, dtype)] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_fwd,
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -430,6 +455,61 @@ def phase_kernel(torch, seed):
             "flash_attention_fwd": worst_flash,
             "flash_attention_bwd_dkdv": worst_flash_bwd,
             "flash_attention_bwd_dq": worst_flash_bwd}, timings
+
+
+def _check_short_fwd(torch, A, name, tq, tk, tv, mask, causal):
+    """The short forward kernel against its f32 twin on the same inputs, in
+    bshd and heads-major memory: f32 (the CUDA-core walk) within 2e-5, bf16
+    (the tensor cores) within the flash forward's bound. bf16 also gives the
+    same bits twice and the same bits as the bf16 flash forward, which
+    shares its tile step but walks every key tile: the key tiles the short
+    kernel skips were exact no-ops. Returns the largest |error|."""
+    dtype = tq.dtype
+    twin = (tq.float(), tk.float(), tv.float(), mask, causal)
+    want = A.short_attention_fwd_reference(*twin)
+    rss = A.flash_attention_fwd_rss(*twin) if dtype == torch.bfloat16 \
+        else None
+    worst = 0.0
+    for layout in ("bshd", "bhsd"):
+        if layout == "bshd":
+            got = A.short_attention_fwd(tq, tk, tv, mask, causal)
+        else:
+            hq, hk, hv = (t.transpose(1, 2).contiguous()
+                          for t in (tq, tk, tv))
+            got = A.attention(hq, hk, hv, kv_mask=mask, causal=causal,
+                              impl="short", layout="bhsd").transpose(1, 2)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or got.shape != want.shape:
+            raise AssertionError("%s: got %s %s, want %s %s" % (
+                name, got.dtype, tuple(got.shape), dtype, tuple(want.shape)))
+        err = (got.float() - want).abs().max().item()
+        if dtype == torch.float32:
+            ok = err <= ATOL_F32
+            bound = "atol %.1e" % ATOL_F32
+        else:
+            ratio = _flash_fwd_bf16_ratio(A, got, want, rss)
+            ok = ratio <= 1
+            bound = ("error / bound (%.0e + 2^-8 |o| + %.1f x 2^-8 R) %.3f"
+                     % (FLASH_FWD_ATOL_BF16, FLASH_FWD_RSS_BF16 / 2 ** -8,
+                        ratio))
+        log("check %-22s %-8s %-4s max_abs_err %.3e (%s) %s"
+            % (name, str(dtype).split(".")[1], layout, err, bound,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s %s %s err %.3e" % (name, dtype, layout,
+                                                        err))
+        worst = max(worst, err)
+    if dtype == torch.bfloat16:
+        got = A.short_attention_fwd(tq, tk, tv, mask, causal)
+        again = A.short_attention_fwd(tq, tk, tv, mask, causal)
+        flash, _ = A.flash_attention_fwd(tq, tk, tv, mask, causal)
+        if not (torch.equal(again, got) and torch.equal(flash, got)):
+            raise AssertionError("%s: two bf16 short forward runs, or the "
+                                 "short and flash forwards, differ" % name)
+        log("check %-22s bfloat16 two runs and the flash forward (every key "
+            "tile walked) give the same bits" % name)
+    return worst
 
 
 def _ranges_mask(torch, skv, ranges):
@@ -635,6 +715,10 @@ CUDA_CORE_BWD_NAMES = ("attention_bwd_dkdv_kernel", "attention_bwd_dq_kernel")
 # (csrc/flash_attention_fwd.cu), which f32 still takes.
 FLASH_FWD_MMA_NAME = "flash_attention_fwd_mma_kernel"
 FLASH_FWD_CUDA_CORE_NAME = "flash_attention_fwd_kernel"
+# The short forward's kernels by name (csrc/short_attention_fwd.cu): bf16 on
+# the tensor cores, f32 on the CUDA cores.
+SHORT_FWD_MMA_NAME = "short_attention_fwd_mma_kernel"
+SHORT_FWD_CUDA_CORE_NAME = "short_attention_fwd_kernel"
 # The bf16 short backward's routes (csrc/short_attention_bwd.cu): one block
 # per (b, h) up to 128 keys, the flash backward's passes above.
 SHORT_BWD_ONE_BLOCK_NAMES = (("one-block", "short_attention_bwd_mma_kernel"),)
@@ -642,6 +726,12 @@ SHORT_BWD_FLASH_ROUTE_NAMES = (("lse", FLASH_FWD_MMA_NAME),
                                ) + FLASH_BWD_KERNEL_NAMES
 SHORT_BWD_CUDA_CORE_NAMES = ("short_attention_bwd_stats_kernel",
                              ) + CUDA_CORE_BWD_NAMES
+# every attention kernel by name, for the per-step profile lines
+ATTENTION_KERNEL_NAMES = (
+    SHORT_FWD_MMA_NAME, SHORT_FWD_CUDA_CORE_NAME, FLASH_FWD_MMA_NAME,
+    FLASH_FWD_CUDA_CORE_NAME) + tuple(
+        name for _, name in SHORT_BWD_ONE_BLOCK_NAMES + FLASH_BWD_KERNEL_NAMES
+    ) + SHORT_BWD_CUDA_CORE_NAMES
 # The bf16 flash forward and short backward on the CUDA-core walks they
 # took before the tensor-core kernels (this script on an NVIDIA H100 80GB
 # HBM3, 700.00 W; PERF.md's tables), printed beside this run's
@@ -649,6 +739,10 @@ CUDA_CORE_FLASH_FWD_MS = {"bart-encoder": 1.3275, "gpt2-prefill": 0.5233,
                           "S8192-causal": 5.7010, "gpt2-decode": 0.1134}
 CUDA_CORE_SHORT_BWD_MS = {"slice-128": 0.3418, "slice-512": 1.2437,
                           "bart-decoder": 0.0921}
+# The bf16 short forward on the CUDA-core walk it took before the tensor
+# cores (this script, CUDA events; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+CUDA_CORE_SHORT_FWD_MS = {"slice-128": 0.0879, "slice-512": 0.3285,
+                          "bart-decoder": 0.1111}
 # The bf16 flash backward's time at each flash_bwd_cases() shape on the
 # CUDA-core walk it took before the tensor-core passes (this script on an
 # NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed beside this run's
@@ -1270,11 +1364,12 @@ def describe_train(tag, run):
            " ".join("%.4f" % r["loss"] for r in run["records"])))
 
 
-def device_share(trace_path, top=8):
-    """(device busy share, device busy ms, [(kernel, ms), ...]) from a
-    torch.profiler Chrome trace: the union of the device kernels' intervals
-    over the span from the first kernel's start to the last one's end (so
-    the profiler's own start-up is not counted as idle)."""
+def device_share(trace_path):
+    """(device busy share, device busy ms, [(kernel, ms), ...] longest
+    first) from a torch.profiler Chrome trace: the union of the device
+    kernels' intervals over the span from the first kernel's start to the
+    last one's end (so the profiler's own start-up is not counted as
+    idle)."""
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
@@ -1292,7 +1387,16 @@ def device_share(trace_path, top=8):
     for a, b, name in kernels:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
     return busy / span, busy / 1e3, sorted(by_name.items(),
-                                           key=lambda kv: -kv[1])[:top]
+                                           key=lambda kv: -kv[1])
+
+
+def attention_ms(by_kernel, steps):
+    """'name ms; ...': the device ms per step of each attention kernel that
+    ran, from device_share's list over `steps` steps."""
+    return "; ".join("%s %.3f" % (name, sum(t for n, t in by_kernel
+                                            if name in n) / steps)
+                     for name in ATTENTION_KERNEL_NAMES
+                     if any(name in n for n, _ in by_kernel))
 
 
 def phase_train(torch, seed, workdir, cjk):
@@ -1408,9 +1512,11 @@ def phase_train(torch, seed, workdir, cjk):
     else:
         log("profile, kernel run, steps 3-6 (under the profiler): device "
             "busy %.1f%% of the span of its kernels, %.3f ms busy per step; "
-            "device ms by kernel over the 4 steps: %s"
+            "device ms by kernel over the 4 steps: %s; attention kernels, "
+            "device ms per step: %s"
             % (100 * share, busy_ms / 4, "; ".join(
-                "%s %.3f" % (n[:60], t) for n, t in top)))
+                "%s %.3f" % (n[:60], t) for n, t in top[:8]),
+               attention_ms(top, 4)))
     return bwd, ms_k, ms_p
 
 
@@ -1786,7 +1892,7 @@ def phase_generation(torch, seed, workdir):
             "profiler): device busy %.1f%% of the span of its kernels, "
             "%.3f ms busy; device ms by kernel: %s"
             % (100 * share, busy_ms, "; ".join(
-                "%s %.3f" % (n[:60], t) for n, t in top)))
+                "%s %.3f" % (n[:60], t) for n, t in top[:8])))
     del app, prefill, decode, logits
     torch.cuda.empty_cache()
 
@@ -2185,9 +2291,11 @@ def phase_bart(torch, seed, workdir):
     else:
         log("profile, BART kernel run, steps 3-6 (under the profiler): "
             "device busy %.1f%% of the span of its kernels, %.3f ms busy per "
-            "step; device ms by kernel over the 4 steps: %s"
+            "step; device ms by kernel over the 4 steps: %s; attention "
+            "kernels, device ms per step: %s"
             % (100 * share, busy_ms / 4, "; ".join(
-                "%s %.3f" % (n[:60], t) for n, t in top)))
+                "%s %.3f" % (n[:60], t) for n, t in top[:8]),
+               attention_ms(top, 4)))
     launches["flash_attention_bwd_dkdv"] = launches["flash_attention_bwd"]
     launches["flash_attention_bwd_dq"] = launches["flash_attention_bwd"]
     return launches

@@ -1,8 +1,8 @@
 // The tensor-core building blocks shared by the port's bf16 attention
-// kernels on Hopper (sm_90a): attention_fwd_mma.cuh (the flash forward, and
-// the LSE pass of the short backward), attention_bwd_mma.cuh (the flash
-// backward's dK/dV and dQ passes) and short_attention_bwd.cu's one-block
-// backward.
+// kernels on Hopper (sm_90a): attention_fwd_mma.cuh (the flash forward, the
+// LSE pass of the short backward, and the tile walk of
+// short_attention_fwd.cu), attention_bwd_mma.cuh (the flash backward's dK/dV
+// and dQ passes) and short_attention_bwd.cu's one-block backward.
 //
 // cp.async copies global -> shared (16 bytes a thread, zero fill through the
 // src-size 0 form), ldmatrix reads 8x8 bf16 matrices from shared memory into
@@ -112,19 +112,27 @@ __device__ __forceinline__ const bf16* frag_b(const bf16* tile, int ld, int n0, 
   return tile + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8;
 }
 
-// Starts the copy of kRows rows (row stride `stride` elements, D contiguous
-// bf16) into a [kRows][kDPad + 8] shared tile, zeros at or past `valid`
-// rows and at or past D columns; the block's kThreads threads share it.
-template <int kRows, int kDPad, int kThreads = kMmaThreads>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int64_t stride,
-                                                int valid, int D) {
+// Starts the copy of `rows` rows (row stride `stride` elements, D
+// contiguous bf16) into a [rows][kDPad + 8] shared tile, zeros at or past
+// `valid` rows and at or past D columns; `threads` threads of the block
+// share it.
+template <int kDPad>
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src, int64_t stride,
+                                                int rows, int valid, int D, int threads) {
   constexpr int kChunks = kDPad / 8;
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * kChunks; i += threads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
     const bool fill = r < valid && c < D;
     cp_async_16(dst + r * (kDPad + 8) + c, fill ? src + r * stride + c : src, fill);
   }
+}
+
+// The same for a tile of kRows rows shared by the block's kThreads threads.
+template <int kRows, int kDPad, int kThreads = kMmaThreads>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int64_t stride,
+                                                int valid, int D) {
+  load_rows_async<kDPad>(dst, src, stride, kRows, valid, D, kThreads);
 }
 
 // A fragments (k = the 16 columns of chunk j / 2) from the f32 m16n8

@@ -30,11 +30,11 @@ Paths:
 Routes on a card, a rule on dtype and shape (the kernels' head comments
 state the same): f32 takes the CUDA-core walks everywhere, the only ones
 that meet the f32 twins' 2e-5 bound. bf16 takes `mma.sync` tensor-core
-kernels: the flash forward at every Sq (decode included: PERF.md); the
-short backward in one block per (b, h) for Sq, Skv <=
-SHORT_BWD_ONE_BLOCK_LEN and through the flash backward's passes above; the
-flash backward always. The short forward runs on the CUDA cores in both
-dtypes (ROADMAP B1).
+kernels everywhere: the short forward (`_short_fwd_route`; up to 64 query
+rows a block, skipping key tiles the mask hides); the flash forward at
+every Sq (decode included: PERF.md); the short backward in one block per
+(b, h) for Sq, Skv <= SHORT_BWD_ONE_BLOCK_LEN and through the flash
+backward's passes above (`_short_bwd_route`); the flash backward always.
 
 The JAX package routes BERT lengths below 256 to XLA on a TPU and reaches
 its flash kernel only from Skv = 8192. Those windows are TPU tunings, so
@@ -130,8 +130,9 @@ def _short_probs(q, k, hidden, scale):
 
 def short_attention_fwd_reference(q, k, v, kv_mask, causal=False, scale=None):
     """Plain PyTorch twin of the forward kernel: the JAX `_short_probs` + P.V
-    in f32 from the given inputs. P stays f32, as in the kernel. Output in
-    q's dtype."""
+    in f32 from the given inputs. P stays f32, as in the kernel's f32 route;
+    its bf16 route rounds each unnormalised probability to bf16 before P.V
+    (the bound beside flash_attention_fwd_rss). Output in q's dtype."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     hidden = _hidden_keys(kv_mask, q.shape[1], k.shape[1], causal, q.device)
     p = _short_probs(q, k, hidden, scale)
@@ -183,11 +184,12 @@ def flash_attention_fwd_reference(q, k, v, kv_mask, causal=False,
 def flash_attention_fwd_rss(q, k, v, kv_mask, causal=False, scale=None):
     """The root-sum-square of the terms that make up each element of O in
     flash_attention_fwd_reference, f32 [B,Sq,H,D]: sqrt(sum_k (P_k v_k)^2)
-    with P the normalised probabilities. The bf16 tensor-core forward rounds
-    each unnormalised probability to bf16 before P V (the normalisation is
-    a common factor of the row), so its error is a sum of those terms each
-    moved by at most 2^-8 of itself; its spread scales with this
-    (chip_smoke.py and tests/test_torch_kernels.py state the bound)."""
+    with P the normalised probabilities. The bf16 tensor-core forwards
+    (flash and short) round each unnormalised probability to bf16 before
+    P V (the normalisation is a common factor of the row), so their error
+    is a sum of those terms each moved by at most 2^-8 of itself; its
+    spread scales with this (chip_smoke.py and tests/test_torch_kernels.py
+    state the bound)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     hidden = _hidden_keys(kv_mask, q.shape[1], k.shape[1], causal, q.device)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -328,8 +330,10 @@ def short_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
     contiguous (BERT's projection views and bhsd tensors transposed to this
     shape both qualify without a copy); kv_mask [B,Skv] or [1,Skv], int32 or
     bool. Returns [B,Sq,H,D] in q's dtype; when q is dense the output takes
-    q's memory layout. A CUDA tensor launches the kernel (and counts it in
-    `short_attention_fwd.launches`); a CPU tensor takes the plain twin.
+    q's memory layout. A CUDA tensor launches csrc/short_attention_fwd.cu
+    (and counts it in `short_attention_fwd.launches`) on the route
+    `_short_fwd_route` picks: f32 on the CUDA cores, bf16 on the tensor
+    cores. A CPU tensor takes the plain twin.
     """
     _check_args("short_attention_fwd", q, k, v, kv_mask, SHORT_MAX_KV_LEN)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -357,8 +361,8 @@ def short_attention_fwd(q, k, v, kv_mask, causal=False, scale=None):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    kv_mask.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-                    b, h, sq, skv, d,
+                    kv_mask.data_ptr(), out.data_ptr(),
+                    _short_fwd_route(q.dtype), b, h, sq, skv, d,
                     *_strides(q), *_strides(k), *_strides(v),
                     *_strides(out), mask_sb, int(bool(causal)),
                     float(scale), stream)
@@ -431,6 +435,13 @@ def short_attention_bwd(q, k, v, kv_mask, o, do, causal=False, scale=None):
 
 
 short_attention_bwd.launches = 0
+
+
+def _short_fwd_route(dtype):
+    """csrc/short_attention_fwd.cu's route (its dtype code): 0 f32 on the
+    CUDA cores (the only walk that meets the f32 twin's 2e-5 bound); 1 bf16
+    on the tensor cores."""
+    return 0 if dtype == torch.float32 else 1
 
 
 def _short_bwd_route(dtype, sq, skv):

@@ -146,6 +146,24 @@ def test_auto_dispatch(monkeypatch, override, skv, takes_short):
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype,sq,skv,fwd,bwd", [
+    (torch.float32, 128, 128, 0, 0),
+    (torch.float32, 1, 512, 0, 0),
+    (torch.bfloat16, 128, 128, 1, 1),
+    (torch.bfloat16, 1, 512, 1, 2),
+    (torch.bfloat16, 129, 64, 1, 2),
+])
+def test_short_kernel_routes_are_a_rule_on_dtype_and_shape(dtype, sq, skv,
+                                                           fwd, bwd):
+    """The dtype codes the wrappers hand csrc/short_attention_{fwd,bwd}.cu:
+    f32 takes the CUDA-core walks (the only ones within the f32 twins' 2e-5
+    bound); bf16 the tensor cores: the forward at every shape, the backward
+    in one block per (b, h) up to 128 queries and keys and through the flash
+    backward's passes above."""
+    assert A._short_fwd_route(dtype) == fwd
+    assert A._short_bwd_route(dtype, sq, skv) == bwd
+
+
 @pytest.mark.parametrize("impl", ["flash", "ring"])
 def test_unported_impls_raise(impl):
     """'ring' is not ported and raises. 'flash' is, backward included

@@ -291,3 +291,38 @@ def test_bf16_rounding_points_stay_within_the_card_bound(name):
         rss)
     assert 0.1 < ours <= 1.0, ours
     assert theirs > 1.0, theirs
+
+
+SHORT_BUDGET_CASES = {
+    # name: (seed, B, Sq, Skv, H, D, per-row key lengths, causal); the bf16
+    # short forward shares the flash forward's tile step and rounding points
+    "ragged-128": (31, 4, 128, 128, 4, 64, [128, 100, 57, 1], False),
+    "bart-decoder-8x64x64": (32, 8, 64, 64, 2, 64,
+                             [64, 60, 51, 40, 33, 20, 9, 1], True),
+    "masked-row-200": (33, 2, 200, 200, 2, 64, [200, 0], False),
+    "decode-8x1x64": (34, 8, 1, 64, 4, 64, [64, 60, 51, 40, 33, 20, 9, 1],
+                      True),
+    # every row's second key tile is masked: the kernel skips it
+    "masked-tail-128": (35, 4, 128, 128, 4, 64, [60, 33, 17, 1], False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHORT_BUDGET_CASES))
+def test_bf16_short_rounding_points_stay_within_the_card_bound(name):
+    """The bf16 error budget of the tensor-core short forward at its main
+    paths' shapes (BERT's ragged 128, BART's causal decoder 8 x 64 x 64, a
+    decode step, a fully masked batch row, and a masked tail whose key tile
+    the kernel skips, exactly). Its rounding points, emulated in plain
+    PyTorch, stay within chip_smoke.py's bound (1e-5 + 2^-8 |o| +
+    2.5 x 2^-8 R, R from flash_attention_fwd_rss) of the f32 twin
+    short_attention_fwd_reference on the same bf16 inputs, and use more
+    than a tenth of it."""
+    seed, b, sq, skv, h, d, lengths, causal = SHORT_BUDGET_CASES[name]
+    q, k, v, mask = _torch(*_case(seed, b, sq, skv, h, d, lengths))
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    args = (q.float(), k.float(), v.float(), mask, causal)
+    want = A.short_attention_fwd_reference(*args).float()
+    rss = A.flash_attention_fwd_rss(*args)
+    ours = _largest_error_over_bound(
+        _tensor_core_rounding(q, k, v, mask, causal), want, rss)
+    assert 0.1 < ours <= 1.0, ours

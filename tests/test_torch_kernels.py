@@ -65,23 +65,45 @@ def _case(seed, b, sq, skv, h, d, lengths, device):
     return q, k, v, mask
 
 
+FWD_CASES = [  # B, Sq, Skv, H, D, per-row key lengths, causal
+    (2, 40, 40, 3, 16, [0, 33], False),     # fully masked row
+    (2, 1, 24, 2, 64, [20, 24], True),      # decode shape: Sq = 1, one warp
+    (2, 37, 40, 2, 64, [40, 11], True),     # causal Sq != Skv, ragged
+    (2, 20, 12, 2, 32, [12, 5], True),      # q_offset < 0: rows see no key
+    (3, 70, 130, 2, 128, [130, 65, 1], False),  # D = 128
+    (2, 16, 16, 2, 40, [16, 9], False),     # D not a power of two
+    (2, 50, 90, 2, 8, [90, 31], False),     # D = 8, zero-filled to 16
+    # BERT's shape: rows 2 and 3 skip their second (fully masked) key tile
+    (4, 128, 128, 12, 64, [128, 100, 57, 1], False),
+    # two 64-key tiles and 64-row query blocks up to 128, three from 129
+    # (the third of one row)
+    (2, 128, 128, 2, 64, [128, 3], True),
+    (2, 129, 129, 2, 64, [129, 3], True),
+    (2, 200, 300, 2, 64, [300, 0], True),   # causal Sq != Skv past 128
+    # five query blocks; row 1 walks one key tile of eight, row 2 four
+    (3, 300, 512, 2, 64, [512, 60, 200], False)]
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_twin():
-    """The CUDA kernel against its plain twin on the card: f32 within 2e-5
-    (the JAX short kernel's bound against its reference); bf16 within 1.5e-2
-    of the f32 twin on the same bf16 inputs (the kernel computes in f32 and
-    rounds only its output: half an ulp of |o| < 4 is 2^-7)."""
+    """The short forward kernel against its plain twin on the card, at
+    FWD_CASES' shapes: fully masked rows, Sq = 1, causal Sq != Skv, D = 8,
+    40 and 128, both sides of the 128/129 tile boundary, and rows
+    whose trailing key tiles the mask hides (the bf16 kernel skips them).
+
+    f32 takes the CUDA-core walk: within 2e-5 (the JAX short kernel's bound
+    against its reference). bf16 takes the tensor cores, which round each
+    unnormalised probability to bf16 before P V: within the flash forward's
+    bound 1e-5 + 2^-8 |o| + 2.5 x 2^-8 R of the f32 twin on the same bf16
+    inputs (chip_smoke.py, FLASH_FWD_*_BF16). Two bf16 runs give the same
+    bits, and so does the bf16 flash forward, which shares the tile step but
+    walks every key tile: skipping the tiles the mask hides is exact. Then
+    BERT's layout (q/k/v as [B,S,H,D] views of the projections' [B,S,H*D]
+    outputs) and heads-major input with a [1,Skv] mask, read in place."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
     dev = torch.device("cuda")
-    cases = [  # B, Sq, Skv, H, D, per-row key lengths, causal
-        (2, 40, 40, 3, 16, [0, 33], False),     # fully masked row
-        (2, 1, 24, 2, 64, [20, 24], True),      # decode shape
-        (2, 37, 40, 2, 64, [40, 11], True),     # Sq != Skv, ragged
-        (3, 70, 130, 2, 128, [130, 65, 1], False),
-        (2, 16, 16, 2, 40, [16, 9], False),     # D not a power of two
-        (4, 128, 128, 12, 64, [128, 100, 57, 1], False)]
-    for i, (b, sq, skv, h, d, lengths, causal) in enumerate(cases):
+    for i, (b, sq, skv, h, d, lengths, causal) in enumerate(FWD_CASES):
         q, k, v, mask = _case(i, b, sq, skv, h, d, lengths, dev)
         want = A.short_attention_fwd_reference(q, k, v, mask, causal)
         before = A.short_attention_fwd.launches
@@ -91,18 +113,28 @@ def test_cuda_kernel_matches_plain_twin():
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
         bq, bk, bv = (t.to(torch.bfloat16) for t in (q, k, v))
         got16 = A.short_attention_fwd(bq, bk, bv, mask, causal)
-        want16 = A.short_attention_fwd_reference(
-            bq.float(), bk.float(), bv.float(), mask, causal)
-        assert got16.dtype == torch.bfloat16
-        torch.testing.assert_close(got16.float(), want16, atol=1.5e-2,
-                                   rtol=0)
-    # heads-major input, [1,Skv] mask: read in place through strides
+        _assert_fwd_bf16(got16, bq, bk, bv, mask, causal)
+        assert torch.equal(A.short_attention_fwd(bq, bk, bv, mask, causal),
+                           got16)
+        flash16, _ = A.flash_attention_fwd(bq, bk, bv, mask, causal)
+        assert torch.equal(flash16, got16), "case %d: not the flash bits" % i
+    b, s, h, d = 2, 128, 12, 64
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[1, 45:] = 0
+    q, k, v = (torch.randn(b, s, h * d, device=dev).bfloat16().view(
+        b, s, h, d) for _ in range(3))
+    _assert_fwd_bf16(A.short_attention_fwd(q, k, v, mask), q, k, v, mask,
+                     False)
     q, k, v, mask = _case(9, 2, 48, 48, 4, 64, [41], dev)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     got = A.attention(qh, kh, vh, kv_mask=mask, layout="bhsd")
     assert got.is_contiguous()
     want = A.short_attention_fwd_reference(q, k, v, mask).transpose(1, 2)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    got16 = A.attention(*(t.bfloat16() for t in (qh, kh, vh)), kv_mask=mask,
+                        layout="bhsd")
+    _assert_fwd_bf16(got16.transpose(1, 2), *(t.bfloat16() for t in (q, k, v)),
+                     mask, False)
 
 
 BWD_CASES = [  # B, Sq, Skv, H, D, per-row key lengths, causal
