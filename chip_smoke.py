@@ -332,24 +332,6 @@ def _time_sdpa(torch, tq, tk, tv, mask, causal, do, iters):
     return fwd, bwd, backend
 
 
-def _sdpa_device_ms(torch, tq, tk, tv, mask, causal, calls=20):
-    """The device time of one scaled_dot_product_attention forward on the
-    same inputs: every kernel it launches, from the profiler (its PyTorch
-    operators, which hold the same time again, left out)."""
-    keep = _sdpa_mask(torch, mask, tq.shape[1], tk.shape[1], causal)
-    q, k, v = (t.transpose(1, 2) for t in (tq, tk, tv))
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=keep)
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / calls
-
-
 def phase_kernel(torch, seed):
     import numpy as np
     from easynlp_tpu_torch.ops import attention as A
@@ -369,6 +351,12 @@ def phase_kernel(torch, seed):
         ("slice-512", 8, 512, 512, 12, 64, lengths(8, 512), False),
         # BART-base's decoder self-attention: 64-token targets, causal
         ("bart-decoder", 8, 64, 64, 12, 64, lengths(8, 64), True),
+        # machine_reading_comprehension's 16 x 384 (B2 past 128 keys)
+        ("mrc-384", 16, 384, 384, 12, 64, lengths(16, 384), False),
+        # BART predict's decode step under 4 beams: 8 x 4 rows, one query
+        # against the decoder's 64 cache slots, the written ones visible
+        ("bart-beam-decode-self", 32, 1, 64, 12, 64, lengths(32, 64),
+         False),
         ("decode-causal", 4, 1, 24, 12, 64, lengths(4, 24), True),
         ("ragged-40-masked-row", 4, 40, 40, 12, 64, lengths(4, 40, True),
          False),
@@ -397,7 +385,7 @@ def phase_kernel(torch, seed):
                        worst_bwd)
 
     timings = {}
-    for name, b, sq, skv, h, d, lens, causal in cases[:3]:
+    for name, b, sq, skv, h, d, lens, causal in cases[:5]:
         q, k, v, mask = _inputs(torch, rng, b, sq, skv, h, d, lens)
         for dtype in (torch.bfloat16, torch.float32):
             tq, tk, tv = (t.to(dtype) for t in (q, k, v))
@@ -410,19 +398,36 @@ def phase_kernel(torch, seed):
             do = torch.randn_like(tq)
             lib_fwd, lib_bwd, backend = _time_sdpa(torch, tq, tk, tv, mask,
                                                    causal, do, 50)
-            nbytes = (2 * q.numel() + 2 * k.numel()) * tq.element_size() \
-                + mask.numel() * 4
-            pairs = _pairs(mask, b, sq, skv, h, causal)
-            bound_ms, bound_by = _bound(nbytes, 4 * pairs * d)
             # the profiler's word on the route: bf16 on the tensor cores,
             # f32 on the CUDA cores, and the kernel's device time
             want_name, refused = ((SHORT_FWD_MMA_NAME, SHORT_FWD_CUDA_CORE_NAME)
                                   if dtype == torch.bfloat16 else
                                   (SHORT_FWD_CUDA_CORE_NAME, SHORT_FWD_MMA_NAME))
+            o = A.short_attention_fwd(tq, tk, tv, mask, causal)
+            keep = _sdpa_mask(torch, mask, sq, skv, causal)
+            sdpa_qkv = [t.transpose(1, 2) for t in (tq, tk, tv)]
+
+            def one_of_each():
+                A.short_attention_fwd(tq, tk, tv, mask, causal)
+                torch.nn.functional.scaled_dot_product_attention(
+                    *sdpa_qkv, attn_mask=keep)
+                if dtype == torch.bfloat16:
+                    A.short_attention_bwd(tq, tk, tv, mask, o, do, causal)
+            # one profiler session for the forward kernel, SDPA's forward
+            # (every kernel whose name is not an attention kernel's) and, in
+            # bf16, the backward kernels
+            times = _device_ms(torch, one_of_each, want=(want_name,) + (
+                tuple(n for _, n in _short_bwd_names(torch, A, dtype, sq,
+                                                     skv))))
+            sdpa_dev = sum(ms for key, ms in times.items() if not any(
+                n in key for n in ATTENTION_KERNEL_NAMES))
+            nbytes = (2 * q.numel() + 2 * k.numel()) * tq.element_size() \
+                + mask.numel() * 4
+            pairs = _pairs(mask, b, sq, skv, h, causal)
+            bound_ms, bound_by = _bound(nbytes, 4 * pairs * d)
             dev = _routed("the %s short forward at %s" % (dtype, name),
-                          _device_ms(torch, lambda: A.short_attention_fwd(
-                              tq, tk, tv, mask, causal)),
-                          (("kernel", want_name),), (refused,))["kernel"]
+                          times, (("kernel", want_name),),
+                          (refused,))["kernel"]
             before = ""
             if dtype == torch.bfloat16 and name in CUDA_CORE_SHORT_FWD_MS:
                 was = CUDA_CORE_SHORT_FWD_MS[name]
@@ -440,14 +445,13 @@ def phase_kernel(torch, seed):
                    nbytes / dev / 1e6,
                    100 * nbytes / (dev * 1e-3) / PEAK_BYTES_PER_S,
                    4 * pairs * d / dev / 1e9, bound_ms, bound_by, plain_ms,
-                   ref_ms, lib_fwd,
-                   _sdpa_device_ms(torch, tq, tk, tv, mask, causal),
-                   backend))
+                   ref_ms, lib_fwd, sdpa_dev, backend))
             timings[("short_attention_fwd", name, dtype)] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_fwd,
                 bound_ms=bound_ms, bound_by=bound_by)
             timings[("short_attention_bwd", name, dtype)] = _time_bwd(
-                torch, A, name, tq, tk, tv, mask, causal, rng, lib_bwd)
+                torch, A, name, tq, tk, tv, mask, causal, o, do, lib_bwd,
+                times)
     worst_flash = _check_flash(torch, A, rng, timings)
     worst_flash_bwd = _check_flash_bwd(torch, A, rng, timings)
     return {"short_attention_fwd": worst,
@@ -531,7 +535,8 @@ def bart_source_ranges(rng):
 def flash_cases(rng):
     """The flash forward's shapes: BART-base's encoder self-attention
     (8 x 1024, padded rows) and cross-attention (8 x 64 targets against
-    1024 source keys) and the cross-attention of a decode step (8 x 1);
+    1024 source keys) and the cross-attention of a decode step (8 x 1, and
+    8 x 4 beams x 1);
     GPT-2 small's prefill (8 x 768, causal, left-padded prompts of 600..768
     tokens, so the pad rows are fully masked) and decode (8 x 1 against 896
     cache slots, the last 28 empty), S=2048 and S=8192 (causal, padded),
@@ -544,6 +549,9 @@ def flash_cases(rng):
         ("bart-encoder", 8, 1024, 1024, 12, 64, src, False),
         ("bart-cross", 8, 64, 1024, 12, 64, src, False),
         ("bart-decode-cross", 8, 1, 1024, 12, 64, src, False),
+        # the same under 4 beams: each source row's keys for its 4 beams
+        ("bart-beam-decode-cross", 32, 1, 1024, 12, 64,
+         [r for r in src for _ in range(4)], False),
         ("gpt2-prefill", 8, 768, 768, 12, 64,
          [(768 - n, 768) for n in prompt], True),
         ("gpt2-decode", 8, 1, 896, 12, 64,
@@ -656,7 +664,8 @@ def _check_flash(torch, A, rng, timings):
                         was, was / ms)
                 dev = _routed("the bf16 flash forward at %s" % name,
                               _device_ms(torch, lambda: A.flash_attention_fwd(
-                                  tq, tk, tv, mask, causal)),
+                                  tq, tk, tv, mask, causal),
+                                  want=(FLASH_FWD_MMA_NAME,)),
                               (("kernel", FLASH_FWD_MMA_NAME),),
                               (FLASH_FWD_CUDA_CORE_NAME,))
                 log("profile flash %-16s bfloat16 %s %.4f ms per call "
@@ -751,22 +760,35 @@ CUDA_CORE_FLASH_BWD_MS = {"bart-encoder": 3.9733, "bart-cross": 0.3522,
                           "masked-row-700": 0.1972, "S8192-causal": 17.5627}
 
 
-def _device_ms(torch, fn, calls=5):
-    """{kernel name: device ms per call} of `calls` calls of fn, from
-    torch.profiler's key_averages (device kernels only)."""
+PROFILE_ATTEMPTS = 4
+
+
+def _device_ms(torch, fn, calls=5, want=()):
+    """{kernel name: device ms per call} of `calls` calls of fn: the device
+    kernels of torch.profiler's key_averages (PyTorch's operators, which
+    hold their kernels' time again, left out). On an H100 a session has now
+    and then recorded none or only some of the kernels that ran (the launch
+    counts and CUDA-event times say they ran), so a session whose record
+    lacks a kernel named in `want` runs again, up to PROFILE_ATTEMPTS
+    times; _routed then judges the last record."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = e.cuda_time_total
-        if us:
-            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / calls
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and e.device_time_total:
+                out[e.key] = out.get(e.key, 0.0) \
+                    + e.device_time_total / 1e3 / calls
+        missing = [n for n in want if not any(n in key for key in out)]
+        if out and not missing:
+            return out
+        log("profile: session %d recorded %d kernels, lacking %s"
+            % (attempt, len(out), missing or "all"))
     return out
 
 
@@ -792,7 +814,8 @@ def _flash_bwd_split(torch, A, args, calls=5):
     Raises when the trace lacks one of them or holds a CUDA-core walk."""
     return _routed("the bf16 flash backward",
                    _device_ms(torch, lambda: A.flash_attention_bwd(*args),
-                              calls),
+                              calls, want=[n for _, n in
+                                           FLASH_BWD_KERNEL_NAMES]),
                    FLASH_BWD_KERNEL_NAMES, CUDA_CORE_BWD_NAMES)
 
 
@@ -1021,18 +1044,25 @@ def _check_bwd(torch, A, rng, name, q, k, v, mask, causal, worst):
         % name)
 
 
-def _time_bwd(torch, A, name, tq, tk, tv, mask, causal, rng, library_ms):
+def _short_bwd_names(torch, A, dtype, sq, skv):
+    """The (part, kernel name) pairs a bf16 short backward's route launches
+    (none for f32, whose backward phase 2 does not profile)."""
+    if dtype != torch.bfloat16:
+        return ()
+    return (SHORT_BWD_ONE_BLOCK_NAMES if A._short_bwd_route(dtype, sq, skv)
+            == 1 else SHORT_BWD_FLASH_ROUTE_NAMES)
+
+
+def _time_bwd(torch, A, name, tq, tk, tv, mask, causal, o, do, library_ms,
+              times):
     """Backward kernel, its twin, and autograd through attention_reference
-    (backward only, from a graph kept alive); CUDA events. library_ms: the
-    SDPA backward at the same shape. bf16: the profiler's split by kernel,
-    which must hold the route's tensor-core kernels and no CUDA-core walk,
-    and the earlier CUDA-core walk's time beside."""
-    import numpy as np
+    (backward only, from a graph kept alive), from the forward's o and dO;
+    CUDA events. library_ms: the SDPA backward at the same shape. bf16: the
+    split by kernel of the profiler session `times` (_device_ms), which must
+    hold the route's tensor-core kernels and no CUDA-core walk, and the
+    earlier CUDA-core walk's time beside."""
     b, sq, h, d = tq.shape
     skv = tk.shape[1]
-    do = torch.from_numpy(rng.standard_normal((b, sq, h, d)).astype(
-        np.float32)).to(tq.device).to(tq.dtype)
-    o = A.short_attention_fwd(tq, tk, tv, mask, causal)
     ms = _time_ms(torch, lambda: A.short_attention_bwd(
         tq, tk, tv, mask, o, do, causal))
     plain_ms = _time_ms(torch, lambda: A.short_attention_bwd_reference(
@@ -1048,11 +1078,8 @@ def _time_bwd(torch, A, name, tq, tk, tv, mask, causal, rng, library_ms):
     extra = ""
     if tq.dtype == torch.bfloat16:
         route = A._short_bwd_route(tq.dtype, sq, skv)
-        names = (SHORT_BWD_ONE_BLOCK_NAMES if route == 1
-                 else SHORT_BWD_FLASH_ROUTE_NAMES)
-        split = _routed("the bf16 short backward at %s" % name,
-                        _device_ms(torch, lambda: A.short_attention_bwd(
-                            tq, tk, tv, mask, o, do, causal)),
+        names = _short_bwd_names(torch, A, tq.dtype, sq, skv)
+        split = _routed("the bf16 short backward at %s" % name, times,
                         names, SHORT_BWD_CUDA_CORE_NAMES)
         log("profile bwd %-12s bfloat16 route %d: %s, sum %.4f ms per call "
             "(device time; no CUDA-core walk in the trace)"
@@ -2301,10 +2328,675 @@ def phase_bart(torch, seed, workdir):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 7: BART-base predict
+# --------------------------------------------------------------------------
+
+BART_PREDICT_UDP = {  # EOS banned so every row decodes all 63 positions
+    "greedy": "max_decoder_length=%d min_decoder_length=%d"
+              % (BART_TARGET_TOKENS, BART_TARGET_TOKENS),
+    "beam": "max_decoder_length=%d min_decoder_length=%d num_beams=4"
+            % (BART_TARGET_TOKENS, BART_TARGET_TOKENS)}
+
+
+def run_bart_predict(torch, ckpt, tsv, out, use_kernel, udp):
+    """--mode=predict --app_name=sequence_generation on a BART checkpoint
+    through the CLI entry; (the run's summary, generated_ids [N, T])."""
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    argv = ["--mode=predict", "--tables=" + tsv, "--outputs=" + out,
+            "--checkpoint_dir=" + ckpt, "--output_schema=generated_ids",
+            "--append_cols=id", "--user_defined_parameters=" + udp] \
+        + _bart_argv(use_kernel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manager = default_main_fn(initialize_easynlp(args_list=argv))
+    total = time.perf_counter() - t0
+    with open(out, encoding="utf-8") as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    if any(len(r) != 2 for r in rows) or [r[1] for r in rows] != [
+            str(i) for i in range(len(rows))]:
+        raise AssertionError("%s does not parse as generated_ids, id rows"
+                             % out)
+    ids = np.array([[int(x) for x in r[0].split()] for r in rows])
+    return {"rows": manager.n_rows, "run_s": manager.seconds,
+            "with_load_s": total, "predictor": manager.predictor,
+            "batch_s": list(manager.predictor.batch_seconds)}, ids
+
+
+def phase_bart_predict(torch, seed, workdir):
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.sequence_generation.model import (
+        SequenceGeneration)
+    from easynlp_tpu_torch.modelzoo.seq2seq_generation import (
+        make_encoder_decoder_fns)
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 7: BART-base predict (sequence_generation predict on "
+        "phase 6's checkpoint)")
+    ckpt = os.path.join(workdir, "bart_ckpt")
+    tsv = os.path.join(workdir, "bart_dev.tsv")
+    layers, n = BART_BASE["decoder_layers"], BART_DEV_ROWS
+    batches, calls = n // BART_BATCH, BART_TARGET_TOKENS - 1
+    wrappers = ("short_attention_fwd", "flash_attention_fwd")
+
+    def counts():
+        return {w: getattr(A, w).launches for w in wrappers}
+
+    runs, ids = {}, {}
+    # the main path: counts set to 0 just before, read just after
+    for w in wrappers:
+        getattr(A, w).launches = 0
+    runs[("greedy", True)], ids[("greedy", True)] = run_bart_predict(
+        torch, ckpt, tsv, os.path.join(workdir, "bart_pred_k.tsv"), True,
+        BART_PREDICT_UDP["greedy"])
+    launches = counts()
+    want = {"short_attention_fwd": batches * layers * calls,
+            "flash_attention_fwd": batches * layers * (1 + calls)}
+    log("BART predict path launches: %s (want %s: per batch the encoder's "
+        "6 flash forwards over 1024 keys, then per decoder position 6 flash "
+        "cross-attention forwards (8 x 1 x 1024) and 6 short "
+        "self-attention forwards over the 64-slot cache (8 x 1 x 64), "
+        "%d positions after the start token's)" % (launches, want, calls))
+    if launches != want:
+        raise AssertionError("the BART predict path launched %s, want %s"
+                             % (launches, want))
+    for key in (("greedy", False), ("beam", True), ("beam", False)):
+        before = counts()
+        runs[key], ids[key] = run_bart_predict(
+            torch, ckpt, tsv, os.path.join(workdir, "bart_pred_%s_%d.tsv"
+                                           % key), key[1],
+            BART_PREDICT_UDP[key[0]])
+        used = {w: counts()[w] - before[w] for w in wrappers}
+        if key[1] and (not all(used.values())
+                       or any(v % layers for v in used.values())):
+            raise AssertionError("the beam run launched %s" % used)
+        if not key[1] and any(used.values()):
+            raise AssertionError("--use_flash_attention=false launched %s"
+                                 % used)
+        if key == ("beam", True):
+            log("BART 4-beam predict launches: %s (32 rows a batch)" % used)
+    for key, r in runs.items():
+        got = ids[key]
+        if got.shape != (n, BART_TARGET_TOKENS) or got.min() < 0 or \
+                got.max() >= BART_BASE["vocab_size"] or \
+                (got[:, 0] != BART_BASE["decoder_start_token_id"]).any():
+            raise AssertionError("BART predict %s: generated_ids %s" % (
+                key, got.shape))
+        tokens = n * calls
+        log("bart predict %-6s %-6s %d rows, %d generated tokens in %.4f s "
+            "= %.2f tokens/s (predict loop: read, tokenise, %d batches, "
+            "write; %.4f s with model load); batch latency median %.3f ms "
+            "(host clock)" % (key[0], "kernel" if key[1] else "plain", n,
+                              tokens, r["run_s"], tokens / r["run_s"],
+                              len(r["batch_s"]), r["with_load_s"],
+                              1e3 * statistics.median(r["batch_s"])))
+    # the predictor's text of each row: the tokens after the start column
+    # (EOS banned, so no cut), empty only where all are special tokens
+    predictor = runs[("greedy", True)]["predictor"]
+    specials = set(predictor.tokenizer.all_special_ids)
+    texts = [predictor._text(row, 0) for row in ids[("greedy", True)]]
+    for row, text in zip(ids[("greedy", True)], texts):
+        if text != predictor.tokenizer.decode(row[1:]) or bool(text) != any(
+                int(t) not in specials for t in row[1:]):
+            raise AssertionError("BART prediction text %r of %s" % (text,
+                                                                     row))
+    log("bart predict text: %d of %d greedy rows hold text; %d distinct "
+        "tokens generated" % (sum(map(bool, texts)), n,
+                              len(set(ids[("greedy", True)][:, 1:].ravel()))))
+
+    # the plain greedy run's top-2 margins, teacher forcing its own tokens
+    # (EOS banned as in the run), then the GPT-2 phase's rule
+    app = SequenceGeneration.from_pretrained(ckpt, dtype=torch.bfloat16,
+                                             device="cuda")
+    with open(tsv, encoding="utf-8") as f:
+        articles = [line.split("\t")[1] for line in f]
+    enc = runs[("greedy", True)]["predictor"].tokenizer(
+        articles, max_length=BART_SEQ_LEN)
+    src = torch.from_numpy(enc["input_ids"]).cuda().long()
+    src_mask = torch.from_numpy(enc["attention_mask"]).cuda()
+    ids_k, ids_p = ids[("greedy", True)], ids[("greedy", False)]
+    eos = BART_BASE["eos_token_id"]
+    margins = []
+    A.set_kernel_override(False)
+    with torch.inference_mode():
+        for s in range(0, n, BART_BATCH):
+            dec = torch.from_numpy(ids_p[s:s + BART_BATCH, :-1]).cuda()
+            logits = app.module(src[s:s + BART_BATCH],
+                                src_mask[s:s + BART_BATCH],
+                                decoder_input_ids=dec)["logits"].float()
+            logits[..., eos] = -float("inf")
+            top2 = logits.topk(2, dim=-1).values
+            margins.append((top2[..., 0] - top2[..., 1]).cpu().numpy())
+    A.set_kernel_override(None)
+    margins = np.concatenate(margins)
+    decided = compared = near_ties = 0
+    for row in range(n):
+        for j in range(1, BART_TARGET_TOKENS):
+            a, b = ids_k[row, j], ids_p[row, j]
+            if a != b:
+                if margins[row, j - 1] > 2 * GEN_LOGITS_ATOL:
+                    raise AssertionError(
+                        "BART predict row %d position %d: kernel token %d, "
+                        "plain %d, at a top-2 margin of %.3e > %.1e"
+                        % (row, j, a, b, margins[row, j - 1],
+                           2 * GEN_LOGITS_ATOL))
+                near_ties += 1
+                break
+            compared += 1
+            decided += margins[row, j - 1] > 2 * GEN_LOGITS_ATOL
+    same_beam = (ids[("beam", True)] == ids[("beam", False)]).all(axis=1)
+    log("bart predict kernel vs plain, greedy: tokens agree at all %d "
+        "positions compared before a row's first divergence (%d of them at "
+        "a plain teacher-forced top-2 margin > %.1e); %d rows diverge, each "
+        "at a near-tie; %d of %d rows identical; 4 beams: %d of %d best "
+        "beams identical" % (compared, decided, 2 * GEN_LOGITS_ATOL,
+                             near_ties, int((ids_k == ids_p).all(1).sum()),
+                             n, int(same_beam.sum()), n))
+
+    # the profiler's word: one batch's generate runs B3 and B1 on the
+    # tensor cores, and neither CUDA-core walk
+    dev = _routed("BART-base greedy generate (8 rows)", _device_ms(
+        torch, lambda: app.generate(src[:BART_BATCH], src_mask[:BART_BATCH],
+                                    max_length=BART_TARGET_TOKENS,
+                                    min_length=BART_TARGET_TOKENS), calls=1,
+        want=(FLASH_FWD_MMA_NAME, SHORT_FWD_MMA_NAME)),
+        (("B3", FLASH_FWD_MMA_NAME), ("B1", SHORT_FWD_MMA_NAME)),
+        (FLASH_FWD_CUDA_CORE_NAME, SHORT_FWD_CUDA_CORE_NAME))
+    log("profile BART predict, one batch of 8 x 64 positions: %s %.4f ms "
+        "(encoder 6 x 8 x 1024 + cross 6 x 63 x 8 x 1 x 1024), %s %.4f ms "
+        "(6 x 63 x 8 x 1 x 64) of device time; no CUDA-core walk"
+        % (FLASH_FWD_MMA_NAME, dev["B3"], SHORT_FWD_MMA_NAME, dev["B1"]))
+
+    # prefill and decode step times on one batch, kernel and plain in turns
+    start = torch.full((BART_BATCH, 1), BART_BASE["decoder_start_token_id"],
+                       dtype=torch.long, device=src.device)
+    start_mask = torch.ones((BART_BATCH, 1), dtype=torch.int32,
+                            device=src.device)
+    prefill, decode = make_encoder_decoder_fns(
+        app.module, BART_TARGET_TOKENS, src[:BART_BATCH],
+        src_mask[:BART_BATCH])
+    steps = {}
+    for use_kernel in (True, False, False, True):
+        A.set_kernel_override(None if use_kernel else False)
+        pre, dec = _step_times(torch, prefill, decode, start, start_mask,
+                               BART_TARGET_TOKENS - 2)
+        steps.setdefault(use_kernel, ([], []))
+        steps[use_kernel][0].extend(pre)
+        steps[use_kernel][1].extend(dec)
+    A.set_kernel_override(None)
+    for use_kernel, (pre, dec) in steps.items():
+        log("bart step %-6s batch %d x %d-token sources: prefill (encoder + "
+            "start token) ms median %.3f (min %.3f, max %.3f, %d runs); "
+            "decode ms per position median %.3f (min %.3f, max %.3f, %d "
+            "steps against %d cache slots); host clock, each call ends in a "
+            "synchronize" % ("kernel" if use_kernel else "plain", BART_BATCH,
+                             BART_SEQ_LEN, statistics.median(pre), min(pre),
+                             max(pre), len(pre), statistics.median(dec),
+                             min(dec), max(dec), len(dec),
+                             BART_TARGET_TOKENS))
+    del app, prefill, decode
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 8: the BERT encoder apps
+# --------------------------------------------------------------------------
+
+ENCODER_MODEL_DIR = "bert-base-chinese-encoder"
+TAGS = ("O", "B-PER", "I-PER", "B-LOC", "I-LOC", "B-ORG", "I-ORG")
+MRC_SEQ_LEN, MRC_BATCH, MRC_ROWS, MRC_DEV_ROWS = 384, 16, 128, 32
+# each app: its argv, the rows it trains on (None: predict only), its dev
+# rows, batch and sequence length, the predictor's output columns and the
+# forward outputs held kernel against plain
+ENCODER_APPS = {
+    "text_match": dict(
+        argv=["--app_name=text_match",
+              "--input_schema=id:str:1,a:str:1,b:str:1,label:str:1",
+              "--first_sequence=a", "--second_sequence=b",
+              "--label_name=label"],
+        data="pairs", outputs="predictions,probabilities,logits",
+        compare=("logits",)),
+    "text_match_two_tower": dict(
+        argv=["--app_name=text_match",
+              "--input_schema=id:str:1,a:str:1,b:str:1,label:str:1",
+              "--first_sequence=a", "--second_sequence=b",
+              "--label_name=label",
+              "--user_defined_parameters=two_tower=True"],
+        data="pairs", outputs="predictions,similarity",
+        compare=("similarity", "embeddings", "embeddings_b")),
+    "sequence_labeling": dict(
+        argv=["--app_name=sequence_labeling",
+              "--input_schema=id:str:1,content:str:1,tags:str:1",
+              "--first_sequence=content", "--label_name=tags"],
+        data="tags", outputs="predictions", compare=("logits",)),
+    "machine_reading_comprehension": dict(
+        argv=["--app_name=machine_reading_comprehension",
+              "--input_schema=qas_id:str:1,question:str:1,context:str:1,"
+              "answer:str:1", "--first_sequence=question",
+              "--second_sequence=context", "--label_name=answer"],
+        data="mrc", outputs="predictions,best_answer",
+        compare=("start_logits", "end_logits")),
+    "vectorization": dict(
+        argv=["--app_name=vectorization",
+              "--input_schema=id:str:1,sentence:str:1,label:str:1",
+              "--first_sequence=sentence"],
+        data=None, outputs="predictions", compare=("embeddings",)),
+}
+
+
+def _cjk_text(rng, common, lo, hi):
+    return "".join(rng.choice(common) for _ in range(rng.randint(lo, hi)))
+
+
+def make_encoder_tsvs(workdir, cjk, seed):
+    """{kind: (train tsv, dev tsv)} of generated CJK rows: sentence pairs
+    with a match/other label; per-character BIO tags (no spaces, so each
+    character is a token); MRC question, context (past 384 tokens for most
+    rows) and an answer cut from the context, absent for every fourth."""
+    rng = random.Random(seed)
+    common = cjk[:3000]
+    out = {}
+    for kind, n_train, n_dev in (("pairs", N_ROWS, N_DEV_ROWS),
+                                 ("tags", N_ROWS, N_DEV_ROWS),
+                                 ("mrc", MRC_ROWS, MRC_DEV_ROWS)):
+        paths = []
+        for split, n in (("train", n_train), ("dev", n_dev)):
+            path = os.path.join(workdir, "%s_%s.tsv" % (kind, split))
+            with open(path, "w", encoding="utf-8") as f:
+                for i in range(n):
+                    if kind == "pairs":
+                        row = (_cjk_text(rng, common, 8, 90),
+                               _cjk_text(rng, common, 8, 90),
+                               rng.choice(["match", "other"]))
+                    elif kind == "tags":
+                        text = _cjk_text(rng, common, 16, 200)
+                        tags, prev = [], "O"
+                        for _ in text:
+                            r = rng.random()
+                            if prev != "O" and r < 0.5:
+                                tag = "I-" + prev[2:]
+                            elif r < 0.75:
+                                tag = "O"
+                            else:
+                                tag = rng.choice(TAGS[1::2])
+                            tags.append(tag)
+                            prev = tag
+                        row = (text, " ".join(tags))
+                    else:
+                        context = _cjk_text(rng, common, 150, 600)
+                        at = rng.randint(0, min(len(context), 330) - 8)
+                        answer = context[at:at + rng.randint(2, 8)]
+                        if i % 4 == 3:
+                            answer = _cjk_text(rng, common, 2, 8)
+                        row = (_cjk_text(rng, common, 4, 16), context,
+                               answer)
+                    f.write("%s%d\t%s\n" % ("q" if kind == "mrc" else "", i,
+                                            "\t".join(row)))
+            paths.append(path)
+        out[kind] = tuple(paths)
+    return out
+
+
+def make_encoder_model_dir(torch, workdir):
+    """phase 3's BERT-base directory without its 2-way classifier head (a
+    pretrained backbone, as the apps start from)."""
+    import shutil
+    src = os.path.join(workdir, MODEL_DIR)
+    dst = os.path.join(workdir, ENCODER_MODEL_DIR)
+    os.makedirs(dst, exist_ok=True)
+    for name in ("config.json", "vocab.txt"):
+        shutil.copy(os.path.join(src, name), dst)
+    state = torch.load(os.path.join(src, "pytorch_model.bin"),
+                       weights_only=True)
+    torch.save({k: v for k, v in state.items()
+                if not k.startswith("classifier.")},
+               os.path.join(dst, "pytorch_model.bin"))
+    return dst
+
+
+def _encoder_argv(name, use_kernel):
+    mrc = name == "machine_reading_comprehension"
+    return ENCODER_APPS[name]["argv"] + [
+        "--device=cuda", "--dtype=bfloat16",
+        "--sequence_length=%d" % (MRC_SEQ_LEN if mrc else SEQ_LEN),
+        "--micro_batch_size=%d" % (MRC_BATCH if mrc else BATCH),
+        "--use_flash_attention=%s" % ("auto" if use_kernel else "false")]
+
+
+def _cli(torch, argv):
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = default_main_fn(initialize_easynlp(args_list=argv))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _forward_outputs(torch, name, ckpt, tsv, keys):
+    """({True: kernel outputs, False: plain outputs}, inputs): the app's
+    forward outputs `keys` over every row of tsv after its predictor's
+    preprocessing, in bf16 on the card, with the kernels and with
+    attention_reference; and the predictor's preprocessed inputs."""
+    import numpy as np
+    from types import SimpleNamespace
+    from easynlp_tpu_torch.appzoo import api
+    from easynlp_tpu_torch.ops import attention as A
+    from easynlp_tpu_torch.utils import parse_row_by_schema
+    argv = dict(a.split("=", 1) for a in _encoder_argv(name, True))
+    udp = dict(kv.split("=", 1) for kv in argv.get(
+        "--user_defined_parameters", "").split() if kv)
+    labels = os.path.join(ckpt, "label_mapping.json")
+    n_labels = 2
+    if os.path.exists(labels):
+        with open(labels) as f:
+            n_labels = max(len(json.load(f)), 2)
+    app = api._resolve(api.MODEL_REGISTRY, argv["--app_name"], udp) \
+        .from_pretrained(ckpt, args=SimpleNamespace(
+            user_defined_parameters_dict=udp), dtype=torch.bfloat16,
+            device="cuda", num_labels=n_labels)
+    predictor = api._resolve(api.PREDICTOR_REGISTRY, argv["--app_name"],
+                             udp)(
+        model_dir=ckpt, app=app, first_sequence=argv["--first_sequence"],
+        second_sequence=argv.get("--second_sequence"),
+        sequence_length=int(argv["--sequence_length"]),
+        batch_size=int(argv["--micro_batch_size"]))
+    with open(tsv, encoding="utf-8") as f:
+        rows = [parse_row_by_schema(line, argv["--input_schema"])
+                for line in f if line.strip()]
+    inputs = predictor.preprocess({k: [r[k] for r in rows] for k in rows[0]})
+    bs = int(argv["--micro_batch_size"])
+    outs = {}
+    with torch.inference_mode():
+        for use_kernel in (True, False):
+            A.set_kernel_override(None if use_kernel else False)
+            parts = []
+            for s in range(0, len(rows), bs):
+                batch = {k: torch.from_numpy(np.asarray(
+                    inputs[k][s:s + bs], np.int32)).to(app.device)
+                    for k in app.model_input_keys if k in inputs}
+                res = app.forward(batch)
+                parts.append({k: res[k].float().cpu().numpy() for k in keys})
+            outs[use_kernel] = {k: np.concatenate([p[k] for p in parts])
+                                for k in keys}
+    A.set_kernel_override(None)
+    del app
+    return outs, inputs
+
+
+def _span_margin(start, end, context, max_len=30):
+    """(best span, its score's lead over the next span's) of the MRC
+    predictor's search."""
+    import numpy as np
+    s_log = np.where(context, start, -1e30)
+    e_log = np.where(context, end, -1e30)
+    scores = sorted(((s_log[s] + e_log[e], (int(s), e))
+                     for s in np.argsort(s_log)[-20:]
+                     for e in range(s, min(s + max_len, len(e_log)))),
+                    reverse=True)
+    return scores[0][1], scores[0][0] - scores[1][0]
+
+
+def _decided(name, plain, inputs):
+    """Per output row, None where the plain run's margin does not decide
+    the prediction (at most 2 x SLICE_ATOL), else the positions whose
+    predicted labels it decides (sequence labeling) or True."""
+    import numpy as np
+    out = []
+    for i in range(len(next(iter(plain.values())))):
+        if name == "text_match":
+            lg = plain["logits"][i]
+            out.append(True if abs(lg[0] - lg[1]) > 2 * SLICE_ATOL else None)
+        elif name == "text_match_two_tower":
+            out.append(True if abs(plain["similarity"][i] - 0.5)
+                       > 2 * SLICE_ATOL else None)
+        elif name == "sequence_labeling":
+            top2 = np.sort(plain["logits"][i], axis=-1)[:, -2:]
+            firsts = inputs["_first_positions"][i]
+            out.append([j for j, pos in enumerate(firsts)
+                        if top2[pos, 1] - top2[pos, 0] > 2 * SLICE_ATOL])
+        elif name == "machine_reading_comprehension":
+            _, lead = _span_margin(plain["start_logits"][i],
+                                   plain["end_logits"][i],
+                                   inputs["token_type_ids"][i] == 1)
+            out.append(True if lead > 4 * SLICE_ATOL else None)
+        else:
+            out.append(None)
+    return out
+
+
+def phase_encoder_apps(torch, seed, workdir, cjk):
+    import numpy as np
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 8: the encoder apps (text_match, sequence_labeling, "
+        "machine_reading_comprehension, vectorization; BERT-base)")
+    t0 = time.perf_counter()
+    model_dir = make_encoder_model_dir(torch, workdir)
+    tsvs = make_encoder_tsvs(workdir, cjk, seed + 11)
+    tsvs[None] = (None, os.path.join(workdir, "predict.tsv"))
+    log("BERT-base backbone directory and app TSVs made in %.3f s"
+        % (time.perf_counter() - t0))
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+
+    def counts():
+        return {w: getattr(A, w).launches for w in wrappers}
+
+    all_launches = {}
+    for name, spec in ENCODER_APPS.items():
+        t_app = time.perf_counter()
+        train_tsv, dev_tsv = tsvs[spec["data"]]
+        mrc = name == "machine_reading_comprehension"
+        towers = 2 if name == "text_match_two_tower" else 1
+        ckpt = model_dir
+        steps = eval_batches = 0
+        if train_tsv:
+            steps = (MRC_ROWS // MRC_BATCH) if mrc else N_ROWS // BATCH
+            eval_batches = -(-(MRC_DEV_ROWS if mrc else N_DEV_ROWS)
+                             // (MRC_BATCH if mrc else BATCH))
+            ckpt = os.path.join(workdir, "ckpt_" + name)
+            trained = {}
+            for use_kernel in (True, False):
+                # the main path: counts set to 0 just before, read after
+                for w in wrappers:
+                    getattr(A, w).launches = 0
+                argv = ["--mode=train", "--tables=%s,%s" % (train_tsv,
+                                                            dev_tsv),
+                        "--pretrained_model_name_or_path=" + model_dir,
+                        "--epoch_num=1", "--learning_rate=%g" % LEARNING_RATE,
+                        "--optimizer_type=AdamW", "--logging_steps=1",
+                        "--random_seed=%d" % seed] \
+                    + (["--checkpoint_dir=" + ckpt] if use_kernel else []) \
+                    + _encoder_argv(name, use_kernel)
+                trainer, secs = _cli(torch, argv)
+                trained[use_kernel] = trainer.step_records
+                used = counts()
+                if len(trainer.step_records) != steps \
+                        or trainer.nonfinite_skips:
+                    raise AssertionError("%s: %d steps, %d skips" % (
+                        name, len(trainer.step_records),
+                        trainer.nonfinite_skips))
+                ms = [1e3 * r["seconds"] for r in trainer.step_records]
+                log("%s train %-6s %d steps: step ms median %.3f (min %.3f, "
+                    "max %.3f; host clock); run with load, evaluation and "
+                    "checkpoint %.3f s; losses %s; launches %s"
+                    % (name, "kernel" if use_kernel else "plain", len(ms),
+                       statistics.median(ms), min(ms), max(ms), secs,
+                       " ".join("%.4f" % r["loss"]
+                                for r in trainer.step_records), used))
+                want = {"short_attention_fwd": N_LAYERS * towers
+                        * (steps + eval_batches),
+                        "short_attention_bwd": N_LAYERS * towers * steps,
+                        "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+                if not use_kernel:
+                    want = dict.fromkeys(wrappers, 0)
+                if used != want:
+                    raise AssertionError("%s training launched %s, want %s"
+                                         % (name, used, want))
+                if use_kernel:
+                    all_launches[name] = used
+                del trainer
+            d_loss = max(abs(a["loss"] - b["loss"])
+                         for a, b in zip(trained[True], trained[False]))
+            log("%s kernel vs plain training: max |d loss| per step %.3e "
+                "(bound %.1e)" % (name, d_loss, TRAIN_LOSS_ATOL))
+            if not d_loss <= TRAIN_LOSS_ATOL:
+                raise AssertionError("%s: loss gap %.3e" % (name, d_loss))
+            for use_kernel in (True, False):
+                before = counts()
+                results, secs = _cli(torch, [
+                    "--mode=evaluate", "--tables=" + dev_tsv,
+                    "--checkpoint_dir=" + ckpt]
+                    + _encoder_argv(name, use_kernel))
+                used = counts()["short_attention_fwd"] \
+                    - before["short_attention_fwd"]
+                log("%s evaluate %-6s %s in %.3f s; short forward launches "
+                    "%d" % (name, "kernel" if use_kernel else "plain",
+                            ", ".join("%s %.6f" % kv for kv in results),
+                            secs, used))
+                if not all(np.isfinite(x) and -1 <= x <= 1  # MCC < 0 too
+                           for _, x in results) or \
+                        bool(used) != use_kernel:
+                    raise AssertionError("%s evaluate: %s, %d launches"
+                                         % (name, results, used))
+        # predict through the CLI, kernel and plain, on the same checkpoint
+        preds = {}
+        for use_kernel in (True, False):
+            out = os.path.join(workdir, "pred_%s_%d.tsv" % (name,
+                                                            use_kernel))
+            if not train_tsv:
+                for w in wrappers:
+                    getattr(A, w).launches = 0
+            before = counts()
+            manager, secs = _cli(torch, [
+                "--mode=predict", "--tables=" + dev_tsv, "--outputs=" + out,
+                "--checkpoint_dir=" + ckpt, "--output_schema="
+                + spec["outputs"]] + _encoder_argv(name, use_kernel))
+            used = {w: counts()[w] - before[w] for w in wrappers}
+            if not train_tsv and use_kernel:
+                all_launches[name] = used
+            n_batches = len(manager.predictor.model_predictor.batch_seconds)
+            want_fwd = N_LAYERS * towers * n_batches if use_kernel else 0
+            log("%s predict %-6s %d rows in %.4f s (%.2f rows/s; %.3f s with "
+                "model load); launches %s" % (name, "kernel" if use_kernel
+                                               else "plain", manager.n_rows,
+                                               manager.seconds,
+                                               manager.n_rows
+                                               / manager.seconds, secs, used))
+            if used["short_attention_fwd"] != want_fwd:
+                raise AssertionError("%s predict launched %s, want %d short "
+                                     "forwards" % (name, used, want_fwd))
+            with open(out, encoding="utf-8") as f:
+                preds[use_kernel] = [line.rstrip("\n").split("\t")
+                                     for line in f]
+            if len(preds[use_kernel]) != manager.n_rows or any(
+                    len(r) != len(spec["outputs"].split(","))
+                    for r in preds[use_kernel]):
+                raise AssertionError("%s: %s does not parse" % (name, out))
+        # the forward outputs, kernel against plain, and the decided rows
+        got, inputs = _forward_outputs(torch, name, ckpt, dev_tsv,
+                                       spec["compare"])
+        gaps = {k: float(np.abs(got[True][k] - got[False][k]).max())
+                for k in spec["compare"]}
+        decided = _decided(name, got[False], inputs)
+        checked = flips = 0
+        for i, d in enumerate(decided):
+            if d is None:
+                continue
+            k_row, p_row = preds[True][i], preds[False][i]
+            if name == "sequence_labeling":
+                kt, pt = k_row[0].split(), p_row[0].split()
+                bad = [j for j in d if kt[j] != pt[j]]
+                checked += len(d)
+            else:
+                bad = k_row[0] != p_row[0]
+                checked += 1
+            flips += bool(bad)
+        log("%s kernel vs plain forward: max |d| %s (bound %.1e); "
+            "predictions agree at all %d decisions the plain margin decides "
+            "(> %s); %d of %d rows identical; phase seconds %.3f"
+            % (name, ", ".join("%s %.3e" % kv for kv in gaps.items()),
+               SLICE_ATOL, checked, "4 x bound on the span score" if mrc
+               else "2 x bound", sum(a == b for a, b in zip(preds[True],
+                                                            preds[False])),
+               len(preds[True]), time.perf_counter() - t_app))
+        if max(gaps.values()) > SLICE_ATOL or flips:
+            raise AssertionError("%s: kernel and plain outputs differ by %s, "
+                                 "%d decided predictions differ"
+                                 % (name, gaps, flips))
+
+    # the profiler's word on the training routes: B1 and B2 at 32 x 128
+    # (one block per (b, h)); at MRC's 16 x 384 B2's LSE pass and the
+    # flash backward's passes (B4/B5)
+    for name, want_names in (
+            ("sequence_labeling",
+             (("B1", SHORT_FWD_MMA_NAME),) + SHORT_BWD_ONE_BLOCK_NAMES),
+            ("machine_reading_comprehension",
+             (("B1", SHORT_FWD_MMA_NAME),) + SHORT_BWD_FLASH_ROUTE_NAMES)):
+        train_tsv, _ = tsvs[ENCODER_APPS[name]["data"]]
+        prof = os.path.join(workdir, "profile_" + name)
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):  # see _device_ms
+            _cli(torch, ["--mode=train", "--tables=" + train_tsv,
+                         "--pretrained_model_name_or_path=" + model_dir,
+                         "--epoch_num=1", "--optimizer_type=AdamW",
+                         "--random_seed=%d" % seed, "--profile_dir=" + prof,
+                         "--profile_steps=4"] + _encoder_argv(name, True))
+            share, busy_ms, top = device_share(os.path.join(prof,
+                                                            "trace.json"))
+            times = dict(top)
+            missing = [n for _, n in want_names
+                       if not any(n in key for key in times)]
+            if not missing:
+                break
+            log("profile: %s run %d recorded %d kernels, lacking %s"
+                % (name, attempt, len(times), missing))
+        parts = _routed("the %s training steps" % name, times, want_names,
+                        (SHORT_FWD_CUDA_CORE_NAME,)
+                        + SHORT_BWD_CUDA_CORE_NAMES)
+        log("profile, %s kernel run, steps 3-6 (under the profiler): device "
+            "busy %.1f%% of the span of its kernels, %.3f ms busy per step; "
+            "attention device ms per step: %s; top kernels: %s"
+            % (name, 100 * share, busy_ms / 4,
+               ", ".join("%s %.3f" % (p, parts[p] / 4) for p, _ in
+                         want_names),
+               "; ".join("%s %.3f" % (n[:50], t / 4) for n, t in top[:6])))
+    return all_launches
+
+
+def _dtype_key(key):
+    """A (..., dtype) key as text ("...|bfloat16") and back."""
+    import torch
+    if isinstance(key, str):
+        *rest, dtype = key.split("|")
+        return tuple(rest) + (getattr(torch, dtype),)
+    return "|".join(key[:-1] + (str(key[-1]).split(".")[1],))
+
+
+def phase_kernel_in_child(seed):
+    """Phase 2 in a process of its own, which writes (worst, timings) as
+    JSON: its ~26 profiler sessions then leave this process's profiler
+    fresh for the phases after it (on an H100 the 36th profiler session of
+    one process has recorded no device kernel)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kernels_") as d:
+        path = os.path.join(d, "kernels.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--seed",
+                        str(seed), "--kernels-json", path], check=True,
+                       timeout=900)
+        with open(path) as f:
+            data = json.load(f)
+    worst = {name: {_dtype_key(k): v for k, v in cases.items()}
+             for name, cases in data["worst"].items()}
+    return worst, {_dtype_key(k): v for k, v in data["timings"].items()}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
-    seed = parser.parse_args().seed
+    parser.add_argument("--kernels-json", help=argparse.SUPPRESS)
+    cli = parser.parse_args()
+    seed = cli.seed
 
     import torch
     # the port itself: outside a checkout this fails before anything prints
@@ -2314,13 +3006,39 @@ def main():
               "test needs an NVIDIA card", file=sys.stderr)
         return 2
     phase_device(torch)
+    if cli.kernels_json:  # phase 2 alone, for phase_kernel_in_child
+        worst, timings = phase_kernel(torch, seed)
+        with open(cli.kernels_json, "w") as f:
+            json.dump({"worst": {name: {_dtype_key(k): v
+                                        for k, v in cases.items()}
+                                 for name, cases in worst.items()},
+                       "timings": {_dtype_key(k): v
+                                   for k, v in timings.items()}}, f)
+        return 0
     build_s = phase_build()
-    worst, timings = phase_kernel(torch, seed)
+    worst, timings = phase_kernel_in_child(seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        seconds = {}
+        t0 = time.perf_counter()
         _, cjk = phase_slice(torch, seed, workdir)
+        seconds["3 text_classify predict"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         _, ms_k, ms_p = phase_train(torch, seed, workdir, cjk)
+        seconds["4 text_classify train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         phase_generation(torch, seed, workdir)
+        seconds["5 GPT-2 generation"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         launches = phase_bart(torch, seed, workdir)
+        seconds["6 BART train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_bart_predict(torch, seed, workdir)
+        seconds["7 BART predict"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_encoder_apps(torch, seed, workdir, cjk)
+        seconds["8 encoder apps"] = time.perf_counter() - t0
+    log("phase seconds: %s" % ", ".join("%s %.1f" % kv
+                                        for kv in seconds.items()))
 
     log("kernel build %.3f s" % build_s)
     log("BERT training step, median of runs: %.3f ms with the kernels, %.3f "

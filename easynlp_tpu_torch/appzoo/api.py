@@ -1,12 +1,16 @@
 """App dispatch + default main for the PyTorch port.
 
 Counterpart of easynlp_tpu/appzoo/api.py, reduced to what is ported: the
-train, evaluate and predict branches for `text_classify` (BERT), and for
-`sequence_generation` the train and evaluate branches on BART and the
-predict branch on GPT-2. Every other mode, app, backbone or app variant
-raises NotImplementedError naming its ROADMAP item. The datasets are
-the port's copies of the JAX package's, so both packages featurise and batch
-the same rows the same way.
+train, evaluate and predict branches for the BERT apps `text_classify`,
+`text_match` (cross-encoder; two-tower with user_defined_parameters
+two_tower or siamese), `sequence_labeling` and
+`machine_reading_comprehension`, predict for `vectorization`, and for
+`sequence_generation` train, evaluate and predict on BART and predict on
+GPT-2. The registries map each app to its variants, as the JAX package's
+do. Every other mode, app, backbone or app variant raises
+NotImplementedError naming its ROADMAP item. The datasets are the port's
+copies of the JAX package's, so both packages featurise and batch the same
+rows the same way.
 """
 
 import json
@@ -27,72 +31,136 @@ def _lazy(path, name):
     return load
 
 
-MODEL_REGISTRY = {
-    "text_classify": _lazy(
-        "easynlp_tpu_torch.appzoo.sequence_classification.model",
-        "SequenceClassification"),
-    "sequence_generation": _lazy(
-        "easynlp_tpu_torch.appzoo.sequence_generation.model",
-        "SequenceGeneration"),
-}
-PREDICTOR_REGISTRY = {
-    "text_classify": _lazy(
-        "easynlp_tpu_torch.appzoo.sequence_classification.predictor",
-        "SequenceClassificationPredictor"),
-    "sequence_generation": _lazy(
-        "easynlp_tpu_torch.appzoo.sequence_generation.predictor",
-        "SequenceGenerationPredictor"),
-}
-DATASET_REGISTRY = {
-    "text_classify": _lazy(
-        "easynlp_tpu_torch.appzoo.sequence_classification.data",
-        "ClassificationDataset"),
-    "sequence_generation": _lazy(
-        "easynlp_tpu_torch.appzoo.sequence_generation.data",
-        "SequenceGenerationDataset"),
-}
-EVALUATOR_REGISTRY = {
-    "text_classify": _lazy(
-        "easynlp_tpu_torch.appzoo.sequence_classification.evaluator",
-        "SequenceClassificationEvaluator"),
-    "sequence_generation": _lazy(
-        "easynlp_tpu_torch.appzoo.sequence_generation.evaluator",
-        "SequenceGenerationEvaluator"),
-}
+_P = "easynlp_tpu_torch.appzoo."
+_TWO_TOWER = ("two_tower", "siamese")  # both select the shared-tower app
+
+
+def _apps(**apps):
+    """{app: {variant: loader}} from {app: {variant: "module:Class"}}."""
+    return {app: {key: _lazy(_P + path.split(":")[0], path.split(":")[1])
+                  for key, path in variants.items()}
+            for app, variants in apps.items()}
+
+
+def _with_two_tower(default, two_tower):
+    return dict({"default": default}, **dict.fromkeys(_TWO_TOWER, two_tower))
+
+
+DATASET_REGISTRY = _apps(
+    text_classify={"default": "sequence_classification.data:"
+                              "ClassificationDataset"},
+    text_match=_with_two_tower("text_match.data:TextMatchDataset",
+                               "text_match.data:TwoTowerDataset"),
+    sequence_labeling={"default": "sequence_labeling.data:"
+                                  "SequenceLabelingDataset"},
+    vectorization={"default": "sequence_classification.data:"
+                              "ClassificationDataset"},
+    machine_reading_comprehension={
+        "default": "machine_reading_comprehension.data:MRCDataset"},
+    sequence_generation={"default": "sequence_generation.data:"
+                                    "SequenceGenerationDataset"},
+)
+MODEL_REGISTRY = _apps(
+    text_classify={"default": "sequence_classification.model:"
+                              "SequenceClassification"},
+    text_match=_with_two_tower("text_match.model:TextMatch",
+                               "text_match.model:TextMatchTwoTower"),
+    sequence_labeling={"default": "sequence_labeling.model:"
+                                  "SequenceLabeling"},
+    vectorization={"default": "feature_vectorization.model:"
+                              "FeatureVectorization"},
+    machine_reading_comprehension={
+        "default": "machine_reading_comprehension.model:"
+                   "MachineReadingComprehension"},
+    sequence_generation={"default": "sequence_generation.model:"
+                                    "SequenceGeneration"},
+)
+EVALUATOR_REGISTRY = _apps(
+    text_classify={"default": "sequence_classification.evaluator:"
+                              "SequenceClassificationEvaluator"},
+    text_match=_with_two_tower("text_match.evaluator:TextMatchEvaluator",
+                               "text_match.evaluator:"
+                               "TextMatchTwoTowerEvaluator"),
+    sequence_labeling={"default": "sequence_labeling.evaluator:"
+                                  "SequenceLabelingEvaluator"},
+    machine_reading_comprehension={
+        "default": "machine_reading_comprehension.evaluator:MRCEvaluator"},
+    sequence_generation={"default": "sequence_generation.evaluator:"
+                                    "SequenceGenerationEvaluator"},
+)
+PREDICTOR_REGISTRY = _apps(
+    text_classify={"default": "sequence_classification.predictor:"
+                              "SequenceClassificationPredictor"},
+    text_match=_with_two_tower("text_match.predictor:TextMatchPredictor",
+                               "text_match.predictor:"
+                               "TextMatchTwoTowerPredictor"),
+    sequence_labeling={"default": "sequence_labeling.predictor:"
+                                  "SequenceLabelingPredictor"},
+    vectorization={"default": "feature_vectorization.predictor:"
+                              "FeatureVectorizationPredictor"},
+    machine_reading_comprehension={
+        "default": "machine_reading_comprehension.predictor:MRCPredictor"},
+    sequence_generation={"default": "sequence_generation.predictor:"
+                                    "SequenceGenerationPredictor"},
+)
 
 _NOT_PORTED_MODES = {
     "export": "ROADMAP A26",
     "serve": "ROADMAP A17",
 }
 _ENCODER_DECODER = ("t5", "mt5", "bart", "pegasus", "randeng")
-# user_defined_parameters switches that select another app variant
+# the JAX package's variant switches, in its order (easynlp_tpu
+# appzoo/api.py::_variant_key)
 _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
-                 "multi_label", "enable_lora", "enable_controlnet")
+                 "enable_kangaroo", "enable_dkplm", "enable_glm",
+                 "multi_label", "two_tower", "siamese", "enable_vit",
+                 "enable_vqgan", "contrast_learning_flag")
+# user_defined_parameters switches whose app variant is not ported yet
+_NOT_PORTED_VARIANTS = {
+    "enable_metakd": "ROADMAP A12", "enable_distillation": "ROADMAP A12",
+    "enable_fewshot": "ROADMAP A12", "enable_lora": "ROADMAP A12",
+    "enable_kangaroo": "ROADMAP A13", "enable_dkplm": "ROADMAP A13",
+    "contrast_learning_flag": "ROADMAP A13", "enable_glm": "ROADMAP A19",
+    "multi_label": "ROADMAP A5", "enable_vit": "ROADMAP A21",
+    "enable_vqgan": "ROADMAP A21", "enable_controlnet": "ROADMAP A22",
+}
+
+
+def _variant_key(registry_entry, udp):
+    """The registry variant the user_defined_parameters switches select
+    (the first switch set that the app has), else "default"."""
+    for key in _VARIANT_KEYS:
+        if udp.get(key) and key in registry_entry:
+            return key
+    return "default"
 
 
 def _resolve(registry, app_name, udp):
     if app_name not in registry:
         raise NotImplementedError(
-            "app %r is not ported yet (ROADMAP A9-A22); the PyTorch port "
+            "app %r is not ported yet (ROADMAP A9-A22), or has no entry in "
+            "this registry (as in the JAX package); here the PyTorch port "
             "has: %s" % (app_name, sorted(registry)))
-    for key in _VARIANT_KEYS:
+    for key, item in _NOT_PORTED_VARIANTS.items():
         if udp.get(key):
-            raise NotImplementedError(
-                "%s=%s is not ported yet (ROADMAP A5, A12)"
-                % (key, udp[key]))
-    return registry[app_name]()
+            raise NotImplementedError("%s=%s is not ported yet (%s)"
+                                      % (key, udp[key], item))
+    entry = registry[app_name]
+    return entry[_variant_key(entry, udp)]()
 
 
 def _check_generation_backbone(args):
     """sequence_generation trains and evaluates encoder-decoder backbones
-    and predicts with decoder-only ones, in the port as far as it goes."""
+    (BART) and predicts with GPT-2 and BART, in the port as far as it
+    goes."""
     if args.app_name != "sequence_generation":
         return
     path = (args.pretrained_model_name_or_path if args.mode == "train"
             else args.predict_checkpoint_path or args.checkpoint_dir)
     if not path:
         return
-    seq2seq = (model_type_of(path) or "t5") in _ENCODER_DECODER
+    model_type = model_type_of(path) or "t5"
+    seq2seq = model_type in _ENCODER_DECODER
     if args.mode == "train" and not seq2seq:
         raise NotImplementedError(
             "--mode=train --app_name=sequence_generation on a decoder-only "
@@ -104,11 +172,11 @@ def _check_generation_backbone(args):
             "--mode=evaluate --app_name=sequence_generation on a "
             "decoder-only checkpoint is not ported yet (ROADMAP A15b); the "
             "port evaluates encoder-decoder backbones")
-    if args.mode == "predict" and seq2seq:
+    if args.mode == "predict" and seq2seq and model_type != "bart":
         raise NotImplementedError(
-            "--mode=predict --app_name=sequence_generation on an "
-            "encoder-decoder checkpoint is not ported yet (ROADMAP A18b); "
-            "the port predicts with GPT-2")
+            "--mode=predict --app_name=sequence_generation on a %s "
+            "checkpoint is not ported yet (ROADMAP A18c, A18d); the port "
+            "predicts with GPT-2 and BART" % model_type)
 
 
 def default_main_fn(args=None):

@@ -8,12 +8,15 @@ teacher forcing: decoder_input_ids = [decoder_start_token_id] + target[:-1],
 labels = target with -100 on the padding, decoder_attention_mask 1 on the
 real positions.
 
-EOS is the tokenizer's eos_token_id, else its sep_token_id, else none. The
-GPT-2 tokenizer that BART checkpoints get (as in the JAX package) has
-"<|endoftext|>" for its EOS and pad tokens; where the vocabulary lacks that
-token (a real BART vocabulary has </s> and <pad> instead) both ids are None,
-and the JAX dataset fails while padding; the port raises a ValueError that
-names the token (ROADMAP C11).
+EOS is the tokenizer's eos_token_id, else its sep_token_id, else none. A
+BART checkpoint whose vocabulary holds BART's own specials gets the BART
+tokenizer (</s> and <pad>; modelzoo/models/auto.py); any other gets the
+GPT-2 tokenizer, as in the JAX package, whose EOS and pad token is
+"<|endoftext|>". Where the tokenizer's pad token is missing from the
+vocabulary its id is None: the JAX dataset fails while padding, the port
+raises a ValueError that names the token. Both start the targets' decoder
+inputs with decoder_start_token_id 0 while generation starts from the
+config's (2 for BART): the JAX package's mismatch, kept (ROADMAP C11).
 """
 
 import numpy as np

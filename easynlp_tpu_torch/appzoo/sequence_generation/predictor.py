@@ -4,16 +4,22 @@ Counterpart of easynlp_tpu/appzoo/sequence_generation/predictor.py, with the
 same user_defined_parameters contract (max_encoder_length,
 max_decoder_length, min_decoder_length, no_repeat_ngram_size, num_beams,
 num_beam_groups, diversity_penalty, num_return_sequences) and the same
-output columns: `generated_ids` (the whole token buffer, prompt included,
-space-separated; for beams the best one), `predictions` (the best text) and
-`beams` (the returned beams' texts joined by "||").
+output columns: `generated_ids` (the whole token buffer, space-separated;
+for beams the best one), `predictions` (the best text) and `beams` (the
+returned beams' texts joined by "||"). The buffer is GPT-2's prompt, left-
+padded to the batch width, then max_decoder_length generated slots; or
+BART's decoder buffer of max_decoder_length slots, the decoder start token
+first, as the JAX app writes both.
 
-One difference: the text columns decode only real tokens: the prompt's own
-tokens and the generated ones up to the first EOS. The JAX predictor
-decodes the whole buffer, so each left pad and each slot after EOS, which
-hold pad id 0 (GPT-2's config has no pad_token_id), come out as "!", the
-ordinary token 0 of GPT-2's vocabulary (ROADMAP C9). `generated_ids` stays
-as JAX writes it. speculative_decoding and kv_cache_dtype are ROADMAP A16.
+One difference: the text columns decode only real tokens (ROADMAP C9).
+GPT-2: the prompt's own tokens, then the generated ones up to and including
+the first EOS. BART: the tokens after the start column, up to and including
+the first EOS; BART's start token is its EOS (both id 2), so the cut never
+looks at the start column. skip_special_tokens drops EOS where the
+tokenizer knows it as special. The JAX predictor decodes the whole buffer,
+so each pad and each slot after EOS (GPT-2's pad id 0 is "!") and BART's
+start token come out as text. `generated_ids` stays as JAX writes it.
+speculative_decoding and kv_cache_dtype are ROADMAP A16.
 """
 
 import time
@@ -106,17 +112,22 @@ class SequenceGenerationPredictor(Predictor):
         return result
 
     def _text(self, row, prompt_len):
-        """The decoded real tokens of one [T] buffer whose prompt (left-
-        padded to the batch width P) holds prompt_len real tokens: the
-        prompt's tokens, then the generated ones up to the first EOS
-        (skip_special_tokens drops EOS itself)."""
-        p = len(row) - self.max_decode_length
+        """The decoded real tokens of one buffer row (see the module
+        docstring): for GPT-2, whose prompt (left-padded to the batch width)
+        holds prompt_len real tokens, the prompt's tokens and the generated
+        ones; for BART the tokens after the start column. Generated tokens
+        are cut after the first EOS."""
+        if self.app.config.is_encoder_decoder:
+            p, prompt = 1, []
+        else:
+            p = len(row) - self.max_decode_length
+            prompt = list(row[p - prompt_len:p])
         generated = list(row[p:])
         eos = self.app.config.eos_token_id
         if eos in generated:
             generated = generated[:generated.index(eos) + 1]
-        tokens = list(row[p - prompt_len:p]) + generated
-        return self.tokenizer.decode(tokens, skip_special_tokens=True)
+        return self.tokenizer.decode(prompt + generated,
+                                     skip_special_tokens=True)
 
     def postprocess(self, result):
         result = dict(result)

@@ -25,16 +25,69 @@ def normalize_keys(state_dict):
     return out
 
 
-def split_backbone(state_dict):
+def split_backbone(state_dict, pooler=True):
     """(backbone state dict, other keys) of a normalised state dict. The
     backbone part loads into BertModel with strict=True; the other keys
-    (task heads such as `classifier.*` or `cls.*`) are left to the caller."""
+    (task heads such as `classifier.*` or `cls.*`) are left to the caller.
+    pooler=False drops `pooler.*`, for a BertModel built without one (the
+    JAX apps' conversions pop it likewise)."""
     backbone, other = {}, {}
     for k, v in state_dict.items():
-        if k in _DERIVED:
+        if k in _DERIVED or (not pooler and k.startswith("pooler.")):
             continue
         (backbone if k.startswith(BACKBONE_PREFIXES) else other)[k] = v
     return backbone, other
+
+
+def load_app_state_dict(module, state_dict, heads=()):
+    """Load a reference/HF checkpoint into an app module that holds a
+    `backbone` BertModel and the linear `heads` (names such as
+    `classifier`): the backbone strictly after key normalisation, each head
+    strictly when the checkpoint has it (a pretrained backbone leaves the
+    head at its init). Keys that nothing takes are logged."""
+    from easynlp_tpu_torch.utils.logger import logger
+    backbone, other = split_backbone(
+        normalize_keys(state_dict), pooler=module.backbone.pooler is not None)
+    module.backbone.load_state_dict(backbone, strict=True)
+    used = set()
+    for name in heads:
+        head = {k[len(name) + 1:]: v for k, v in other.items()
+                if k.startswith(name + ".")}
+        if head:
+            getattr(module, name).load_state_dict(head, strict=True)
+            used.update(name + "." + k for k in head)
+        else:
+            logger.info("%s initialised from scratch (not in checkpoint)",
+                        name)
+    unused = sorted(set(other) - used)
+    if unused:
+        logger.info("checkpoint params unused by model: %s",
+                    unused[:12] + (["..."] if len(unused) > 12 else []))
+
+
+def export_app_state_dict(module, heads=()):
+    """An app module's weights under the reference/HF names: `bert.*` for
+    the backbone, `<head>.*` for each head."""
+    out = {"bert." + k: v for k, v in module.backbone.state_dict().items()}
+    for name in heads:
+        out.update({name + "." + k: v
+                    for k, v in getattr(module, name).state_dict().items()})
+    return out
+
+
+def app_state_dict_from_jax(params, config, heads=()):
+    """An app module's state dict from the JAX app's param tree (numpy
+    leaves): `backbone.*` through state_dict_from_jax, and each head's
+    [in, out] kernel transposed to torch's [out, in] weight."""
+    state = {"backbone." + k: v
+             for k, v in state_dict_from_jax(params["backbone"],
+                                             config).items()}
+    for name in heads:
+        state[name + ".weight"] = torch.tensor(np.asarray(
+            params[name]["kernel"], dtype=np.float32).T)
+        state[name + ".bias"] = torch.tensor(np.asarray(
+            params[name]["bias"], dtype=np.float32))
+    return state
 
 
 def state_dict_from_jax(params, config):

@@ -37,12 +37,13 @@ def bytes_to_unicode():
 class GPT2Tokenizer(PreTrainedTokenizer):
     def __init__(self, vocab_file, merges_file, errors="replace",
                  unk_token="<|endoftext|>", bos_token="<|endoftext|>",
-                 eos_token="<|endoftext|>", pad_token=None, **kwargs):
+                 eos_token="<|endoftext|>", pad_token=None, cls_token=None,
+                 sep_token=None, mask_token=None, **kwargs):
         super().__init__(unk_token=unk_token, bos_token=bos_token,
                          eos_token=eos_token,
                          pad_token=pad_token or eos_token,
-                         cls_token=None, sep_token=None, mask_token=None,
-                         **kwargs)
+                         cls_token=cls_token, sep_token=sep_token,
+                         mask_token=mask_token, **kwargs)
         with io.open(vocab_file) as f:
             self.encoder = json.load(f)
         self.decoder = {v: k for k, v in self.encoder.items()}

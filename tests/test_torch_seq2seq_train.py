@@ -31,7 +31,11 @@ import pytest
 import torch
 
 from test_torch_bart import TINY, hf_state_dict
-from test_torch_sequence_generation import write_tokenizer
+from test_torch_sequence_generation import MERGES, write_tokenizer
+
+from easynlp_tpu_torch.modelzoo.models.gpt2.tokenization_gpt2 import (
+    bytes_to_unicode,
+)
 
 SCHEMA = "src:str:1,tgt:str:1"
 WORDS = ["the", "model", "then", "in", "an", "other", "on", "here", "there",
@@ -161,29 +165,44 @@ def test_dataset_features_match_jax(tiny):
     assert (got["labels"] == -100).any() and (got["attention_mask"] == 0).any()
 
 
+def write_bart_vocab(model_dir, merges=MERGES):
+    """vocab.json with BART's specials at 0-3 (<s> <pad> </s> <unk>), then
+    the 256 byte symbols, one token per merge, and <mask> last; no
+    <|endoftext|>. Returns the vocab size."""
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for s in bytes_to_unicode().values():
+        vocab[s] = len(vocab)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    vocab["<mask>"] = len(vocab)
+    with open(os.path.join(model_dir, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(model_dir, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join("%s %s\n" % m for m in merges))
+    return len(vocab)
+
+
 def test_vocab_without_endoftext_is_refused(tiny, tmp_path):
-    """A real BART vocabulary has <s>/<pad>/</s> and no <|endoftext|>, the
-    GPT-2 tokenizer's EOS and pad token, which BART checkpoints get from the
-    JAX package's tokenizer routing: its eos/pad ids are then None and the
-    JAX dataset fails while padding the sources (ROADMAP C11); the port
-    raises a ValueError that names the token."""
+    """A real BART vocabulary has <s>/<pad>/</s>/<unk>/<mask> and no
+    <|endoftext|>, the GPT-2 tokenizer's EOS and pad token, which BART
+    checkpoints get from the JAX package's tokenizer routing: its eos/pad
+    ids are then None and the JAX dataset refuses it, failing while padding
+    the sources (ROADMAP C11). The port routes it to its BartTokenizer and
+    loads it with BART's ids: sources <s> ... </s> padded with <pad> (1),
+    targets ending in </s> (2), decoder inputs starting from id 0 (the
+    start-token mismatch both packages keep); the GPT-2 tokenizer on it
+    still raises a ValueError that names the token."""
     from easynlp_tpu.appzoo.sequence_generation.data import (
         SequenceGenerationDataset as JaxDataset)
     from easynlp_tpu.modelzoo.models.gpt2 import GPT2Tokenizer as JaxTok
     from easynlp_tpu_torch.appzoo.sequence_generation.data import (
         SequenceGenerationDataset)
+    from easynlp_tpu_torch.modelzoo.models.auto import tokenizer_for
+    from easynlp_tpu_torch.modelzoo.models.bart import BartTokenizer
     from easynlp_tpu_torch.modelzoo.models.gpt2 import GPT2Tokenizer
-    model = os.path.join(tiny, "model")
-    with open(os.path.join(model, "vocab.json")) as f:
-        vocab = json.load(f)
-    del vocab["<|endoftext|>"]
-    vocab.update({"<s>": len(vocab), "<pad>": len(vocab) + 1,
-                  "</s>": len(vocab) + 2})
-    with open(tmp_path / "vocab.json", "w") as f:
-        json.dump(vocab, f)
-    with open(os.path.join(model, "merges.txt")) as src, \
-            open(tmp_path / "merges.txt", "w") as dst:
-        dst.write(src.read())
+    write_bart_vocab(str(tmp_path))
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(dict(TINY, model_type="bart"), f)
     kw = dict(max_seq_length=16, input_schema=SCHEMA, first_sequence="src",
               second_sequence="tgt")
     jax_tok = JaxTok.from_pretrained(str(tmp_path))
@@ -194,6 +213,19 @@ def test_vocab_without_endoftext_is_refused(tiny, tmp_path):
         SequenceGenerationDataset(os.path.join(tiny, "train.tsv"),
                                   GPT2Tokenizer.from_pretrained(str(tmp_path)),
                                   **kw)
+    tok = tokenizer_for(str(tmp_path))
+    assert isinstance(tok, BartTokenizer)
+    assert (tok.bos_token_id, tok.pad_token_id, tok.eos_token_id,
+            tok.unk_token_id) == (0, 1, 2, 3)
+    f = SequenceGenerationDataset(os.path.join(tiny, "train.tsv"), tok,
+                                  **kw).features
+    real = f["attention_mask"].sum(1)
+    assert (f["input_ids"][:, 0] == 0).all()
+    assert all(row[n - 1] == 2 and (row[n:] == 1).all()
+               for row, n in zip(f["input_ids"], real))
+    n_tgt = f["decoder_attention_mask"].sum(1)
+    assert (f["decoder_input_ids"][:, 0] == 0).all()
+    assert all(row[n - 1] == 2 for row, n in zip(f["labels"], n_tgt))
 
 
 @pytest.mark.parametrize("name", sorted(TRAJECTORIES))

@@ -287,10 +287,14 @@ def test_unported_generation_modes_raise(fixture_dir, argv, match):
 
 @pytest.mark.parametrize("model_type,match", [("bart", "A18"), ("t5", "A18")])
 def test_encoder_decoder_backbones_raise(tmp_path, model_type, match):
-    """--mode=predict on an encoder-decoder checkpoint raises: BART predict
-    is not ported yet, T5 not at all (BART trains and evaluates, see
-    test_torch_seq2seq_train.py)."""
-    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    """--mode=predict on an encoder-decoder checkpoint other than BART
+    raises: BART passes the gate (its predict is held to JAX in
+    test_torch_seq2seq_predict.py), Pegasus, its config sibling, and T5 do
+    not (BART trains and evaluates, see test_torch_seq2seq_train.py)."""
+    from easynlp_tpu_torch.appzoo.api import (
+        _check_generation_backbone,
+        default_main_fn,
+    )
     from easynlp_tpu_torch.appzoo.sequence_generation.model import (
         SequenceGeneration)
     from easynlp_tpu_torch.utils.initializer import initialize_easynlp
@@ -302,6 +306,10 @@ def test_encoder_decoder_backbones_raise(tmp_path, model_type, match):
     args = initialize_easynlp(args_list=[
         "--mode=predict", "--app_name=sequence_generation", "--device=cpu",
         "--checkpoint_dir=%s" % tmp_path, "--tables=unused.tsv"])
+    if model_type == "bart":
+        _check_generation_backbone(args)
+        (tmp_path / "config.json").write_text(json.dumps(
+            {"model_type": "pegasus"}))
     with pytest.raises(NotImplementedError, match=match):
         default_main_fn(args)
 

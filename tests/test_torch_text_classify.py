@@ -212,7 +212,7 @@ def test_device_cuda_never_falls_back_to_cpu():
 
 @pytest.mark.parametrize("argv,match", [
     (["--mode=export"], "ROADMAP"),  # train is ported: export still raises
-    (["--mode=predict", "--app_name=text_match"], "ROADMAP"),
+    (["--mode=predict", "--app_name=information_extraction"], "ROADMAP"),
     (["--mode=predict", "--user_defined_parameters=multi_label=true"],
      "ROADMAP"),
 ])
