@@ -18,8 +18,12 @@ model (HF `facebook/bart-base` widths and depth, dropout 0, random weights
 from --seed, a synthetic 50265-token byte-level BPE vocab):
 `--mode=train --app_name=sequence_generation` for 8 AdamW steps of 8
 articles of 1024 tokens with 64-token targets, then `--mode=evaluate` on 16
-rows with greedy decoding. Each path runs with the kernels and with
---use_flash_attention=false, and the two are compared. Every phase raises on
+rows with greedy decoding. Then `--mode=serve`: GPT-2 small behind
+`/generate` (serve_continuous=true, 8 slots, a 1024-slot window) to 36
+requests from 16 client threads, and phase 4's checkpoint behind
+`/predict` to 256 rows in 64 concurrent requests. Each path runs with the
+kernels and with --use_flash_attention=false, and the two are compared
+(`/predict` against --mode=predict). Every phase raises on
 failure, so any failure exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it lists the kernels with their launches
 in the BART training run, errors, times (kernel, plain twin, the PyTorch
@@ -172,6 +176,28 @@ GEN_BATCH = 8
 GEN_ROWS = 16
 GEN_BEAMS, GEN_BEAM_NEW_TOKENS = 4, 32
 GEN_LETTERS = "etaoinshrdlucmfwypvbgkqjxz"
+# phase 9: --mode=serve with serve_continuous=true on GPT-2 small
+SERVE_SLOTS, SERVE_CHUNK = 8, 16
+SERVE_WINDOW = 1024                  # --sequence_length: the KV window
+SERVE_BUCKET = SERVE_WINDOW // 4     # the default prompt bucket
+SERVE_PREFIX = 64                    # phase 2's shared-prefix admit
+SERVE_REQUESTS, SERVE_STREAMS, SERVE_SAMPLED = 32, 4, 4
+SERVE_CLIENTS = 16
+# f32 serving against f32 standalone greedy decoding: the same kernels at
+# the same shapes, row by row, so the tokens should agree exactly; a
+# divergence is accepted only where the standalone run's top-2 logit
+# margin is below this (sums in another order could break an exact tie)
+SERVE_F32_TIE = 1e-3
+# phase 10: the pipeline() PredictionServer on phase 4's checkpoint
+PREDICT_SERVE_REQUESTS = 64
+# Its rows against --mode=predict's, logits written as %.6f text: both bf16
+# on the same weights, each row computed alone at any batch size (two
+# readings on an H100 gave 1.0e-06, one step of the text, with served
+# batches of 12-32 rows against predict's 32). 1e-4 is 100x that and below
+# the gap between the logits of nearly every two rows, so a row answered
+# to the wrong request fails it; the labels decide little, as the 8-step
+# classifier's margins sit near 0.
+PREDICT_SERVE_ATOL = 1e-4
 
 BERT_BASE_CHINESE = {  # bert-base-chinese config.json widths
     "architectures": ["BertForMaskedLM"], "model_type": "bert",
@@ -277,18 +303,48 @@ def _bound(nbytes, flops):
                                                               "bytes")
 
 
-def _pairs(mask, b, sq, skv, h, causal):
-    """(query, key) pairs this data needs, over all heads: each row's
-    visible keys (masked or causally hidden ones excluded); a row that sees
-    no key averages all Skv."""
+def _seen(mask, b, sq, skv, causal):
+    """bool [B,Sq,Skv]: the keys each query sees (masked or causally hidden
+    ones excluded)."""
     import numpy as np
     m = np.broadcast_to(mask.cpu().numpy().astype(bool), (b, skv))
     seen = m[:, None, :]
     if causal:
         qi = np.arange(sq)[:, None] + (skv - sq)
         seen = seen & (np.arange(skv)[None, :] <= qi)[None]
-    per_row = np.broadcast_to(seen, (b, sq, skv)).sum(-1)
+    return np.broadcast_to(seen, (b, sq, skv))
+
+
+def _pairs(mask, b, sq, skv, h, causal):
+    """(query, key) pairs this data needs, over all heads: each row's
+    visible keys (masked or causally hidden ones excluded); a row that sees
+    no key averages all Skv."""
+    import numpy as np
+    per_row = _seen(mask, b, sq, skv, causal).sum(-1)
     return h * int(np.where(per_row == 0, skv, per_row).sum())
+
+
+def _attention_bytes(mask, b, sq, skv, h, d, causal, elem, backward=False,
+                     written=("dq", "dk", "dv")):
+    """Bytes an attention call must move for this data, each input read
+    once and each output written once, LSE left out: the int32 mask; q
+    (and, backward, o) of the queries that see a key; k and v of the keys
+    some query of the batch row sees. Forward: a row holding a query that
+    sees no key reads every v (that query's output is the mean of V), and
+    o is written in full. Backward: dO of every query (a query that sees no
+    key still gives dv its mean), and the `written` gradients in full."""
+    import numpy as np
+    seen = _seen(mask, b, sq, skv, causal)
+    live_q = seen.any(-1)   # [B, Sq]
+    live_k = seen.any(1)    # [B, Skv]
+    n_q, n_k = int(live_q.sum()), int(live_k.sum())
+    if backward:
+        tokens = 2 * n_q + b * sq + 2 * n_k + sum(
+            b * (sq if g == "dq" else skv) for g in written)
+    else:
+        n_v = int(np.where(live_q.all(-1), live_k.sum(-1), skv).sum())
+        tokens = n_q + n_k + n_v + b * sq
+    return tokens * h * d * elem + mask.numel() * 4
 
 
 def _sdpa_mask(torch, mask, sq, skv, causal):
@@ -421,8 +477,8 @@ def phase_kernel(torch, seed):
                                                      skv))))
             sdpa_dev = sum(ms for key, ms in times.items() if not any(
                 n in key for n in ATTENTION_KERNEL_NAMES))
-            nbytes = (2 * q.numel() + 2 * k.numel()) * tq.element_size() \
-                + mask.numel() * 4
+            nbytes = _attention_bytes(mask, b, sq, skv, h, d, causal,
+                                      tq.element_size())
             pairs = _pairs(mask, b, sq, skv, h, causal)
             bound_ms, bound_by = _bound(nbytes, 4 * pairs * d)
             dev = _routed("the %s short forward at %s" % (dtype, name),
@@ -454,6 +510,9 @@ def phase_kernel(torch, seed):
                 times)
     worst_flash = _check_flash(torch, A, rng, timings)
     worst_flash_bwd = _check_flash_bwd(torch, A, rng, timings)
+    # the serving shapes, from a stream of their own
+    _check_serving_shapes(torch, A, np.random.RandomState(seed + 2), worst,
+                          worst_flash, timings)
     return {"short_attention_fwd": worst,
             "short_attention_bwd": worst_bwd,
             "flash_attention_fwd": worst_flash,
@@ -514,6 +573,110 @@ def _check_short_fwd(torch, A, name, tq, tk, tv, mask, causal):
         log("check %-22s bfloat16 two runs and the flash forward (every key "
             "tile walked) give the same bits" % name)
     return worst
+
+
+def serving_cases(rng):
+    """The attention shapes of phase 9's serving path (GPT-2 small: H=12,
+    D=64; 8 slots, a 1024-slot window, the default 256-token prompt
+    bucket): B3 at one query a slot against the whole window, each slot's
+    keys its left-padded prompt of 64..256 tokens and the 0..128 tokens it
+    generated (ragged); B1 over the admit's left-padded, causal 8 x 256
+    bucket (pad queries see no key); B1 over a shared-prefix admit, 8 x 256
+    queries at offset 64 against the 64 prefix keys and the bucket (causal,
+    q_offset 64). Each: name, kernel, B, Sq, Skv, [row's [(start, end),
+    ...] of real keys], causal."""
+    b, t, p, p0 = SERVE_SLOTS, SERVE_WINDOW, SERVE_BUCKET, SERVE_PREFIX
+    prompt = rng.randint(64, p + 1, size=b)
+    prompt[0] = p
+    gen = rng.randint(0, 129, size=b)
+    return [
+        ("serve-decode", "flash", b, 1, t,
+         [[(p - n, p + g)] for n, g in zip(prompt, gen)], False),
+        ("serve-prefill", "short", b, p, p, [[(p - n, p)] for n in prompt],
+         True),
+        ("serve-prefix-admit", "short", b, p, p0 + p,
+         [[(0, p0), (p0 + p - n, p0 + p)] for n in prompt], True),
+    ]
+
+
+def _rows_mask(torch, skv, rows):
+    """int32 [B,Skv] key mask, 1 on each of a row's [start, end) ranges."""
+    import numpy as np
+    mask = np.zeros((len(rows), skv), np.int32)
+    for i, ranges in enumerate(rows):
+        for start, end in ranges:
+            mask[i, start:end] = 1
+    return torch.from_numpy(mask).cuda()
+
+
+def _check_serving_shapes(torch, A, rng, worst_short, worst_flash, timings):
+    """serving_cases() against the kernels' f32 twins (f32 within 2e-5,
+    bf16 within the tensor-core bound; B1 also the same bits as B3), then,
+    bf16, each kernel's time against its twin's and SDPA's forward, its
+    device time from the profiler (which must show the tensor-core kernel
+    and no CUDA-core walk) and its bound."""
+    for name, kernel, b, sq, skv, rows, causal in serving_cases(rng):
+        q, k, v, _ = _inputs(torch, rng, b, sq, skv, 12, 64, [skv] * b)
+        mask = _rows_mask(torch, skv, rows)
+        for dtype in (torch.float32, torch.bfloat16):
+            tq, tk, tv = (t.to(dtype) for t in (q, k, v))
+            if kernel == "short":
+                worst_short[(name, dtype)] = _check_short_fwd(
+                    torch, A, name, tq, tk, tv, mask, causal)
+                continue
+            twin = (tq.float(), tk.float(), tv.float(), mask, causal)
+            want, _ = A.flash_attention_fwd_reference(*twin)
+            got, _ = A.flash_attention_fwd(tq, tk, tv, mask, causal)
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            if dtype == torch.float32:
+                ok, bound = err <= ATOL_F32, "atol %.1e" % ATOL_F32
+            else:
+                ratio = _flash_fwd_bf16_ratio(
+                    A, got, want, A.flash_attention_fwd_rss(*twin))
+                ok, bound = ratio <= 1, "error / bound %.3f" % ratio
+            log("check flash %-16s %-8s max_abs_err %.3e (%s) %s"
+                % (name, str(dtype).split(".")[1], err, bound,
+                   "ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("flash kernel disagrees with its plain "
+                                     "version: %s %s err %.3e"
+                                     % (name, dtype, err))
+            worst_flash[(name, dtype)] = err
+        tq, tk, tv = (t.to(torch.bfloat16) for t in (q, k, v))
+        if kernel == "short":
+            wrapper, twin_fn = A.short_attention_fwd, \
+                A.short_attention_fwd_reference
+            want_name, refused = SHORT_FWD_MMA_NAME, SHORT_FWD_CUDA_CORE_NAME
+            lse_bytes = 0
+        else:
+            wrapper, twin_fn = A.flash_attention_fwd, \
+                A.flash_attention_fwd_reference
+            want_name, refused = FLASH_FWD_MMA_NAME, FLASH_FWD_CUDA_CORE_NAME
+            lse_bytes = b * 12 * sq * 4
+        ms = _time_ms(torch, lambda: wrapper(tq, tk, tv, mask, causal))
+        plain_ms = _time_ms(torch, lambda: twin_fn(tq, tk, tv, mask, causal))
+        lib_ms, _, backend = _time_sdpa(torch, tq, tk, tv, mask, causal,
+                                        torch.randn_like(tq), 50)
+        dev = _routed("the bf16 %s at %s" % (wrapper.__name__, name),
+                      _device_ms(torch, lambda: wrapper(tq, tk, tv, mask,
+                                                        causal),
+                                 want=(want_name,)),
+                      (("kernel", want_name),), (refused,))["kernel"]
+        nbytes = _attention_bytes(mask, b, sq, skv, 12, 64, causal, 2) \
+            + lse_bytes
+        flops = 4 * _pairs(mask, b, sq, skv, 12, causal) * 64
+        bound_ms, bound_by = _bound(nbytes, flops)
+        log("time %-19s bfloat16 %s %.4f ms, device %.4f ms (%s; no %s in "
+            "the trace), bound %.4f ms by %s; plain twin %.4f ms; SDPA "
+            "forward %.4f ms (%s)" % (name, wrapper.__name__, ms, dev,
+                                      want_name, refused, bound_ms, bound_by,
+                                      plain_ms, lib_ms, backend))
+        timings[(wrapper.__name__, name, torch.bfloat16)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by, device_ms=dev)
+        del q, k, v, tq, tk, tv
+        torch.cuda.empty_cache()
 
 
 def _ranges_mask(torch, skv, ranges):
@@ -652,8 +815,8 @@ def _check_flash(torch, A, rng, timings):
                 tq, tk, tv, kv_mask=mask, causal=causal), iters=iters)
             lib_ms, _, backend = _time_sdpa(torch, tq, tk, tv, mask, causal,
                                             torch.randn_like(tq), iters)
-            nbytes = (2 * q.numel() + 2 * k.numel()) * tq.element_size() \
-                + mask.numel() * 4 + b * h * sq * 4
+            nbytes = _attention_bytes(mask, b, sq, skv, h, d, causal,
+                                      tq.element_size()) + b * h * sq * 4
             flops = 4 * _pairs(mask, b, sq, skv, h, causal) * d
             bound_ms, bound_by = _bound(nbytes, flops)
             before = ""
@@ -906,9 +1069,9 @@ def _check_flash_bwd(torch, A, rng, timings):
                                                causal, tdo, iters)
         pairs = _pairs(mask, b, sq, skv, h, causal)
         # read q, o, dO, k, v, the mask and LSE; write dq, dk, dv
-        elem = tq.element_size()
-        side = mask.numel() * 4 + lse.numel() * 4
-        nbytes = (4 * tq.numel() + 4 * tk.numel()) * elem + side
+        nbytes = _attention_bytes(mask, b, sq, skv, h, d, causal,
+                                  tq.element_size(), backward=True) \
+            + lse.numel() * 4
         bound_ms, bound_by = _bound(nbytes, 10 * pairs * d)
         before = CUDA_CORE_FLASH_BWD_MS[name]
         log("time flash bwd %-16s bfloat16 kernels %.4f ms (earlier "
@@ -933,12 +1096,13 @@ def _check_flash_bwd(torch, A, rng, timings):
         # needs Q K^T, dO V^T, dS K and writes dq. plain_ms and library_ms
         # are the whole backward's (one call computes all three).
         for entry, part, n_mm, written in (
-                ("flash_attention_bwd_dkdv", "dkdv", 4, 2 * tk.numel()),
-                ("flash_attention_bwd_dq", "dq", 3, tq.numel())):
+                ("flash_attention_bwd_dkdv", "dkdv", 4, ("dk", "dv")),
+                ("flash_attention_bwd_dq", "dq", 3, ("dq",))):
             if parts is None:
                 continue
-            part_bytes = (3 * tq.numel() + 2 * tk.numel() + written) * elem \
-                + side
+            part_bytes = _attention_bytes(
+                mask, b, sq, skv, h, d, causal, tq.element_size(),
+                backward=True, written=written) + lse.numel() * 4
             b_ms, b_by = _bound(part_bytes, 2 * n_mm * pairs * d)
             timings[(entry, name, torch.bfloat16)] = dict(
                 ms=parts[part], plain_ms=plain_ms, library_ms=lib_bwd,
@@ -1072,7 +1236,8 @@ def _time_bwd(torch, A, name, tq, tk, tv, mask, causal, o, do, library_ms,
     ref_ms = _time_ms(torch, lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True))
     del out, leaves
-    nbytes = 8 * tq.numel() * tq.element_size() + mask.numel() * 4
+    nbytes = _attention_bytes(mask, b, sq, skv, h, d, causal,
+                              tq.element_size(), backward=True)
     flops = 10 * _pairs(mask, b, sq, skv, h, causal) * d
     bound_ms, bound_by = _bound(nbytes, flops)
     extra = ""
@@ -2965,6 +3130,509 @@ def phase_encoder_apps(torch, seed, workdir, cjk):
     return all_launches
 
 
+# --------------------------------------------------------------------------
+# phase 9: GPT-2 /generate (--mode=serve, serve_continuous=true)
+# --------------------------------------------------------------------------
+
+def serve_workload(seed):
+    """SERVE_REQUESTS + SERVE_STREAMS (prompt ids, max_new_tokens): prompts
+    of 64..256 tokens (the first 256) drawn from the merged tokens of the
+    synthetic vocabulary, 16..128 new tokens each, so slots retire and
+    refill mid-flight."""
+    rng = random.Random(seed)
+    out = []
+    for i in range(SERVE_REQUESTS + SERVE_STREAMS):
+        n = SERVE_BUCKET if i == 0 else rng.randint(64, SERVE_BUCKET)
+        out.append(([rng.randrange(256, GPT2_SMALL["vocab_size"] - 1)
+                     for _ in range(n)], rng.randint(16, 128)))
+    return out
+
+
+def _post_generate(port, payload):
+    """One POST /generate from a client on 127.0.0.1: {'status', 'ids',
+    'seconds', 'ttft'} (host clock; 'ttft' the first NDJSON event of a
+    stream, else None)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/generate", body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200 or not payload.get("stream"):
+            body = json.loads(resp.read())
+            return {"status": resp.status, "body": body,
+                    "ids": body.get("output_ids"), "ttft": None,
+                    "seconds": time.perf_counter() - t0}
+        events, ttft = [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+            events.append(json.loads(line))
+        done = events[-1]
+        if not done.get("done") or [e["token"] for e in events[:-1]] != \
+                done["output_ids"]:
+            raise AssertionError("stream events disagree with their done "
+                                 "event: %s" % events[-2:])
+        return {"status": 200, "body": done, "ids": done["output_ids"],
+                "ttft": ttft, "seconds": time.perf_counter() - t0}
+    finally:
+        conn.close()
+
+
+def _drive(port, payloads, clients):
+    """Every payload POSTed from a pool of `clients` threads at once: (the
+    results in order, wall seconds). Any status but 200 fails."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        results = list(pool.map(lambda p: _post_generate(port, p), payloads))
+    wall = time.perf_counter() - t0
+    bad = [r for r in results if r["status"] != 200]
+    if bad:
+        raise AssertionError("/generate answered %d: %s"
+                             % (bad[0]["status"], bad[0]["body"]))
+    return results, wall
+
+
+def start_generation_server(torch, model_dir, dtype, use_kernel):
+    """`--mode=serve` with serve_continuous=true on the card, not blocking:
+    (the GenerationServer, seconds to start it: model load, kernel build or
+    load, batcher)."""
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    udp = ("serve_continuous=true serve_blocking=False serve_port=0 "
+           "serve_slots=%d serve_chunk_size=%d" % (SERVE_SLOTS, SERVE_CHUNK))
+    argv = ["--mode=serve", "--checkpoint_dir=" + model_dir,
+            "--device=cuda", "--dtype=" + dtype,
+            "--sequence_length=%d" % SERVE_WINDOW,
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false"),
+            "--user_defined_parameters=" + udp]
+    t0 = time.perf_counter()
+    srv = default_main_fn(initialize_easynlp(args_list=argv))
+    return srv, time.perf_counter() - t0
+
+
+def _pct(values, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def describe_serving(tag, results, wall, timings):
+    """Log tokens/s, TTFT and ms per output token of one load; returns
+    tokens/s. `timings`: the server's (first-token s, last-token s,
+    tokens) per request, host clock from submit."""
+    n = sum(len(r["ids"]) for r in results)
+    ttft = [1e3 * a for a, _, _ in timings]
+    tpot = [1e3 * (b - a) / (k - 1) for a, b, k in timings if k > 1]
+    lat = [1e3 * r["seconds"] for r in results]
+    client = [1e3 * r["ttft"] for r in results if r["ttft"] is not None]
+    log("serve %-7s %d requests (%d streamed) from %d clients: %d generated "
+        "tokens in %.4f s = %.2f tokens/s; TTFT p50 %.3f ms, p95 %.3f "
+        "(server, submit to first token; streamed, client-side: %s ms); ms "
+        "per output token p50 %.3f, p95 %.3f; request latency p50 %.3f ms, "
+        "p95 %.3f (host clock)"
+        % (tag, len(results), len(client), SERVE_CLIENTS, n, wall, n / wall,
+           _pct(ttft, 50), _pct(ttft, 95),
+           " ".join("%.3f" % x for x in client), _pct(tpot, 50),
+           _pct(tpot, 95), _pct(lat, 50), _pct(lat, 95)))
+    return n / wall
+
+
+def _greedy_reference(torch, model, work, pad, dtype_tag):
+    """Standalone greedy decoding of each (prompt, n) in `work`, 8 rows a
+    batch, left-padded to the bucket as the batcher pads, over a
+    SERVE_WINDOW-slot cache (the batcher's decode shape): (tokens per
+    request, cut after the first EOS; the top-2 logit margin at each
+    step)."""
+    import numpy as np
+    from easynlp_tpu_torch.modelzoo.generation_utils import left_pad
+    from easynlp_tpu_torch.modelzoo.models.gpt2.generation import (
+        make_gpt2_generation_fns)
+    eos = GPT2_SMALL["eos_token_id"]
+    prefill, decode = make_gpt2_generation_fns(model, SERVE_WINDOW)
+    tokens, margins = [], []
+    with torch.inference_mode():
+        for s in range(0, len(work), SERVE_SLOTS):
+            group = work[s:s + SERVE_SLOTS]
+            ids, mask = left_pad([p for p, _ in group], pad,
+                                 length=SERVE_BUCKET)
+            logits, cache = prefill(torch.from_numpy(ids).cuda().long(),
+                                    torch.from_numpy(mask).cuda())
+            steps, gaps = [], []
+            n_max = max(n for _, n in group)
+            for j in range(n_max):
+                top2 = logits.topk(2, dim=-1).values
+                gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+                tok = logits.argmax(-1)
+                steps.append(tok.cpu().numpy())
+                if j + 1 < n_max:
+                    logits, cache = decode(tok[:, None], cache)
+            steps, gaps = np.stack(steps, 1), np.stack(gaps, 1)
+            for row, (_, n) in enumerate(group):
+                seq = steps[row, :n].tolist()
+                if eos in seq:
+                    seq = seq[:seq.index(eos) + 1]
+                tokens.append(seq)
+                margins.append(gaps[row, :n])
+    log("standalone %s greedy decoding of %d requests (8 a batch, %d-slot "
+        "cache) done" % (dtype_tag, len(work), SERVE_WINDOW))
+    return tokens, margins
+
+
+def _teacher_forced_logits(torch, model, prompts, outs, pad):
+    """f32 logits [n, V] at each generated position of each request (the
+    prompt left-padded to the bucket, then its generated tokens), one
+    forward per 8 requests, through whatever attention path is set."""
+    import numpy as np
+    from easynlp_tpu_torch.modelzoo.generation_utils import left_pad
+    logits = []
+    with torch.inference_mode():
+        for s in range(0, len(prompts), SERVE_SLOTS):
+            ids, mask = left_pad(prompts[s:s + SERVE_SLOTS], pad,
+                                 length=SERVE_BUCKET)
+            n_max = max(len(o) for o in outs[s:s + SERVE_SLOTS])
+            gen = np.full((len(ids), n_max), pad, np.int64)
+            gmask = np.zeros((len(ids), n_max), np.int32)
+            for row, o in enumerate(outs[s:s + SERVE_SLOTS]):
+                gen[row, :len(o)] = o
+                gmask[row, :len(o)] = 1
+            seq = torch.from_numpy(np.concatenate([ids, gen], 1)).cuda()
+            m = torch.from_numpy(np.concatenate([mask, gmask], 1)).cuda()
+            out = model(seq, attention_mask=m)["logits"]
+            for row, o in enumerate(outs[s:s + SERVE_SLOTS]):
+                logits.append(out[row, SERVE_BUCKET - 1:SERVE_BUCKET - 1
+                                  + len(o)].float())
+            del out
+    return logits
+
+
+def _first_divergence(a, b):
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def phase_serving(torch, seed, workdir):
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.sequence_generation.model import (
+        SequenceGeneration)
+    from easynlp_tpu_torch.modelzoo.quantization import cast_params
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 9: GPT-2 /generate (--mode=serve, serve_continuous=true; "
+        "GPT-2 small, %d slots, chunk %d, %d-slot window, bucket %d)"
+        % (SERVE_SLOTS, SERVE_CHUNK, SERVE_WINDOW, SERVE_BUCKET))
+    model_dir = os.path.join(workdir, GPT2_MODEL_DIR)  # phase 5's
+    eos = GPT2_SMALL["eos_token_id"]
+    work = serve_workload(seed)
+    prompts = [p for p, _ in work]
+    load = [{"prompt_ids": p, "max_new_tokens": n} for p, n in work]
+    for payload in load[SERVE_REQUESTS:]:
+        payload["stream"] = True
+    log("workload: %d requests of %d..%d prompt tokens (mean %.1f), "
+        "%d..%d new tokens (sum %d), the last %d streamed"
+        % (len(work), min(map(len, prompts)), max(map(len, prompts)),
+           np.mean([len(p) for p in prompts]), min(n for _, n in work),
+           max(n for _, n in work), sum(n for _, n in work), SERVE_STREAMS))
+    sampled = [dict(load[i], max_new_tokens=48, do_sample=True,
+                    temperature=0.9, top_k=50, top_p=0.95, seed=seed + i,
+                    stream=False) for i in range(SERVE_SAMPLED)]
+    wrappers = ("short_attention_fwd", "flash_attention_fwd")
+    real_reference = A.attention_reference
+    reference_calls = [0]
+
+    def counted_reference(*args, **kwargs):
+        reference_calls[0] += 1
+        return real_reference(*args, **kwargs)
+    A.attention_reference = counted_reference
+    try:
+        # the main path: bf16 with the kernels; two warm-up requests, then
+        # every count set to 0 just before the load and read just after
+        srv, start_s = start_generation_server(torch, model_dir, "bfloat16",
+                                               True)
+        pad = srv.batcher.pad
+        _drive(srv.port, load[:2], 2)
+        for w in wrappers:
+            getattr(A, w).launches = 0
+        reference_calls[0] = 0
+        srv.timings.clear()
+        results, wall = _drive(srv.port, load, SERVE_CLIENTS)
+        launches = {w: getattr(A, w).launches for w in wrappers}
+        refs = reference_calls[0]
+        timings = list(srv.timings)
+        log("server up in %.3f s (model load, kernels, batcher); main run's "
+            "launches: short_attention_fwd (B1, the admits) %d, "
+            "flash_attention_fwd (B3, the decode steps) %d; "
+            "attention_reference calls %d"
+            % (start_s, launches["short_attention_fwd"],
+               launches["flash_attention_fwd"], refs))
+        n_layer = GPT2_SMALL["n_layer"]
+        if refs or any(n == 0 or n % n_layer for n in launches.values()):
+            raise AssertionError("the serving path launched %s and called "
+                                 "attention_reference %d times" % (launches,
+                                                                   refs))
+        rate = describe_serving("kernel", results, wall, timings)
+        main_ids = [r["ids"] for r in results]
+        for r, (p, n) in zip(results, work):
+            if not 1 <= len(r["ids"]) <= n or any(
+                    not 0 <= t < GPT2_SMALL["vocab_size"] for t in r["ids"]) \
+                    or (len(r["ids"]) < n and r["ids"][-1] != eos):
+                raise AssertionError("a request for %d tokens got %s"
+                                     % (n, r["ids"]))
+
+        # 4 sampled requests twice, beside other co-tenants in other order
+        first, _ = _drive(srv.port, sampled + load[4:8], 8)
+        second, _ = _drive(srv.port, sampled[::-1] + load[8:16], 12)
+        pairs = [(a["ids"], b["ids"]) for a, b in
+                 zip(first[:SERVE_SAMPLED], second[SERVE_SAMPLED - 1::-1])]
+        if any(a != b for a, b in pairs):
+            raise AssertionError("a sampled request gave other tokens beside "
+                                 "other co-tenants: %s" % pairs)
+        log("sampled requests (temperature 0.9, top-k 50, top-p 0.95): %d "
+            "of %d identical across two co-tenancies (%s tokens)"
+            % (len(pairs), SERVE_SAMPLED, [len(a) for a, _ in pairs]))
+
+        # the profiler's word on 4 greedy requests: B3 and B1 on the
+        # tensor cores, no CUDA-core walk, no softmax (attention_reference)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        prof_path = os.path.join(workdir, "serve_trace.json")
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            with torch.profiler.profile(activities=acts) as prof:
+                _drive(srv.port, load[16:20], 4)
+                torch.cuda.synchronize()
+            times = {}
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA \
+                        and e.device_time_total:
+                    times[e.key] = times.get(e.key, 0.0) \
+                        + e.device_time_total / 1e3
+            if all(any(n in k for k in times)
+                   for n in (FLASH_FWD_MMA_NAME, SHORT_FWD_MMA_NAME)):
+                break
+            log("profile: session %d lacks a serving kernel" % attempt)
+        prof.export_chrome_trace(prof_path)
+        parts = _routed("the serving path", times,
+                        (("B3", FLASH_FWD_MMA_NAME),
+                         ("B1", SHORT_FWD_MMA_NAME)),
+                        (FLASH_FWD_CUDA_CORE_NAME, SHORT_FWD_CUDA_CORE_NAME))
+        soft = sorted(k for k in times if "softmax" in k.lower())
+        if soft:
+            raise AssertionError("the greedy serving path ran %s "
+                                 "(attention_reference)" % soft)
+        share, busy_ms, top = device_share(prof_path)
+        log("profile, 4 greedy requests (under the profiler): B3 %.3f ms, B1 "
+            "%.3f ms of device time; no CUDA-core walk, no softmax; device "
+            "busy %s of the span of its kernels, %.3f ms; top kernels: %s"
+            % (parts["B3"], parts["B1"],
+               "not measured" if share is None else "%.1f%%" % (100 * share),
+               busy_ms or 0.0, "; ".join("%s %.3f" % (n[:50], t)
+                                         for n, t in top[:6])))
+        srv.stop()
+
+        # the same load with --use_flash_attention=false, then in f32
+        srv_p, _ = start_generation_server(torch, model_dir, "bfloat16",
+                                           False)
+        before = {w: getattr(A, w).launches for w in wrappers}
+        plain, wall_p = _drive(srv_p.port, load, SERVE_CLIENTS)
+        if {w: getattr(A, w).launches for w in wrappers} != before:
+            raise AssertionError("--use_flash_attention=false still launched "
+                                 "a kernel")
+        rate_p = describe_serving("plain", plain, wall_p, list(srv_p.timings))
+        srv_p.stop()
+        srv_f, _ = start_generation_server(torch, model_dir, "float32", True)
+        f32, wall_f = _drive(srv_f.port, load, SERVE_CLIENTS)
+        describe_serving("f32", f32, wall_f, list(srv_f.timings))
+        srv_f.stop()
+    finally:
+        A.attention_reference = real_reference
+    log("tokens/s kernel %.2f against plain %.2f (one load each)"
+        % (rate, rate_p))
+
+    # f32 serving against standalone f32 greedy decoding: token-exact
+    app32 = SequenceGeneration.from_pretrained(model_dir, dtype=torch.float32,
+                                               device="cuda")
+    want, gaps = _greedy_reference(torch, app32.module, work, pad, "f32")
+    exact, ties = 0, 0
+    for i, (r, w, g) in enumerate(zip(f32, want, gaps)):
+        j = _first_divergence(r["ids"], w)
+        if j is None:
+            exact += 1
+            continue
+        if j >= len(g) or g[j] > SERVE_F32_TIE:
+            raise AssertionError(
+                "request %d: f32 serving diverges from standalone greedy at "
+                "step %d (top-2 margin %s > %.0e): %s vs %s"
+                % (i, j, g[j] if j < len(g) else "past the end",
+                   SERVE_F32_TIE, r["ids"][:j + 2], w[:j + 2]))
+        ties += 1
+    log("f32 serving vs standalone f32 greedy: %d of %d requests identical, "
+        "%d diverge at a near-tie (top-2 margin <= %.0e)"
+        % (exact, len(work), ties, SERVE_F32_TIE))
+
+    # kernel vs plain bf16 serving, where the plain run's margin decides
+    app16 = SequenceGeneration.from_pretrained(model_dir,
+                                               dtype=torch.bfloat16,
+                                               device="cuda")
+    cast_params(app16.module, torch.bfloat16)  # as the server casts
+    plain_ids = [r["ids"] for r in plain]
+    A.set_kernel_override(False)
+    plain_logits = _teacher_forced_logits(torch, app16.module, prompts,
+                                          plain_ids, pad)
+    A.set_kernel_override(None)
+    decided = compared = near = identical = 0
+    for i, (a, b, lg) in enumerate(zip(main_ids, plain_ids, plain_logits)):
+        top2 = lg.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        j = _first_divergence(a, b)
+        upto = len(b) if j is None else j
+        compared += upto
+        decided += int((margin[:upto] > 2 * GEN_LOGITS_ATOL).sum())
+        if j is None:
+            identical += 1
+        elif j < len(margin) and margin[j] > 2 * GEN_LOGITS_ATOL:
+            raise AssertionError(
+                "request %d: kernel token %s, plain %s at step %d, at a "
+                "top-2 margin of %.3e > %.1e" % (
+                    i, a[j:j + 1], b[j:j + 1], j, margin[j],
+                    2 * GEN_LOGITS_ATOL))
+        else:
+            near += 1
+    log("kernel vs plain bf16 serving: %d of %d requests identical; %d "
+        "steps compared before a divergence (%d at a plain teacher-forced "
+        "top-2 margin > %.1e); %d diverge at a near-tie"
+        % (identical, len(work), compared, decided, 2 * GEN_LOGITS_ATOL,
+           near))
+
+    # bf16 serving weights against f32 on the same prompts (ROADMAP C5):
+    # token match, and the mean KL of the bf16 model's next-token
+    # distribution from the f32 model's along the f32 run's tokens
+    f32_ids = [r["ids"] for r in f32]
+    match = [(_first_divergence(a, b) if _first_divergence(a, b) is not None
+              else len(b)) / len(b) for a, b in zip(main_ids, f32_ids)]
+    same = sum(x == y for a, b in zip(main_ids, f32_ids)
+               for x, y in zip(a, b))
+    total = sum(min(len(a), len(b)) for a, b in zip(main_ids, f32_ids))
+    lg32 = _teacher_forced_logits(torch, app32.module, prompts, f32_ids, pad)
+    lg16 = _teacher_forced_logits(torch, app16.module, prompts, f32_ids, pad)
+    kl = torch.cat([(torch.log_softmax(a, -1).exp()
+                     * (torch.log_softmax(a, -1) - torch.log_softmax(b, -1))
+                     ).sum(-1) for a, b in zip(lg32, lg16)])
+    log("bf16 serving weights vs f32 (C5; printed, not gated): token-match "
+        "rate %.4f (mean share of each f32 output before the first "
+        "divergence), %.4f of aligned positions equal (%d of %d); mean KL(f32 "
+        "|| bf16) of the next-token distribution %.6e nats over %d positions "
+        "(max %.6e)" % (float(np.mean(match)), same / max(total, 1), same,
+                        total, kl.mean().item(), kl.numel(), kl.max().item()))
+    del app32, app16, lg32, lg16, plain_logits
+    torch.cuda.empty_cache()
+    return rate
+
+
+# --------------------------------------------------------------------------
+# phase 10: the pipeline() PredictionServer
+# --------------------------------------------------------------------------
+
+def phase_prediction_server(torch, workdir):
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 10: the pipeline() PredictionServer (--mode=serve on "
+        "phase 4's text_classify checkpoint)")
+    ckpt = os.path.join(workdir, "ckpt_kernel")
+    tsv = os.path.join(workdir, "train.tsv")
+    with open(tsv, encoding="utf-8") as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    texts = [r[1] for r in rows]
+    srv, start_s = _cli(torch, [
+        "--mode=serve", "--checkpoint_dir=" + ckpt,
+        "--first_sequence=sentence", "--sequence_length=%d" % SEQ_LEN,
+        "--micro_batch_size=%d" % BATCH, "--device=cuda", "--dtype=bfloat16",
+        "--user_defined_parameters=serve_blocking=False serve_port=0 "
+        "serve_max_delay_ms=5"])
+    sizes = []
+    pipe = srv.pipeline
+
+    def recorded(inputs):
+        sizes.append(len(inputs))
+        return pipe(inputs)
+    srv.pipeline = recorded
+    per = len(texts) // PREDICT_SERVE_REQUESTS
+    chunks = [texts[i:i + per] for i in range(0, len(texts), per)]
+
+    def post(inputs):
+        import http.client
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=600)
+        t0 = time.perf_counter()
+        try:
+            conn.request("POST", "/predict",
+                         body=json.dumps({"inputs": inputs}),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+        finally:
+            conn.close()
+        if resp.status != 200:
+            raise AssertionError("/predict answered %d: %s"
+                                 % (resp.status, body))
+        return body["outputs"], time.perf_counter() - t0
+    # one warm-up request, then the counts set to 0 just before the load
+    post(chunks[0][:1])
+    sizes.clear()
+    A.short_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(chunks)) as pool:
+        answers = list(pool.map(post, chunks))
+    wall = time.perf_counter() - t0
+    launches = A.short_attention_fwd.launches
+    srv.stop()
+    got = [row for outs, _ in answers for row in outs]
+    lat = [1e3 * s for _, s in answers]
+    log("served %d rows in %d requests from %d clients in %.4f s = %.2f "
+        "rows/s (server up in %.3f s); request latency p50 %.3f ms, p95 "
+        "%.3f; %d pipeline batches, sizes %s; short_attention_fwd launches "
+        "%d" % (len(got), len(chunks), len(chunks), wall, len(got) / wall,
+                start_s, _pct(lat, 50), _pct(lat, 95), len(sizes),
+                sorted(sizes, reverse=True), launches))
+    if len(got) != len(texts) or sum(sizes) != len(texts) \
+            or max(sizes) > BATCH or launches != N_LAYERS * len(sizes):
+        raise AssertionError("%d rows back for %d, batches %s, %d launches"
+                             % (len(got), len(texts), sizes, launches))
+    # --mode=predict over the same rows: logits within PREDICT_SERVE_ATOL,
+    # labels equal where its margin decides
+    out = os.path.join(workdir, "pred_served_rows.tsv")
+    _cli(torch, ["--mode=predict", "--tables=" + tsv, "--outputs=" + out,
+                 "--checkpoint_dir=" + ckpt,
+                 "--output_schema=predictions,probabilities,logits",
+                 "--append_cols=id"] + _common_argv(True))
+    labels, _, logits = check_output(out, len(texts))
+    served = np.array([[float(x) for x in r["logits"].split()] for r in got])
+    d = np.abs(served - logits).max()
+    margin = np.abs(logits[:, 0] - logits[:, 1])
+    decided = margin > 2 * PREDICT_SERVE_ATOL
+    wrong = [i for i in np.nonzero(decided)[0]
+             if got[i]["predictions"] != labels[i]]
+    same = sum(g["predictions"] == x for g, x in zip(got, labels))
+    # rows whose logits lie over 2 x the bound from every row of the other
+    # requests: a mix-up between requests that hands one of them on fails
+    request = np.arange(len(got)) // per
+    gaps = np.abs(logits[:, None, :] - logits[None, :, :]).max(-1)
+    apart = int(((gaps > 2 * PREDICT_SERVE_ATOL)
+                 | (request[:, None] == request[None, :])).all(1).sum())
+    log("served vs --mode=predict: logits max |d| %.3e (bound %.1e); %d of "
+        "%d rows lie over 2 x the bound from every row of the other requests; "
+        "labels agree on %d of %d rows, on all %d the predict margin decides "
+        "(> 2 x the bound)" % (d, PREDICT_SERVE_ATOL, apart, len(got), same,
+                              len(got), int(decided.sum())))
+    if d > PREDICT_SERVE_ATOL or wrong:
+        raise AssertionError("served rows disagree with --mode=predict: "
+                             "logit gap %.3e, rows %s" % (d, wrong))
+
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -3037,6 +3705,12 @@ def main():
         t0 = time.perf_counter()
         phase_encoder_apps(torch, seed, workdir, cjk)
         seconds["8 encoder apps"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_serving(torch, seed, workdir)
+        seconds["9 GPT-2 /generate"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_prediction_server(torch, workdir)
+        seconds["10 PredictionServer"] = time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
 

@@ -1,6 +1,8 @@
 """App dispatch + default main for the PyTorch port.
 
 Counterpart of easynlp_tpu/appzoo/api.py, reduced to what is ported: the
+serve branch (both routes: the pipeline() PredictionServer, and with
+serve_continuous=true continuous-batching GPT-2 generation), and the
 train, evaluate and predict branches for the BERT apps `text_classify`,
 `text_match` (cross-encoder; two-tower with user_defined_parameters
 two_tower or siamese), `sequence_labeling` and
@@ -106,7 +108,6 @@ PREDICTOR_REGISTRY = _apps(
 
 _NOT_PORTED_MODES = {
     "export": "ROADMAP A26",
-    "serve": "ROADMAP A17",
 }
 _ENCODER_DECODER = ("t5", "mt5", "bart", "pegasus", "randeng")
 # the JAX package's variant switches, in its order (easynlp_tpu
@@ -189,10 +190,12 @@ def default_main_fn(args=None):
         return _train_main(args, udp)
     if args.mode == "evaluate":
         return _evaluate_main(args, udp)
+    if args.mode == "serve":
+        return _serve_main(args, udp)
     if args.mode in _NOT_PORTED_MODES:
         raise NotImplementedError(
             "--mode=%s is not ported yet (%s); the PyTorch port has "
-            "--mode=train|evaluate|predict"
+            "--mode=train|evaluate|predict|serve"
             % (args.mode, _NOT_PORTED_MODES[args.mode]))
     raise ValueError("unknown mode %r" % args.mode)
 
@@ -294,3 +297,126 @@ def _predict_main(args, udp):
         args=args)
     manager.run()
     return manager
+
+
+def _serve_main(args, udp):
+    """--mode=serve: HTTP online serving (easynlp_tpu_torch/serving). The
+    default route serves the pipeline() view of --checkpoint_dir with
+    dynamic micro-batching (udp keys serve_host, serve_port,
+    serve_max_delay_ms, serve_blocking, serve_params_dtype);
+    serve_continuous=true serves GPT-2 generation (_serve_continuous_main).
+    serve_quantize=int8 is not ported yet (ROADMAP A16)."""
+    if str(udp.get("serve_quantize", "")).strip():
+        raise NotImplementedError(
+            "serve_quantize=%s (weight-only int8 serving) is not ported yet "
+            "(ROADMAP A16)" % udp["serve_quantize"])
+    if str(udp.get("serve_continuous", "")).lower() in ("1", "true"):
+        return _serve_continuous_main(args, udp)
+    from easynlp_tpu_torch.serving import serve
+    return serve(
+        args.checkpoint_dir,
+        host=udp.get("serve_host", "127.0.0.1"),
+        port=int(udp.get("serve_port", 8080)),
+        max_batch_size=args.micro_batch_size,
+        max_delay_ms=float(udp.get("serve_max_delay_ms", 5.0)),
+        blocking=str(udp.get("serve_blocking", "True")) != "False",
+        first_sequence=args.first_sequence or "first_sequence",
+        second_sequence=args.second_sequence,
+        sequence_length=args.sequence_length,
+        batch_size=args.micro_batch_size,
+        dtype=_dtype(args),
+        params_dtype=udp.get("serve_params_dtype") or None,
+        device=args.device)
+
+
+def _serve_continuous_main(args, udp):
+    """--mode=serve + serve_continuous=true: continuous-batching generation
+    serving for a GPT-2 checkpoint (the JAX package's
+    _serve_continuous_main). The model loads through the
+    sequence_generation app, a ContinuousBatcher steps it (requests join and
+    leave the shared decode loop mid-flight), and GenerationServer exposes
+    POST /generate with per-request sampling parameters and streaming.
+
+    udp keys: serve_host/serve_port/serve_blocking (shared with the
+    pipeline server), serve_slots (decode batch width, default 8),
+    serve_chunk_size (decode steps per dispatch, default 16),
+    serve_prompt_buckets (comma-separated prefill widths, default
+    sequence_length//4), serve_max_new_tokens (default 32),
+    serve_eos_token_id / serve_pad_token_id (default: the tokenizer's),
+    serve_params_dtype (default bfloat16 under --dtype=bfloat16; float32
+    keeps the checkpoint's weights), serve_shared_prefix (system-prompt
+    text, tokenized once; requests then send only suffixes) or
+    serve_shared_prefix_ids (comma-separated token ids). The KV window is
+    --sequence_length."""
+    from easynlp_tpu_torch.appzoo.sequence_generation.model import (
+        SequenceGeneration)
+    from easynlp_tpu_torch.modelzoo.modeling_utils import (
+        available_checkpoint)
+    from easynlp_tpu_torch.serving import ContinuousBatcher, GenerationServer
+    ckpt = args.checkpoint_dir
+    if model_type_of(ckpt) != "gpt2":
+        raise ValueError(
+            "serve_continuous=true serves decoder-only (gpt2) checkpoints; "
+            "%r has model_type %r" % (ckpt, model_type_of(ckpt)))
+    if available_checkpoint(ckpt) != "pytorch":
+        raise ValueError("no loadable checkpoint (pytorch_model.bin) in %r"
+                         % ckpt)
+    app = SequenceGeneration.from_pretrained(ckpt, args=args,
+                                             dtype=_dtype(args),
+                                             device=args.device)
+    # generation serving streams the weights every step: cast the stored
+    # f32 kernels to bf16 by default under bf16, as the JAX package does
+    pd = str(udp.get("serve_params_dtype",
+                     "bfloat16" if args.dtype == "bfloat16" else "")).strip()
+    if pd in ("bfloat16", "bf16"):
+        from easynlp_tpu_torch.modelzoo.quantization import cast_params
+        cast_params(app.module, torch.bfloat16)
+    tokenizer = tokenizer_for(ckpt)
+    max_length = int(args.sequence_length)
+    raw = udp.get("serve_prompt_buckets")
+    if raw:
+        buckets = tuple(sorted(int(b) for b in str(raw).split(",")))
+    else:
+        buckets = (max(8, max_length // 4),)
+    if buckets[-1] >= max_length:
+        raise ValueError(
+            "largest prompt bucket %d must stay below the KV window "
+            "(--sequence_length=%d) to leave room for generation"
+            % (buckets[-1], max_length))
+    eos = udp.get("serve_eos_token_id",
+                  getattr(tokenizer, "eos_token_id", None))
+    pad = udp.get("serve_pad_token_id",
+                  getattr(tokenizer, "pad_token_id", None))
+    prefix = None
+    if udp.get("serve_shared_prefix_ids"):
+        prefix = [int(x) for x in
+                  str(udp["serve_shared_prefix_ids"]).split(",")]
+    elif udp.get("serve_shared_prefix"):
+        prefix = list(tokenizer.convert_tokens_to_ids(
+            tokenizer.tokenize(str(udp["serve_shared_prefix"]))))
+    if prefix and len(prefix) + buckets[-1] >= max_length:
+        raise ValueError(
+            "shared prefix (%d tokens) + largest prompt bucket %d must "
+            "stay below the KV window (--sequence_length=%d)"
+            % (len(prefix), buckets[-1], max_length))
+    batcher = ContinuousBatcher(
+        app.module,
+        max_slots=int(udp.get("serve_slots", 8)),
+        max_length=max_length,
+        prompt_buckets=buckets,
+        eos_token_id=None if eos is None else int(eos),
+        pad_token_id=0 if pad is None else int(pad),
+        chunk_size=int(udp.get("serve_chunk_size", 16)),
+        shared_prefix=prefix)
+    server = GenerationServer(
+        batcher,
+        host=udp.get("serve_host", "127.0.0.1"),
+        port=int(udp.get("serve_port", 8080)),
+        tokenizer=tokenizer,
+        default_max_new_tokens=int(udp.get("serve_max_new_tokens", 32)),
+        info={"model": str(ckpt), "mode": "continuous"})
+    if str(udp.get("serve_blocking", "True")) != "False":
+        server.serve_forever()
+    else:
+        server.start()
+    return server

@@ -16,7 +16,9 @@ JAX package's tokens:
 
 Sampling draws from an explicit `torch.Generator` on the model's device;
 its stream differs from `jax.random`'s, so sampled tokens are not
-comparable across the packages.
+comparable across the packages. The serving paths' per-row sampling
+(`rowwise_warp_and_sample`) draws from a counter-based stream instead, a
+pure function of (seed, position) as JAX's per-request stream is.
 Speculative decoding is not ported yet (ROADMAP A16).
 
 Model protocol: `prefill(input_ids, attention_mask)` and
@@ -155,6 +157,86 @@ def _warp(logits, temperature, top_k, top_p):
     logits = apply_temperature(logits, temperature)
     logits = apply_top_k(logits, top_k)
     return apply_top_p(logits, top_p)
+
+
+def rowwise_warp(logits, temperature, top_k, top_p):
+    """Per-ROW temperature, then top-k, then top-p (the JAX package's
+    rowwise_warp_and_sample warp, with its keep-set semantics), every
+    parameter a [B] tensor so mixed requests share one step: logits [B, V]
+    f32; temperature/top_p [B] float; top_k [B] int (<= 0: off). One
+    descending sort serves both cuts: top-k masks ranks >= k, and top-p's
+    cumulative softmax runs over the top-k-masked sorted values. Returns
+    the warped f32 logits (NEG_INF where cut)."""
+    v = logits.shape[-1]
+    temp = temperature.float().clamp(min=1e-6)
+    scaled = logits.float() / temp[:, None]
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    k_eff = torch.where(top_k <= 0, torch.full_like(top_k, v),
+                        top_k.clamp(1, v)).long()
+    ranks = torch.arange(v, device=logits.device)[None, :]
+    sorted_k = _neg_inf_where(ranks >= k_eff[:, None], sorted_desc)
+    kth = torch.gather(sorted_desc, 1, k_eff[:, None] - 1)
+    warped = _neg_inf_where(scaled < kth, scaled)
+    probs = torch.softmax(sorted_k, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    # keep the smallest set with cumulative prob >= top_p (top-1 always
+    # kept); top_p >= 1 keeps everything because cum - probs < 1
+    drop = cum - probs >= top_p.float()[:, None]
+    cutoff = sorted_k.masked_fill(drop, float("inf")).amin(dim=-1,
+                                                           keepdim=True)
+    return _neg_inf_where(scaled < cutoff, warped)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """(x * c) mod 2^32 for int64 x in [0, 2^32): in 16-bit halves of c, so
+    no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x):
+    """murmur3's 32-bit finaliser on int64 tensors holding uint32 values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def counter_uniform(seeds, positions, v):
+    """[B, V] f32 uniforms in (0, 1): element (i, j) a hash of (seeds[i],
+    positions[i], j) computed on the tensors' device. A pure function of
+    its counters, as the JAX stream fold_in(PRNGKey(seed), position) is,
+    so a row's draws do not depend on its batch, slot or neighbours. (Not
+    JAX's threefry stream: the packages' sampled tokens differ; ROADMAP C4
+    defines parity without shared random streams.)"""
+    seeds = seeds.long() & _M32
+    positions = positions.long() & _M32
+    key = _mix32(_mix32(seeds) ^ _mul32(positions + 1, 0x9E3779B9))
+    cols = _mix32(torch.arange(v, device=seeds.device, dtype=torch.long)
+                  + 0x632BE5AB)
+    bits = _mix32(key[:, None] ^ cols[None, :])
+    return ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def rowwise_warp_and_sample(logits, do_sample, temperature, top_k, top_p,
+                            seeds, positions):
+    """Per-row sampling for the serving paths (the port of the JAX
+    package's rowwise_warp_and_sample): rows with do_sample[i] draw from
+    softmax(rowwise_warp(...)[i]) by Gumbel-max over
+    counter_uniform(seeds, positions): row i's draw is a pure function of
+    (its logits, seeds[i], positions[i]), positions[i] being how many
+    tokens request i has produced so far. Other rows return argmax. All
+    arguments are [B] tensors on the logits' device; returns [B] int64."""
+    greedy = torch.argmax(logits, dim=-1)
+    warped = rowwise_warp(logits, temperature, top_k, top_p)
+    u = counter_uniform(seeds, positions, logits.shape[-1])
+    sampled = torch.argmax(warped - torch.log(-torch.log(u)), dim=-1)
+    return torch.where(do_sample.bool(), sampled, greedy)
 
 
 def _top_k(x, k):

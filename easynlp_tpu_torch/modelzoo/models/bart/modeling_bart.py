@@ -177,7 +177,7 @@ class BartStack(nn.Module):
             x = x * math.sqrt(c.d_model)
         x = x + self.embed_positions(positions + c.position_offset)
         if self.layernorm_embedding is not None:
-            x = self.layernorm_embedding(x)
+            x = self.layernorm_embedding(x.float())  # f32, as elsewhere
         x = self.dropout(x).to(self.dtype)
         for i, layer in enumerate(self.layers):
             x = layer(x, self_mask, enc_hidden, enc_mask, cache, i)

@@ -69,7 +69,8 @@ class BertEmbeddings(nn.Module):
             + self.position_embeddings(position_ids)
         if self.token_type_embeddings is not None:
             emb = emb + self.token_type_embeddings(token_type_ids)
-        emb = self.LayerNorm(emb)
+        # f32 LayerNorm: the sum is bf16 when serving casts the tables
+        emb = self.LayerNorm(emb.float())
         return self.dropout(emb).to(self.dtype)
 
 

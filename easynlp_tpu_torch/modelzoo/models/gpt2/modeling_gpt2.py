@@ -22,13 +22,23 @@ unlike BERT's nn.Linear).
 
 The decode cache is a `KVCache`: one [B,T,H,D] K and V tensor per layer,
 written in place at the cache's write index. It replaces the JAX model's
-stacked [L,B,T,H,D] scan carry, which exists for the layer scan. A prefill
-at index 0 attends causally over the prompt's own keys; a decode step
-(s == 1) attends over all T slots under the cache mask, as the JAX model
-does, so the kernel choice depends on T alone. Not ported: Switch-MoE
-layers (ROADMAP A24), an int8 cache (A16), per-slot write indices for
-continuous batching (A17) and chunks written past index 0 (speculative
-decoding, A16).
+stacked [L,B,T,H,D] scan carry, which exists for the layer scan. Three
+cache paths, as the JAX model's:
+
+- a chunk of s > 1 tokens at a scalar index (a prompt prefill at 0, a
+  shared-prefix admit past it) is written at index..index+s-1 and attends
+  causally over the first index + s slots under the cache mask. JAX masks
+  the later slots with an additive bias; here causal=True with
+  q_offset = (index + s) - s = index hides the same keys and keeps the call
+  on the kernels (a bias would force the plain path);
+- a single-token decode step (s == 1) attends over all T slots under the
+  cache mask, as the JAX model does, so the kernel choice depends on T
+  alone;
+- a per-slot index ([B] LongTensor, continuous batching) scatters the one
+  new token of each row at its own index; visibility stays the mask.
+
+Not ported: Switch-MoE layers (ROADMAP A24), an int8 cache (A16) and a
+per-slot chunk of s > 1 tokens (speculative verify, A16).
 """
 
 import torch
@@ -61,7 +71,8 @@ class Conv1D(nn.Module):
 class KVCache:
     """Per-layer decode cache: k[i], v[i] [B,T,H,D] in the compute dtype,
     mask [B,T] int32 (1 where a slot holds a real token) and the write
-    index shared by every row. Updated in place by GPT2Model.forward."""
+    index: an int shared by every row, or a [B] LongTensor of per-row
+    indices (decode steps only). Updated in place by GPT2Model.forward."""
 
     def __init__(self, k, v, mask, index=0):
         self.k, self.v, self.mask, self.index = k, v, mask, index
@@ -92,25 +103,28 @@ class GPT2Attention(nn.Module):
             ctx = attention(q, k, v, kv_mask=kv_mask, causal=True)
         else:
             index = cache.index
-            if not isinstance(index, int):
-                raise NotImplementedError(
-                    "a per-slot cache index (continuous batching) is not "
-                    "ported yet (ROADMAP A17)")
-            if s > 1 and index != 0:
-                raise NotImplementedError(
-                    "a chunk written past cache index 0 (speculative "
-                    "decoding) is not ported yet (ROADMAP A16)")
             k_full, v_full = cache.k[layer_idx], cache.v[layer_idx]
-            k_full[:, index:index + s] = k
-            v_full[:, index:index + s] = v
+            if torch.is_tensor(index):
+                if s > 1:
+                    raise NotImplementedError(
+                        "a per-slot cache index with a chunk of %d tokens "
+                        "(speculative verify) is not ported yet (ROADMAP "
+                        "A16)" % s)
+                rows = torch.arange(b, device=index.device)
+                k_full[rows, index] = k[:, 0].to(k_full.dtype)
+                v_full[rows, index] = v[:, 0].to(v_full.dtype)
+            else:
+                k_full[:, index:index + s] = k
+                v_full[:, index:index + s] = v
             if s == 1:
                 # single-token decode: every filled cache slot is visible
                 ctx = attention(q, k_full, v_full, kv_mask=kv_mask)
             else:
-                # prefill at index 0: causal over the prompt's own keys.
-                # JAX masks the T - P empty slots with a bias instead; rows
-                # with a real query see the same keys either way.
-                ctx = attention(q, k, v, kv_mask=kv_mask[:, :s], causal=True)
+                # a chunk at `index`: causal over the first index + s slots,
+                # so q_offset = index (the JAX model's bias k_pos <= q_pos)
+                end = index + s
+                ctx = attention(q, k_full[:, :end], v_full[:, :end],
+                                kv_mask=kv_mask[:, :end], causal=True)
         out = self.c_proj(ctx.reshape(b, s, e), self.dtype)
         return self.resid_dropout(out)
 
@@ -186,7 +200,8 @@ class GPT2Model(nn.Module):
             hidden = block(hidden, kv_mask, cache, i)
         out = {"last_hidden_state": layer_norm(self.ln_f, hidden, self.dtype)}
         if cache is not None:
-            cache.index += s
+            # a new object for a per-slot index: the caller's tensor stays
+            cache.index = cache.index + s
             out["cache"] = cache
         return out
 

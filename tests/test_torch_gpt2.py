@@ -248,17 +248,81 @@ def test_tokenizer_gives_the_jax_ids(tmp_path):
 
 
 def test_unported_model_features_raise():
+    """Switch-MoE layers (A24) and a per-slot cache index with a chunk of
+    s > 1 tokens (speculative verify, A16) raise. A per-slot decode step
+    and a chunk past index 0 are ported: the two tests below hold them to
+    JAX."""
     with pytest.raises(NotImplementedError, match="A24"):
         GPT2LMHeadModel(GPT2Config(**dict(TINY, num_experts=4)))
     model = GPT2LMHeadModel(GPT2Config(**TINY)).eval()
     cache = model.init_cache(2, 16)
     cache.index = torch.tensor([3, 5])
-    with pytest.raises(NotImplementedError, match="A17"), torch.no_grad():
-        model(torch.ones((2, 1), dtype=torch.long), cache=cache)
-    cache = model.init_cache(2, 16)
-    cache.index = 4
     with pytest.raises(NotImplementedError, match="A16"), torch.no_grad():
         model(torch.ones((2, 3), dtype=torch.long), cache=cache)
+
+
+def _cache_pair(rng, b, t, filled):
+    """Random K/V over every slot and a mask with row i's first filled[i]
+    slots set: (JAX cache dict without the index, the port's per-layer
+    lists)."""
+    c = GPT2Config(**TINY)
+    shape = (c.n_layer, b, t, c.n_head, c.n_embd // c.n_head)
+    k, v = (rng.standard_normal(shape).astype(np.float32) for _ in "kv")
+    mask = (np.arange(t)[None, :] < np.asarray(filled)[:, None]).astype(
+        np.int32)
+    jcache = {"k": jnp.asarray(k), "v": jnp.asarray(v),
+              "mask": jnp.asarray(mask)}
+    return jcache, ([torch.from_numpy(x.copy()) for x in k],
+                    [torch.from_numpy(x.copy()) for x in v],
+                    torch.from_numpy(mask))
+
+
+def test_per_slot_decode_index_matches_jax():
+    """Was a raise naming A17: a decode step whose cache index is a [B]
+    tensor (continuous batching) writes each row at its own slot, and its
+    logits and cache match the JAX model's scatter path within 1e-4."""
+    jax_model, params, model = _models()
+    rng = np.random.RandomState(6)
+    index = np.array([3, 9], np.int32)
+    jcache, (k, v, mask) = _cache_pair(rng, 2, 16, index + 1)
+    tokens = rng.randint(1, 97, (2, 1)).astype(np.int32)
+    pos = index[:, None]
+    out = jax_model.apply({"params": params}, input_ids=jnp.asarray(tokens),
+                          position_ids=jnp.asarray(pos),
+                          cache=dict(jcache, index=jnp.asarray(index)),
+                          deterministic=True)
+    from easynlp_tpu_torch.modelzoo.models.gpt2.modeling_gpt2 import KVCache
+    cache = KVCache(k, v, mask, torch.from_numpy(index).long())
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens).long(),
+                    position_ids=torch.from_numpy(pos).long(), cache=cache)
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               np.asarray(out["logits"]), atol=ATOL)
+    np.testing.assert_allclose(torch.stack(cache.v).numpy(),
+                               np.asarray(out["cache"]["v"]), atol=ATOL)
+
+
+def test_chunk_past_index_zero_matches_jax():
+    """Was a raise naming A16: a chunk of 3 tokens written at cache index 4
+    (the shared-prefix admit) attends causally over the first 7 slots; JAX
+    uses a causal bias over all 16. Logits within 1e-4."""
+    jax_model, params, model = _models()
+    rng = np.random.RandomState(7)
+    jcache, (k, v, mask) = _cache_pair(rng, 2, 16, [7, 7])
+    tokens = rng.randint(1, 97, (2, 3)).astype(np.int32)
+    pos = np.tile(np.arange(4, 7, dtype=np.int32), (2, 1))
+    out = jax_model.apply({"params": params}, input_ids=jnp.asarray(tokens),
+                          position_ids=jnp.asarray(pos),
+                          cache=dict(jcache, index=jnp.asarray(4, jnp.int32)),
+                          deterministic=True)
+    from easynlp_tpu_torch.modelzoo.models.gpt2.modeling_gpt2 import KVCache
+    cache = KVCache(k, v, mask, 4)
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens).long(),
+                    position_ids=torch.from_numpy(pos).long(), cache=cache)
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               np.asarray(out["logits"]), atol=ATOL)
+    assert got["cache"].index == 7
 
 
 def test_model_dir_round_trip(tmp_path):
