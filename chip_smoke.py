@@ -21,13 +21,20 @@ articles of 1024 tokens with 64-token targets, then `--mode=evaluate` on 16
 rows with greedy decoding. Then `--mode=serve`: GPT-2 small behind
 `/generate` (serve_continuous=true, 8 slots, a 1024-slot window) to 36
 requests from 16 client threads, and phase 4's checkpoint behind
-`/predict` to 256 rows in 64 concurrent requests. Each path runs with the
-kernels and with --use_flash_attention=false, and the two are compared
+`/predict` to 256 rows in 64 concurrent requests. Then MLM pretraining
+(`--mode=train --app_name=language_modeling`): BERT-base for 8 AdamW steps
+of 32 x 128 with whole-word masking and `--mode=evaluate`, at
+--num_host_prefetch 2 and 0 (the same losses, bit for bit), and
+RoBERTa-base (HF `roberta-base` widths and depth, a synthetic 50265-token
+byte-level BPE vocab) for 4 steps of 8 x 512; and `--mode=predict
+--app_name=data_augmentation` on the BERT checkpoint. Each path runs with
+the kernels and with --use_flash_attention=false, and the two are compared
 (`/predict` against --mode=predict). Every phase raises on
 failure, so any failure exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it lists the kernels with their launches
-in the BART training run, errors, times (kernel, plain twin, the PyTorch
-library call) and bounds. Imports nothing of JAX or of the JAX package.
+in the BART training run and phase 11's runs, errors, times (kernel, plain
+twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
+the JAX package.
 """
 
 import argparse
@@ -429,8 +436,15 @@ def phase_kernel(torch, seed):
         ("masked-row-200", 4, 200, 200, 12, 64,
          np.r_[200, skip_rng.randint(1, 201, size=2), 0], False),
     ]
+    # RoBERTa-base MLM pretraining's 8 x 512, rows of 256-512 real tokens
+    # (B1; B2's route past 128 keys: an LSE pass, then B4/B5's passes),
+    # from a stream of its own
+    mlm_rng = np.random.RandomState(seed + 3)
+    mlm_cases = [("mlm-512", 8, 512, 512, 12, 64,
+                  np.r_[512, mlm_rng.randint(256, 513, size=7)], False)]
     worst = {}
-    for case_rng, group in ((rng, cases), (skip_rng, skip_cases)):
+    for case_rng, group in ((rng, cases), (skip_rng, skip_cases),
+                            (mlm_rng, mlm_cases)):
         for name, b, sq, skv, h, d, lens, causal in group:
             q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
             for dtype in (torch.float32, torch.bfloat16):
@@ -441,8 +455,9 @@ def phase_kernel(torch, seed):
                        worst_bwd)
 
     timings = {}
-    for name, b, sq, skv, h, d, lens, causal in cases[:5]:
-        q, k, v, mask = _inputs(torch, rng, b, sq, skv, h, d, lens)
+    for case_rng, (name, b, sq, skv, h, d, lens, causal) in (
+            [(rng, c) for c in cases[:5]] + [(mlm_rng, c) for c in mlm_cases]):
+        q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
         for dtype in (torch.bfloat16, torch.float32):
             tq, tk, tv = (t.to(dtype) for t in (q, k, v))
             ms = _time_ms(torch, lambda: A.short_attention_fwd(
@@ -1515,15 +1530,18 @@ def _common_argv(use_kernel):
 
 
 def run_train(torch, model_dir, train_tsv, dev_tsv, ckpt, use_kernel, seed,
-              profile_dir=None):
+              profile_dir=None, common=None, logging_steps=1):
+    """One --mode=train run; `common` replaces text_classify's flags
+    (_common_argv)."""
     from easynlp_tpu_torch.appzoo.api import default_main_fn
     from easynlp_tpu_torch.utils.initializer import initialize_easynlp
     argv = ["--mode=train", "--tables=%s,%s" % (train_tsv, dev_tsv)
             if dev_tsv else "--tables=" + train_tsv,
             "--pretrained_model_name_or_path=" + model_dir,
             "--epoch_num=1", "--learning_rate=%g" % LEARNING_RATE,
-            "--optimizer_type=AdamW", "--logging_steps=1",
-            "--random_seed=%d" % seed] + _common_argv(use_kernel)
+            "--optimizer_type=AdamW", "--logging_steps=%d" % logging_steps,
+            "--random_seed=%d" % seed] + (
+                _common_argv(use_kernel) if common is None else common)
     if ckpt:
         argv.append("--checkpoint_dir=" + ckpt)
     if profile_dir:
@@ -1543,15 +1561,16 @@ def run_train(torch, model_dir, train_tsv, dev_tsv, ckpt, use_kernel, seed,
             "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
 
 
-def describe_train(tag, run):
+def describe_train(tag, run, batch=BATCH):
     ms = [1e3 * r["seconds"] for r in run["records"]]
     log("train %-7s %d steps x %d samples: step ms median %.3f, first %.3f, "
-        "min %.3f, max %.3f (host clock, each step ends in the guard's "
-        "read-back); %.2f samples/s at the median step; run with load, eval "
+        "min %.3f, max %.3f (CUDA events: the end of the step before, or the "
+        "fetch of the first batch, to the end of this step's update); %.2f "
+        "samples/s at the median step; run with load, eval "
         "and checkpoint %.3f s; checkpoint write %s s; peak device memory "
         "%.3f GiB above the run's start; losses %s"
-        % (tag, len(ms), BATCH, statistics.median(ms), ms[0], min(ms),
-           max(ms), 1e3 * BATCH / statistics.median(ms), run["total_s"],
+        % (tag, len(ms), batch, statistics.median(ms), ms[0], min(ms),
+           max(ms), 1e3 * batch / statistics.median(ms), run["total_s"],
            ", ".join("%.3f" % x for x in run["save_s"]), run["peak_gib"],
            " ".join("%.4f" % r["loss"] for r in run["records"])))
 
@@ -3633,6 +3652,483 @@ def phase_prediction_server(torch, workdir):
                              "logit gap %.3e, rows %s" % (d, wrong))
 
 
+# --------------------------------------------------------------------------
+# phase 11: MLM pretraining (language_modeling) and data_augmentation
+# --------------------------------------------------------------------------
+
+ROBERTA_BASE = {  # HF roberta-base config.json
+    "model_type": "roberta", "architectures": ["RobertaForMaskedLM"],
+    "vocab_size": 50265, "hidden_size": 768, "num_hidden_layers": 12,
+    "num_attention_heads": 12, "intermediate_size": 3072,
+    "max_position_embeddings": 514, "type_vocab_size": 1,
+    "hidden_act": "gelu", "layer_norm_eps": 1e-5, "initializer_range": 0.02,
+    "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1,
+    "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+}
+MLM_MODEL_DIR = "bert-base-chinese-mlm"
+ROBERTA_MODEL_DIR = "roberta-base-random"
+ROBERTA_SEQ_LEN = 512
+ROBERTA_BATCH = 8
+ROBERTA_STEPS = 4
+AUG_COUNT = 2
+# MLM, the kernel run against the --use_flash_attention=false run: both bf16,
+# the same weights, batches, masks and dropout draws, differing only in
+# attention's rounding, about a bf16 ulp (2^-8 relative) per layer. A
+# token's cross-entropy, logsumexp minus the gold logit, moves by at most
+# twice the largest logit change; 12 layers move the logits by ~1e-2 (phase
+# 3 measured 6.7e-3 on its classifier, and phase 5 bounds GPT-2's at 5e-2).
+# Bound 5e-2 on the step-1 loss, a mean over the masked tokens, and on the
+# log of the evaluated perplexity (exp of such a mean, after 8 steps in
+# which the two runs' weights drift apart by less than the learning rate's
+# 5e-5 x 8). Accuracy changes only where the argmax flips at a top-2 margin
+# below that change: at most 1e-2 of the masked tokens.
+MLM_LOSS_ATOL = 5e-2
+MLM_ACCURACY_ATOL = 1e-2
+
+
+def make_mlm_model_dir(torch, workdir, seed):
+    """phase 3's BERT-base directory as a masked LM: its backbone (pooler
+    included, which the MLM app drops) and an MLM head under HF names,
+    `cls.predictions.transform.dense` truncated-normal(0.02) from the seed,
+    a unit LayerNorm, zero biases; the decoder is the word embeddings."""
+    import shutil
+
+    import numpy as np
+    src = os.path.join(workdir, MODEL_DIR)
+    dst = os.path.join(workdir, MLM_MODEL_DIR)
+    os.makedirs(dst, exist_ok=True)
+    for name in ("config.json", "vocab.txt"):
+        shutil.copy(os.path.join(src, name), dst)
+    state = {k: v for k, v in torch.load(
+        os.path.join(src, "pytorch_model.bin"), weights_only=True).items()
+        if not k.startswith("classifier.")}
+    e, v = BERT_BASE_CHINESE["hidden_size"], BERT_BASE_CHINESE["vocab_size"]
+    rng = np.random.default_rng(seed + 11)
+    head = "cls.predictions."
+    state[head + "transform.dense.weight"] = torch.from_numpy(
+        _truncated_normal(rng, (e, e), BERT_BASE_CHINESE["initializer_range"]))
+    state[head + "transform.dense.bias"] = torch.zeros(e)
+    state[head + "transform.LayerNorm.weight"] = torch.ones(e)
+    state[head + "transform.LayerNorm.bias"] = torch.zeros(e)
+    state[head + "bias"] = torch.zeros(v)
+    torch.save(state, os.path.join(dst, "pytorch_model.bin"))
+    return dst
+
+
+def roberta_vocab():
+    """(tokens in id order, merges): roberta-base's specials where it has
+    them (<s> 0, <pad> 1, </s> 2, <unk> 3, <mask> last), around
+    gpt2_vocab()'s synthetic byte-level BPE tokens."""
+    tokens, merges = gpt2_vocab()
+    tokens = (["<s>", "<pad>", "</s>", "<unk>"] + tokens
+              + ["<extra_%d>" % i for i in range(3)] + ["<mask>"])
+    assert len(tokens) == ROBERTA_BASE["vocab_size"]
+    return tokens, merges
+
+
+def make_roberta_model_dir(torch, path, seed):
+    """roberta-base widths and depth, the synthetic vocabulary, and
+    truncated-normal(0.02) weights from numpy under HF names (`roberta.*`,
+    `lm_head.*`, the decoder tied to the word embeddings), zero biases,
+    unit LayerNorms."""
+    import numpy as np
+    os.makedirs(path, exist_ok=True)
+    c = ROBERTA_BASE
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    tokens, merges = roberta_vocab()
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(tokens)}, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join("%s %s\n" % m for m in merges))
+    rng = np.random.default_rng(seed + 12)
+    e, inter = c["hidden_size"], c["intermediate_size"]
+    state = {}
+
+    def put(name, *shape, fill=None):
+        arr = (np.full(shape, fill, np.float32) if fill is not None
+               else _truncated_normal(rng, shape, c["initializer_range"]))
+        state[name] = torch.from_numpy(arr)
+
+    def dense(name, n_out, n_in):
+        put(name + ".weight", n_out, n_in)
+        put(name + ".bias", n_out, fill=0.0)
+
+    def norm(name):
+        put(name + ".weight", e, fill=1.0)
+        put(name + ".bias", e, fill=0.0)
+
+    emb = "roberta.embeddings."
+    put(emb + "word_embeddings.weight", c["vocab_size"], e)
+    put(emb + "position_embeddings.weight", c["max_position_embeddings"], e)
+    put(emb + "token_type_embeddings.weight", c["type_vocab_size"], e)
+    norm(emb + "LayerNorm")
+    for i in range(c["num_hidden_layers"]):
+        base = "roberta.encoder.layer.%d." % i
+        for proj in ("query", "key", "value"):
+            dense(base + "attention.self." + proj, e, e)
+        dense(base + "attention.output.dense", e, e)
+        norm(base + "attention.output.LayerNorm")
+        dense(base + "intermediate.dense", inter, e)
+        dense(base + "output.dense", e, inter)
+        norm(base + "output.LayerNorm")
+    dense("lm_head.dense", e, e)
+    norm("lm_head.layer_norm")
+    put("lm_head.bias", c["vocab_size"], fill=0.0)
+    state["lm_head.decoder.weight"] = state[emb + "word_embeddings.weight"]
+    torch.save(state, os.path.join(path, "pytorch_model.bin"))
+
+
+def make_roberta_tsv(path, tokenizer, seed, n_rows):
+    """n_rows texts of random lowercase words, each grown until it is at
+    least a drawn 254..600 tokens long (the first row 600): truncated to
+    510 + <s> and </s>, the rows hold 256..512 real tokens."""
+    rng = random.Random(seed)
+    targets = [600] + [rng.randint(254, 600) for _ in range(n_rows - 1)]
+    with open(path, "w", encoding="utf-8") as f:
+        for i, target in enumerate(targets):
+            words, n = [], 0
+            while n < target:
+                word = "".join(rng.choice(GEN_LETTERS)
+                               for _ in range(rng.randint(2, 9)))
+                n += len(tokenizer.tokenize((" " if words else "") + word))
+                words.append(word)
+            f.write("%d\t%s\n" % (i, " ".join(words)))
+
+
+def _mlm_argv(use_kernel, prefetch, roberta=False):
+    if roberta:
+        shape = ["--sequence_length=%d" % ROBERTA_SEQ_LEN,
+                 "--micro_batch_size=%d" % ROBERTA_BATCH,
+                 "--input_schema=id:str:1,text:str:1",
+                 "--first_sequence=text"]
+    else:  # phase 4's TSVs
+        shape = ["--sequence_length=%d" % SEQ_LEN,
+                 "--micro_batch_size=%d" % BATCH,
+                 "--input_schema=id:str:1,sentence:str:1,label:str:1",
+                 "--first_sequence=sentence"]
+    return ["--app_name=language_modeling", "--device=cuda",
+            "--dtype=bfloat16", "--num_host_prefetch=%d" % prefetch,
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false")
+            ] + shape
+
+
+def _check_train_run(tag, run, steps):
+    import numpy as np
+    recs = run["records"]
+    if len(recs) != steps or run["skips"]:
+        raise AssertionError("%s run: %d steps, %d non-finite skips"
+                             % (tag, len(recs), run["skips"]))
+    if not np.isfinite([[r["loss"], r["grad_norm"]] for r in recs]).all():
+        raise AssertionError("%s run: non-finite loss or grad norm" % tag)
+
+
+def _profiled_share(torch, run, prof, want):
+    """(device busy share, busy ms per step, top kernels) of `run(prof)`
+    (a training run writing a trace of steps 3-6 into prof), run again
+    while the trace lacks a kernel named in `want` (see _device_ms)."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        run(prof)
+        share, busy_ms, top = device_share(os.path.join(prof, "trace.json"))
+        missing = [n for n in want if not any(n in k for k, _ in top)]
+        if share is not None and not missing:
+            return share, busy_ms / 4, top
+        log("profile: run %d recorded %d kernels, lacking %s"
+            % (attempt, len(top), missing or "all"))
+    raise AssertionError("no profiler trace of %s holds %s" % (prof, want))
+
+
+def _augment_decided(torch, ckpt, dev_tsv, texts):
+    """Phase 11's data_augmentation check in-process on the checkpoint:
+    the predictor's masks over the dev rows (the CLI's, which preprocesses
+    the whole table in one slice), its refilled ids with the kernels and
+    without, and the plain logits' top-2 margins at the masked positions.
+    Returns (kernel texts, decided [copies, S], kernel ids, plain ids,
+    chosen)."""
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.data_augmentation.predictor import (
+        DataAugmentationPredictor)
+    from easynlp_tpu_torch.appzoo.language_modeling.model import (
+        LanguageModeling)
+    from easynlp_tpu_torch.ops import attention as A
+    app = LanguageModeling.from_pretrained(ckpt, dtype=torch.bfloat16,
+                                           device="cuda")
+    predictor = DataAugmentationPredictor(
+        ckpt, app, first_sequence="sentence", sequence_length=SEQ_LEN,
+        batch_size=BATCH, augment_count=AUG_COUNT)
+    pre = predictor.preprocess({"sentence": texts})
+    keys = ("input_ids", "attention_mask", "token_type_ids")
+    ids, margin = {}, None
+    try:
+        for use_kernel in (True, False):
+            A.set_kernel_override(None if use_kernel else False)
+            out, gaps = [], []
+            with torch.inference_mode():
+                for start in range(0, len(pre["input_ids"]), BATCH):
+                    batch = {k: torch.from_numpy(
+                        pre[k][start:start + BATCH]).cuda() for k in keys}
+                    logits = app.forward(batch)["logits"]
+                    out.append(logits.argmax(-1).cpu().numpy())
+                    top2 = logits.float().topk(2, dim=-1).values
+                    gaps.append((top2[..., 0] - top2[..., 1]).cpu().numpy())
+            ids[use_kernel] = np.concatenate(out)
+            if not use_kernel:
+                margin = np.concatenate(gaps)
+    finally:
+        A.set_kernel_override(None)
+    chosen = pre["_chosen"]
+    texts_k = predictor.postprocess({"predicted_ids": ids[True],
+                                     "_chosen": chosen,
+                                     "_orig_ids": pre["_orig_ids"]})
+    decided = chosen & (margin > 2 * SLICE_ATOL)
+    return texts_k["augmented"], decided, ids[True], ids[False], chosen
+
+
+def phase_mlm(torch, seed, workdir):
+    """Phase 11. Returns the launches of each counted wrapper in the main
+    path's runs (BERT-base and RoBERTa-base training with the kernels, and
+    data_augmentation predict), each counted from 0."""
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.modelzoo.models.bert import RobertaTokenizer
+    from easynlp_tpu_torch.ops import attention as A
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    log("== phase 11: MLM pretraining (language_modeling on BERT-base and "
+        "RoBERTa-base) and data_augmentation predict")
+    t0 = time.perf_counter()
+    model_dir = make_mlm_model_dir(torch, workdir, seed)
+    train_tsv = os.path.join(workdir, "train.tsv")  # phase 4's rows
+    dev_tsv = os.path.join(workdir, "dev.tsv")
+    steps, eval_batches = N_ROWS // BATCH, -(-N_DEV_ROWS // BATCH)
+    counted = ("short_attention_fwd", "short_attention_bwd")
+    launches = dict.fromkeys(counted, 0)
+
+    def main_path(what, fn, want):
+        """fn() with the counts set to 0 just before and read just after;
+        raises unless they are `want`."""
+        for w in counted:
+            getattr(A, w).launches = 0
+        out = fn()
+        used = {w: getattr(A, w).launches for w in counted}
+        log("%s launches: %s (want %s)" % (what, used, want))
+        if used != want:
+            raise AssertionError("%s launched %s, want %s"
+                                 % (what, used, want))
+        for w in counted:
+            launches[w] += used[w]
+        return out
+
+    def no_launch(what, fn):
+        before = {w: getattr(A, w).launches for w in counted}
+        out = fn()
+        if {w: getattr(A, w).launches for w in counted} != before:
+            raise AssertionError("%s (--use_flash_attention=false) launched "
+                                 "a kernel" % what)
+        return out
+
+    def bert(use_kernel, prefetch, ckpt=None, profile_dir=None):
+        return run_train(torch, model_dir, train_tsv,
+                         dev_tsv if ckpt else None, ckpt, use_kernel, seed,
+                         profile_dir=profile_dir,
+                         common=_mlm_argv(use_kernel, prefetch),
+                         logging_steps=steps)
+
+    log("BERT-base MLM directory made from seed %d in %.3f s"
+        % (seed, time.perf_counter() - t0))
+    ckpt_k = os.path.join(workdir, "mlm_ckpt_kernel")
+    ckpt_p = os.path.join(workdir, "mlm_ckpt_plain")
+    runs = {"kernel": main_path(
+        "BERT-base MLM training (8 steps + evaluation)",
+        lambda: bert(True, 2, ckpt_k),
+        {"short_attention_fwd": N_LAYERS * (steps + eval_batches),
+         "short_attention_bwd": N_LAYERS * steps})}
+    runs["plain"] = no_launch("BERT-base MLM training",
+                              lambda: bert(False, 2, ckpt_p))
+    # prefetch off and on in turns after the counted run: 0, 0, 2
+    for tag, prefetch in (("pf0#1", 0), ("pf0#2", 0), ("pf2#2", 2)):
+        runs[tag] = bert(True, prefetch)
+    for tag, run in runs.items():
+        _check_train_run(tag, run, steps)
+        describe_train(tag, run)
+    k1, p1 = runs["kernel"]["records"][0], runs["plain"]["records"][0]
+    log("BERT-base MLM step 1, kernel vs plain: loss %.6f vs %.6f, |d| %.3e "
+        "(bound %.1e)" % (k1["loss"], p1["loss"], abs(k1["loss"]
+                                                      - p1["loss"]),
+                          MLM_LOSS_ATOL))
+    if abs(k1["loss"] - p1["loss"]) > MLM_LOSS_ATOL:
+        raise AssertionError("kernel and plain MLM runs disagree at step 1")
+    trajectories = {tag: [(r["loss"], r["grad_norm"])
+                          for r in runs[tag]["records"]]
+                    for tag in ("kernel", "pf0#1", "pf0#2", "pf2#2")}
+    same = all(t == trajectories["kernel"] for t in trajectories.values())
+    log("prefetch 2 (two runs) vs 0 (two runs): (loss, grad norm) per step "
+        "identical in all four: %s" % same)
+    if not same:
+        raise AssertionError("the kernel runs at --num_host_prefetch=2 and "
+                             "=0 trained differently: %s" % trajectories)
+
+    results = {}
+    for tag, ckpt, use_kernel in (("kernel", ckpt_k, True),
+                                  ("plain", ckpt_p, False)):
+        results[tag] = dict(default_main_fn(initialize_easynlp(args_list=[
+            "--mode=evaluate", "--tables=" + dev_tsv,
+            "--checkpoint_dir=" + ckpt] + _mlm_argv(use_kernel, 2))))
+    final = [r for r in map(json.loads, open(os.path.join(
+        ckpt_k, "events.jsonl"))) if r["kind"] == "eval"][-1]
+    for metric in ("accuracy", "perplexity"):
+        if abs(final[metric] - results["kernel"][metric]) \
+                > 1e-9 * abs(final[metric]):
+            raise AssertionError("evaluate disagrees with the trainer's "
+                                 "final evaluation: %s vs %s"
+                                 % (results["kernel"], final))
+    k, p = results["kernel"], results["plain"]
+    d_acc = abs(k["accuracy"] - p["accuracy"])
+    d_ppl = abs(np.log(k["perplexity"] / p["perplexity"]))
+    log("BERT-base MLM evaluate (%d dev rows), kernel vs plain checkpoint: "
+        "accuracy %.6f vs %.6f (|d| %.3e, bound %.1e), perplexity %.4f vs "
+        "%.4f (|d log| %.3e, bound %.1e; reported negated)"
+        % (N_DEV_ROWS, k["accuracy"], p["accuracy"], d_acc,
+           MLM_ACCURACY_ATOL, -k["perplexity"], -p["perplexity"], d_ppl,
+           MLM_LOSS_ATOL))
+    if not (k["perplexity"] < 0 and np.isfinite(list(k.values())).all()) \
+            or d_acc > MLM_ACCURACY_ATOL or d_ppl > MLM_LOSS_ATOL:
+        raise AssertionError("MLM evaluation: %s vs %s" % (k, p))
+
+    # the device's share of the steps, prefetch on and off, under the
+    # profiler (steps 3-6 of a kernel run each)
+    shares, busy = {}, {}
+    for prefetch in (2, 0):
+        share, busy_ms, top = _profiled_share(
+            torch, lambda prof: bert(True, prefetch, profile_dir=prof),
+            os.path.join(workdir, "mlm_profile_%d" % prefetch),
+            (SHORT_FWD_MMA_NAME, SHORT_BWD_ONE_BLOCK_NAMES[0][1]))
+        shares[prefetch], busy[prefetch] = share, busy_ms
+        log("profile, BERT-base MLM kernel run, prefetch %d, steps 3-6: "
+            "device busy %.1f%% of the span of its kernels, %.3f ms busy "
+            "per step; device ms by kernel over the 4 steps: %s; attention "
+            "kernels, device ms per step: %s"
+            % (prefetch, 100 * share, busy_ms, "; ".join(
+                "%s %.3f" % (n[:60], t) for n, t in top[:8]),
+               attention_ms(top, 4)))
+    med = {tag: statistics.median(1e3 * r["seconds"]
+                                  for r in runs[tag]["records"])
+           for tag in runs}
+    log("BERT-base MLM step ms median per run: prefetch 2 %.3f (the "
+        "counted run, first) and %.3f, prefetch 0 %.3f and %.3f, plain "
+        "%.3f; device idle share of steps 3-6: %.1f%% (prefetch 2), %.1f%% "
+        "(prefetch 0); peak device memory %.3f GiB (kernel) / %.3f GiB "
+        "(plain)"
+        % (med["kernel"], med["pf2#2"], med["pf0#1"], med["pf0#2"],
+           med["plain"], 100 * (1 - shares[2]), 100 * (1 - shares[0]),
+           runs["kernel"]["peak_gib"], runs["plain"]["peak_gib"]))
+    # the profiler's own host cost stretches the profiled steps; the device
+    # time per step it records against the unprofiled runs' step time
+    for prefetch, tags in ((2, ("kernel", "pf2#2")), (0, ("pf0#1", "pf0#2"))):
+        step_ms = statistics.median(med[t] for t in tags)
+        log("BERT-base MLM prefetch %d: device idle %.1f%% of the unprofiled "
+            "step (1 - %.3f ms busy per profiled step / %.3f ms, the median "
+            "of its two runs' medians)" % (prefetch, 100 * (1 - busy[prefetch]
+                                                            / step_ms),
+                                          busy[prefetch], step_ms))
+
+    # RoBERTa-base at 8 x 512
+    t1 = time.perf_counter()
+    rdir = os.path.join(workdir, ROBERTA_MODEL_DIR)
+    make_roberta_model_dir(torch, rdir, seed)
+    tokenizer = RobertaTokenizer.from_pretrained(rdir)
+    r_tsv = os.path.join(workdir, "roberta_train.tsv")
+    make_roberta_tsv(r_tsv, tokenizer, seed, ROBERTA_BATCH * ROBERTA_STEPS)
+    with open(r_tsv, encoding="utf-8") as f:
+        lengths = tokenizer([line.rstrip("\n").split("\t")[1] for line in f],
+                            max_length=ROBERTA_SEQ_LEN)["attention_mask"].sum(1)
+    log("RoBERTa-base directory and %d-row TSV made from seed %d in %.3f s; "
+        "real tokens per row %d..%d" % (len(lengths), seed,
+                                        time.perf_counter() - t1,
+                                        lengths.min(), lengths.max()))
+
+    def roberta(use_kernel):
+        return run_train(torch, rdir, r_tsv, None, None, use_kernel, seed,
+                         common=_mlm_argv(use_kernel, 2, roberta=True),
+                         logging_steps=ROBERTA_STEPS)
+    rk = main_path("RoBERTa-base MLM training (%d steps of %d x %d)"
+                   % (ROBERTA_STEPS, ROBERTA_BATCH, ROBERTA_SEQ_LEN),
+                   lambda: roberta(True),
+                   dict.fromkeys(counted, N_LAYERS * ROBERTA_STEPS))
+    rp = no_launch("RoBERTa-base MLM training", lambda: roberta(False))
+    for tag, run in (("kernel", rk), ("plain", rp)):
+        _check_train_run("RoBERTa " + tag, run, ROBERTA_STEPS)
+        describe_train("R-" + tag, run, batch=ROBERTA_BATCH)
+    d = abs(rk["records"][0]["loss"] - rp["records"][0]["loss"])
+    log("RoBERTa-base MLM step 1, kernel vs plain: loss %.6f vs %.6f, |d| "
+        "%.3e (bound %.1e); step ms median %.3f vs %.3f; peak device memory "
+        "%.3f vs %.3f GiB"
+        % (rk["records"][0]["loss"], rp["records"][0]["loss"], d,
+           MLM_LOSS_ATOL, statistics.median(1e3 * r["seconds"]
+                                            for r in rk["records"]),
+           statistics.median(1e3 * r["seconds"] for r in rp["records"]),
+           rk["peak_gib"], rp["peak_gib"]))
+    if d > MLM_LOSS_ATOL:
+        raise AssertionError("kernel and plain RoBERTa MLM runs disagree at "
+                             "step 1: %.3e" % d)
+
+    # data_augmentation predict on the BERT kernel run's checkpoint
+    outs = {}
+    for use_kernel in (True, False):
+        tag = "kernel" if use_kernel else "plain"
+        outs[tag] = os.path.join(workdir, "augmented_%s.tsv" % tag)
+        argv = _mlm_argv(use_kernel, 2) + [
+            "--mode=predict", "--app_name=data_augmentation",
+            "--tables=" + dev_tsv, "--outputs=" + outs[tag],
+            "--checkpoint_dir=" + ckpt_k, "--output_schema=augmented",
+            "--append_cols=id"]
+        run = (lambda a=argv: _cli(torch, a))
+        if use_kernel:
+            _, seconds = main_path(
+                "data_augmentation predict (%d rows x %d copies)"
+                % (N_DEV_ROWS, AUG_COUNT), run,
+                {"short_attention_fwd": N_LAYERS * N_DEV_ROWS * AUG_COUNT
+                 // BATCH, "short_attention_bwd": 0})
+        else:
+            _, seconds = no_launch("data_augmentation predict", run)
+        log("data_augmentation %s: %d rows in %.3f s" % (tag, N_DEV_ROWS,
+                                                         seconds))
+    rows = {}
+    for tag, path in outs.items():
+        with open(path, encoding="utf-8") as f:
+            rows[tag] = [line.rstrip("\n").split("\t") for line in f]
+        if [r[-1] for r in rows[tag]] != [str(i) for i in range(N_DEV_ROWS)] \
+                or any(len(r) != AUG_COUNT + 1 or not all(r[:AUG_COUNT])
+                       for r in rows[tag]):
+            raise AssertionError("%s: want %d rows of %d texts and the id"
+                                 % (path, N_DEV_ROWS, AUG_COUNT))
+    with open(dev_tsv, encoding="utf-8") as f:
+        texts = [line.rstrip("\n").split("\t")[1] for line in f]
+    texts_k, decided, ids_k, ids_p, chosen = _augment_decided(
+        torch, ckpt_k, dev_tsv, texts)
+    if ["\t".join(r[:AUG_COUNT]) for r in rows["kernel"]] != texts_k:
+        raise AssertionError("the CLI's augmented texts are not the "
+                             "in-process predictor's (other masks?)")
+    flips = int((decided & (ids_k != ids_p)).sum())
+    whole = decided.sum(1) == chosen.sum(1)  # copies decided at every mask
+    copy_text = {tag: [t for r in rows[tag] for t in r[:AUG_COUNT]]
+                 for tag in rows}
+    differ = [c for c in np.nonzero(whole)[0]
+              if copy_text["kernel"][c] != copy_text["plain"][c]]
+    log("data_augmentation kernel vs plain: refilled ids agree at %d of %d "
+        "masked positions with a plain top-2 margin > %.1e (%d masked in "
+        "all); %d of %d copies decided at every mask, their texts %s; %d of "
+        "%d copies identical"
+        % (int(decided.sum()) - flips, int(decided.sum()), 2 * SLICE_ATOL,
+           int(chosen.sum()), int(whole.sum()), len(whole),
+           "identical" if not differ else "differ at %s" % differ,
+           sum(a == b for a, b in zip(copy_text["kernel"],
+                                      copy_text["plain"])), len(whole)))
+    if flips or differ:
+        raise AssertionError("data_augmentation kernel and plain runs "
+                             "disagree where the margin decides")
+    return launches
+
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -3711,6 +4207,9 @@ def main():
         t0 = time.perf_counter()
         phase_prediction_server(torch, workdir)
         seconds["10 PredictionServer"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mlm_launches = phase_mlm(torch, seed, workdir)
+        seconds["11 MLM pretraining"] = time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
 
@@ -3719,12 +4218,13 @@ def main():
         "ms plain" % (1e3 * ms_k, 1e3 * ms_p))
     log("card: %s" % card_line())
     entries = []
-    for name, (_, source, replaces) in KERNELS.items():
+    for name, (wrapper, source, replaces) in KERNELS.items():
         case = KERNEL_LINE_CASE[name]
         t = timings[(name, case, torch.bfloat16)]
         entries.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + mlm_launches.get(wrapper, 0),
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -6,9 +6,10 @@ serve_continuous=true continuous-batching GPT-2 generation), and the
 train, evaluate and predict branches for the BERT apps `text_classify`,
 `text_match` (cross-encoder; two-tower with user_defined_parameters
 two_tower or siamese), `sequence_labeling` and
-`machine_reading_comprehension`, predict for `vectorization`, and for
-`sequence_generation` train, evaluate and predict on BART and predict on
-GPT-2. The registries map each app to its variants, as the JAX package's
+`machine_reading_comprehension`, train and evaluate for
+`language_modeling` (MLM pretraining on BERT and RoBERTa), predict for
+`vectorization` and `data_augmentation`, and for `sequence_generation`
+train, evaluate and predict on BART and predict on GPT-2. The registries map each app to its variants, as the JAX package's
 do. Every other mode, app, backbone or app variant raises
 NotImplementedError naming its ROADMAP item. The datasets are the port's
 copies of the JAX package's, so both packages featurise and batch the same
@@ -61,6 +62,10 @@ DATASET_REGISTRY = _apps(
         "default": "machine_reading_comprehension.data:MRCDataset"},
     sequence_generation={"default": "sequence_generation.data:"
                                     "SequenceGenerationDataset"},
+    language_modeling={"default": "language_modeling.data:"
+                                  "LanguageModelingDataset"},
+    data_augmentation={"default": "language_modeling.data:"
+                                  "LanguageModelingDataset"},
 )
 MODEL_REGISTRY = _apps(
     text_classify={"default": "sequence_classification.model:"
@@ -76,6 +81,10 @@ MODEL_REGISTRY = _apps(
                    "MachineReadingComprehension"},
     sequence_generation={"default": "sequence_generation.model:"
                                     "SequenceGeneration"},
+    language_modeling={"default": "language_modeling.model:"
+                                  "LanguageModeling"},
+    data_augmentation={"default": "language_modeling.model:"
+                                  "LanguageModeling"},
 )
 EVALUATOR_REGISTRY = _apps(
     text_classify={"default": "sequence_classification.evaluator:"
@@ -89,6 +98,8 @@ EVALUATOR_REGISTRY = _apps(
         "default": "machine_reading_comprehension.evaluator:MRCEvaluator"},
     sequence_generation={"default": "sequence_generation.evaluator:"
                                     "SequenceGenerationEvaluator"},
+    language_modeling={"default": "language_modeling.evaluator:"
+                                  "LanguageModelingEvaluator"},
 )
 PREDICTOR_REGISTRY = _apps(
     text_classify={"default": "sequence_classification.predictor:"
@@ -104,6 +115,8 @@ PREDICTOR_REGISTRY = _apps(
         "default": "machine_reading_comprehension.predictor:MRCPredictor"},
     sequence_generation={"default": "sequence_generation.predictor:"
                                     "SequenceGenerationPredictor"},
+    data_augmentation={"default": "data_augmentation.predictor:"
+                                  "DataAugmentationPredictor"},
 )
 
 _NOT_PORTED_MODES = {

@@ -4,16 +4,19 @@ Counterpart of easynlp_tpu/core/trainer.py on one device:
 
 - the shuffled, drop-last DataLoader (the port's copy of the JAX package's:
   the same batches in the same order for the same seed), global batch = micro batch x
-  gradient_accumulation_steps;
+  gradient_accumulation_steps, fed through data/prefetch.py's
+  device_prefetch (--num_host_prefetch batches staged ahead in pinned
+  memory and copied on a side stream; 0 turns it off);
 - the optimizer from core/optimizers.get_optimizer with
   t_total = ceil(steps per epoch) x epochs, built with max_grad_norm=0: the
   step clips by the global norm itself, c / max(norm, c), before the update;
 - gradient accumulation: the micro-batches' gradients are summed and divided
   by their count, the loss metrics likewise;
-- the non-finite guard: a step whose loss or gradient norm is not finite
-  leaves parameters and optimizer state untouched and counts
-  `nonfinite_skip`. The guard reads the loss and the norm back to the host,
-  one synchronisation per step (the JAX step decides on the device);
+- the non-finite guard, decided on the device as the JAX step decides it:
+  a step whose loss or gradient norm is not finite leaves parameters and
+  optimizer state (its step count included, which the schedule and the
+  bias correction read) exactly as they were and counts `nonfinite_skip`;
+  nothing waits for the device in a step;
 - bf16 compute on f32 master weights: the modules cast f32 parameters to
   the compute dtype inside autograd, so gradients arrive in f32 and no
   autocast or loss scaler is needed;
@@ -21,22 +24,28 @@ Counterpart of easynlp_tpu/core/trainer.py on one device:
   with the best score kept, checkpoints as `pytorch_model.bin` (HF names)
   plus the JAX package's other artifacts, and resume with the mid-epoch skip.
 
-`step_records` keeps one record per step: step, loss, grad_norm, lr,
-nonfinite_skip and seconds (host clock from the batch's copy to the device
-to the guard's read-back, which waits for the device; the optimizer
-update's device time falls into the next step's).
+Losses, gradient norms and skips stay on the device until a logging step,
+which reads every step since the last one back in one copy. Then
+`step_records` gains one record per step: step, loss, grad_norm, lr,
+nonfinite_skip and seconds, the time from the end of the previous step
+(or, first, from just before the batch is fetched) to the end of this
+one's optimizer update, read on a card from CUDA events on the device's
+timeline: the device's work, and its idle time while the host fetched the
+batch or launched the step. On the CPU, which runs synchronously, from the
+host clock.
 """
 
+import contextlib
 import json
 import math
 import os
 import time
 
-import numpy as np
 import torch
 
 from easynlp_tpu_torch.core.optimizers import get_optimizer, global_norm
 from easynlp_tpu_torch.data.dataset import DataLoader
+from easynlp_tpu_torch.data.prefetch import device_prefetch
 from easynlp_tpu_torch.modelzoo.modeling_utils import (
     load_pytorch_state_dict,
     save_pytorch_state_dict,
@@ -59,10 +68,6 @@ def refuse_unported_options(args):
     if float(getattr(args, "ema_decay", 0.0) or 0.0) > 0.0:
         raise NotImplementedError("--ema_decay is not ported yet "
                                   "(ROADMAP A6b)")
-    if (getattr(args, "num_host_prefetch", None) or 0) > 0:
-        raise NotImplementedError("--num_host_prefetch (host-to-device "
-                                  "prefetch) is not ported yet (ROADMAP "
-                                  "A6c)")
     if getattr(args, "async_save", False):
         raise NotImplementedError("--async_save is not ported yet "
                                   "(ROADMAP A6b)")
@@ -71,6 +76,28 @@ def refuse_unported_options(args):
         raise NotImplementedError("multi-process and multi-device training "
                                   "(--num_processes, --mesh) is not ported "
                                   "yet (ROADMAP A23)")
+
+
+class StepClock:
+    """Marks for step times: CUDA events on a card (the time between two
+    covers the device's work and its idle gaps), the host clock on the
+    CPU."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def seconds(self, start, end):
+        """Seconds from `start` to `end` (both reached)."""
+        if self.cuda:
+            return start.elapsed_time(end) / 1e3
+        return end - start
 
 
 class Trainer:
@@ -104,6 +131,9 @@ class Trainer:
             b1=args.adam_beta1, b2=args.adam_beta2, eps=args.adam_epsilon)
         self.max_grad_norm = float(args.max_grad_norm or 0.0)
         self.params = self.optimizer.params
+        self.prefetch_depth = int(getattr(args, "num_host_prefetch", 2))
+        self.clock = StepClock(self.app.device)
+        self._pending = []  # steps not yet read back
 
         self.global_step = 0
         self.start_epoch = 0
@@ -124,12 +154,11 @@ class Trainer:
             args.micro_batch_size, self.accum, self.app.device)
 
     # ------------------------------------------------------------------ step
-    def _train_step(self, batch):
+    def _train_step(self, inputs):
+        """One optimizer step on a batch of device tensors. Returns (metric
+        names, a 1-D f32 device tensor of their values): loss, grad_norm,
+        nonfinite_skip and the loss function's other scalars."""
         micro = self.args.micro_batch_size
-        device = self.app.device
-        t0 = time.perf_counter()
-        inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-            device, non_blocking=True) for k, v in batch.items()}
         sums = {}
         for j in range(self.accum):
             mb = {k: v[j * micro:(j + 1) * micro] for k, v in inputs.items()}
@@ -145,26 +174,34 @@ class Trainer:
             torch._foreach_div_(grads, float(self.accum))
             sums = {k: v / self.accum for k, v in sums.items()}
         gnorm = global_norm(grads)
-        loss_value, gnorm_value = torch.stack(
-            [sums["loss"], gnorm]).cpu().tolist()
-        finite = math.isfinite(loss_value) and math.isfinite(gnorm_value)
-        if finite:
-            if self.max_grad_norm > 0:
-                torch._foreach_mul_(grads, self.max_grad_norm
-                                    / max(gnorm_value, self.max_grad_norm))
-            self.optimizer.step(grads)
-        else:
-            self.nonfinite_skips += 1
+        finite = torch.isfinite(sums["loss"]) & torch.isfinite(gnorm)
+        if self.max_grad_norm > 0:
+            torch._foreach_mul_(grads, self.max_grad_norm / torch.clamp(
+                gnorm, min=self.max_grad_norm))
+        self.optimizer.step(grads, apply=finite)
         for p in self.params:
             p.grad = None
-        metrics = {"loss": loss_value, "grad_norm": gnorm_value,
-                   "nonfinite_skip": 0.0 if finite else 1.0,
-                   "lr": self.schedule_fn(self.global_step)}
-        for k, v in sums.items():
-            if k != "loss":
-                metrics[k] = float(v)
-        self.step_records.append(dict(metrics, step=self.global_step + 1,
-                                      seconds=time.perf_counter() - t0))
+        extra = [k for k in sums if k != "loss"]
+        values = torch.stack([sums["loss"], gnorm, (~finite).float()]
+                             + [sums[k] for k in extra])
+        return ["loss", "grad_norm", "nonfinite_skip"] + extra, values
+
+    def _read_back(self):
+        """Every pending step's metrics to the host in one copy: their
+        step_records, the skip count, and the last step's metrics (with
+        its lr), or None when nothing is pending."""
+        if not self._pending:
+            return None
+        rows = torch.stack([p["values"] for p in self._pending]).cpu()
+        metrics = None
+        for pending, row in zip(self._pending, rows.tolist()):
+            metrics = dict(zip(pending["names"], row), lr=pending["lr"])
+            self.nonfinite_skips += int(metrics["nonfinite_skip"])
+            self.step_records.append(dict(
+                metrics, step=pending["step"],
+                seconds=self.clock.seconds(pending["start"],
+                                           pending["end"])))
+        self._pending = []
         return metrics
 
     # ----------------------------------------------------------------- train
@@ -173,6 +210,11 @@ class Trainer:
         total_epochs = int(math.ceil(args.epoch_num))
         last_log, last_log_step = time.time(), self.global_step
         self.app.module.train()
+
+        def strip_valid(batch):
+            batch.pop("_valid", None)
+            return batch
+
         for epoch in range(self.start_epoch, total_epochs):
             self.train_loader.set_epoch(epoch)
             batches = iter(self.train_loader)
@@ -183,26 +225,38 @@ class Trainer:
                             "epoch %d", self._resume_skip_batches, epoch)
                 batches = self.train_loader.iter_from(
                     self._resume_skip_batches)
-            for batch in batches:
-                if self.global_step >= self.t_total:
-                    break
-                self._profile_window()
-                batch.pop("_valid", None)
-                metrics = self._train_step(batch)
-                self.global_step += 1
-                if self.global_step % args.logging_steps == 0 \
-                        or self.global_step == self.t_total:
-                    now = time.time()
-                    sps = ((self.global_step - last_log_step)
-                           * args.micro_batch_size * self.accum
-                           / max(now - last_log, 1e-6))
-                    last_log, last_log_step = now, self.global_step
-                    self.stats.log_train(epoch, self.global_step,
-                                         self.t_total, metrics,
-                                         samples_per_sec=sps)
-                if args.save_checkpoint_steps \
-                        and self.global_step % args.save_checkpoint_steps == 0:
-                    self._eval_and_save()
+            with contextlib.closing(device_prefetch(
+                    batches, self.app.device, depth=self.prefetch_depth,
+                    transform=strip_valid)) as device_batches:
+                start = self.clock.mark()
+                for batch in device_batches:
+                    if self.global_step >= self.t_total:
+                        break
+                    self._profile_window()
+                    names, values = self._train_step(batch)
+                    end = self.clock.mark()
+                    self._pending.append(dict(
+                        step=self.global_step + 1, names=names,
+                        values=values, start=start, end=end,
+                        lr=self.schedule_fn(self.global_step)))
+                    start = end
+                    self.global_step += 1
+                    if self.global_step % args.logging_steps == 0 \
+                            or self.global_step == self.t_total:
+                        metrics = self._read_back()
+                        now = time.time()
+                        sps = ((self.global_step - last_log_step)
+                               * args.micro_batch_size * self.accum
+                               / max(now - last_log, 1e-6))
+                        last_log, last_log_step = now, self.global_step
+                        self.stats.log_train(epoch, self.global_step,
+                                             self.t_total, metrics,
+                                             samples_per_sec=sps)
+                    if args.save_checkpoint_steps and self.global_step \
+                            % args.save_checkpoint_steps == 0:
+                        self._eval_and_save()
+                        start = self.clock.mark()
+        self._read_back()
         self._stop_profiler()
         self.after_train()
 

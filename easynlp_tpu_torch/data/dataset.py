@@ -7,7 +7,8 @@ batch order.
   fixed-shape numpy arrays;
 - DataLoader: train mode shuffles per epoch with a seed, drop-last;
   eval/predict mode keeps the order and pads the final batch by repeating
-  row 0, flagged `_valid` = 0.
+  row 0, flagged `_valid` = 0. `set_epoch` passes the epoch on to a
+  dataset that has `set_epoch`.
 """
 
 import numpy as np
@@ -84,7 +85,11 @@ class DataLoader:
         return [self.dataset[int(i)] for i in idx]
 
     def set_epoch(self, epoch):
+        """The epoch for the shuffle, passed on to a dataset whose
+        featurisation depends on it (MLM's dynamic masking)."""
         self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def __len__(self):
         n = len(self.dataset)

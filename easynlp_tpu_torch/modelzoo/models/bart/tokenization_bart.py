@@ -1,10 +1,11 @@
 """BART's byte-level BPE tokenizer for the PyTorch port.
 
-The same vocab.json + merges.txt, byte table, pre-tokenisation and merges as
-the port's GPT2Tokenizer, with BART's own special tokens: <s> (BOS, CLS),
-</s> (EOS, SEP), <pad>, <unk> and <mask>. A sequence is encoded as
-`<s> A </s>`, a pair as `<s> A </s></s> B </s>`, every token type 0, as
-transformers' BartTokenizer does.
+RoBERTa's tokenizer (modelzoo/models/bert/tokenization_roberta.py): the
+same vocab.json + merges.txt, byte table, pre-tokenisation and merges as
+the port's GPT2Tokenizer, with the special tokens <s> (BOS, CLS), </s>
+(EOS, SEP), <pad>, <unk> and <mask>. A sequence is encoded as `<s> A </s>`,
+a pair as `<s> A </s></s> B </s>`, every token type 0, as transformers'
+BartTokenizer does.
 
 The JAX package gives BART checkpoints the GPT-2 tokenizer, whose special
 tokens are all <|endoftext|>; a real BART vocabulary has none of that
@@ -18,31 +19,15 @@ as text, not split out as transformers does.
 import json
 import os
 
-from easynlp_tpu_torch.modelzoo.models.gpt2.tokenization_gpt2 import (
-    GPT2Tokenizer,
+from easynlp_tpu_torch.modelzoo.models.bert.tokenization_roberta import (
+    RobertaTokenizer,
 )
 from easynlp_tpu_torch.utils.io_utils import io
 
 
-class BartTokenizer(GPT2Tokenizer):
-    def __init__(self, vocab_file, merges_file, errors="replace",
-                 bos_token="<s>", eos_token="</s>", sep_token="</s>",
-                 cls_token="<s>", unk_token="<unk>", pad_token="<pad>",
-                 mask_token="<mask>", **kwargs):
-        super().__init__(vocab_file, merges_file, errors=errors,
-                         unk_token=unk_token, bos_token=bos_token,
-                         eos_token=eos_token, pad_token=pad_token,
-                         cls_token=cls_token, sep_token=sep_token,
-                         mask_token=mask_token, **kwargs)
-
-    def build_inputs_with_special_tokens(self, ids_a, ids_b=None):
-        out = [self.cls_token_id] + list(ids_a) + [self.sep_token_id]
-        if ids_b is None:
-            return out
-        return out + [self.sep_token_id] + list(ids_b) + [self.sep_token_id]
-
-    def create_token_type_ids_from_sequences(self, ids_a, ids_b=None):
-        return [0] * len(self.build_inputs_with_special_tokens(ids_a, ids_b))
+class BartTokenizer(RobertaTokenizer):
+    """RoBERTa's tokenizer (as transformers' BartTokenizer is), and the test
+    that routes a BART checkpoint to it."""
 
     @staticmethod
     def fits(model_dir, eos_token_id):

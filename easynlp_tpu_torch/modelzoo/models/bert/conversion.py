@@ -6,6 +6,12 @@ easynlp_tpu/modelzoo/models/bert/conversion.py::_norm_keys: a leading
 `bert.` prefix stripped, TF-style `gamma`/`beta` LayerNorm names renamed).
 `state_dict_from_jax` goes the other way from the JAX package's own layout
 (scanned layers, fused QKV, [in,out] kernels) into the port's state dict.
+
+Masked-LM checkpoints (BertForMaskedLM) keep the HF names of their model
+type: `bert.*` with `cls.predictions.{transform.dense,
+transform.LayerNorm, bias}`, or `roberta.*` with `lm_head.{dense,
+layer_norm, bias}`; the decoder is tied to the word embeddings, so its
+`*.decoder.*` keys are neither read nor written.
 """
 
 import numpy as np
@@ -140,4 +146,82 @@ def state_dict_from_jax(params, config):
         put_ln(base + "output.LayerNorm", layers["output_ln"], i)
     if "pooler" in params:
         put_dense("pooler.dense", params["pooler"]["dense"])
+    return state
+
+
+# HF names of the MLM head by model type: (backbone prefix, {HF prefix: the
+# port's BertMLMHead prefix})
+MLM_NAMES = {
+    "bert": ("bert.", {"cls.predictions.transform.dense.": "dense.",
+                       "cls.predictions.transform.LayerNorm.": "LayerNorm.",
+                       "cls.predictions.bias": "bias"}),
+    "roberta": ("roberta.", {"lm_head.dense.": "dense.",
+                             "lm_head.layer_norm.": "LayerNorm.",
+                             "lm_head.bias": "bias"}),
+}
+_TIED_DECODER = ("cls.predictions.decoder.", "lm_head.decoder.")
+
+
+def _mlm_names(config):
+    return MLM_NAMES["roberta" if config.model_type == "roberta" else "bert"]
+
+
+def load_mlm_state_dict(module, state_dict):
+    """An HF/reference masked-LM checkpoint into a BertForMaskedLM, by the
+    names of its config's model type: the backbone strictly (with or
+    without its prefix, gamma/beta renamed, pooler dropped), the head
+    strictly when the checkpoint has it (a bare backbone leaves the head at
+    its init). Keys that nothing takes are logged."""
+    from easynlp_tpu_torch.utils.logger import logger
+    prefix, head_names = _mlm_names(module.config)
+    state = {}
+    for k, v in state_dict.items():
+        k = k[len(prefix):] if k.startswith(prefix) else k
+        state[k.replace(".gamma", ".weight").replace(".beta", ".bias")] = v
+    backbone, other = split_backbone(state, pooler=False)
+    module.bert.load_state_dict(backbone, strict=True)
+    head, used = {}, set()
+    for k, v in other.items():
+        for hf, ours in head_names.items():
+            if k.startswith(hf):
+                head[ours + k[len(hf):]] = v
+                used.add(k)
+    if head:
+        module.cls.load_state_dict(head, strict=True)
+    else:
+        logger.info("MLM head initialised from scratch (not in checkpoint)")
+    unused = sorted(k for k in set(other) - used
+                    if not k.startswith(_TIED_DECODER))
+    if unused:
+        logger.info("checkpoint params unused by model: %s",
+                    unused[:12] + (["..."] if len(unused) > 12 else []))
+
+
+def export_mlm_state_dict(module):
+    """A BertForMaskedLM's weights under the HF names of its model type."""
+    prefix, head_names = _mlm_names(module.config)
+    out = {prefix + k: v for k, v in module.bert.state_dict().items()}
+    back = {ours: hf for hf, ours in head_names.items()}
+    for k, v in module.cls.state_dict().items():
+        ours = next(o for o in back if k.startswith(o))
+        out[back[ours] + k[len(ours):]] = v
+    return out
+
+
+def mlm_state_dict_from_jax(params, config):
+    """A BertForMaskedLM state dict from the JAX BertForMaskedLM's param
+    tree (numpy leaves): the inverse of the JAX package's
+    convert_bert_for_masked_lm ('bert' through state_dict_from_jax, 'cls'
+    with its [in, out] transform kernel transposed)."""
+    state = {"bert." + k: v
+             for k, v in state_dict_from_jax(params["bert"], config).items()}
+    head = params["cls"]
+
+    def put(key, arr):
+        state["cls." + key] = torch.tensor(np.asarray(arr, dtype=np.float32))
+    put("dense.weight", np.asarray(head["transform"]["kernel"]).T)
+    put("dense.bias", head["transform"]["bias"])
+    put("LayerNorm.weight", head["transform_ln"]["scale"])
+    put("LayerNorm.bias", head["transform_ln"]["bias"])
+    put("bias", head["bias"])
     return state

@@ -2,13 +2,16 @@
 
 Counterpart of easynlp_tpu/modelzoo/models/bert/modeling_bert.py (post-LN
 BertEmbeddings, BertAttention, BertLayer, BertEncoder, BertPooler,
-BertModel), with the same numerics:
+BertModel, BertMLMHead, BertForMaskedLM), with the same numerics:
 
 - parameters are f32; the dense layers compute in `dtype` (bf16 by default)
   and LayerNorm in f32, casting back to `dtype`;
 - attention goes through ops/attention.py, which launches the hand-written
   CUDA kernel on a card;
-- erf-gelu, LayerNorm eps from the config, truncated-normal init.
+- erf-gelu, LayerNorm eps from the config, truncated-normal init;
+- RoBERTa's position ids where the config asks for them
+  (`position_ids_from_padding_idx`, RobertaConfig): the non-pad tokens
+  count from pad + 1, pad positions stay at pad.
 
 Unlike the JAX module it keeps one module per layer (an nn.ModuleList, not a
 scan) and separate query/key/value projections, so parameter names are the
@@ -68,10 +71,24 @@ class BertEmbeddings(nn.Module):
         emb = self.word_embeddings(input_ids) \
             + self.position_embeddings(position_ids)
         if self.token_type_embeddings is not None:
-            emb = emb + self.token_type_embeddings(token_type_ids)
+            emb = emb + self.token_types(token_type_ids)
         # f32 LayerNorm: the sum is bf16 when serving casts the tables
         emb = self.LayerNorm(emb.float())
         return self.dropout(emb).to(self.dtype)
+
+
+    def token_types(self, token_type_ids):
+        """The token-type rows of the ids, selected type by type with
+        torch.where: exact, and its gradient is a sum over each type's
+        positions in a fixed order. (nn.Embedding's CUDA backward sums a row
+        that thousands of positions share, as type 0 is, in an order that
+        changes from run to run, so two runs of one training step would
+        not give the same bits.)"""
+        table = self.token_type_embeddings.weight
+        out = table[0].expand(*token_type_ids.shape, table.shape[1])
+        for t in range(1, table.shape[0]):
+            out = torch.where((token_type_ids == t)[..., None], table[t], out)
+        return out
 
 
 class BertSelfAttention(nn.Module):
@@ -218,7 +235,13 @@ class BertModel(nn.Module):
             token_type_ids = torch.zeros((b, s), dtype=torch.int32,
                                          device=device)
         if position_ids is None:
-            position_ids = torch.arange(s, device=device)[None, :].expand(b, s)
+            if getattr(self.config, "position_ids_from_padding_idx", False):
+                pad = self.config.pad_token_id
+                not_pad = (input_ids != pad).to(torch.int64)
+                position_ids = torch.cumsum(not_pad, dim=1) * not_pad + pad
+            else:
+                position_ids = torch.arange(s, device=device)[None, :] \
+                    .expand(b, s)
         # int32 once here, so no layer converts the mask again
         kv_mask = attention_mask.to(torch.int32).contiguous()
         hidden = self.embeddings(input_ids, token_type_ids, position_ids)
@@ -227,3 +250,60 @@ class BertModel(nn.Module):
         if self.pooler is not None:
             out["pooler_output"] = self.pooler(hidden)
         return out
+
+
+class BertMLMHead(nn.Module):
+    """The MLM head: dense -> activation -> f32 LayerNorm, then the decoder
+    tied to the word embeddings (a plain matmul with their [V, E] table in
+    `dtype`) plus a vocab bias, both in `dtype`, as the JAX head computes
+    them."""
+
+    def __init__(self, config, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.act = ACT2FN[config.hidden_act]
+        self.dense = nn.Linear(config.hidden_size, config.hidden_size,
+                               device=device)
+        self.LayerNorm = nn.LayerNorm(config.hidden_size,
+                                      eps=config.layer_norm_eps,
+                                      device=device)
+        self.bias = nn.Parameter(torch.zeros(config.vocab_size,
+                                             device=device))
+
+    def forward(self, hidden, word_embeddings):
+        dt = self.dtype
+        h = layer_norm(self.LayerNorm, self.act(dense(self.dense, hidden,
+                                                      dt)), dt)
+        return torch.matmul(h, word_embeddings.to(dt).t()) + self.bias.to(dt)
+
+
+class BertForMaskedLM(nn.Module):
+    """BertModel without a pooler and the tied MLM head. Returns {'logits':
+    [B,S,V], 'last_hidden_state': [B,S,E]}, both in `dtype`."""
+
+    def __init__(self, config, dtype=torch.float32, device=None):
+        super().__init__()
+        self.config = config
+        self.bert = BertModel(config, dtype=dtype, add_pooling_layer=False,
+                              device=device)
+        self.cls = BertMLMHead(config, dtype=dtype, device=device)
+
+    @torch.no_grad()
+    def init_weights(self, generator):
+        """The backbone's init, then the head's: truncated-normal dense,
+        unit LayerNorm, zero biases."""
+        self.bert.init_weights(generator)
+        truncated_normal_(self.cls.dense.weight,
+                          self.config.initializer_range, generator)
+        self.cls.dense.bias.zero_()
+        self.cls.LayerNorm.weight.fill_(1.0)
+        self.cls.LayerNorm.bias.zero_()
+        self.cls.bias.zero_()
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                position_ids=None):
+        out = self.bert(input_ids, attention_mask, token_type_ids,
+                        position_ids)
+        logits = self.cls(out["last_hidden_state"],
+                          self.bert.embeddings.word_embeddings.weight)
+        return {"logits": logits, **out}

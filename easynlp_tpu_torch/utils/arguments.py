@@ -115,10 +115,10 @@ def _add_easynlp_args(parser: argparse.ArgumentParser) -> None:
                        help="The hand-written attention kernels: auto/true "
                             "where they apply, false for the plain PyTorch "
                             "attention everywhere")
-    group.add_argument("--num_host_prefetch", default=None, type=int,
-                       help="The JAX Trainer's device prefetch depth (not "
-                            "ported: a value above 0 raises). Unset means "
-                            "not given")
+    group.add_argument("--num_host_prefetch", default=2, type=int,
+                       help="Training batches staged ahead in pinned host "
+                            "memory and copied to the device on a side "
+                            "stream; 0 turns prefetching off")
     group.add_argument("--data_workers", default=0, type=int,
                        help="Threads for per-item featurisation inside the "
                             "DataLoader")

@@ -440,18 +440,27 @@ def test_unported_training_options_raise(tiny, flag):
 
 
 def test_host_prefetch_depth_is_refused(tiny):
-    """ROADMAP C13: the port has no host-to-device prefetcher yet (A6c), so
-    --num_host_prefetch given above 0 raises instead of being ignored; a run
-    that does not give it trains (test_training_trajectory_matches_jax), and
-    0 asks for nothing the port lacks."""
-    with pytest.raises(NotImplementedError, match="A6c"):
-        _run_port(train_argv(tiny, os.path.join(tiny, "prefetch"),
-                             "--micro_batch_size=16",
-                             "--num_host_prefetch=2"))
-    trainer = _run_port(train_argv(tiny, os.path.join(tiny, "prefetch0"),
-                                   "--micro_batch_size=16",
-                                   "--num_host_prefetch=0"))
-    assert trainer.global_step == 4
+    """ROADMAP C13, resolved by A6c: the port used to refuse
+    --num_host_prefetch above 0, having no prefetcher. Now the flag
+    defaults to 2, as the JAX package's does, and sets the depth of the
+    host-to-device prefetch; 0 turns it off. The same run at depth 2 (the
+    default) and depth 0 sees the same batches in the same order: the same
+    losses and final parameters, bit for bit."""
+    runs = {}
+    for depth in ("default", "0"):
+        ckpt = os.path.join(tiny, "prefetch_" + depth)
+        extra = [] if depth == "default" else ["--num_host_prefetch=0"]
+        trainer = _run_port(train_argv(tiny, ckpt, "--micro_batch_size=16",
+                                       *extra))
+        assert trainer.global_step == 4
+        assert trainer.prefetch_depth == (2 if depth == "default" else 0)
+        runs[depth] = (trainer, torch.load(
+            os.path.join(ckpt, "pytorch_model.bin"), weights_only=True))
+    (on, on_state), (off, off_state) = runs["default"], runs["0"]
+    assert [r["loss"] for r in on.step_records] == \
+        [r["loss"] for r in off.step_records]
+    for k in on_state:
+        assert torch.equal(on_state[k], off_state[k]), k
 
 
 def test_train_cli_imports_no_jax_or_sklearn(tiny):
