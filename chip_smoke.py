@@ -27,13 +27,20 @@ of 32 x 128 with whole-word masking and `--mode=evaluate`, at
 --num_host_prefetch 2 and 0 (the same losses, bit for bit), and
 RoBERTa-base (HF `roberta-base` widths and depth, a synthetic 50265-token
 byte-level BPE vocab) for 4 steps of 8 x 512; and `--mode=predict
---app_name=data_augmentation` on the BERT checkpoint. Each path runs with
+--app_name=data_augmentation` on the BERT checkpoint. Then, on the BERT-base
+backbone, multi-label text_classify (8 labels), information_extraction
+(CLUENER2020's 10 entity types, 0.75 of an epoch, so the Trainer stops
+with prefetched batches staged) and geep_classify (predict at exit
+thresholds 0.9, 0.55 and 0.5, the early-exit forward held to the
+all-layers one bit for bit) train, evaluate and predict at 32 x 128, and
+Lion and Adafactor take 4 steps each on one repeated batch, with one
+guarded step of each optimizer timed. Each path runs with
 the kernels and with --use_flash_attention=false, and the two are compared
 (`/predict` against --mode=predict). Every phase raises on
 failure, so any failure exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it lists the kernels with their launches
-in the BART training run and phase 11's runs, errors, times (kernel, plain
-twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
+in the BART training run and phase 11's and 12's runs, errors, times
+(kernel, plain twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
 the JAX package.
 """
 
@@ -442,9 +449,15 @@ def phase_kernel(torch, seed):
     mlm_rng = np.random.RandomState(seed + 3)
     mlm_cases = [("mlm-512", 8, 512, 512, 12, 64,
                   np.r_[512, mlm_rng.randint(256, 513, size=7)], False)]
+    # information_extraction's 32 x 128, rows of 22-62 real tokens (20-60
+    # characters with [CLS] and [SEP]): B1 skips the key tiles the padding
+    # hides; B2's one-block route. From a stream of its own.
+    ie_rng = np.random.RandomState(seed + 4)
+    ie_cases = [("ie-128", 32, 128, 128, 12, 64,
+                 np.r_[62, 22, ie_rng.randint(22, 63, size=30)], False)]
     worst = {}
     for case_rng, group in ((rng, cases), (skip_rng, skip_cases),
-                            (mlm_rng, mlm_cases)):
+                            (mlm_rng, mlm_cases), (ie_rng, ie_cases)):
         for name, b, sq, skv, h, d, lens, causal in group:
             q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
             for dtype in (torch.float32, torch.bfloat16):
@@ -456,7 +469,8 @@ def phase_kernel(torch, seed):
 
     timings = {}
     for case_rng, (name, b, sq, skv, h, d, lens, causal) in (
-            [(rng, c) for c in cases[:5]] + [(mlm_rng, c) for c in mlm_cases]):
+            [(rng, c) for c in cases[:5]] + [(mlm_rng, c) for c in mlm_cases]
+            + [(ie_rng, c) for c in ie_cases]):
         q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
         for dtype in (torch.bfloat16, torch.float32):
             tq, tk, tv = (t.to(dtype) for t in (q, k, v))
@@ -4129,6 +4143,620 @@ def phase_mlm(torch, seed, workdir):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 12: multi-label text_classify, information_extraction,
+# geep_classify, Lion and Adafactor
+# --------------------------------------------------------------------------
+
+ML_LABELS = ("sports", "finance", "tech", "games", "health", "travel",
+             "autos", "education")
+# CLUENER2020's 10 entity types
+IE_TYPES = ("address", "book", "company", "game", "government", "movie",
+            "name", "organization", "position", "scene")
+# IE trains 0.75 of an epoch of 8 steps: t_total 6, so the Trainer breaks
+# in mid-epoch with prefetched batches staged (ROADMAP C17's path)
+IE_EPOCHS = 0.75
+# the default, one that some rows reach early, and 0.5, which every row
+# reaches at the first layer (two labels: the top probability is >= 0.5)
+GEEP_THRESHOLDS = (0.9, 0.55, 0.5)
+OPTIMIZER_STEPS = 4
+# The 4-step optimizer runs train on one repeated batch with dropout off,
+# so each step's loss is a function of the weights alone: with dropout on,
+# the loss moved by ~0.03 from step to step on an H100 whatever the
+# optimizer (Lion at 3e-6 and Adafactor at 3e-4 gave one pattern). Lion's
+# sign update moves each of BERT-base's 1e8 weights by lr, and the loss
+# swung at 1e-4 (0.69 -> 1.44 -> 1.43 -> 0.78, dropout on) and at 1e-5
+# (0.69 -> 0.83 -> 0.68 -> 0.81, dropout off): 1e-6. Adafactor moves each
+# weight by about lr x its tensor's rms (~0.02 for the matrices, ~1 for
+# the LayerNorm scales): 1e-4.
+OPTIMIZER_LR = {"Lion": 1e-6, "Adafactor": 1e-4}
+# information_extraction's learning rate: the global-pointer loss weighs
+# the ~9000 negative spans of a row against its 0-3 positive ones, and at
+# 5e-5 six steps drove every span score below 0 on an H100 (predict wrote
+# no span to parse); at 2e-6 the random pointer's scores stay on both sides
+# of 0
+IE_LR = 2e-6
+APPS12 = {
+    "multi_label": dict(
+        argv=["--app_name=text_classify",
+              "--input_schema=id:str:1,sentence:str:1,labels:str:1",
+              "--first_sequence=sentence", "--label_name=labels",
+              "--user_defined_parameters=multi_label=true"],
+        outputs="predictions,probabilities,logits"),
+    "information_extraction": dict(
+        argv=["--app_name=information_extraction",
+              "--input_schema=id:str:1,content:str:1,entities:str:1",
+              "--first_sequence=content", "--label_name=entities"],
+        outputs="predictions"),
+    "geep_classify": dict(
+        argv=["--app_name=geep_classify",
+              "--input_schema=id:str:1,sentence:str:1,label:str:1",
+              "--first_sequence=sentence", "--label_name=label"],
+        outputs="predictions,probabilities,logits"),
+}
+# Kernel against plain, both bf16 end to end on the same weights and
+# batches, differing only in attention's rounding (SLICE_ATOL's argument:
+# logits within 5e-2).
+# - Multi-label: the step-1 loss is the mean over 32 x 8 logits of a
+#   binary cross-entropy whose slope in its logit lies in (-1, 1), so it
+#   moves by at most the largest logit change: bound SLICE_ATOL. A label
+#   is decided where the plain logit lies farther from 0 than SLICE_ATOL.
+# - GEEP: the step-1 loss is a weighted mean (weights summing to 1) of
+#   cross-entropies, each moving by at most twice the largest logit change:
+#   bound 2 x SLICE_ATOL.
+# - IE: a span score q_i . k_j / 8 is a product of two projections of the
+#   f32 last hidden state, each moved by attention's rounding by about what
+#   moves the heads' logits (phase 8's sequence-labeling logits, ~0.5 in
+#   size, moved 1.6e-2 on an H100: ~3%); with 0.02-std weights over 768
+#   inputs each of the 64 lanes of q and k has std ~0.55, a score std
+#   ~0.3, and the largest of the 2.6e6 live spans of a dev batch ~1.5, so
+#   a score moves by up to ~2 x 3% x 1.5 = 0.09. Bound 0.25 on the scores;
+#   the loss, a mean of two logsumexps each moving by at most the largest
+#   score change, within 2 x 0.25. A span is decided where the plain score
+#   lies farther from 0 than the bound.
+# - The optimizers: the four steps' losses as phase 4's 8 AdamW steps
+#   (TRAIN_LOSS_ATOL).
+ML_LOSS_ATOL = SLICE_ATOL
+GEEP_LOSS_ATOL = 2 * SLICE_ATOL
+IE_SCORE_ATOL = 0.25
+IE_LOSS_ATOL = 2 * IE_SCORE_ATOL
+
+
+def make_phase12_tsvs(workdir, cjk, seed):
+    """{kind: (train tsv, dev tsv)}: CJK sentences of 8-90 characters with
+    1-3 of ML_LABELS; CJK texts of 20-60 characters (rows of 22-62 tokens)
+    with 0-3 spans of IE_TYPES as `start,end,type;...`; and a 32-row
+    table (phase 4's first rows) for the optimizer runs."""
+    rng = random.Random(seed)
+    common = cjk[:3000]
+    out = {}
+    for kind in ("multi_label", "information_extraction"):
+        paths = []
+        for split, n in (("train", N_ROWS), ("dev", N_DEV_ROWS)):
+            path = os.path.join(workdir, "%s_%s.tsv" % (kind[:11], split))
+            with open(path, "w", encoding="utf-8") as f:
+                for i in range(n):
+                    if kind == "multi_label":
+                        text = _cjk_text(rng, common, 8, 90)
+                        tag = " ".join(rng.sample(ML_LABELS,
+                                                  rng.randint(1, 3)))
+                    else:
+                        text = _cjk_text(rng, common, 20, 60)
+                        spans = []
+                        for _ in range(rng.randint(0, 3)):
+                            start = rng.randrange(len(text))
+                            end = min(len(text) - 1,
+                                      start + rng.randint(1, 6))
+                            spans.append("%d,%d,%s" % (
+                                start, end, rng.choice(IE_TYPES)))
+                        tag = ";".join(spans)
+                    f.write("%d\t%s\t%s\n" % (i, text, tag))
+            paths.append(path)
+        out[kind] = tuple(paths)
+    out["geep_classify"] = (os.path.join(workdir, "train.tsv"),  # phase 4's
+                            os.path.join(workdir, "dev.tsv"))
+    out["optimizer"] = os.path.join(workdir, "optimizer_batch.tsv")
+    with open(out["geep_classify"][0], encoding="utf-8") as f, \
+            open(out["optimizer"], "w", encoding="utf-8") as g:
+        g.writelines(f.readlines()[:BATCH])
+    return out
+
+
+def _argv12(name, use_kernel, threshold=None):
+    argv = list(APPS12[name]["argv"])
+    if threshold is not None:
+        argv.append("--user_defined_parameters=exit_threshold=%s"
+                    % threshold)
+    return argv + ["--device=cuda", "--dtype=bfloat16",
+                   "--sequence_length=%d" % SEQ_LEN,
+                   "--micro_batch_size=%d" % BATCH,
+                   "--use_flash_attention=%s" % ("auto" if use_kernel
+                                                 else "false")]
+
+
+def _model_inputs(torch, app, predictor, tsv, schema):
+    """The predictor's preprocessed model inputs of every row of tsv, as
+    device batches of BATCH rows."""
+    import numpy as np
+    from easynlp_tpu_torch.utils import parse_row_by_schema
+    with open(tsv, encoding="utf-8") as f:
+        rows = [parse_row_by_schema(line, schema) for line in f
+                if line.strip()]
+    inputs = predictor.preprocess({k: [r[k] for r in rows] for k in rows[0]})
+    return [{k: torch.from_numpy(np.asarray(inputs[k][s:s + BATCH],
+                                            np.int32)).to(app.device)
+             for k in app.model_input_keys if k in inputs}
+            for s in range(0, len(rows), BATCH)], rows
+
+
+def _forward12(torch, name, ckpt, tsv, keys, udp=None, **forward_kw):
+    """{True: kernel outputs, False: plain outputs} of the app's forward
+    (its `keys`, concatenated over BATCH-row batches) over tsv's rows, bf16
+    on the card."""
+    import numpy as np
+    from types import SimpleNamespace
+    from easynlp_tpu_torch.appzoo import api
+    from easynlp_tpu_torch.ops import attention as A
+    argv = dict(a.split("=", 1) for a in _argv12(name, True))
+    udp = dict(dict(kv.split("=", 1) for kv in argv.get(
+        "--user_defined_parameters", "").split() if kv), **(udp or {}))
+    with open(os.path.join(ckpt, "label_mapping.json")) as f:
+        n_labels = max(len(json.load(f)), 2)
+    app = api._resolve(api.MODEL_REGISTRY, argv["--app_name"], udp) \
+        .from_pretrained(ckpt, args=SimpleNamespace(
+            user_defined_parameters_dict=udp), dtype=torch.bfloat16,
+            device="cuda", num_labels=n_labels)
+    predictor = api._resolve(api.PREDICTOR_REGISTRY, argv["--app_name"],
+                             udp)(model_dir=ckpt, app=app,
+                                  first_sequence=argv["--first_sequence"],
+                                  sequence_length=SEQ_LEN, batch_size=BATCH)
+    batches, _ = _model_inputs(torch, app, predictor, tsv,
+                               argv["--input_schema"])
+    outs = {}
+    try:
+        with torch.inference_mode():
+            for use_kernel in (True, False):
+                A.set_kernel_override(None if use_kernel else False)
+                parts = [app.module(**b, **forward_kw) for b in batches]
+                outs[use_kernel] = {k: np.concatenate(
+                    [p[k].float().cpu().numpy() for p in parts])
+                    for k in keys}
+    finally:
+        A.set_kernel_override(None)
+    return outs
+
+
+def _geep_speed(torch, ckpt, tsv, threshold):
+    """At `threshold`, on the card with the kernels: (rows/s of the
+    early-exit forward, rows/s of the all-layers forward (each the median
+    of 3 timed passes over tsv's rows, synchronised), the exit layers,
+    short-forward launches per early-exit pass). Raises unless the two
+    forwards give the same logits, probabilities, labels and exits bit for
+    bit."""
+    import numpy as np
+    from types import SimpleNamespace
+    from easynlp_tpu_torch.appzoo.geep_classification.model import (
+        GEEPClassification)
+    from easynlp_tpu_torch.appzoo.sequence_classification.predictor import (
+        SequenceClassificationPredictor)
+    from easynlp_tpu_torch.ops import attention as A
+    udp = {"exit_threshold": str(threshold)}
+    app = GEEPClassification.from_pretrained(
+        ckpt, args=SimpleNamespace(user_defined_parameters_dict=udp),
+        dtype=torch.bfloat16, device="cuda", num_labels=2)
+    predictor = SequenceClassificationPredictor(
+        ckpt, app, first_sequence="sentence", sequence_length=SEQ_LEN,
+        batch_size=BATCH)
+    batches, rows = _model_inputs(torch, app, predictor, tsv,
+                                  "id:str:1,sentence:str:1,label:str:1")
+    keys = ("logits", "probabilities", "predictions", "exit_layer")
+    outs, rates, launched = {}, {}, 0
+    with torch.inference_mode():
+        for all_layers in (False, True):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                before = A.short_attention_fwd.launches
+                t0 = time.perf_counter()
+                parts = [app.module(**b, all_layers=all_layers)
+                         for b in batches]
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if not all_layers:
+                    launched = A.short_attention_fwd.launches - before
+            rates[all_layers] = len(rows) / statistics.median(times)
+            outs[all_layers] = {k: torch.cat([p[k] for p in parts])
+                                for k in keys}
+    for k in keys:
+        if not torch.equal(outs[False][k], outs[True][k]):
+            raise AssertionError("GEEP at threshold %s: the early-exit "
+                                 "forward's %s differs from the all-layers "
+                                 "forward's" % (threshold, k))
+    exits = outs[False]["exit_layer"].cpu().numpy()
+    want = sum(int(exits[s:s + BATCH].max()) + 1
+               for s in range(0, len(exits), BATCH))
+    if launched != want:
+        raise AssertionError("GEEP early exit launched %d short forwards, "
+                             "want %d (the layers each batch computed)"
+                             % (launched, want))
+    return rates[False], rates[True], exits, launched
+
+
+def _optimizer_ms(torch, model_dir):
+    """{optimizer: (device ms per step from the profiler, timed ms per step
+    with CUDA events)} of one guarded step (apply=True, as the Trainer
+    takes it) over the BERT-base text_classify module's f32 parameters,
+    gradients drawn once."""
+    from easynlp_tpu_torch.appzoo.sequence_classification.model import (
+        SequenceClassification)
+    from easynlp_tpu_torch.core.optimizers import get_optimizer
+    app = SequenceClassification.from_pretrained(
+        model_dir, dtype=torch.bfloat16, device="cuda", num_labels=2)
+    g = torch.Generator(device=app.device).manual_seed(0)
+    grads = [1e-3 * torch.randn(p.shape, generator=g, device=app.device)
+             for p in app.module.parameters()]
+    flag = torch.tensor(True, device=app.device)
+    out = {}
+    for kind in ("AdamW", "Lion", "Adafactor"):
+        opt, _, _ = get_optimizer(app.module.named_parameters(),
+                                  optimizer_type=kind, learning_rate=1e-6,
+                                  steps_per_epoch=1000, epoch_num=1,
+                                  max_grad_norm=0.0)
+
+        def step():
+            opt.step(grads, apply=flag)
+        timed = _time_ms(torch, step, iters=20, warmup=3)
+        device = sum(_device_ms(torch, step, calls=5).values())
+        out[kind] = (device, timed)
+        del opt
+    del app
+    return out
+
+
+def phase_encoder_apps2(torch, seed, workdir, cjk):
+    """Phase 12. Returns the launches of each counted wrapper in the main
+    path's runs (each app's kernel training run with its evaluation, and
+    its kernel predict runs; the optimizers' kernel runs), each counted
+    from 0."""
+    import numpy as np
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 12: multi-label text_classify, information_extraction, "
+        "geep_classify, Lion and Adafactor (BERT-base)")
+    t0 = time.perf_counter()
+    model_dir = os.path.join(workdir, ENCODER_MODEL_DIR)
+    if not os.path.isdir(model_dir):
+        model_dir = make_encoder_model_dir(torch, workdir)
+    tsvs = make_phase12_tsvs(workdir, cjk, seed + 13)
+    log("phase 12 TSVs made in %.3f s" % (time.perf_counter() - t0))
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+    launches = dict.fromkeys(wrappers, 0)
+
+    def counted(what, fn, want):
+        """fn() with the counts set to 0 just before and read just after
+        (the main path); raises unless they are `want`."""
+        for w in wrappers:
+            getattr(A, w).launches = 0
+        out = fn()
+        used = {w: getattr(A, w).launches for w in wrappers}
+        log("%s launches: %s" % (what, used))
+        if used != dict(dict.fromkeys(wrappers, 0), **want):
+            raise AssertionError("%s launched %s, want %s"
+                                 % (what, used, want))
+        for w in wrappers:
+            launches[w] += used[w]
+        return out
+
+    def no_launch(what, fn):
+        before = {w: getattr(A, w).launches for w in wrappers}
+        out = fn()
+        if {w: getattr(A, w).launches for w in wrappers} != before:
+            raise AssertionError("%s (--use_flash_attention=false) launched "
+                                 "a kernel" % what)
+        return out
+
+    def train(name, use_kernel, ckpt, steps, extra=()):
+        train_tsv, dev_tsv = tsvs[name]
+        common = _argv12(name, use_kernel) + ["--logging_steps=1"] \
+            + list(extra)
+        run = run_train(torch, model_dir, train_tsv, dev_tsv, ckpt,
+                        use_kernel, seed, common=common)
+        _check_train_run("%s %s" % (name, "kernel" if use_kernel
+                                    else "plain"), run, steps)
+        describe_train("%s-%s" % (name[:5], "k" if use_kernel else "p"),
+                       run)
+        return run
+
+    steps, eval_batches = N_ROWS // BATCH, -(-N_DEV_ROWS // BATCH)
+    fwd_bwd = {"short_attention_fwd": N_LAYERS * (steps + eval_batches),
+               "short_attention_bwd": N_LAYERS * steps}
+    per_app_s = {}
+
+    # 1. multi-label text_classify
+    t_app = time.perf_counter()
+    ckpt = os.path.join(workdir, "ckpt_multi_label")
+    runs = {True: counted("multi-label training (8 steps + evaluation)",
+                          lambda: train("multi_label", True, ckpt, steps),
+                          fwd_bwd),
+            False: no_launch("multi-label training",
+                             lambda: train("multi_label", False, None,
+                                           steps))}
+    d = abs(runs[True]["records"][0]["loss"] - runs[False]["records"][0][
+        "loss"])
+    log("multi-label step 1, kernel vs plain: loss %.6f vs %.6f, |d| %.3e "
+        "(bound %.1e)" % (runs[True]["records"][0]["loss"],
+                          runs[False]["records"][0]["loss"], d,
+                          ML_LOSS_ATOL))
+    if d > ML_LOSS_ATOL:
+        raise AssertionError("multi-label kernel and plain runs disagree at "
+                             "step 1: %.3e" % d)
+    results, secs = _cli(torch, ["--mode=evaluate", "--tables=" + tsvs[
+        "multi_label"][1], "--checkpoint_dir=" + ckpt]
+        + _argv12("multi_label", True))
+    log("multi-label evaluate: %s in %.3f s" % (", ".join(
+        "%s %.6f" % kv for kv in results), secs))
+    if [m for m, _ in results] != ["f1_micro", "f1_macro", "precision_micro",
+                                   "recall_micro"] or not all(
+            0 <= x <= 1 for _, x in results):
+        raise AssertionError("multi-label evaluate: %s" % results)
+    preds = {}
+    for use_kernel in (True, False):
+        out = os.path.join(workdir, "pred_multi_label_%d.tsv" % use_kernel)
+        run = (lambda o=out, k=use_kernel: _cli(torch, [
+            "--mode=predict", "--tables=" + tsvs["multi_label"][1],
+            "--outputs=" + o, "--checkpoint_dir=" + ckpt,
+            "--output_schema=" + APPS12["multi_label"]["outputs"]]
+            + _argv12("multi_label", k)))
+        if use_kernel:
+            counted("multi-label predict", run,
+                    {"short_attention_fwd": N_LAYERS * eval_batches})
+        else:
+            no_launch("multi-label predict", run)
+        with open(out, encoding="utf-8") as f:
+            preds[use_kernel] = [line.rstrip("\n").split("\t") for line in f]
+    logits = {k: np.array([[float(x) for x in r[2].split()]
+                           for r in preds[k]]) for k in preds}
+    gap = float(np.abs(logits[True] - logits[False]).max())
+    decided = np.abs(logits[False]) > ML_LOSS_ATOL    # per (row, label)
+    flips = int(((logits[True] > 0) != (logits[False] > 0))[decided].sum())
+    rows = np.nonzero(decided.all(1))[0]
+    row_flips = sum(preds[True][i][0] != preds[False][i][0] for i in rows)
+    names = {n for r in preds[True] for n in r[0].split()}
+    log("multi-label predict, kernel vs plain: max |d logit| %.3e (bound "
+        "%.1e); label decisions agree at all %d (row, label) pairs whose "
+        "plain logit lies farther from 0 than the bound (%d flips), "
+        "predictions at all %d rows decided at every label (%d differ); %d "
+        "of %d rows identical; labels per row %s; seconds %.3f"
+        % (gap, SLICE_ATOL, int(decided.sum()) - flips, flips, len(rows),
+           row_flips, sum(a[0] == b[0] for a, b in zip(preds[True],
+                                                      preds[False])),
+           len(preds[True]), sorted({len(r[0].split())
+                                     for r in preds[True]}),
+           time.perf_counter() - t_app))
+    if gap > SLICE_ATOL or flips or row_flips or not names <= set(ML_LABELS):
+        raise AssertionError("multi-label predict: gap %.3e, %d flips, "
+                             "labels %s" % (gap, flips, names))
+    per_app_s["multi_label"] = time.perf_counter() - t_app
+
+    # 2. information_extraction, 0.75 epochs
+    t_app = time.perf_counter()
+    ckpt = os.path.join(workdir, "ckpt_ie")
+    ie_steps = int(np.ceil(steps * IE_EPOCHS))
+    extra = ["--epoch_num=%g" % IE_EPOCHS, "--learning_rate=%g" % IE_LR]
+    runs = {True: counted(
+        "information_extraction training (%d steps, the break in mid-epoch, "
+        "+ evaluation)" % ie_steps,
+        lambda: train("information_extraction", True, ckpt, ie_steps,
+                      extra),
+        {"short_attention_fwd": N_LAYERS * (ie_steps + eval_batches),
+         "short_attention_bwd": N_LAYERS * ie_steps}),
+        False: no_launch("information_extraction training",
+                         lambda: train("information_extraction", False, None,
+                                       ie_steps, extra))}
+    final = [r for r in map(json.loads, open(os.path.join(
+        ckpt, "events.jsonl"))) if r["kind"] == "eval"]
+    d = abs(runs[True]["records"][0]["loss"] - runs[False]["records"][0][
+        "loss"])
+    log("information_extraction: %d of %d steps, then the evaluation after "
+        "the break: %s; step 1 kernel vs plain loss %.6f vs %.6f, |d| %.3e "
+        "(bound %.1e); span scores per batch %d x %d x %d x %d f32 = %.1f "
+        "MB; peak device memory %.3f GiB (kernel) / %.3f GiB (plain)"
+        % (ie_steps, steps, final[-1] if final else None,
+           runs[True]["records"][0]["loss"],
+           runs[False]["records"][0]["loss"], d, IE_LOSS_ATOL, BATCH,
+           len(IE_TYPES), SEQ_LEN, SEQ_LEN,
+           BATCH * len(IE_TYPES) * SEQ_LEN * SEQ_LEN * 4 / 1e6,
+           runs[True]["peak_gib"], runs[False]["peak_gib"]))
+    if not final or d > IE_LOSS_ATOL:
+        raise AssertionError("information_extraction: evaluation %s, loss "
+                             "gap %.3e" % (final, d))
+    ie_dev = tsvs["information_extraction"][1]
+    results, secs = _cli(torch, ["--mode=evaluate", "--tables=" + ie_dev,
+                                 "--checkpoint_dir=" + ckpt]
+                         + _argv12("information_extraction", True))
+    log("information_extraction evaluate: %s in %.3f s"
+        % (", ".join("%s %.6f" % kv for kv in results), secs))
+    if [m for m, _ in results] != ["f1", "precision", "recall"]:
+        raise AssertionError("information_extraction evaluate: %s" % results)
+    out = os.path.join(workdir, "pred_ie.tsv")
+    manager, secs = counted("information_extraction predict", lambda: _cli(
+        torch, ["--mode=predict", "--tables=" + ie_dev, "--outputs=" + out,
+                "--checkpoint_dir=" + ckpt, "--output_schema=predictions",
+                "--append_cols=content"]
+        + _argv12("information_extraction", True)),
+        {"short_attention_fwd": N_LAYERS * eval_batches})
+    n_spans = 0
+    with open(out, encoding="utf-8") as f:
+        for line in f:
+            pred, text = line.rstrip("\n").split("\t")
+            for span in filter(None, pred.split(";")):
+                start, end, etype, chars = span.split(",", 3)
+                if etype not in IE_TYPES or \
+                        text[int(start):int(end) + 1] != chars:
+                    raise AssertionError("span %r does not parse against "
+                                         "%r" % (span, text))
+                n_spans += 1
+    got = _forward12(torch, "information_extraction", ckpt, ie_dev,
+                        ("span_scores",))
+    k, p = got[True]["span_scores"], got[False]["span_scores"]
+    live = p > -1e29
+    gap = float(np.abs(k[live] - p[live]).max())
+    decided = live & (np.abs(p) > IE_SCORE_ATOL)
+    flips = int(((k > 0) != (p > 0))[decided].sum())
+    log("information_extraction predict: %d rows, %d spans parsed, %.4f s "
+        "(%.2f rows/s); kernel vs plain span scores: max |d| %.3e over %d "
+        "live spans (bound %.2f), the same masked spans %s, signs agree at "
+        "all %d decided spans (%d flips); seconds %.3f"
+        % (manager.n_rows, n_spans, manager.seconds,
+           manager.n_rows / manager.seconds, gap, int(live.sum()),
+           IE_SCORE_ATOL, bool(((k > -1e29) == live).all()),
+           int(decided.sum()) - flips, flips, time.perf_counter() - t_app))
+    if gap > IE_SCORE_ATOL or flips or not ((k > -1e29) == live).all() \
+            or not n_spans:
+        raise AssertionError("information_extraction kernel vs plain: gap "
+                             "%.3e, %d flips" % (gap, flips))
+    per_app_s["information_extraction"] = time.perf_counter() - t_app
+
+    # 3. geep_classify
+    t_app = time.perf_counter()
+    ckpt = os.path.join(workdir, "ckpt_geep")
+    # the main path; its evaluation exits early, so its forwards number
+    # at most N_LAYERS a batch
+    runs = {}
+    for w in wrappers:
+        getattr(A, w).launches = 0
+    runs[True] = train("geep_classify", True, ckpt, steps)
+    used = {w: getattr(A, w).launches for w in wrappers}
+    eval_fwd = used["short_attention_fwd"] - N_LAYERS * steps
+    log("geep_classify training (8 steps + evaluation) launches: %s (the "
+        "evaluation's early-exit forwards %d of at most %d)"
+        % (used, eval_fwd, N_LAYERS * eval_batches))
+    if used["short_attention_bwd"] != N_LAYERS * steps or not \
+            0 < eval_fwd <= N_LAYERS * eval_batches or \
+            used["flash_attention_fwd"] or used["flash_attention_bwd"]:
+        raise AssertionError("geep_classify training launched %s" % used)
+    for w in wrappers:
+        launches[w] += used[w]
+    runs[False] = no_launch("geep_classify training",
+                            lambda: train("geep_classify", False, None,
+                                          steps))
+    d = abs(runs[True]["records"][0]["loss"] - runs[False]["records"][0][
+        "loss"])
+    log("geep_classify step 1, kernel vs plain: loss %.6f vs %.6f, |d| %.3e "
+        "(bound %.1e)" % (runs[True]["records"][0]["loss"],
+                          runs[False]["records"][0]["loss"], d,
+                          GEEP_LOSS_ATOL))
+    if d > GEEP_LOSS_ATOL:
+        raise AssertionError("geep_classify kernel and plain runs disagree "
+                             "at step 1: %.3e" % d)
+    geep_train, geep_dev = tsvs["geep_classify"]
+    results, secs = _cli(torch, ["--mode=evaluate", "--tables=" + geep_dev,
+                                 "--checkpoint_dir=" + ckpt]
+                         + _argv12("geep_classify", True))
+    log("geep_classify evaluate: %s in %.3f s"
+        % (", ".join("%s %.6f" % kv for kv in results), secs))
+    if [m for m, _ in results][:2] != ["accuracy", "f1"]:
+        raise AssertionError("geep_classify evaluate: %s" % results)
+    for threshold in GEEP_THRESHOLDS:
+        out = os.path.join(workdir, "pred_geep_%s.tsv" % threshold)
+        manager, _ = _cli(torch, [
+            "--mode=predict", "--tables=" + geep_dev, "--outputs=" + out,
+            "--checkpoint_dir=" + ckpt,
+            "--output_schema=predictions,probabilities,logits",
+            "--append_cols=id"] + _argv12("geep_classify", True, threshold))
+        labels, _, _ = check_output(out, N_DEV_ROWS)
+        early, full, exits, launched = _geep_speed(torch, ckpt, geep_train,
+                                                   threshold)
+        hist = np.bincount(exits, minlength=N_LAYERS)
+        got = _forward12(torch, "geep_classify", ckpt, geep_dev,
+                            ("logits", "exit_layer"),
+                            udp={"exit_threshold": str(threshold)},
+                            all_layers=True)
+        k, p = got[True], got[False]
+        same_exit = k["exit_layer"] == p["exit_layer"]
+        margin = np.abs(p["logits"][:, 0] - p["logits"][:, 1])
+        decided = same_exit & (margin > 2 * SLICE_ATOL)
+        flips = int((k["logits"].argmax(1) != p["logits"].argmax(1))[
+            decided].sum())
+        log("geep_classify at exit_threshold %s: predict %d rows (%s); "
+            "early exit %.2f rows/s against %.2f rows/s through all %d "
+            "layers (%.2fx; %d rows, 3 passes, the same exits and labels "
+            "bit for bit; %d short forwards launched a pass); exit layers "
+            "(0-based) histogram %s; kernel vs plain: exits agree on %d of "
+            "%d dev rows, labels on all %d of those decided (%d flips)"
+            % (threshold, manager.n_rows, {x: labels.count(x)
+                                           for x in sorted(set(labels))},
+               early, full, N_LAYERS, early / full, len(exits), launched,
+               hist.tolist(), int(same_exit.sum()), len(same_exit),
+               int(decided.sum()) - flips, flips))
+        if flips:
+            raise AssertionError("geep_classify kernel and plain labels "
+                                 "differ where decided")
+    if hist[0] != len(exits):
+        raise AssertionError("at threshold %s every row exits at the first "
+                             "layer; the exits were %s"
+                             % (GEEP_THRESHOLDS[-1], hist.tolist()))
+    per_app_s["geep_classify"] = time.perf_counter() - t_app
+
+    # 4. Lion and Adafactor: 4 steps on one repeated batch, dropout off
+    t_app = time.perf_counter()
+    still_dir = os.path.join(workdir, ENCODER_MODEL_DIR + "-no-dropout")
+    os.makedirs(still_dir, exist_ok=True)
+    for name in ("vocab.txt", "pytorch_model.bin"):
+        if not os.path.exists(os.path.join(still_dir, name)):
+            os.symlink(os.path.join(model_dir, name),
+                       os.path.join(still_dir, name))
+    with open(os.path.join(model_dir, "config.json")) as f:
+        config = json.load(f)
+    config.update(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    with open(os.path.join(still_dir, "config.json"), "w") as f:
+        json.dump(config, f)
+    for kind in ("Lion", "Adafactor"):
+        extra = ["--optimizer_type=" + kind, "--epoch_num=%d"
+                 % OPTIMIZER_STEPS, "--lr_scheduler=constant",
+                 "--learning_rate=%g" % OPTIMIZER_LR[kind]]
+        opt_runs = {}
+        for use_kernel in (True, False):
+            fn = (lambda k=use_kernel: run_train(
+                torch, still_dir, tsvs["optimizer"], None, None, k, seed,
+                common=_common_argv(k) + extra))
+            if use_kernel:
+                opt_runs[True] = counted(
+                    "%s text_classify (%d steps)" % (kind, OPTIMIZER_STEPS),
+                    fn, {"short_attention_fwd": N_LAYERS * OPTIMIZER_STEPS,
+                         "short_attention_bwd": N_LAYERS * OPTIMIZER_STEPS})
+            else:
+                opt_runs[False] = no_launch(kind, fn)
+            _check_train_run("%s %s" % (kind, use_kernel),
+                             opt_runs[use_kernel], OPTIMIZER_STEPS)
+        losses = {k: [r["loss"] for r in v["records"]]
+                  for k, v in opt_runs.items()}
+        d = max(abs(a - b) for a, b in zip(losses[True], losses[False]))
+        log("%s, 4 steps on one repeated batch of 32 x 128 (dropout off) at "
+            "lr %g: losses "
+            "%s (kernel), %s (plain), max |d| %.3e (bound %.1e); step ms "
+            "median %.3f (kernel) / %.3f (plain)"
+            % (kind, OPTIMIZER_LR[kind], " ".join("%.4f" % x
+                                                  for x in losses[True]),
+               " ".join("%.4f" % x for x in losses[False]), d,
+               TRAIN_LOSS_ATOL,
+               statistics.median(1e3 * r["seconds"]
+                                 for r in opt_runs[True]["records"]),
+               statistics.median(1e3 * r["seconds"]
+                                 for r in opt_runs[False]["records"])))
+        if d > TRAIN_LOSS_ATOL or not (losses[True][-1] < losses[True][0]
+                                       and losses[False][-1]
+                                       < losses[False][0]):
+            raise AssertionError("%s: losses %s" % (kind, losses))
+    for kind, (device, timed) in _optimizer_ms(torch, model_dir).items():
+        log("optimizer %s, one guarded step over BERT-base text_classify's "
+            "parameters: device %.3f ms (profiler), %.3f ms timed (CUDA "
+            "events, host launches included)" % (kind, device, timed))
+    per_app_s["optimizers"] = time.perf_counter() - t_app
+    log("phase 12 seconds by part: %s" % ", ".join(
+        "%s %.1f" % kv for kv in per_app_s.items()))
+    return launches
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -4210,6 +4838,9 @@ def main():
         t0 = time.perf_counter()
         mlm_launches = phase_mlm(torch, seed, workdir)
         seconds["11 MLM pretraining"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        apps2_launches = phase_encoder_apps2(torch, seed, workdir, cjk)
+        seconds["12 encoder apps 2, optimizers"] = time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
 
@@ -4224,7 +4855,8 @@ def main():
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[name] + mlm_launches.get(wrapper, 0),
+            "launches": launches[name] + mlm_launches.get(wrapper, 0)
+            + apps2_launches.get(wrapper, 0),
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -3,17 +3,18 @@
 Counterpart of easynlp_tpu/appzoo/api.py, reduced to what is ported: the
 serve branch (both routes: the pipeline() PredictionServer, and with
 serve_continuous=true continuous-batching GPT-2 generation), and the
-train, evaluate and predict branches for the BERT apps `text_classify`,
-`text_match` (cross-encoder; two-tower with user_defined_parameters
-two_tower or siamese), `sequence_labeling` and
-`machine_reading_comprehension`, train and evaluate for
-`language_modeling` (MLM pretraining on BERT and RoBERTa), predict for
-`vectorization` and `data_augmentation`, and for `sequence_generation`
-train, evaluate and predict on BART and predict on GPT-2. The registries map each app to its variants, as the JAX package's
-do. Every other mode, app, backbone or app variant raises
-NotImplementedError naming its ROADMAP item. The datasets are the port's
-copies of the JAX package's, so both packages featurise and batch the same
-rows the same way.
+train, evaluate and predict branches for the BERT apps `text_classify`
+(and its multi_label variant), `text_match` (cross-encoder; two-tower with
+user_defined_parameters two_tower or siamese), `sequence_labeling`,
+`machine_reading_comprehension`, `information_extraction` and
+`geep_classify`, train and evaluate for `language_modeling` (MLM
+pretraining on BERT and RoBERTa), predict for `vectorization` and
+`data_augmentation`, and for `sequence_generation` train, evaluate and
+predict on BART and predict on GPT-2. The registries map each app to its
+variants, as the JAX package's do. Every other mode, app, backbone or app
+variant raises NotImplementedError naming its ROADMAP item. The datasets
+are the port's copies of the JAX package's, so both packages featurise and
+batch the same rows the same way.
 """
 
 import json
@@ -66,10 +67,16 @@ DATASET_REGISTRY = _apps(
                                   "LanguageModelingDataset"},
     data_augmentation={"default": "language_modeling.data:"
                                   "LanguageModelingDataset"},
+    information_extraction={"default": "information_extraction.data:"
+                                       "InformationExtractionDataset"},
+    geep_classify={"default": "sequence_classification.data:"
+                              "ClassificationDataset"},
 )
 MODEL_REGISTRY = _apps(
     text_classify={"default": "sequence_classification.model:"
-                              "SequenceClassification"},
+                              "SequenceClassification",
+                   "multi_label": "sequence_classification.model:"
+                                  "SequenceMultiLabelClassification"},
     text_match=_with_two_tower("text_match.model:TextMatch",
                                "text_match.model:TextMatchTwoTower"),
     sequence_labeling={"default": "sequence_labeling.model:"
@@ -85,6 +92,10 @@ MODEL_REGISTRY = _apps(
                                   "LanguageModeling"},
     data_augmentation={"default": "language_modeling.model:"
                                   "LanguageModeling"},
+    information_extraction={"default": "information_extraction.model:"
+                                       "InformationExtractionModel"},
+    geep_classify={"default": "geep_classification.model:"
+                              "GEEPClassification"},
 )
 EVALUATOR_REGISTRY = _apps(
     text_classify={"default": "sequence_classification.evaluator:"
@@ -100,6 +111,10 @@ EVALUATOR_REGISTRY = _apps(
                                     "SequenceGenerationEvaluator"},
     language_modeling={"default": "language_modeling.evaluator:"
                                   "LanguageModelingEvaluator"},
+    information_extraction={"default": "information_extraction.evaluator:"
+                                       "InformationExtractionEvaluator"},
+    geep_classify={"default": "sequence_classification.evaluator:"
+                              "SequenceClassificationEvaluator"},
 )
 PREDICTOR_REGISTRY = _apps(
     text_classify={"default": "sequence_classification.predictor:"
@@ -117,6 +132,10 @@ PREDICTOR_REGISTRY = _apps(
                                     "SequenceGenerationPredictor"},
     data_augmentation={"default": "data_augmentation.predictor:"
                                   "DataAugmentationPredictor"},
+    information_extraction={"default": "information_extraction.predictor:"
+                                       "InformationExtractionPredictor"},
+    geep_classify={"default": "sequence_classification.predictor:"
+                              "SequenceClassificationPredictor"},
 )
 
 _NOT_PORTED_MODES = {
@@ -135,7 +154,7 @@ _NOT_PORTED_VARIANTS = {
     "enable_fewshot": "ROADMAP A12", "enable_lora": "ROADMAP A12",
     "enable_kangaroo": "ROADMAP A13", "enable_dkplm": "ROADMAP A13",
     "contrast_learning_flag": "ROADMAP A13", "enable_glm": "ROADMAP A19",
-    "multi_label": "ROADMAP A5", "enable_vit": "ROADMAP A21",
+    "enable_vit": "ROADMAP A21",
     "enable_vqgan": "ROADMAP A21", "enable_controlnet": "ROADMAP A22",
 }
 
@@ -223,7 +242,12 @@ def _dataset_kwargs(args, tokenizer):
                 first_sequence=args.first_sequence,
                 second_sequence=args.second_sequence,
                 label_name=args.label_name,
-                label_enumerate_values=args.label_enumerate_values)
+                label_enumerate_values=args.label_enumerate_values,
+                multi_label=_multi_label(args))
+
+
+def _multi_label(args):
+    return bool(args.user_defined_parameters_dict.get("multi_label"))
 
 
 def _train_main(args, udp):
@@ -248,7 +272,7 @@ def _train_main(args, udp):
     evaluator = None
     if len(tables) > 1 and tables[1]:
         evaluator = evaluator_cls(dataset_cls(data_file=tables[1], **kwargs),
-                                  args=args)
+                                  args=args, multi_label=_multi_label(args))
     app = model_cls.from_pretrained(
         args.pretrained_model_name_or_path, args=args, dtype=_dtype(args),
         device=args.device,
@@ -272,7 +296,8 @@ def _evaluate_main(args, udp):
         args.checkpoint_dir, args=args, dtype=_dtype(args),
         device=args.device,
         num_labels=max(len(valid_dataset.label_enumerate_values), 2))
-    results = evaluator_cls(valid_dataset, args=args).evaluate(app)
+    results = evaluator_cls(valid_dataset, args=args,
+                            multi_label=_multi_label(args)).evaluate(app)
     for metric, score in results:
         logger.info("eval %s: %.6f", metric, score)
     return results
@@ -299,7 +324,7 @@ def _predict_main(args, udp):
         sequence_length=args.sequence_length,
         batch_size=args.micro_batch_size,
         user_defined_parameters=udp,
-        multi_label=bool(udp.get("multi_label")))
+        multi_label=_multi_label(args))
     manager = PredictorManager(
         predictor=predictor,
         input_file=(args.tables or "").split(",")[0],

@@ -3,14 +3,20 @@
 Counterpart of easynlp_tpu/appzoo/application.py. An Application holds an
 `nn.Module` (which owns its parameters), the config and the torch.device the
 module lives on. `from_pretrained` reads `config.json` and
-`pytorch_model.bin` from a model directory; the Trainer computes
+`pytorch_model.bin` from a model directory, or, where only the JAX
+package's `flax_params.msgpack` is there, that file through the app's
+`state_dict_from_jax` (the JAX app's parameter tree, `nn.scan`'s stacked
+layers included, mapped onto the module); the Trainer computes
 `loss_fn(forward outputs, batch)` and writes `export_state_dict()` back as
 `pytorch_model.bin`.
 """
 
+import os
+
 import torch
 
 from easynlp_tpu_torch.modelzoo.modeling_utils import (
+    PARAMS_NAME,
     available_checkpoint,
     load_pytorch_state_dict,
 )
@@ -26,6 +32,9 @@ class Application:
         onto the module
       - loss_fn(outputs, batch) -> {'loss': f32 scalar, ...} (training)
       - export_state_dict() -> the weights under reference/HF names
+      - state_dict_from_jax(params, config) -> the module's state dict from
+        the JAX app's parameter tree (numpy leaves), where the app reads
+        JAX checkpoints
       - model_input_keys: batch keys forwarded to the module."""
 
     model_input_keys = ("input_ids", "attention_mask", "token_type_ids")
@@ -48,6 +57,12 @@ class Application:
 
     def export_state_dict(self):
         raise NotImplementedError
+
+    @classmethod
+    def state_dict_from_jax(cls, params, config):
+        raise NotImplementedError(
+            "%s does not read the JAX package's flax_params.msgpack yet "
+            "(ROADMAP A6)" % cls.__name__)
 
     @classmethod
     def load_config(cls, model_dir, **kwargs):
@@ -76,11 +91,11 @@ class Application:
         if flavour == "pytorch":
             cls.load_state_dict(module, load_pytorch_state_dict(model_dir))
         elif flavour == "flax":
-            raise NotImplementedError(
-                "%s holds only a JAX flax_params.msgpack checkpoint; the "
-                "port reads pytorch_model.bin. Export it with the JAX "
-                "package's `--mode=export` (pytorch) first (ROADMAP A6)."
-                % model_dir)
+            from easynlp_tpu_torch.utils.flax_checkpoint import (
+                load_flax_params)
+            params = load_flax_params(os.path.join(model_dir, PARAMS_NAME))
+            module.load_state_dict(cls.state_dict_from_jax(params, config),
+                                   strict=True)
         else:
             logger.warning("no weights found in %s; random init", model_dir)
         return cls(module.eval(), config, device, label_mapping=label_mapping)

@@ -18,6 +18,7 @@ from easynlp_tpu_torch.modelzoo.models.bert import BertForMaskedLM
 from easynlp_tpu_torch.modelzoo.models.bert.conversion import (
     export_mlm_state_dict,
     load_mlm_state_dict,
+    mlm_state_dict_from_jax,
 )
 from easynlp_tpu_torch.utils import losses
 
@@ -46,3 +47,7 @@ class LanguageModeling(Application):
     @classmethod
     def load_state_dict(cls, module, state_dict):
         load_mlm_state_dict(module, state_dict)
+
+    @classmethod
+    def state_dict_from_jax(cls, params, config):
+        return mlm_state_dict_from_jax(params, config)

@@ -79,6 +79,10 @@ class MachineReadingComprehension(Application):
     def load_state_dict(cls, module, state_dict):
         load_app_state_dict(module, state_dict, ("qa_outputs",))
 
+    @classmethod
+    def state_dict_from_jax(cls, params, config):
+        return state_dict_from_jax(params, config)
+
 
 def state_dict_from_jax(params, config):
     """MRCModule's state dict from the JAX app's params."""

@@ -4,7 +4,8 @@ Counterpart of easynlp_tpu/appzoo/sequence_classification/evaluator.py, with
 the same metrics, names and order (primary metric first): accuracy, F1
 (binary for two classes, else macro over the labels present), AUC and MCC
 for two classes, and the opt-in precision/recall, classification report and
-pearson/spearman. The JAX package computes them with scikit-learn; here they
+pearson/spearman; multi-label, F1 (micro and macro), precision and recall
+(micro) of the labels whose logit is above 0. The JAX package computes them with scikit-learn; here they
 are numpy (and scipy for ranks and correlations), written to give
 scikit-learn's values: ties in AUC count one half, F1/precision/recall are 0
 where undefined (zero_division=0).
@@ -22,9 +23,7 @@ class SequenceClassificationEvaluator(Evaluator):
     def __init__(self, valid_dataset, multi_label=False, eval_metrics=None,
                  **kwargs):
         super().__init__(valid_dataset, **kwargs)
-        if multi_label:
-            raise NotImplementedError(
-                "the multi-label evaluator is not ported yet (ROADMAP A5)")
+        self.multi_label = multi_label
         args = kwargs.get("args") or self.args
         raw = eval_metrics or getattr(args, "user_defined_parameters_dict",
                                       {}).get("eval_metrics")
@@ -43,7 +42,28 @@ class SequenceClassificationEvaluator(Evaluator):
         labels = np.concatenate(labels_all)
         logger.info("eval: %d samples in %.2fs (%.2f ms/sample)", len(labels),
                     seconds, 1000.0 * seconds / max(len(labels), 1))
+        if self.multi_label:
+            return multi_label_metrics(logits, labels)
         return single_label_metrics(logits, labels, self.eval_metrics)
+
+
+def multi_label_metrics(logits, labels):
+    """[(metric, score), ...] from [N, C] logits and [N, C] multi-hot
+    labels, predicting each label whose logit is above 0, as
+    scikit-learn's multilabel scores with zero_division=0: f1_micro,
+    f1_macro (over all C labels, a label never true nor predicted scoring
+    0), precision_micro, recall_micro."""
+    preds = logits > 0
+    gold = labels > 0
+    tp = (preds & gold).sum(0).astype(np.float64)
+    fp = (preds & ~gold).sum(0).astype(np.float64)
+    fn = (~preds & gold).sum(0).astype(np.float64)
+    micro = [tp.sum(), fp.sum(), fn.sum()]
+    return [("f1_micro", float(_ratio(2 * micro[0],
+                                      2 * micro[0] + micro[1] + micro[2]))),
+            ("f1_macro", float(np.mean(_ratio(2 * tp, 2 * tp + fp + fn)))),
+            ("precision_micro", float(_ratio(micro[0], micro[0] + micro[1]))),
+            ("recall_micro", float(_ratio(micro[0], micro[0] + micro[2])))]
 
 
 def single_label_metrics(logits, labels, requested=None):

@@ -21,8 +21,14 @@ from easynlp_tpu_torch.modelzoo.models.auto import model_type_of
 from easynlp_tpu_torch.modelzoo.models.bart.conversion import (
     normalize_keys as bart_keys,
 )
+from easynlp_tpu_torch.modelzoo.models.bart.conversion import (
+    state_dict_from_jax as bart_from_jax,
+)
 from easynlp_tpu_torch.modelzoo.models.gpt2.conversion import (
     normalize_keys as gpt2_keys,
+)
+from easynlp_tpu_torch.modelzoo.models.gpt2.conversion import (
+    state_dict_from_jax as gpt2_from_jax,
 )
 from easynlp_tpu_torch.modelzoo.models.gpt2.generation import (
     make_gpt2_generation_fns,
@@ -76,6 +82,13 @@ class SequenceGeneration(Application):
         else:
             module.transformer.load_state_dict(gpt2_keys(state_dict),
                                                strict=True)
+
+    @classmethod
+    def state_dict_from_jax(cls, params, config):
+        if config.is_encoder_decoder:
+            return bart_from_jax(params, config)
+        return {"transformer." + k: v
+                for k, v in gpt2_from_jax(params, config).items()}
 
     @staticmethod
     def loss_fn(outputs, batch):

@@ -70,6 +70,10 @@ class SequenceLabeling(Application):
     def load_state_dict(cls, module, state_dict):
         load_app_state_dict(module, state_dict, ("classifier",))
 
+    @classmethod
+    def state_dict_from_jax(cls, params, config):
+        return state_dict_from_jax(params, config)
+
 
 def state_dict_from_jax(params, config):
     """SequenceLabelingModule's state dict from the JAX app's params."""

@@ -116,6 +116,10 @@ class TextMatchTwoTower(Application):
     def load_state_dict(cls, module, state_dict):
         load_app_state_dict(module, state_dict)
 
+    @classmethod
+    def state_dict_from_jax(cls, params, config):
+        return state_dict_from_jax(params, config)
+
 
 class TextMatchTwoTowerCircleLoss(TextMatchTwoTower):
     @staticmethod

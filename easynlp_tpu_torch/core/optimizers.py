@@ -8,7 +8,12 @@ and order of operations:
   eps forced to 1e-6 by `get_optimizer`;
 - `AdamW` / `Adam`: optax's chain, i.e. clip_by_global_norm ->
   scale_by_adam (bias-corrected) -> masked add_decayed_weights -> -lr;
-- `SGD`: clip -> -lr * g.
+- `SGD`: clip -> -lr * g;
+- `Lion`: optax.lion's chain, i.e. clip_by_global_norm -> sign((1 - b1) g +
+  b1 m) with m = b2 m + (1 - b2) g -> masked add_decayed_weights -> -lr;
+- `Adafactor`: optax.adafactor with its defaults, i.e. scale_by_factored_rms
+  (factored second moments where the two largest dims are >= 128) ->
+  clip_by_block_rms(1) -> lr -> scale_by_param_block_rms -> -1.
 
 The schedule is read at the optimizer's step count before it increments, as
 optax reads it, so warmup_linear's first step has lr 0. Weight decay skips
@@ -185,10 +190,14 @@ class Optimizer:
                             torch.ones_like(norm), self.max_grad_norm / norm)
         return torch._foreach_mul(grads, scale)
 
+    def _state_names(self, key):
+        """The parameter name of each buffer of state[key]."""
+        return self.names
+
     def state_dict(self):
         return {"type": type(self).__name__, "count": int(self.count),
                 "names": list(self.names),
-                **{key: dict(zip(self.names, self.state[key]))
+                **{key: dict(zip(self._state_names(key), self.state[key]))
                    for key in self.state_keys}}
 
     def load_state_dict(self, state):
@@ -197,7 +206,7 @@ class Optimizer:
                              % (state.get("type"), type(self).__name__))
         self.count.fill_(int(state["count"]))
         for key in self.state_keys:
-            for buf, name in zip(self.state[key], self.names):
+            for buf, name in zip(self.state[key], self._state_names(key)):
                 buf.copy_(state[key][name])
 
 
@@ -275,6 +284,154 @@ class AdamW(Optimizer):
         self._apply(updates, lr)
 
 
+class Lion(Optimizer):
+    """optax.chain(clip_by_global_norm, lion(schedule, b1, b2,
+    weight_decay)): the update is the sign of (1 - b1) g + b1 m, the
+    momentum m = b2 m + (1 - b2) g. Decay is masked like AdamW's (the JAX
+    package's optax.lion gets no mask and decays biases and LayerNorm
+    too).
+
+    Unlike the JAX package, the clip is left out when max_grad_norm is 0,
+    as for SGD: the JAX Trainer passes 0 and clips itself, and
+    optax.clip_by_global_norm(0) zeroes every update, so a JAX Lion run
+    through its Trainer never moves (ROADMAP C8)."""
+
+    state_keys = ("mu",)
+
+    def __init__(self, named_params, schedule_fn, b1=0.9, b2=0.99,
+                 weight_decay=1e-3, max_grad_norm=1.0, num_steps=1):
+        # (1 - b1, b1) of the sign's argument (not switched on a skipped
+        # step: lr 0 holds the parameters), then the momentum's
+        self.mix = (1.0 - b1, b1)
+        self.coefficients = ((b2, 1.0), (1.0 - b2, 0.0))
+        super().__init__(named_params, schedule_fn, weight_decay,
+                         max_grad_norm, num_steps)
+
+    def _update(self, grads, lr, coef):
+        grads = self._clip(grads)
+        mu = self.state["mu"]
+        updates = torch._foreach_mul(grads, self.mix[0])
+        torch._foreach_add_(updates, torch._foreach_mul(mu, self.mix[1]))
+        torch._foreach_sign_(updates)
+        b2, w2 = coef.unbind()
+        _moment(mu, grads, b2, w2)
+        self._add_decay(updates)
+        self._apply(updates, lr)
+
+
+class Adafactor(Optimizer):
+    """optax.adafactor(schedule) with optax's defaults: decay rate 0.8
+    (beta2 at step t = 1 - t^-0.8), eps 1e-30, second moments factored into
+    row and column means where the two largest dims are >= 128, the update
+    clipped to block rms 1, scaled by the learning rate and by the
+    parameter's rms (at least 1e-3); no momentum, no weight decay, no
+    global-norm clip.
+
+    State: per parameter `v_row`, `v_col` (factored) or `v` (the others),
+    optax's layout with torch's [out, in] weights. optax factors over the
+    two largest dims of the JAX [in, out] kernel; the row statistic is the
+    mean over the largest dim whichever axis holds it, so the transposed
+    layout gives the same update. Where the step is skipped, the decay is
+    switched to 1, and a 1 added to the moments before their inverse root
+    keeps the zeroed gradient's update at 0 even before the first real
+    step."""
+
+    state_keys = ()  # set once the buffers, of other shapes, are built
+    coefficients = ((1.0, 0.0),)  # on; 0 on a skipped step
+
+    def __init__(self, named_params, schedule_fn, decay_rate=0.8,
+                 eps=1e-30, min_dim_size_to_factor=128, clipping_threshold=1.0,
+                 min_scale=1e-3, num_steps=1):
+        self.decay_rate, self.eps = decay_rate, eps
+        self.clipping_threshold, self.min_scale = clipping_threshold, min_scale
+        super().__init__(named_params, schedule_fn, num_steps=num_steps)
+        self.factored = [_factored_dims(p.shape, min_dim_size_to_factor)
+                         for p in self.params]
+        self.state = {"v_row": [], "v_col": [], "v": []}
+        for p, dims in zip(self.params, self.factored):
+            if dims is None:
+                self.state["v"].append(torch.zeros_like(p))
+                continue
+            d1, d0 = dims
+            self.state["v_row"].append(p.new_zeros(
+                [n for i, n in enumerate(p.shape) if i != d0]))
+            self.state["v_col"].append(p.new_zeros(
+                [n for i, n in enumerate(p.shape) if i != d1]))
+        self.state_keys = ("v_row", "v_col", "v")
+        self._root_sizes = torch.tensor(
+            [math.sqrt(p.numel()) for p in self.params],
+            dtype=torch.float32, device=self.count.device)
+
+    def _state_names(self, key):
+        factored = key != "v"
+        return [n for n, dims in zip(self.names, self.factored)
+                if (dims is not None) == factored]
+
+    def _update(self, grads, lr, coef):
+        on = coef[0]
+        t = (self.count + 1).float()
+        decay = 1.0 - on * t.pow(-self.decay_rate)
+        weight = 1.0 - decay
+        pad = 1.0 - on
+        grads_f = [g for g, d in zip(grads, self.factored) if d is not None]
+        grads_v = [g for g, d in zip(grads, self.factored) if d is None]
+        dims = [d for d in self.factored if d is not None]
+        updates_f = updates_v = []
+        if grads_f:
+            # factored: the row (mean over the largest dim) and column
+            # statistics of g^2 + eps; the update g / sqrt(row / mean(row)
+            # x col)
+            sq = torch._foreach_mul(grads_f, grads_f)
+            torch._foreach_add_(sq, self.eps)
+            v_row, v_col = self.state["v_row"], self.state["v_col"]
+            _moment(v_row, [s.mean(d0) for s, (_, d0) in zip(sq, dims)],
+                    decay, weight)
+            _moment(v_col, [s.mean(d1) for s, (d1, _) in zip(sq, dims)],
+                    decay, weight)
+            row = torch._foreach_add(v_row, pad)
+            col = torch._foreach_add(v_col, pad)
+            row_factor = torch._foreach_div(row, [
+                r.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                for r, (d1, d0) in zip(row, dims)])
+            torch._foreach_pow_(row_factor, -0.5)
+            torch._foreach_pow_(col, -0.5)
+            updates_f = [g * r.unsqueeze(d0) * k.unsqueeze(d1) for g, r, k,
+                         (d1, d0) in zip(grads_f, row_factor, col, dims)]
+        if grads_v:
+            sq = torch._foreach_mul(grads_v, grads_v)
+            torch._foreach_add_(sq, self.eps)
+            _moment(self.state["v"], sq, decay, weight)
+            denom = torch._foreach_add(self.state["v"], pad)
+            torch._foreach_pow_(denom, -0.5)
+            updates_v = torch._foreach_mul(grads_v, denom)
+        factored, plain = iter(updates_f), iter(updates_v)
+        updates = [next(plain) if d is None else next(factored)
+                   for d in self.factored]
+        # clip_by_block_rms, lr and scale_by_param_block_rms (optax's
+        # safe_root_mean_squares: the rms, min_scale at or below it) as one
+        # factor per tensor, computed for all tensors at once
+        rms = torch.stack(torch._foreach_norm(updates)) / self._root_sizes
+        p_rms = torch.stack(torch._foreach_norm(self.params)) \
+            / self._root_sizes
+        factor = lr * torch.clamp(p_rms, min=self.min_scale) / torch.clamp(
+            rms / self.clipping_threshold, min=1.0)
+        torch._foreach_mul_(updates, list(factor.unbind()))
+        torch._foreach_sub_(self.params, updates)
+
+
+def _factored_dims(shape, min_dim_size_to_factor):
+    """optax's choice: (second largest dim, largest dim) when the second
+    largest is at least min_dim_size_to_factor, else None (also for
+    leaves of fewer than 2 dims). Ties keep the axis order, as numpy's
+    argsort does on so few dims."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return order[-2], order[-1]
+
+
 class SGD(Optimizer):
     """optax.chain(clip_by_global_norm, sgd): p -= lr * g.
 
@@ -315,10 +472,11 @@ def get_optimizer(named_params, optimizer_type="AdamW", learning_rate=5e-5,
     elif optimizer_type == "SGD":
         opt = SGD(named_params, schedule_fn, max_grad_norm=max_grad_norm,
                   num_steps=t_total)
-    elif optimizer_type in ("Lion", "Adafactor"):
-        raise NotImplementedError(
-            "--optimizer_type=%s is not ported yet (ROADMAP A4b)"
-            % optimizer_type)
+    elif optimizer_type == "Lion":
+        opt = Lion(named_params, schedule_fn, weight_decay=weight_decay,
+                   max_grad_norm=max_grad_norm, num_steps=t_total)
+    elif optimizer_type == "Adafactor":
+        opt = Adafactor(named_params, schedule_fn, num_steps=t_total)
     else:
         raise ValueError("unknown optimizer %r" % optimizer_type)
     return opt, schedule_fn, t_total

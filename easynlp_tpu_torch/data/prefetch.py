@@ -13,6 +13,12 @@ their allocation), so they need no `record_stream`: a block recorded on
 another stream makes the caching allocator query an event at every
 allocation until the device catches up, thousands of times a step.
 
+A batch staged but never handed out (the consumer stopped early, or the
+producer could not queue it) is dropped only after the consumer stream has
+been made to wait on its copy's event: its tensors then go back to the
+consumer stream's pool, and the allocator may hand their blocks out again
+only once the side-stream copy into them is done (ROADMAP C17).
+
 depth > 0 keeps up to `depth` batches staged (one more may wait in the
 producer's hand); depth 0 is no prefetch at all: each batch is fetched and
 copied from pageable memory on the caller's thread when asked for. The JAX
@@ -55,6 +61,18 @@ def _stage(batch, device, consumer, side):
     return out, copied
 
 
+def _streams(device):
+    """(consumer stream, side stream) of a CUDA device."""
+    return torch.cuda.current_stream(device), torch.cuda.Stream(device=device)
+
+
+def _drop(item, consumer):
+    """Let go of a queued item; a staged batch's copy event first joins the
+    consumer stream, whose pool its tensors return to."""
+    if isinstance(item, tuple) and item[1] is not None:
+        consumer.wait_event(item[1])
+
+
 def device_prefetch(iterator, device, depth=2, transform=None):
     """Yield the host batches of `iterator` (after `transform`) as dicts of
     tensors on `device`, keeping up to `depth` of them in flight (see the
@@ -72,9 +90,9 @@ def device_prefetch(iterator, device, depth=2, transform=None):
             yield _to_device(batch, device)
         return
     cuda = device.type == "cuda"
+    consumer = side = None
     if cuda:
-        consumer = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device=device)
+        consumer, side = _streams(device)
     q = queue.Queue(maxsize=depth)
     stop = threading.Event()
 
@@ -97,6 +115,7 @@ def device_prefetch(iterator, device, depth=2, transform=None):
                 item = (_stage(batch, device, consumer, side) if cuda
                         else (_to_device(batch, device), None))
                 if not put(item):
+                    _drop(item, consumer)
                     return
         except BaseException as err:  # noqa: BLE001 - raised in the consumer
             put(err)
@@ -118,10 +137,12 @@ def device_prefetch(iterator, device, depth=2, transform=None):
                 consumer.wait_event(copied)
             yield tensors
     finally:
+        # the producer sees `stop` within put's 0.1 s poll: it drops the
+        # batch in its hand itself, and then nothing more is queued
         stop.set()
+        thread.join(timeout=5)
         while True:
             try:
-                q.get_nowait()
+                _drop(q.get_nowait(), consumer)
             except queue.Empty:
                 break
-        thread.join(timeout=5)

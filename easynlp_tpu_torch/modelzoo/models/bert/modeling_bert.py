@@ -17,8 +17,10 @@ Unlike the JAX module it keeps one module per layer (an nn.ModuleList, not a
 scan) and separate query/key/value projections, so parameter names are the
 HF ones (`encoder.layer.{i}.attention.self.query.weight`, ...) and a
 reference `pytorch_model.bin` loads with `load_state_dict(strict=True)` after
-key normalisation (conversion.py). Not ported yet: output_scores /
-output_attentions, output_hidden_states and pre-LN (ROADMAP A3, A13).
+key normalisation (conversion.py). `output_hidden_states` stacks the L
+layers' outputs as one [L, B, S, E] tensor, as the JAX scan collects them
+(not HF's tuple of L + 1 that starts with the embeddings). Not ported yet:
+output_attentions and pre-LN (ROADMAP A3, A12, A13).
 """
 
 import torch
@@ -179,10 +181,15 @@ class BertEncoder(nn.Module):
             BertLayer(config, dtype=dtype, device=device)
             for _ in range(config.num_hidden_layers))
 
-    def forward(self, hidden, kv_mask):
+    def forward(self, hidden, kv_mask, output_hidden_states=False):
+        """(the last layer's output, [L, B, S, E] of every layer's output
+        or None)."""
+        collected = []
         for layer in self.layer:
             hidden = layer(hidden, kv_mask)
-        return hidden
+            if output_hidden_states:
+                collected.append(hidden)
+        return hidden, torch.stack(collected) if collected else None
 
 
 class BertPooler(nn.Module):
@@ -197,13 +204,14 @@ class BertPooler(nn.Module):
 
 
 class BertModel(nn.Module):
-    """Returns {'last_hidden_state': [B,S,E], 'pooler_output': [B,E]}, both
-    in `dtype`."""
+    """Returns {'last_hidden_state': [B,S,E], 'pooler_output': [B,E]}, and
+    with output_hidden_states 'hidden_states' [L,B,S,E], all in `dtype`."""
 
     def __init__(self, config, dtype=torch.float32, add_pooling_layer=True,
-                 device=None):
+                 device=None, output_hidden_states=False):
         super().__init__()
         self.config = config
+        self.output_hidden_states = output_hidden_states
         self.embeddings = BertEmbeddings(config, dtype=dtype, device=device)
         self.encoder = BertEncoder(config, dtype=dtype, device=device)
         self.pooler = (BertPooler(config, dtype=dtype, device=device)
@@ -224,8 +232,10 @@ class BertModel(nn.Module):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                position_ids=None):
+    def embed(self, input_ids, attention_mask=None, token_type_ids=None,
+              position_ids=None):
+        """(embedded tokens [B,S,E] in dtype, the int32 kv_mask [B,S]): the
+        encoder's inputs."""
         b, s = input_ids.shape
         device = input_ids.device
         if attention_mask is None:
@@ -244,9 +254,18 @@ class BertModel(nn.Module):
                     .expand(b, s)
         # int32 once here, so no layer converts the mask again
         kv_mask = attention_mask.to(torch.int32).contiguous()
-        hidden = self.embeddings(input_ids, token_type_ids, position_ids)
-        hidden = self.encoder(hidden, kv_mask)
+        return (self.embeddings(input_ids, token_type_ids, position_ids),
+                kv_mask)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                position_ids=None):
+        hidden, kv_mask = self.embed(input_ids, attention_mask,
+                                     token_type_ids, position_ids)
+        hidden, all_hidden = self.encoder(hidden, kv_mask,
+                                          self.output_hidden_states)
         out = {"last_hidden_state": hidden}
+        if all_hidden is not None:
+            out["hidden_states"] = all_hidden
         if self.pooler is not None:
             out["pooler_output"] = self.pooler(hidden)
         return out

@@ -85,6 +85,32 @@ def test_bert_matches_jax(jax_bert, padded):
                                np.asarray(want["pooler_output"]), atol=1e-4)
 
 
+@pytest.mark.parametrize("padded", [False, True])
+def test_hidden_states_match_jax(jax_bert, padded):
+    """output_hidden_states: the L layers' outputs stacked [L, B, S, E], as
+    the JAX scan collects them (no embeddings entry, unlike HF's tuple),
+    within 1e-5 in f32; the last one is last_hidden_state."""
+    cfg, _, params = jax_bert
+    ids, mask, types = _inputs(padded)
+    want = JaxBertModel(cfg, dtype=jnp.float32,
+                        output_hidden_states=True).apply(
+        {"params": params}, input_ids=jnp.asarray(ids),
+        attention_mask=jnp.asarray(mask), token_type_ids=jnp.asarray(types),
+        deterministic=True)["hidden_states"]
+    model = BertModel(BertConfig(**TINY), output_hidden_states=True).eval()
+    model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(ids), torch.from_numpy(mask),
+                    torch.from_numpy(types))
+    assert got["hidden_states"].shape == (TINY["num_hidden_layers"], 2, 16,
+                                          TINY["hidden_size"])
+    np.testing.assert_allclose(got["hidden_states"].numpy(),
+                               np.asarray(want), atol=1e-5, rtol=0)
+    assert torch.equal(got["hidden_states"][-1], got["last_hidden_state"])
+    assert "hidden_states" not in BertModel(BertConfig(**TINY)).eval()(
+        torch.from_numpy(ids))
+
+
 def test_bert_bf16_compute_keeps_f32_params(jax_bert):
     """dtype=bf16: dense layers run in bf16 on f32 parameters and LayerNorm in
     f32; outputs are bf16 and stay within 5e-2 of the f32 JAX model (bf16

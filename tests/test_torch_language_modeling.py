@@ -24,6 +24,7 @@ import json
 import os
 import sys
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -760,6 +761,87 @@ def test_device_prefetch_stops_after_break():
     # the 4 consumed, 2 queued, 1 in the producer's hand, and at most one
     # fetched while the queue drained
     assert len(fetched) <= 4 + 2 + 1 + 1
+
+
+class _StandInStream:
+    """Records, per thread, the events a stream is made to wait on."""
+
+    def __init__(self):
+        self.waits = []
+
+    def wait_event(self, event):
+        self.waits.append((event, threading.current_thread().name))
+
+
+def test_device_prefetch_waits_on_every_dropped_batch(monkeypatch):
+    """ROADMAP C17: a staged batch lives in the consumer stream's pool, so
+    before it is dropped the consumer stream must wait on its copy's event.
+    With a stand-in consumer stream and staging that hands out numbered
+    events (the CUDA path on the CPU): depth 1, the consumer takes batch 0,
+    waits until batch 1 is queued and batch 2 staged (the producer then
+    blocks in put on the full queue), and stops. Batch 0 was waited on
+    when handed out; batch 2's put fails and the producer waits on its
+    event itself; the consumer's drain waits on batch 1's. Every staged
+    batch was waited on exactly once."""
+    from easynlp_tpu_torch.data import prefetch
+    consumer = _StandInStream()
+    staged = []
+
+    def stage(batch, device, consumer_stream, side):
+        assert consumer_stream is consumer
+        staged.append(int(batch["x"][0]))
+        return {"x": torch.from_numpy(batch["x"])}, ("event", staged[-1])
+    monkeypatch.setattr(prefetch, "_streams", lambda d: (consumer, None))
+    monkeypatch.setattr(prefetch, "_stage", stage)
+
+    def endless():
+        i = 0
+        while True:
+            yield {"x": np.full(2, i)}
+            i += 1
+    gen = prefetch.device_prefetch(endless(), "cuda", depth=1)
+    assert int(next(gen)["x"][0]) == 0
+    deadline = time.time() + 10
+    while len(staged) < 3 and time.time() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.2)  # the producer is in put, with batch 2 in its hand
+    gen.close()
+    assert staged == [0, 1, 2]
+    assert sorted(consumer.waits) == [
+        (("event", 0), "MainThread"), (("event", 1), "MainThread"),
+        (("event", 2), "device_prefetch")]
+    assert not [t for t in threading.enumerate()
+                if t.name == "device_prefetch"]
+
+
+@pytest.mark.parametrize("stop_after", [1, 3])
+def test_device_prefetch_drain_waits_on_the_queued_batches(monkeypatch,
+                                                           stop_after):
+    """The same stand-ins at depth 3 over four batches, left after 1 or 3
+    of them once the producer has queued the rest (the Trainer's
+    break at t_total in mid-epoch): the events of the batches handed out
+    and of those dropped are each waited on once."""
+    from easynlp_tpu_torch.data import prefetch
+    consumer = _StandInStream()
+    staged = []
+
+    def stage(batch, device, consumer_stream, side):
+        staged.append(int(batch["x"][0]))
+        return {"x": torch.from_numpy(batch["x"])}, ("event", staged[-1])
+    monkeypatch.setattr(prefetch, "_streams", lambda d: (consumer, None))
+    monkeypatch.setattr(prefetch, "_stage", stage)
+    gen = prefetch.device_prefetch(({"x": np.full(2, i)} for i in range(4)),
+                                   "cuda", depth=3)
+    for _ in range(stop_after):
+        next(gen)
+    deadline = time.time() + 10
+    while len(staged) < min(4, stop_after + 3) and time.time() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.2)
+    gen.close()
+    assert sorted(e for e, _ in consumer.waits) == [("event", i)
+                                                    for i in staged]
+    assert len(staged) == 4
 
 
 def test_nonfinite_step_keeps_state_bit_identical(fixture_dir, monkeypatch):

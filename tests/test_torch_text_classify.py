@@ -212,8 +212,8 @@ def test_device_cuda_never_falls_back_to_cpu():
 
 @pytest.mark.parametrize("argv,match", [
     (["--mode=export"], "ROADMAP"),  # train is ported: export still raises
-    (["--mode=predict", "--app_name=information_extraction"], "ROADMAP"),
-    (["--mode=predict", "--user_defined_parameters=multi_label=true"],
+    (["--mode=predict", "--app_name=clip"], "ROADMAP"),
+    (["--mode=predict", "--user_defined_parameters=enable_fewshot=true"],
      "ROADMAP"),
 ])
 def test_unported_modes_and_apps_raise(fixture_dir, argv, match):

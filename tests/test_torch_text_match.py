@@ -91,6 +91,20 @@ def jax_params(jax_app, config, seed=0, **build_kw):
     return cfg, module, params
 
 
+def make_flax_dir(model_dir, jax_app, heads=None, seed=0, **build_kw):
+    """make_bert_dir's directory holding the JAX app's own init (moved by
+    jax_params' noise) as flax_params.msgpack in place of
+    pytorch_model.bin: both packages then start from the same weights,
+    heads included (the JAX apps' pytorch conversion drops some heads, and
+    the two frameworks draw other inits). Returns the params."""
+    from easynlp_tpu.modelzoo.modeling_utils import save_params
+    config = make_bert_dir(model_dir, heads=heads)
+    os.remove(os.path.join(model_dir, "pytorch_model.bin"))
+    _, _, params = jax_params(jax_app, config, seed=seed, **build_kw)
+    save_params(params, model_dir)
+    return params
+
+
 def port_module(port_app, state_dict, config, **build_kw):
     """The port app's module at the same widths, in f32 on the CPU, with
     `state_dict` loaded strictly."""
@@ -137,6 +151,25 @@ def check_parity(jax_app, port_app, module, params, tmodule, inputs, batch,
                                    atol=ATOL, rtol=0, err_msg=key)
     assert max(float(w.abs().max()) for w in want_grads.values()) > 1e-3
     return want
+
+
+def assert_trained_like_jax(jax_trainer, port_app, ckpt, init_dir,
+                            atol=ATOL, **build_kw):
+    """The module weights the port's CLI saved in ckpt against the JAX
+    trainer's params carried over by the app's state_dict_from_jax (atol),
+    and training moved them (the comparison is not vacuous)."""
+    app = port_app.from_pretrained(ckpt, device="cpu", **build_kw)
+    want = port_app.state_dict_from_jax(
+        jax.tree.map(np.asarray, jax_trainer.app.params), app.config)
+    got = app.module.state_dict()
+    assert set(got) == set(want)
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key].numpy(), w.numpy(), atol=atol,
+                                   rtol=0, err_msg=key)
+    start = port_app.from_pretrained(init_dir, device="cpu", **build_kw)
+    moved = max(float((got[k] - v).abs().max())
+                for k, v in start.module.state_dict().items())
+    assert moved > 1e-4
 
 
 def eval_args(batch_size=4):

@@ -169,6 +169,134 @@ def test_sgd_without_clip_moves_unlike_jax():
             atol=1e-6)
 
 
+# Lion and Adafactor against optax itself: the JAX package's Lion decays
+# every parameter (optax.lion without a mask) where the port masks biases
+# and LayerNorm as its AdamW does, and its Adafactor leaves are [in, out]
+# where the port's are [out, in]; the updates are held to optax's chain
+# with the port's mask, over leaves of both layouts.
+OPTAX_SHAPES = {"dense.weight": (256, 130), "wide.weight": (128, 300),
+                "square.weight": (128, 128), "tall.weight": (300, 129),
+                "small.weight": (5, 4), "dense.bias": (3,),
+                "LayerNorm.weight": (200,), "emb.weight": (130, 127)}
+
+
+def _optax_run(optimizer_type, schedule, steps=10, apply=None):
+    """Ten steps of x5 random gradients through the port's optimizer and
+    optax's: [(optax params, port params)] after each step."""
+    import optax
+    from easynlp_tpu_torch.core import optimizers as O
+    rng = np.random.RandomState(4)
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in OPTAX_SHAPES.items()}
+    sched = O.SCHEDULES[schedule](1e-2, warmup=0.2, t_total=steps)
+    named = [(k, torch.nn.Parameter(torch.from_numpy(v.copy())))
+             for k, v in init.items()]
+    if optimizer_type == "Lion":
+        opt = O.Lion(named, sched, weight_decay=0.05, max_grad_norm=1.0,
+                     num_steps=steps)
+        tx = optax.chain(optax.clip_by_global_norm(1.0), optax.lion(
+            sched, weight_decay=0.05,
+            mask={k: O.decays(k) for k in OPTAX_SHAPES}))
+    else:
+        opt = O.Adafactor(named, sched, num_steps=steps)
+        tx = optax.adafactor(sched)
+    params = {k: jnp.asarray(v) for k, v in init.items()}
+    state = tx.init(params)
+    trail = []
+    for _ in range(steps):
+        g = {k: (5 * rng.standard_normal(s)).astype(np.float32)
+             for k, s in OPTAX_SHAPES.items()}
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                                   state, params)
+        params = optax.apply_updates(params, updates)
+        opt.step([torch.from_numpy(g[n]) for n, _ in named])
+        trail.append(({k: np.asarray(v) for k, v in params.items()},
+                      {n: p.detach().numpy().copy() for n, p in named}))
+    return trail, init, opt
+
+
+@pytest.mark.parametrize("schedule", ["warmup_linear", "constant"])
+@pytest.mark.parametrize("optimizer_type", ["Lion", "Adafactor"])
+def test_lion_and_adafactor_match_optax(optimizer_type, schedule):
+    """After every step each parameter is within 1e-6 of optax's, relative
+    to the largest parameter (N(0, 1) leaves: 1e-6 of ~4). Adafactor
+    factors the leaves whose two largest dims are >= 128 (4 of 8 here)."""
+    trail, init, opt = _optax_run(optimizer_type, schedule)
+    scale = max(float(np.abs(v).max()) for v in init.values())
+    for want, got in trail:
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], atol=1e-6 * scale,
+                                       rtol=0, err_msg=k)
+    moved = max(float(np.abs(trail[-1][1][k] - init[k]).max())
+                for k in init)
+    assert moved > 1e-2
+    if optimizer_type == "Adafactor":
+        assert sum(d is not None for d in opt.factored) == 4
+
+
+def test_lion_without_clip_moves_unlike_jax():
+    """ROADMAP C8, Lion's case: the JAX package chains
+    clip_by_global_norm(max_grad_norm) before optax.lion and its Trainer
+    passes 0, so in a JAX Lion run through the Trainer the gradients never
+    move the parameters: clip(0) zeroes them, and only the weight decay
+    (on every leaf: optax.lion gets no mask there) shrinks them. The port
+    leaves the clip out at 0 and takes the step: p - lr sign(0.1 g) - lr
+    wd p on the decayed leaves."""
+    trail, init = _run_both("Lion", "constant", max_grad_norm=0.0, steps=1)
+    jax_params, port_params = trail[-1]
+    g = _flat(_param_tree(10))
+    for k, v in _flat(init).items():
+        np.testing.assert_allclose(jax_params[k], v * (1 - 1e-2 * 0.05),
+                                   atol=1e-6, rtol=0)
+        wd = 0.05 if "bias" not in k and "LayerNorm" not in k else 0.0
+        np.testing.assert_allclose(
+            port_params[k], v - 1e-2 * (np.sign(0.1 * g[k]) + wd * v),
+            atol=1e-6)
+
+
+@pytest.mark.parametrize("optimizer_type", ["Lion", "Adafactor"])
+def test_skipped_step_keeps_state_bit_identical(optimizer_type):
+    """A step with apply=False (the Trainer's non-finite guard), first and
+    after three real steps: parameters, every state buffer and the count
+    stay bit for bit as they were (for Adafactor also before its second
+    moments hold anything), and the next real step goes on from there."""
+    from easynlp_tpu_torch.core import optimizers as O
+    rng = np.random.RandomState(5)
+    named = [(k, torch.nn.Parameter(torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32))))
+        for k, s in OPTAX_SHAPES.items()]
+    opt = getattr(O, optimizer_type)(
+        named, O.constant_schedule(1e-2), num_steps=10)
+
+    def snapshot():
+        return ([p.detach().clone() for p in opt.params],
+                {k: [t.clone() for t in v] for k, v in opt.state.items()},
+                int(opt.count))
+
+    def grads(bad=False):
+        out = [torch.from_numpy(rng.standard_normal(p.shape).astype(
+            np.float32)) for p in opt.params]
+        if bad:
+            out[0][0, 0] = float("nan")
+        return out
+    for real_steps in (0, 3):
+        for _ in range(real_steps):
+            opt.step(grads(), apply=torch.tensor(True))
+        before = snapshot()
+        opt.step(grads(bad=True), apply=torch.tensor(False))
+        after = snapshot()
+        assert after[2] == before[2] == real_steps
+        for a, b in zip(before[0], after[0]):
+            assert torch.equal(a, b)
+        for key in before[1]:
+            for a, b in zip(before[1][key], after[1][key]):
+                assert torch.equal(a, b), key
+    opt.step(grads(), apply=torch.tensor(True))
+    assert int(opt.count) == 4
+    assert all(torch.isfinite(p).all() for p in opt.params)
+    assert not all(torch.equal(a, p) for a, p in zip(before[0], opt.params))
+
+
 def test_optimizer_state_round_trips():
     from easynlp_tpu_torch.core.optimizers import get_optimizer
     named = [(k, torch.nn.Parameter(torch.from_numpy(v.copy())))
@@ -185,6 +313,16 @@ def test_optimizer_state_round_trips():
     bert, _, _ = get_optimizer(named, optimizer_type="BertAdam")
     with pytest.raises(ValueError, match="AdamW"):
         bert.load_state_dict(opt.state_dict())
+    big = [("w", torch.nn.Parameter(torch.ones(128, 130))),
+           ("b", torch.nn.Parameter(torch.ones(130)))]
+    ada, _, _ = get_optimizer(big, optimizer_type="Adafactor")
+    ada.step([torch.full_like(p, 0.5) for _, p in big])
+    again, _, _ = get_optimizer(big, optimizer_type="Adafactor")
+    again.load_state_dict(ada.state_dict())
+    assert again.count == 1
+    for key in ("v_row", "v_col", "v"):
+        assert len(again.state[key]) == 1
+        assert torch.equal(again.state[key][0], ada.state[key][0])
 
 
 # --------------------------------------------------------------------------
@@ -302,6 +440,15 @@ TRAJECTORIES = {
                                 "--micro_batch_size=8",
                                 "--gradient_accumulation_steps=2",
                                 "--max_grad_norm=0.5"],
+    # Attention's key biases get no gradient in exact arithmetic (softmax
+    # ignores a shift shared by all of a query's scores), and Adafactor
+    # divides each gradient by its own rms, so it turns their f32 rounding
+    # noise into steps of lr x rms(bias) (~0.02) in either direction, in
+    # each framework its own: at lr 5e-5 four such steps stay within
+    # 2 x 4 x 5e-5 x 0.02 = 8e-6 of each other, inside the 1e-5 bound.
+    "adafactor-constant": ["--optimizer_type=Adafactor",
+                           "--micro_batch_size=16", "--learning_rate=5e-5",
+                           "--lr_scheduler=constant"],
 }
 
 
@@ -430,8 +577,29 @@ def test_nonfinite_step_is_skipped(tiny, monkeypatch):
     assert trainer.optimizer.count == 3
 
 
+def test_lion_trains_through_the_cli(tiny):
+    """--optimizer_type=Lion through the port's Trainer (which passes
+    max_grad_norm=0 and clips itself): four finite steps that move the
+    weights, where the JAX Trainer's Lion leaves the gradients out (C8)."""
+    ckpt = os.path.join(tiny, "lion")
+    trainer = _run_port(train_argv(tiny, ckpt, "--micro_batch_size=16",
+                                   "--optimizer_type=Lion",
+                                   "--lr_scheduler=constant",
+                                   "--learning_rate=1e-4"))
+    assert trainer.global_step == 4 and trainer.nonfinite_skips == 0
+    assert all(np.isfinite(r["loss"]) for r in trainer.step_records)
+    got = torch.load(os.path.join(ckpt, "pytorch_model.bin"),
+                     weights_only=True)
+    init = torch.load(os.path.join(tiny, "model", "pytorch_model.bin"),
+                      weights_only=True)
+    # every step moves each weight by lr (the sign), decay aside
+    moved = (got["bert.encoder.layer.0.intermediate.dense.weight"]
+             - init["bert.encoder.layer.0.intermediate.dense.weight"]).abs()
+    assert float(moved.max()) == pytest.approx(4e-4, rel=1e-2)
+
+
 @pytest.mark.parametrize("flag", ["--remat=full", "--ema_decay=0.9",
-                                  "--async_save", "--optimizer_type=Lion",
+                                  "--async_save", "--remat=selective",
                                   "--num_processes=2"])
 def test_unported_training_options_raise(tiny, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
