@@ -36,10 +36,28 @@ all-layers one bit for bit) train, evaluate and predict at 32 x 128, and
 Lion and Adafactor take 4 steps each on one repeated batch, with one
 guarded step of each optimizer timed. Each path runs with
 the kernels and with --use_flash_attention=false, and the two are compared
-(`/predict` against --mode=predict). Every phase raises on
+(`/predict` against --mode=predict). Then phase 13, on the BERT-base
+directory and phase 4's tables: text_classify for 8 steps at
+--remat=none, full, selective and names (the same losses bit for bit, the
+step ms and peak memory of each; `full` launches the short forward twice
+a layer), BART-base at --remat=full against phase 6's first kernel run
+(the same 8 losses, less peak memory); --ema_decay=0.999 with
+--save_checkpoint_steps=2, once with --async_save and once with
+synchronous saves (the EMA artifact and count, the same files bit for
+bit, the save time on the training thread of each); KD (the student
+trained on the logits --mode=predict gives on phase 4's checkpoint,
+then evaluated and predicting); PET trained, evaluated and predicting on
+phase 11's masked LM, and 8 CPTClassification steps; MetaKD's teacher
+(MetaTeacherTrainer, 4 steps) and a half-depth student through
+MetaDistillationTrainer's two stages, 4 steps each, whose BERTs return
+their attention scores and so compute attention on the explicit
+einsum-and-softmax path: no kernel launches there, and the phase checks
+that none does; and LoRA (the base bit for bit after training, the
+adapters moved, the merged checkpoint's logits the live model's bit for
+bit). Every phase raises on
 failure, so any failure exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it lists the kernels with their launches
-in the BART training run and phase 11's and 12's runs, errors, times
+in the BART training run and phase 11's, 12's and 13's runs, errors, times
 (kernel, plain twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
 the JAX package.
 """
@@ -2280,14 +2298,14 @@ def _bart_argv(use_kernel):
 
 
 def run_bart_train(torch, model_dir, train_tsv, ckpt, use_kernel, seed,
-                   profile_dir=None):
+                   profile_dir=None, extra=()):
     from easynlp_tpu_torch.appzoo.api import default_main_fn
     from easynlp_tpu_torch.utils.initializer import initialize_easynlp
     argv = ["--mode=train", "--tables=" + train_tsv,
             "--pretrained_model_name_or_path=" + model_dir,
             "--epoch_num=1", "--learning_rate=%g" % BART_LR,
             "--optimizer_type=AdamW", "--logging_steps=1",
-            "--random_seed=%d" % seed] + _bart_argv(use_kernel)
+            "--random_seed=%d" % seed] + _bart_argv(use_kernel) + list(extra)
     if ckpt:
         argv.append("--checkpoint_dir=" + ckpt)
     if profile_dir:
@@ -2523,7 +2541,7 @@ def phase_bart(torch, seed, workdir):
                attention_ms(top, 4)))
     launches["flash_attention_bwd_dkdv"] = launches["flash_attention_bwd"]
     launches["flash_attention_bwd_dq"] = launches["flash_attention_bwd"]
-    return launches
+    return launches, runs["kernel"][0]
 
 
 # --------------------------------------------------------------------------
@@ -4757,6 +4775,571 @@ def phase_encoder_apps2(torch, seed, workdir, cjk):
         "%s %.1f" % kv for kv in per_app_s.items()))
     return launches
 
+# --------------------------------------------------------------------------
+# phase 13: the Trainer's --remat, --ema_decay and --async_save; KD, PET and
+# CPT, MetaKD, LoRA (BERT-base; BART-base under remat)
+# --------------------------------------------------------------------------
+
+REMAT = ("none", "full", "selective", "names")
+EMA_DECAY = 0.999
+EMA_SAVE_STEPS = 2
+KD_UDP = "enable_distillation=true temperature=2 alpha=0.5"
+PET_PATTERN = {"pattern": "{sent1},{mask}", "label_desc": "bad,good"}
+METAKD_DOMAINS = ("books", "dvd", "electronics", "kitchen")
+METAKD_STEPS = 4
+LORA_UDP = "enable_lora=true lora_rank=8 lora_alpha=16"
+OPTION_FILES = ("pytorch_model.bin", "pytorch_model_ema.bin", "optimizer.pt")
+
+
+def _flat_tensors(obj, prefix=""):
+    """{path: leaf} of a nested dict (a torch.load of a checkpoint file)."""
+    if isinstance(obj, dict):
+        out = {}
+        for k, v in obj.items():
+            out.update(_flat_tensors(v, "%s%s/" % (prefix, k)))
+        return out
+    return {prefix: obj}
+
+
+def _same_file(torch, a, b):
+    """Whether two checkpoint files hold the same leaves, bit for bit."""
+    x = _flat_tensors(torch.load(a, weights_only=True))
+    y = _flat_tensors(torch.load(b, weights_only=True))
+    return x.keys() == y.keys() and all(
+        torch.equal(x[k], y[k]) if torch.is_tensor(x[k]) else x[k] == y[k]
+        for k in x)
+
+
+def make_metakd_tsv(src, dst, seed, n_rows):
+    """src's first n_rows rows with a domain and a sample weight column."""
+    rng = random.Random(seed)
+    with open(src, encoding="utf-8") as f, \
+            open(dst, "w", encoding="utf-8") as g:
+        for line in f.readlines()[:n_rows]:
+            g.write("%s\t%s\t%.2f\n" % (line.rstrip("\n"),
+                                        rng.choice(METAKD_DOMAINS),
+                                        rng.uniform(0.5, 1.5)))
+    return dst
+
+
+def phase_trainer_options(torch, seed, workdir, bart_run):
+    """Phase 13. On phase 3's BERT-base directory and phase 4's tables:
+    text_classify at every --remat policy (the same losses bit for bit, the
+    peak memory each), then BART-base at --remat=full against phase 6's
+    first kernel run; --ema_decay with --async_save against the same run
+    with synchronous saves; KD from the logits phase 4's checkpoint
+    predicts; PET train, evaluate and predict and a CPT run on phase 11's
+    masked LM; MetaKD's teacher and its two distillation stages (the
+    explicit-scores attention: no kernel); LoRA. Returns the launches of
+    each counted wrapper in the main path's runs, each counted from 0."""
+    import shutil
+
+    import numpy as np
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 13: --remat, --ema_decay, --async_save; KD, PET/CPT, "
+        "MetaKD, LoRA (BERT-base; BART-base under remat)")
+    t_phase = time.perf_counter()
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+    launches = dict.fromkeys(wrappers, 0)
+
+    def counted(what, fn, want):
+        """fn() with the counts set to 0 just before and read just after
+        (the main path); raises unless they are `want`."""
+        for w in wrappers:
+            getattr(A, w).launches = 0
+        out = fn()
+        used = {w: getattr(A, w).launches for w in wrappers}
+        log("%s launches: %s" % (what, used))
+        if used != dict(dict.fromkeys(wrappers, 0), **want):
+            raise AssertionError("%s launched %s, want %s"
+                                 % (what, used, want))
+        for w in wrappers:
+            launches[w] += used[w]
+        return out
+
+    model_dir = os.path.join(workdir, MODEL_DIR)
+    train_tsv = os.path.join(workdir, "train.tsv")
+    dev_tsv = os.path.join(workdir, "dev.tsv")
+    steps, eval_batches = N_ROWS // BATCH, -(-N_DEV_ROWS // BATCH)
+    part_s = {}
+
+    # 1. --remat: 8 steps at each policy, no evaluation or checkpoint
+    t0 = time.perf_counter()
+    runs = {}
+    for policy in REMAT:
+        runs[policy] = counted(
+            "text_classify --remat=%s (%d steps)" % (policy, steps),
+            lambda p=policy: run_train(
+                torch, model_dir, train_tsv, None, None, True, seed,
+                common=_common_argv(True) + ["--remat=" + p]),
+            {"short_attention_fwd": (2 if policy == "full" else 1)
+             * N_LAYERS * steps,
+             "short_attention_bwd": N_LAYERS * steps})
+        _check_train_run("remat " + policy, runs[policy], steps)
+    losses = {p: [r["loss"] for r in run["records"]]
+              for p, run in runs.items()}
+    for policy, run in runs.items():
+        log("--remat=%-9s step ms median %.3f (CUDA events), peak device "
+            "memory %.3f GiB above the run's start (%.3f GiB under none); "
+            "losses %s" % (policy, statistics.median(
+                1e3 * r["seconds"] for r in run["records"]),
+                run["peak_gib"], runs["none"]["peak_gib"] - run["peak_gib"],
+                " ".join("%.6f" % x for x in losses[policy])))
+    if any(v != losses["none"] for v in losses.values()):
+        raise AssertionError("--remat changed the losses: %s" % losses)
+    # a run's peak comes at the optimizer step (its _foreach temporaries
+    # over every parameter), after the activations are freed: the
+    # activations' peak is that of a step's forward and backward
+    peaks = _remat_peaks(torch, "text_classify", model_dir, train_tsv,
+                         BATCH, REMAT, seed)
+    if not all(peaks[p] < peaks["none"] for p in REMAT[1:]):
+        raise AssertionError("--remat did not lower the forward and "
+                             "backward's peak memory: %s" % peaks)
+    bart_dir = os.path.join(workdir, BART_MODEL_DIR)
+    layers = BART_BASE["encoder_layers"]
+    bart = counted(
+        "BART-base --remat=full (%d steps of %d x %d / %d)"
+        % (BART_STEPS, BART_BATCH, BART_SEQ_LEN, BART_TARGET_TOKENS),
+        lambda: run_bart_train(torch, bart_dir,
+                               os.path.join(workdir, "bart_train.tsv"), None,
+                               True, seed, extra=["--remat=full"]),
+        {"flash_attention_fwd": 2 * 2 * layers * BART_STEPS,
+         "flash_attention_bwd": 2 * layers * BART_STEPS,
+         "short_attention_fwd": 2 * layers * BART_STEPS,
+         "short_attention_bwd": layers * BART_STEPS})
+    got = [r["loss"] for r in bart["records"]]
+    want = [r["loss"] for r in bart_run["records"]]
+    log("BART-base --remat=full: losses %s (phase 6's kernel run: %s); step "
+        "ms median %.3f against %.3f; peak device memory %.3f GiB against "
+        "%.3f GiB (%.3f GiB less)" % (
+            " ".join("%.6f" % x for x in got),
+            " ".join("%.6f" % x for x in want),
+            statistics.median(1e3 * r["seconds"] for r in bart["records"]),
+            statistics.median(1e3 * r["seconds"]
+                              for r in bart_run["records"]),
+            bart["peak_gib"], bart_run["peak_gib"],
+            bart_run["peak_gib"] - bart["peak_gib"]))
+    # the schedule depends on the run's step count: all 8 steps are run
+    if got != want:
+        raise AssertionError("BART --remat=full: losses %s against %s"
+                             % (got, want))
+    peaks = _remat_peaks(torch, "sequence_generation", bart_dir,
+                         os.path.join(workdir, "bart_train.tsv"),
+                         BART_BATCH, ("none", "full"), seed)
+    if not peaks["full"] < peaks["none"]:
+        raise AssertionError("BART --remat=full did not lower the forward "
+                             "and backward's peak memory: %s" % peaks)
+    part_s["remat"] = time.perf_counter() - t0
+
+    # 2. --ema_decay with --async_save against synchronous saves; no
+    # evaluation, so that every save is made (one after every
+    # EMA_SAVE_STEPS steps, and the final one)
+    t0 = time.perf_counter()
+    saves = steps // EMA_SAVE_STEPS + 1
+    ema = {}
+    for mode in ("sync", "async"):
+        ckpt = os.path.join(workdir, "ckpt_ema_" + mode)
+        extra = ["--ema_decay=%g" % EMA_DECAY,
+                 "--save_checkpoint_steps=%d" % EMA_SAVE_STEPS] + (
+                     ["--async_save"] if mode == "async" else [])
+        ema[mode] = counted(
+            "text_classify --ema_decay --save_checkpoint_steps=%d %s "
+            "(%d steps, %d saves)" % (EMA_SAVE_STEPS, mode, steps, saves),
+            lambda c=ckpt, e=extra: run_train(
+                torch, model_dir, train_tsv, None, c, True, seed,
+                common=_common_argv(True) + e),
+            {"short_attention_fwd": N_LAYERS * steps,
+             "short_attention_bwd": N_LAYERS * steps})
+        _check_train_run("ema " + mode, ema[mode], steps)
+        with open(os.path.join(ckpt, "meta.json")) as f:
+            meta = json.load(f)
+        weights = torch.load(os.path.join(ckpt, "pytorch_model.bin"),
+                             weights_only=True)
+        averaged = torch.load(os.path.join(ckpt, "pytorch_model_ema.bin"),
+                              weights_only=True)
+        moved = max(float((averaged[k] - weights[k]).abs().max())
+                    for k in weights)
+        if len(ema[mode]["save_s"]) != saves \
+                or meta.get("ema_num_updates") != steps \
+                or meta["global_step"] != steps \
+                or set(averaged) != set(weights) or not moved > 0 \
+                or not all(torch.isfinite(v).all()
+                           for v in averaged.values()):
+            raise AssertionError("EMA artifact: count %s, %d of %d keys, "
+                                 "moved %.3e" % (meta.get("ema_num_updates"),
+                                                 len(averaged), len(weights),
+                                                 moved))
+        log("--ema_decay=%g %s: the last checkpoint (step %d) has "
+            "ema_num_updates %d, the average at most %.3e from its weights; "
+            "save on the training thread %s s (sum %.3f); step ms median "
+            "%.3f" % (EMA_DECAY, mode, meta["global_step"],
+                      meta["ema_num_updates"], moved,
+               " ".join("%.3f" % x for x in ema[mode]["save_s"]),
+               sum(ema[mode]["save_s"]), statistics.median(
+                   1e3 * r["seconds"] for r in ema[mode]["records"])))
+    same = {name: _same_file(torch, os.path.join(workdir, "ckpt_ema_sync",
+                                                 name),
+                             os.path.join(workdir, "ckpt_ema_async", name))
+            for name in OPTION_FILES}
+    log("--async_save artifacts against the synchronous run's, bit for "
+        "bit: %s; save time on the training thread, sync %.3f s against "
+        "async %.3f s over %d saves" % (
+            same, sum(ema["sync"]["save_s"]), sum(ema["async"]["save_s"]),
+            len(ema["async"]["save_s"])))
+    if not all(same.values()) or [r["loss"] for r in ema["sync"][
+            "records"]] != [r["loss"] for r in ema["async"]["records"]]:
+        raise AssertionError("async and sync saves differ: %s" % same)
+    part_s["ema, async save"] = time.perf_counter() - t0
+
+    # 3. KD: the teacher's logits from phase 4's checkpoint, then the student
+    t0 = time.perf_counter()
+    logits_tsv = os.path.join(workdir, "kd_teacher_logits.tsv")
+    counted("KD teacher logits (--mode=predict, %d rows)" % N_ROWS,
+            lambda: _cli(torch, [
+                "--mode=predict", "--tables=" + train_tsv,
+                "--outputs=" + logits_tsv, "--output_schema=logits",
+                "--checkpoint_dir=" + os.path.join(workdir, "ckpt_kernel")]
+                + _common_argv(True)),
+            {"short_attention_fwd": N_LAYERS * steps})
+    kd_udp = ["--user_defined_parameters=%s logits_saved_path=%s"
+              % (KD_UDP, logits_tsv)]
+    ckpt = os.path.join(workdir, "ckpt_kd")
+    kd = counted("KD student training (%d steps + evaluation)" % steps,
+                 lambda: run_train(torch, model_dir, train_tsv, dev_tsv,
+                                   ckpt, True, seed,
+                                   common=_common_argv(True) + kd_udp),
+                 {"short_attention_fwd": N_LAYERS * (steps + eval_batches),
+                  "short_attention_bwd": N_LAYERS * steps})
+    _check_train_run("KD", kd, steps)
+    describe_train("kd", kd)
+    results, secs = _cli(torch, ["--mode=evaluate", "--tables=" + dev_tsv,
+                                 "--checkpoint_dir=" + ckpt]
+                         + _common_argv(True) + kd_udp)
+    out = os.path.join(workdir, "pred_kd.tsv")
+    counted("KD student predict", lambda: _cli(torch, [
+        "--mode=predict", "--tables=" + dev_tsv, "--outputs=" + out,
+        "--checkpoint_dir=" + ckpt, "--append_cols=id",
+        "--output_schema=predictions,probabilities,logits"]
+        + _common_argv(True) + kd_udp),
+        {"short_attention_fwd": N_LAYERS * eval_batches})
+    labels, _, _ = check_output(out, N_DEV_ROWS)
+    log("KD (T=2, alpha=0.5) evaluate: %s in %.3f s; predict labels %s"
+        % (", ".join("%s %.6f" % kv for kv in results), secs,
+           {x: labels.count(x) for x in sorted(set(labels))}))
+    part_s["KD"] = time.perf_counter() - t0
+
+    # 4. PET (train, evaluate, predict) and a CPT run on the masked LM
+    t0 = time.perf_counter()
+    mlm_dir = os.path.join(workdir, MLM_MODEL_DIR)
+    if not os.path.isdir(mlm_dir):
+        mlm_dir = make_mlm_model_dir(torch, workdir, seed)
+    pet_udp = ["--user_defined_parameters=enable_fewshot=true " + " ".join(
+        "%s=%s" % kv for kv in PET_PATTERN.items())]
+    ckpt = os.path.join(workdir, "ckpt_pet")
+    pet = counted("PET training (%d steps + evaluation)" % steps,
+                  lambda: run_train(torch, mlm_dir, train_tsv, dev_tsv, ckpt,
+                                    True, seed,
+                                    common=_common_argv(True) + pet_udp),
+                  {"short_attention_fwd": N_LAYERS * (steps + eval_batches),
+                   "short_attention_bwd": N_LAYERS * steps})
+    _check_train_run("PET", pet, steps)
+    describe_train("pet", pet)
+    results, secs = _cli(torch, ["--mode=evaluate", "--tables=" + dev_tsv,
+                                 "--checkpoint_dir=" + ckpt]
+                         + _common_argv(True) + pet_udp)
+    out = os.path.join(workdir, "pred_pet.tsv")
+    counted("PET predict", lambda: _cli(torch, [
+        "--mode=predict", "--tables=" + dev_tsv, "--outputs=" + out,
+        "--checkpoint_dir=" + ckpt, "--output_schema=predictions,"
+        "probabilities", "--append_cols=id"] + _common_argv(True)
+        + ["--user_defined_parameters=enable_fewshot=true"]),
+        {"short_attention_fwd": N_LAYERS * eval_batches})
+    with open(out, encoding="utf-8") as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    probs = np.array([[float(x) for x in r[1].split()] for r in rows])
+    if len(rows) != N_DEV_ROWS or not {r[0] for r in rows} <= {
+            "negative", "positive"} or np.abs(probs.sum(1) - 1).max() > 1e-3:
+        raise AssertionError("PET predict output: %s" % rows[:3])
+    log("PET evaluate: %s in %.3f s; predict %d rows, labels %s"
+        % (", ".join("%s %.6f" % kv for kv in results), secs, len(rows),
+           sorted({r[0] for r in rows})))
+    cpt = counted("CPT training (%d steps)" % steps,
+                  lambda: _train_python(torch, "cpt", mlm_dir, train_tsv,
+                                        seed), {
+                      "short_attention_fwd": N_LAYERS * steps,
+                      "short_attention_bwd": N_LAYERS * steps})
+    recs = cpt.step_records
+    if len(recs) != steps or not all(np.isfinite([r["loss"], r["cl_loss"]])
+                                     .all() for r in recs):
+        raise AssertionError("CPT run: %s" % recs)
+    log("CPT %d steps: loss %s, of it the contrastive term %s; step ms "
+        "median %.3f" % (steps, " ".join("%.4f" % r["loss"] for r in recs),
+                         " ".join("%.4f" % r["cl_loss"] for r in recs),
+                         statistics.median(1e3 * r["seconds"]
+                                           for r in recs)))
+    del cpt
+    part_s["PET, CPT"] = time.perf_counter() - t0
+
+    # 5. MetaKD: no attention kernel in the teacher's or the student's runs
+    t0 = time.perf_counter()
+    metakd_tsv = make_metakd_tsv(train_tsv, os.path.join(
+        workdir, "metakd_train.tsv"), seed + 17, METAKD_STEPS * BATCH)
+    teacher = counted("MetaTeacherTrainer (enable_metakd, %d steps)"
+                      % METAKD_STEPS,
+                      lambda: _train_python(torch, "teacher", model_dir,
+                                            metakd_tsv, seed), {})
+    student_dir = os.path.join(workdir, "bert-base-metakd-student")
+    os.makedirs(student_dir, exist_ok=True)
+    shutil.copy(os.path.join(model_dir, "vocab.txt"), student_dir)
+    with open(os.path.join(model_dir, "config.json")) as f:
+        config = json.load(f)
+    # half the teacher's depth (each student layer matched to every second
+    # teacher layer) at its full width
+    student_layers = config["num_hidden_layers"] // 2
+    config.update(num_hidden_layers=student_layers,
+                  fit_size=config["hidden_size"])
+    with open(os.path.join(student_dir, "config.json"), "w") as f:
+        json.dump(config, f)
+    for stage in ("first", "second"):
+        run = counted("MetaDistillationTrainer stage %s (%d steps)"
+                      % (stage, METAKD_STEPS),
+                      lambda s=stage: _train_python(
+                          torch, "student", student_dir, metakd_tsv, seed,
+                          teacher_app=teacher.app, stage=s), {})
+        recs = run.step_records
+        if len(recs) != METAKD_STEPS or not all(
+                np.isfinite(r["loss"]) for r in recs):
+            raise AssertionError("MetaKD stage %s: %s" % (stage, recs))
+        log("MetaKD stage %s (%d-layer student, teacher frozen in the same "
+            "step): losses %s%s; step ms median %.3f"
+            % (stage, student_layers,
+               " ".join("%.4f" % r["loss"] for r in recs),
+               "; attention loss %s" % " ".join(
+                   "%.4f" % r["att_loss"] for r in recs)
+               if stage == "first" else "",
+               statistics.median(1e3 * r["seconds"] for r in recs)))
+    log("MetaTeacherTrainer: losses %s, domain loss %s; step ms median %.3f"
+        % (" ".join("%.4f" % r["loss"] for r in teacher.step_records),
+           " ".join("%.4f" % r["domain_loss"]
+                    for r in teacher.step_records),
+           statistics.median(1e3 * r["seconds"]
+                             for r in teacher.step_records)))
+    del teacher
+    part_s["MetaKD"] = time.perf_counter() - t0
+
+    # 6. LoRA: the base stays, the adapters move, the merged checkpoint
+    # predicts what the live model does
+    t0 = time.perf_counter()
+    ckpt = os.path.join(workdir, "ckpt_lora")
+    lora_udp = ["--user_defined_parameters=" + LORA_UDP]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    argv = ["--mode=train", "--tables=%s,%s" % (train_tsv, dev_tsv),
+            "--pretrained_model_name_or_path=" + model_dir,
+            "--checkpoint_dir=" + ckpt, "--epoch_num=1",
+            "--learning_rate=%g" % LEARNING_RATE, "--optimizer_type=AdamW",
+            "--logging_steps=1", "--random_seed=%d" % seed] \
+        + _common_argv(True) + lora_udp
+    trainer, _ = counted("LoRA training (%d steps + evaluation)" % steps,
+                         lambda: _cli(torch, argv),
+                         {"short_attention_fwd": N_LAYERS * (
+                             steps + eval_batches),
+                          "short_attention_bwd": N_LAYERS * steps})
+    peak = (torch.cuda.max_memory_allocated() - at_start) / 2 ** 30
+    base = torch.load(os.path.join(ckpt, "pytorch_model_base.bin"),
+                      weights_only=True)
+    start = torch.load(os.path.join(model_dir, "pytorch_model.bin"),
+                       weights_only=True)
+    adapters = torch.load(os.path.join(ckpt, "pytorch_model_lora.bin"),
+                          weights_only=True)
+    moved = max(float(v.abs().max()) for k, v in adapters.items()
+                if k.endswith("lora_b"))
+    if not all(torch.equal(v, start[k]) for k, v in base.items()) or \
+            len(adapters) != 2 * 3 * N_LAYERS or not moved > 0:
+        raise AssertionError("LoRA: base changed or adapters %d, moved %.3e"
+                             % (len(adapters), moved))
+    out = os.path.join(workdir, "pred_lora.tsv")
+    counted("LoRA merged checkpoint predict", lambda: _cli(torch, [
+        "--mode=predict", "--tables=" + dev_tsv, "--outputs=" + out,
+        "--checkpoint_dir=" + ckpt, "--append_cols=id",
+        "--output_schema=predictions,probabilities,logits"]
+        + _common_argv(True)), {"short_attention_fwd": N_LAYERS
+                                * eval_batches})
+    check_output(out, N_DEV_ROWS)
+    live, merged = _lora_logits(torch, trainer.app, ckpt, dev_tsv)
+    log("LoRA r=8: %d adapter tensors over the %d query/key/value weights "
+        "(%d trained parameters against %d), lora_b at most %.3e; base bit "
+        "for bit the pretrained weights; step ms median %.3f against the "
+        "full fine-tune's %.3f (--remat=none above); peak %.3f GiB against "
+        "%.3f (the full fine-tune's without evaluation); merged "
+        "checkpoint's logits against the live model's: max |d| %.3e over %d "
+        "rows" % (
+            len(adapters), 3 * N_LAYERS,
+            sum(p.numel() for p in trainer.params),
+            sum(v.numel() for v in start.values()), moved,
+            statistics.median(1e3 * r["seconds"]
+                              for r in trainer.step_records),
+            statistics.median(1e3 * r["seconds"]
+                              for r in runs["none"]["records"]),
+            peak, runs["none"]["peak_gib"],
+            float(np.abs(live - merged).max()), len(live)))
+    if not np.array_equal(live, merged):
+        raise AssertionError("the merged checkpoint's logits differ from "
+                             "the live LoRA model's")
+    del trainer
+    part_s["LoRA"] = time.perf_counter() - t0
+    log("phase 13 seconds by part: %s; total %.1f" % (", ".join(
+        "%s %.1f" % kv for kv in part_s.items()),
+        time.perf_counter() - t_phase))
+    return launches
+
+
+def _remat_peaks(torch, app_name, model_dir, tsv, batch_size, policies,
+                 seed):
+    """{policy: GiB} that one training step's forward and backward
+    allocate on the card above what is held before it (the activations,
+    the gradients, workspace), on tsv's first batch_size rows as the
+    Trainer featurises them, bf16 with the kernels; the losses must agree
+    bit for bit."""
+    from easynlp_tpu_torch.appzoo import api
+    from easynlp_tpu_torch.modelzoo.models.auto import tokenizer_for
+    from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
+        set_remat)
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    argv = (_common_argv(True) if app_name == "text_classify"
+            else _bart_argv(True))
+    args = initialize_easynlp(args_list=argv + [
+        "--random_seed=%d" % seed])
+    ds = api._resolve(api.DATASET_REGISTRY, app_name, {})(
+        data_file=tsv, is_training=True,
+        **api._dataset_kwargs(args, tokenizer_for(model_dir)))
+    app = api._resolve(api.MODEL_REGISTRY, app_name, {}).from_pretrained(
+        model_dir, args=args, dtype=torch.bfloat16, device="cuda",
+        num_labels=max(len(ds.label_enumerate_values), 2))
+    batch = {k: torch.from_numpy(v[:batch_size]).cuda()
+             for k, v in ds.features.items()}
+    app.module.train()
+    peaks, losses = {}, {}
+    for policy in policies:
+        set_remat(app.module, policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        torch.manual_seed(seed)
+        loss = app.loss_fn(app.forward(batch), batch)["loss"]
+        loss.backward()
+        loss = loss.detach()
+        torch.cuda.synchronize()
+        peaks[policy] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        losses[policy] = loss.item()
+        for p in app.module.parameters():
+            p.grad = None
+    log("%s, one step's forward and backward at %d x %s: peak device "
+        "memory above the step's start %s GiB (%s GiB under none); losses "
+        "%s" % (app_name, batch_size, "x".join(
+            str(n) for n in batch["input_ids"].shape[1:]), ", ".join(
+            "%s %.3f" % kv for kv in peaks.items()), ", ".join(
+            "%s %.3f" % (p, peaks["none"] - v) for p, v in peaks.items()
+            if p != "none"), losses))
+    if len(set(losses.values())) != 1:
+        raise AssertionError("--remat changed the loss: %s" % losses)
+    return peaks
+
+
+def _train_python(torch, kind, model_dir, tsv, seed, teacher_app=None,
+                  stage=None):
+    """The A12 trainers the JAX package reaches only from Python:
+    CPTClassification through the Trainer ('cpt'), MetaTeacherTrainer
+    ('teacher') and MetaDistillationTrainer ('student', at `stage`), on
+    the card in bf16 with the kernels. Returns the trainer."""
+    from easynlp_tpu_torch.core.distiller import (
+        MetaDistillationTrainer,
+        MetaTeacherTrainer,
+    )
+    from easynlp_tpu_torch.core.trainer import Trainer
+    from easynlp_tpu_torch.distillation.distill_metakd_application import (
+        MetaStudentClassification,
+        MetaTeacherClassification,
+    )
+    from easynlp_tpu_torch.distillation.distill_metakd_dataset import (
+        MetaKDClassificationDataset,
+    )
+    from easynlp_tpu_torch.fewshot_learning.fewshot_application import (
+        CPTClassification)
+    from easynlp_tpu_torch.fewshot_learning.fewshot_dataset import (
+        FewshotDataset)
+    from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    schema = "id:str:1,sentence:str:1,label:str:1"
+    args = initialize_easynlp(args_list=[
+        "--mode=train", "--epoch_num=1", "--learning_rate=%g"
+        % LEARNING_RATE, "--optimizer_type=AdamW", "--logging_steps=1",
+        "--random_seed=%d" % seed] + _common_argv(True))
+    tokenizer = BertTokenizer.from_pretrained(model_dir)
+    kw = dict(max_seq_length=SEQ_LEN, first_sequence="sentence",
+              label_name="label")
+    if kind == "cpt":
+        ds = FewshotDataset(tsv, tokenizer, input_schema=schema,
+                            user_defined_parameters=PET_PATTERN, **kw)
+        app = CPTClassification.from_pretrained(
+            model_dir, dtype=torch.bfloat16, device="cuda",
+            label_mapping=ds.label_mapping)
+        trainer = Trainer(app, ds, args=args)
+    else:
+        ds = MetaKDClassificationDataset(
+            tsv, tokenizer, input_schema=schema + ",domain:str:1,"
+            "weight:str:1", **kw)
+        n = max(len(ds.label_enumerate_values), 2)
+        if kind == "teacher":
+            app = MetaTeacherClassification.from_pretrained(
+                model_dir, dtype=torch.bfloat16, device="cuda", num_labels=n,
+                label_mapping=ds.label_mapping)
+            trainer = MetaTeacherTrainer(app, ds, args=args,
+                                         user_defined_parameters={})
+        else:
+            app = MetaStudentClassification.from_pretrained(
+                model_dir, dtype=torch.bfloat16, device="cuda", num_labels=n,
+                label_mapping=ds.label_mapping)
+            trainer = MetaDistillationTrainer(
+                app, ds, teacher_app=teacher_app, args=args,
+                user_defined_parameters={"distill_stage": stage, "T": "2"})
+    trainer.train()
+    torch.cuda.synchronize()
+    return trainer
+
+
+def _lora_logits(torch, app, ckpt, tsv):
+    """(the live LoRA app's logits, the merged checkpoint's as a plain
+    text_classify app) over tsv's rows in BATCH-row batches, bf16 with the
+    kernels."""
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.sequence_classification.data import (
+        ClassificationDataset)
+    from easynlp_tpu_torch.appzoo.sequence_classification.model import (
+        SequenceClassification)
+    from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
+    ds = ClassificationDataset(
+        tsv, BertTokenizer.from_pretrained(ckpt), max_seq_length=SEQ_LEN,
+        input_schema="id:str:1,sentence:str:1,label:str:1",
+        first_sequence="sentence", label_name="label")
+    merged = SequenceClassification.from_pretrained(
+        ckpt, dtype=torch.bfloat16, device="cuda")
+    app.module.eval()
+    out = {"live": [], "merged": []}
+    with torch.inference_mode():
+        for s in range(0, len(ds), BATCH):
+            batch = {k: torch.from_numpy(v[s:s + BATCH]).cuda()
+                     for k, v in ds.features.items()
+                     if k in app.model_input_keys}
+            out["live"].append(app.forward(batch)["logits"].float().cpu())
+            out["merged"].append(merged.forward(batch)["logits"].float()
+                                 .cpu())
+    return tuple(np.concatenate([t.numpy() for t in out[k]])
+                 for k in ("live", "merged"))
+
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -4821,7 +5404,7 @@ def main():
         phase_generation(torch, seed, workdir)
         seconds["5 GPT-2 generation"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        launches = phase_bart(torch, seed, workdir)
+        launches, bart_run = phase_bart(torch, seed, workdir)
         seconds["6 BART train"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         phase_bart_predict(torch, seed, workdir)
@@ -4841,6 +5424,11 @@ def main():
         t0 = time.perf_counter()
         apps2_launches = phase_encoder_apps2(torch, seed, workdir, cjk)
         seconds["12 encoder apps 2, optimizers"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        options_launches = phase_trainer_options(torch, seed, workdir,
+                                                 bart_run)
+        seconds["13 trainer options, KD, PET, MetaKD, LoRA"] = \
+            time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
 
@@ -4856,7 +5444,8 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": launches[name] + mlm_launches.get(wrapper, 0)
-            + apps2_launches.get(wrapper, 0),
+            + apps2_launches.get(wrapper, 0)
+            + options_launches.get(wrapper, 0),
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -10,11 +10,16 @@ user_defined_parameters two_tower or siamese), `sequence_labeling`,
 `geep_classify`, train and evaluate for `language_modeling` (MLM
 pretraining on BERT and RoBERTa), predict for `vectorization` and
 `data_augmentation`, and for `sequence_generation` train, evaluate and
-predict on BART and predict on GPT-2. The registries map each app to its
-variants, as the JAX package's do. Every other mode, app, backbone or app
-variant raises NotImplementedError naming its ROADMAP item. The datasets
-are the port's copies of the JAX package's, so both packages featurise and
-batch the same rows the same way.
+predict on BART and predict on GPT-2. text_classify's variants take the
+user_defined_parameters switches enable_distillation (vanilla KD against
+saved teacher logits, with `temperature` and `alpha`), enable_metakd (the
+meta-teacher, trained by MetaTeacherTrainer), enable_fewshot (PET) and,
+for any app, enable_lora (adapters only: lora_rank, lora_alpha,
+lora_targets). The registries map each app to its variants, as the JAX
+package's do. Every other mode, app, backbone or app variant raises
+NotImplementedError naming its ROADMAP item. The datasets are the port's
+copies of the JAX package's, so both packages featurise and batch the same
+rows the same way.
 """
 
 import json
@@ -40,9 +45,15 @@ _TWO_TOWER = ("two_tower", "siamese")  # both select the shared-tower app
 
 
 def _apps(**apps):
-    """{app: {variant: loader}} from {app: {variant: "module:Class"}}."""
-    return {app: {key: _lazy(_P + path.split(":")[0], path.split(":")[1])
-                  for key, path in variants.items()}
+    """{app: {variant: loader}} from {app: {variant: "module:Class"}}, the
+    module under easynlp_tpu_torch.appzoo unless it starts with the
+    package's name."""
+    def load(path):
+        module, name = path.split(":")
+        if not module.startswith("easynlp_tpu_torch."):
+            module = _P + module
+        return _lazy(module, name)
+    return {app: {key: load(path) for key, path in variants.items()}
             for app, variants in apps.items()}
 
 
@@ -50,9 +61,17 @@ def _with_two_tower(default, two_tower):
     return dict({"default": default}, **dict.fromkeys(_TWO_TOWER, two_tower))
 
 
+_KD = "easynlp_tpu_torch.distillation."
+_FEWSHOT = "easynlp_tpu_torch.fewshot_learning."
+
 DATASET_REGISTRY = _apps(
-    text_classify={"default": "sequence_classification.data:"
-                              "ClassificationDataset"},
+    text_classify={
+        "default": "sequence_classification.data:ClassificationDataset",
+        "enable_distillation": _KD + "distill_dataset:"
+                                     "DistillatoryClassificationDataset",
+        "enable_fewshot": _FEWSHOT + "fewshot_dataset:FewshotDataset",
+        "enable_metakd": _KD + "distill_metakd_dataset:"
+                               "MetaKDClassificationDataset"},
     text_match=_with_two_tower("text_match.data:TextMatchDataset",
                                "text_match.data:TwoTowerDataset"),
     sequence_labeling={"default": "sequence_labeling.data:"
@@ -73,10 +92,16 @@ DATASET_REGISTRY = _apps(
                               "ClassificationDataset"},
 )
 MODEL_REGISTRY = _apps(
-    text_classify={"default": "sequence_classification.model:"
-                              "SequenceClassification",
-                   "multi_label": "sequence_classification.model:"
-                                  "SequenceMultiLabelClassification"},
+    text_classify={
+        "default": "sequence_classification.model:SequenceClassification",
+        "multi_label": "sequence_classification.model:"
+                       "SequenceMultiLabelClassification",
+        "enable_distillation": _KD + "distill_application:"
+                                     "DistillatorySequenceClassification",
+        "enable_fewshot": _FEWSHOT + "fewshot_application:"
+                                     "FewshotClassification",
+        "enable_metakd": _KD + "distill_metakd_application:"
+                               "MetaTeacherClassification"},
     text_match=_with_two_tower("text_match.model:TextMatch",
                                "text_match.model:TextMatchTwoTower"),
     sequence_labeling={"default": "sequence_labeling.model:"
@@ -117,8 +142,10 @@ EVALUATOR_REGISTRY = _apps(
                               "SequenceClassificationEvaluator"},
 )
 PREDICTOR_REGISTRY = _apps(
-    text_classify={"default": "sequence_classification.predictor:"
-                              "SequenceClassificationPredictor"},
+    text_classify={
+        "default": "sequence_classification.predictor:"
+                   "SequenceClassificationPredictor",
+        "enable_fewshot": _FEWSHOT + "fewshot_predictor:FewshotPredictor"},
     text_match=_with_two_tower("text_match.predictor:TextMatchPredictor",
                                "text_match.predictor:"
                                "TextMatchTwoTowerPredictor"),
@@ -150,8 +177,6 @@ _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
                  "enable_vqgan", "contrast_learning_flag")
 # user_defined_parameters switches whose app variant is not ported yet
 _NOT_PORTED_VARIANTS = {
-    "enable_metakd": "ROADMAP A12", "enable_distillation": "ROADMAP A12",
-    "enable_fewshot": "ROADMAP A12", "enable_lora": "ROADMAP A12",
     "enable_kangaroo": "ROADMAP A13", "enable_dkplm": "ROADMAP A13",
     "contrast_learning_flag": "ROADMAP A13", "enable_glm": "ROADMAP A19",
     "enable_vit": "ROADMAP A21",
@@ -243,7 +268,8 @@ def _dataset_kwargs(args, tokenizer):
                 second_sequence=args.second_sequence,
                 label_name=args.label_name,
                 label_enumerate_values=args.label_enumerate_values,
-                multi_label=_multi_label(args))
+                multi_label=_multi_label(args),
+                user_defined_parameters=args.user_defined_parameters_dict)
 
 
 def _multi_label(args):
@@ -252,7 +278,10 @@ def _multi_label(args):
 
 def _train_main(args, udp):
     """api.py's train branch: train (and valid) dataset, evaluator, the app
-    from the pretrained directory, the Trainer."""
+    from the pretrained directory (KD configured from the parameters, or
+    wrapped for LoRA), the Trainer (MetaTeacherTrainer for enable_metakd,
+    DistillatoryTrainer for enable_distillation)."""
+    from easynlp_tpu_torch.core import distiller
     from easynlp_tpu_torch.core.trainer import Trainer
     model_cls = _resolve(MODEL_REGISTRY, args.app_name, udp)
     dataset_cls = _resolve(DATASET_REGISTRY, args.app_name, udp)
@@ -278,8 +307,26 @@ def _train_main(args, udp):
         device=args.device,
         num_labels=max(len(train_dataset.label_enumerate_values), 2),
         label_mapping=getattr(train_dataset, "label_mapping", None))
-    trainer = Trainer(app, train_dataset, evaluator=evaluator, args=args,
-                      tokenizer=tokenizer)
+    if hasattr(app, "configure"):
+        # KD's temperature and alpha (the JAX api never calls its
+        # configure: ROADMAP reference fault 20)
+        app.configure(udp)
+    if udp.get("enable_lora"):
+        from easynlp_tpu_torch.core.lora_app import LoRAApplication
+        from easynlp_tpu_torch.modelzoo.lora import parse_targets
+        app = LoRAApplication(
+            app, rank=int(udp.get("lora_rank", 4)),
+            alpha=float(udp["lora_alpha"]) if udp.get("lora_alpha")
+            else None,
+            targets=parse_targets(udp.get("lora_targets")))
+    trainer_cls, trainer_kwargs = Trainer, {}
+    if udp.get("enable_metakd"):
+        trainer_cls = distiller.MetaTeacherTrainer
+        trainer_kwargs = {"user_defined_parameters": udp}
+    elif udp.get("enable_distillation"):
+        trainer_cls = distiller.DistillatoryTrainer
+    trainer = trainer_cls(app, train_dataset, evaluator=evaluator, args=args,
+                          tokenizer=tokenizer, **trainer_kwargs)
     trainer.train()
     return trainer
 

@@ -22,7 +22,22 @@ Counterpart of easynlp_tpu/core/trainer.py on one device:
   autocast or loss scaler is needed;
 - logging through Statistics (events.jsonl), evaluation on every save
   with the best score kept, checkpoints as `pytorch_model.bin` (HF names)
-  plus the JAX package's other artifacts, and resume with the mid-epoch skip.
+  plus the JAX package's other artifacts, and resume with the mid-epoch skip;
+- `--remat` (modeling_bert.set_remat: activation checkpointing of each
+  BERT and BART layer under the JAX package's policies);
+- `--ema_decay`: an f32 EMA of the trained parameters on the device
+  (modelzoo/models/latent_diffusion/ema.py), updated after every step,
+  skipped ones included, as the JAX Trainer does; saved as
+  `pytorch_model_ema.bin` with `ema_num_updates` in meta.json, and
+  restored on resume;
+- `--async_save`: the checkpoint is copied to host memory on the training
+  thread (a finished snapshot: the optimizers update the parameters in
+  place) and written by a background thread, at most one write in
+  flight; a failed write raises at the next save or at the end;
+- only the parameters that require a gradient are trained (LoRA freezes
+  its base), and an app may hook the checkpoint as the JAX package's
+  LoRA does: `extra_save_artifacts()`, `restore_params(dir)`,
+  `sync_trained_params()`.
 
 Losses, gradient norms and skips stay on the device until a logging step,
 which reads every step since the last one back in one copy. Then
@@ -39,6 +54,7 @@ import contextlib
 import json
 import math
 import os
+import threading
 import time
 
 import torch
@@ -47,8 +63,15 @@ from easynlp_tpu_torch.core.optimizers import get_optimizer, global_norm
 from easynlp_tpu_torch.data.dataset import DataLoader
 from easynlp_tpu_torch.data.prefetch import device_prefetch
 from easynlp_tpu_torch.modelzoo.modeling_utils import (
+    PYTORCH_WEIGHTS_NAME,
+    host_copy,
     load_pytorch_state_dict,
-    save_pytorch_state_dict,
+    substituted,
+)
+from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import set_remat
+from easynlp_tpu_torch.modelzoo.models.latent_diffusion.ema import (
+    ema_init,
+    ema_update,
 )
 from easynlp_tpu_torch.utils.global_vars import get_args
 from easynlp_tpu_torch.utils.io_utils import io
@@ -57,20 +80,12 @@ from easynlp_tpu_torch.utils.statistics import Statistics
 
 META_NAME = "meta.json"
 OPT_STATE_NAME = "optimizer.pt"
+EMA_WEIGHTS_NAME = "pytorch_model_ema.bin"
 
 
 def refuse_unported_options(args):
     """Raise on the JAX Trainer's options that the port does not have yet,
     rather than ignore them."""
-    if (getattr(args, "remat", "none") or "none") != "none":
-        raise NotImplementedError("--remat=%s (activation checkpointing) is "
-                                  "not ported yet (ROADMAP A6b)" % args.remat)
-    if float(getattr(args, "ema_decay", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError("--ema_decay is not ported yet "
-                                  "(ROADMAP A6b)")
-    if getattr(args, "async_save", False):
-        raise NotImplementedError("--async_save is not ported yet "
-                                  "(ROADMAP A6b)")
     if (getattr(args, "num_processes", 1) or 1) > 1 or getattr(args, "mesh",
                                                                None):
         raise NotImplementedError("multi-process and multi-device training "
@@ -117,8 +132,18 @@ class Trainer:
             seed=args.random_seed,
             num_workers=getattr(args, "data_workers", 0))
         self.steps_per_epoch = max(1, len(self.train_loader))
+        self.remat = getattr(args, "remat", "none") or "none"
+        if self.remat != "none" and getattr(model, "remat_unsupported",
+                                            None):
+            raise NotImplementedError(model.remat_unsupported)
+        set_remat(self.app.module, self.remat)
+        # frozen parameters (LoRA's base) get no optimizer state and no
+        # update, as the JAX Trainer's trainable_mask
+        trained = [(n, p) for n, p in self.app.module.named_parameters()
+                   if p.requires_grad]
+        self.param_names = [n for n, _ in trained]
         self.optimizer, self.schedule_fn, self.t_total = get_optimizer(
-            self.app.module.named_parameters(),
+            trained,
             optimizer_type=args.optimizer_type,
             learning_rate=args.learning_rate,
             warmup_proportion=args.warmup_proportion,
@@ -134,6 +159,12 @@ class Trainer:
         self.prefetch_depth = int(getattr(args, "num_host_prefetch", 2))
         self.clock = StepClock(self.app.device)
         self._pending = []  # steps not yet read back
+        self.ema_decay = float(getattr(args, "ema_decay", 0.0) or 0.0)
+        self.ema_state = ema_init(self.params) if self.ema_decay > 0 \
+            else None
+        self.async_save = bool(getattr(args, "async_save", False))
+        self._save_thread = None
+        self._save_error = None
 
         self.global_step = 0
         self.start_epoch = 0
@@ -181,6 +212,8 @@ class Trainer:
         self.optimizer.step(grads, apply=finite)
         for p in self.params:
             p.grad = None
+        if self.ema_state is not None:  # skipped steps too, as in JAX
+            ema_update(self.ema_state, self.params, decay=self.ema_decay)
         extra = [k for k in sums if k != "loss"]
         values = torch.stack([sums["loss"], gnorm, (~finite).float()]
                              + [sums[k] for k in extra])
@@ -288,13 +321,24 @@ class Trainer:
         logger.info("profiler trace written to %s", path)
 
     def after_train(self):
+        self._sync_app()
         self._eval_and_save(final=True)
+        # the last write is on disk before train() returns
+        self._join_pending_save()
         self.stats.close()
+
+    def _sync_app(self):
+        """An app whose inner model serves other weights than it trains
+        (LoRA: the merged ones) brings them up to date."""
+        sync = getattr(self.app, "sync_trained_params", None)
+        if sync is not None:
+            sync()
 
     def _eval_and_save(self, final=False):
         args = self.args
         score = None
         if self.evaluator is not None:
+            self._sync_app()
             results = self.evaluator.evaluate(self.app)
             self.stats.log_eval(self.global_step, results)
             score = results[0][1]
@@ -311,15 +355,66 @@ class Trainer:
     def save_checkpoint(self, subdir=None):
         """The JAX package's artifact set, with the weights as
         `pytorch_model.bin`: config.json, vocab.txt, label_mapping.json,
-        train_config.json, meta.json and the optimizer state (optimizer.pt).
-        With subdir the set goes into checkpoint_dir/subdir."""
+        train_config.json, meta.json, the optimizer state (optimizer.pt),
+        the app's extra artifacts and, with --ema_decay,
+        `pytorch_model_ema.bin`. With subdir the set goes into
+        checkpoint_dir/subdir. Everything written is first copied to host
+        memory here, on the training thread; with --async_save a
+        background thread writes it."""
         args = self.args
         t0 = time.perf_counter()
         out = args.checkpoint_dir
         if subdir:
             out = os.path.join(out, subdir)
+        files = {PYTORCH_WEIGHTS_NAME: self.app.export_state_dict()}
+        extra = getattr(self.app, "extra_save_artifacts", None)
+        if extra is not None:
+            files.update(extra())
+        meta = {"global_step": self.global_step,
+                "epoch": self.global_step // self.steps_per_epoch,
+                "best_score": self.best_score}
+        if self.ema_state is not None:
+            with substituted(self.app.module, dict(zip(
+                    self.param_names, self.ema_state["shadow"]))):
+                files[EMA_WEIGHTS_NAME] = self.app.export_state_dict()
+            meta["ema_num_updates"] = int(self.ema_state["num_updates"])
+        files[OPT_STATE_NAME] = self.optimizer.state_dict()
+        files = host_copy(files)
+        cfg = {k: v for k, v in vars(args).items()
+               if isinstance(v, (str, int, float, bool, type(None)))}
+        self._join_pending_save()  # at most one write in flight
+        if self.async_save:
+            self._save_thread = threading.Thread(
+                target=self._write_guarded, args=(out, files, meta, cfg),
+                name="checkpoint-writer", daemon=True)
+            self._save_thread.start()
+        else:
+            self._write_checkpoint(out, files, meta, cfg)
+        self.save_seconds.append(time.perf_counter() - t0)
+
+    def _write_guarded(self, *write_args):
+        try:
+            self._write_checkpoint(*write_args)
+        except Exception as exc:  # raised by _join_pending_save
+            self._save_error = exc
+            logger.error("async checkpoint write failed: %s", exc)
+
+    def _join_pending_save(self):
+        """Wait for the write in flight; raise if a write failed."""
+        if self._save_thread is not None:
+            self._save_thread.join()
+            self._save_thread = None
+        if self._save_error is not None:
+            exc, self._save_error = self._save_error, None
+            raise RuntimeError("async checkpoint write failed") from exc
+
+    def _write_checkpoint(self, out, files, meta, cfg):
+        """Host data in, files out: safe on a background thread (the config,
+        tokenizer and label mapping do not change while training)."""
         io.makedirs(out)
-        save_pytorch_state_dict(self.app.export_state_dict(), out)
+        for name, obj in files.items():
+            with io.open(os.path.join(out, name), "wb") as f:
+                torch.save(obj, f)
         self.app.config.save_pretrained(out)
         if self.tokenizer is not None:
             self.tokenizer.save_pretrained(out)
@@ -327,23 +422,20 @@ class Trainer:
             with io.open(os.path.join(out, "label_mapping.json"), "w") as f:
                 json.dump(self.app.label_mapping, f, ensure_ascii=False,
                           indent=2)
-        cfg = {k: v for k, v in vars(args).items()
-               if isinstance(v, (str, int, float, bool, type(None)))}
         with io.open(os.path.join(out, "train_config.json"), "w") as f:
             json.dump(cfg, f, indent=2)
-        meta = {"global_step": self.global_step,
-                "epoch": self.global_step // self.steps_per_epoch,
-                "best_score": self.best_score}
         with io.open(os.path.join(out, META_NAME), "w") as f:
             json.dump(meta, f)
-        with io.open(os.path.join(out, OPT_STATE_NAME), "wb") as f:
-            torch.save(self.optimizer.state_dict(), f)
-        self.save_seconds.append(time.perf_counter() - t0)
         logger.info("checkpoint saved to %s", out)
 
+    @torch.no_grad()
+    def _copy_params_to_shadow(self):
+        torch._foreach_copy_(self.ema_state["shadow"], self.params)
+
     def resume_from_ckpt(self, ckpt_dir):
-        """Restore weights, optimizer state and step counter; the loader
-        fast-forwards because shuffling is a function of (seed, epoch)."""
+        """Restore weights, optimizer state, step counter and the EMA
+        shadow and count; the loader fast-forwards because shuffling is a
+        function of (seed, epoch)."""
         meta_path = os.path.join(ckpt_dir, META_NAME)
         if not io.exists(meta_path):
             logger.warning("no %s in %s; fresh start", META_NAME, ckpt_dir)
@@ -354,8 +446,30 @@ class Trainer:
         self.start_epoch = int(meta.get("epoch", 0))
         self._resume_skip_batches = self.global_step % self.steps_per_epoch
         self.best_score = float(meta.get("best_score", -float("inf")))
-        self.app.load_state_dict(self.app.module,
-                                 load_pytorch_state_dict(ckpt_dir))
+        restore = getattr(self.app, "restore_params", None)
+        ema_path = os.path.join(ckpt_dir, EMA_WEIGHTS_NAME)
+        ema_restored = False
+        if self.ema_state is not None and restore is None \
+                and io.exists(ema_path):
+            # the EMA weights go in through the module (the file has the
+            # export's names), into the shadow, then the trained ones
+            self.app.load_state_dict(self.app.module,
+                                     load_pytorch_state_dict(ema_path))
+            self._copy_params_to_shadow()
+            ema_restored = True
+        if restore is not None:
+            restore(ckpt_dir)
+        else:
+            self.app.load_state_dict(self.app.module,
+                                     load_pytorch_state_dict(ckpt_dir))
+        if self.ema_state is not None:
+            if not ema_restored:
+                logger.warning("no restorable %s in %s: the EMA restarts "
+                               "from the resumed weights", EMA_WEIGHTS_NAME,
+                               ckpt_dir)
+                self._copy_params_to_shadow()
+            self.ema_state["num_updates"].fill_(
+                int(meta.get("ema_num_updates", self.global_step)))
         opt_path = os.path.join(ckpt_dir, OPT_STATE_NAME)
         if io.exists(opt_path):
             with io.open(opt_path, "rb") as f:

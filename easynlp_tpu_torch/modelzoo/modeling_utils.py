@@ -6,6 +6,7 @@ Counterpart of easynlp_tpu/modelzoo/modeling_utils.py. A model here is an
 `pytorch_model.bin` layout, which the port's modules keep by name.
 """
 
+import contextlib
 import os
 
 import torch
@@ -33,16 +34,53 @@ def load_pytorch_state_dict(model_dir_or_file):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def save_pytorch_state_dict(state_dict, save_directory):
-    """Write {name: tensor} as `pytorch_model.bin` (CPU f32 copies), the
-    counterpart of the JAX package's save_params: the port's checkpoints
-    keep the reference/HF names, so the port and HF read them back."""
-    io.makedirs(save_directory)
-    host = {k: v.detach().to("cpu", copy=True).contiguous()
-            for k, v in state_dict.items()}
-    with io.open(os.path.join(save_directory, PYTORCH_WEIGHTS_NAME),
-                 "wb") as f:
-        torch.save(host, f)
+def host_copy(obj):
+    """A CPU copy of every tensor in a (nested dict/list/tuple) structure:
+    a finished snapshot that later in-place updates on the device do not
+    reach. Card tensors are copied into pinned host memory without waiting
+    one by one (PyTorch's host allocator keeps the pinned blocks of a
+    snapshot once it is freed, for the next), then the copies are waited
+    for once."""
+    cuda = []
+
+    def copy(x):
+        if torch.is_tensor(x):
+            x = x.detach()
+            if x.device.type != "cuda":
+                return x.to("cpu", copy=True).contiguous()
+            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            out.copy_(x, non_blocking=True)
+            cuda.append(x.device)
+            return out
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(copy(v) for v in x)
+        return x
+
+    out = copy(obj)
+    for device in set(cuda):
+        torch.cuda.current_stream(device).synchronize()
+    return out
+
+
+@contextlib.contextmanager
+def substituted(module, values):
+    """Inside the block the parameters of `module` named in `values` hold
+    those tensors (each parameter's .data swapped, cast to its dtype); after
+    it, their own again. For writing out other weights under the module's
+    names (EMA, merged LoRA) with the app's own export."""
+    params = dict(module.named_parameters())
+    saved = {}
+    with torch.no_grad():
+        for name, value in values.items():
+            saved[name] = params[name].data
+            params[name].data = value.detach().to(params[name].dtype)
+    try:
+        yield module
+    finally:
+        for name, data in saved.items():
+            params[name].data = data
 
 
 def available_checkpoint(model_dir):

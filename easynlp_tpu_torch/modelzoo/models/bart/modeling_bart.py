@@ -36,6 +36,7 @@ from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
     ACT2FN,
     dense,
     layer_norm,
+    remat_call,
 )
 from easynlp_tpu_torch.ops.attention import attention
 
@@ -99,7 +100,12 @@ class BartAttention(nn.Module):
 
 
 class BartLayer(nn.Module):
-    """One post-LN block: self-attention, cross-attention (decoder), FFN."""
+    """One post-LN block: self-attention, cross-attention (decoder), FFN.
+    `remat` (modeling_bert.set_remat) is its --remat policy while it trains
+    without a cache: the whole block is recomputed in the backward, its
+    attention kernels included, but for what the policy keeps. As in the
+    JAX model (modeling_bart.py:250-252, which tags no activation),
+    'selective' keeps every projection's output and 'names' nothing."""
 
     def __init__(self, config, is_decoder, dtype=torch.float32, device=None):
         super().__init__()
@@ -110,6 +116,7 @@ class BartLayer(nn.Module):
         ffn = c.decoder_ffn_dim if is_decoder else c.encoder_ffn_dim
         self.dtype = dtype
         self.is_decoder = is_decoder
+        self.remat = "none"
         self.self_attn = BartAttention(c, heads, dtype=dtype, device=device)
         self.self_attn_layer_norm = nn.LayerNorm(e, eps=LN_EPS, device=device)
         if is_decoder:
@@ -126,6 +133,14 @@ class BartLayer(nn.Module):
 
     def forward(self, hidden, self_mask, enc_hidden=None, enc_mask=None,
                 cache=None, layer_idx=None):
+        if self.remat != "none" and cache is None and torch.is_grad_enabled():
+            return remat_call(self.remat, self._block, hidden, self_mask,
+                              enc_hidden, enc_mask)
+        return self._block(hidden, self_mask, enc_hidden, enc_mask, cache,
+                           layer_idx)
+
+    def _block(self, hidden, self_mask, enc_hidden=None, enc_mask=None,
+               cache=None, layer_idx=None):
         dt = self.dtype
         # with a cache, the self mask covers the cache's slots and no causal
         # mask is needed (one token per step)

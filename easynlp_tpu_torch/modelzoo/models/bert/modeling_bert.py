@@ -19,9 +19,18 @@ HF ones (`encoder.layer.{i}.attention.self.query.weight`, ...) and a
 reference `pytorch_model.bin` loads with `load_state_dict(strict=True)` after
 key normalisation (conversion.py). `output_hidden_states` stacks the L
 layers' outputs as one [L, B, S, E] tensor, as the JAX scan collects them
-(not HF's tuple of L + 1 that starts with the embeddings). Not ported yet:
-output_attentions and pre-LN (ROADMAP A3, A12, A13).
+(not HF's tuple of L + 1 that starts with the embeddings);
+`output_attentions` stacks each layer's masked pre-softmax scores as
+[L, B, H, S, S], -1e4 on masked keys, as the JAX module's explicit-scores
+path gives them (not HF's probabilities). Activation checkpointing
+(`--remat`) follows the JAX package's REMAT_POLICIES (below). Not ported
+yet: pre-LN (ROADMAP A13).
 """
+
+import contextlib
+import functools
+import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +125,72 @@ class BertSelfOutput(nn.Module):
         self.dropout = nn.Dropout(config.hidden_dropout_prob)
 
 
+# --remat: what each policy keeps for the backward pass, as the JAX
+# package's REMAT_POLICIES (easynlp_tpu modeling_bert.py:203-219) do.
+# None keeps the output of every projection (jax's "dots with no batch
+# dims") and the attention context; a tuple keeps the projections tagged
+# with those names (checkpoint_name below); () keeps nothing.
+REMAT_POLICIES = {
+    "full": (),
+    "selective": None,
+    "names": ("qkv_out", "attn_out", "attn_proj_out", "mlp_wo_out"),
+}
+_PROJECTIONS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_TAG = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name):
+    """Tags the projections run inside the block with `name`, for the
+    `names` policy (jax.ad_checkpoint.checkpoint_name's counterpart)."""
+    outer = getattr(_TAG, "name", None)
+    _TAG.name = name
+    try:
+        yield
+    finally:
+        _TAG.name = outer
+
+
+def _policy_context(saved):
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in _PROJECTIONS and (
+                saved is None or getattr(_TAG, "name", None) in saved):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return create_selective_checkpoint_contexts(policy)
+
+
+def remat_call(policy, fn, *args):
+    """fn(*args) with its activations dropped after the forward and
+    recomputed in the backward, but for what `policy` keeps
+    (REMAT_POLICIES). torch.utils.checkpoint, non-reentrant: the autograd
+    graph is the one without checkpointing, the RNG state is replayed for
+    dropout, and the recomputed values are those of the forward bit for
+    bit, so every policy gives the same gradients as none."""
+    from torch.utils.checkpoint import checkpoint
+    saved = REMAT_POLICIES[policy]
+    if saved == ():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(_policy_context, saved))
+
+
+def set_remat(module, policy):
+    """Set the --remat policy of every layer in `module` that has one
+    (BertLayer, BartLayer); 'none' turns it off."""
+    if policy != "none" and policy not in REMAT_POLICIES:
+        raise ValueError("unknown --remat policy %r (none, %s)"
+                         % (policy, ", ".join(REMAT_POLICIES)))
+    for m in module.modules():
+        if hasattr(m, "remat"):
+            m.remat = policy
+
+
 class BertAttention(nn.Module):
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
@@ -124,17 +199,38 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(config, device=device)
         self.output = BertSelfOutput(config, device=device)
 
-    def forward(self, hidden, kv_mask):
-        """hidden [B,S,E] in dtype, kv_mask [B,S] int32 → LN(hidden +
-        attention) [B,S,E] in dtype."""
+    def context(self, hidden, kv_mask, output_scores=False):
+        """hidden [B,S,E] in dtype, kv_mask [B,S] int32 -> the attention
+        context [B,S,E] in dtype, and with output_scores the masked
+        pre-softmax scores [B,H,S,S] in f32."""
         b, s, e = hidden.shape
         h, dt = self.num_heads, self.dtype
-        q = dense(self.self.query, hidden, dt).view(b, s, h, e // h)
-        k = dense(self.self.key, hidden, dt).view(b, s, h, e // h)
-        v = dense(self.self.value, hidden, dt).view(b, s, h, e // h)
-        ctx = attention(q, k, v, kv_mask=kv_mask).reshape(b, s, e)
-        out = self.output.dropout(dense(self.output.dense, ctx, dt))
-        return layer_norm(self.output.LayerNorm, hidden + out, dt)
+        with checkpoint_name("qkv_out"):
+            q = dense(self.self.query, hidden, dt).view(b, s, h, e // h)
+            k = dense(self.self.key, hidden, dt).view(b, s, h, e // h)
+            v = dense(self.self.value, hidden, dt).view(b, s, h, e // h)
+        if not output_scores:
+            return attention(q, k, v, kv_mask=kv_mask).reshape(b, s, e)
+        # The JAX module's explicit-scores path (modeling_bert.py:116-128),
+        # which never calls attention(): the scores of attention-transfer
+        # distillation (MetaKD), -1e4 on masked keys as the reference's
+        # extended attention mask, so MetaKD's "zero out <= -1e2" applies.
+        # It runs only when the caller asks for the scores.
+        scale = 1.0 / math.sqrt(e // h)
+        raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        scores = raw + torch.where(kv_mask[:, None, None, :] != 0, 0.0,
+                                   -1e4)
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), v)
+        return ctx.reshape(b, s, e), scores
+
+    def project(self, hidden, ctx):
+        """LN(hidden + the output projection of ctx), in dtype."""
+        dt = self.dtype
+        with checkpoint_name("attn_proj_out"):
+            out = dense(self.output.dense, ctx, dt)
+        return layer_norm(self.output.LayerNorm,
+                          hidden + self.output.dropout(out), dt)
 
 
 class BertIntermediate(nn.Module):
@@ -156,21 +252,54 @@ class BertOutput(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """One post-LN transformer block."""
+    """One post-LN transformer block. `remat` (set_remat) is its --remat
+    policy while it trains: 'full' recomputes the whole block in the
+    backward, attention kernel included; 'selective' and 'names' keep the
+    q/k/v projections and the attention kernel out of the recomputed part
+    (the kernel's autograd Function keeps q, k, v and the context for its
+    own backward: JAX's qkv_out and attn_out, saved by both policies) and
+    recompute the rest under the policy."""
 
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
+        self.remat = "none"
         self.act = ACT2FN[config.hidden_act]
         self.attention = BertAttention(config, dtype=dtype, device=device)
         self.intermediate = BertIntermediate(config, device=device)
         self.output = BertOutput(config, device=device)
 
-    def forward(self, hidden, kv_mask):
+    def forward(self, hidden, kv_mask, output_scores=False):
+        """The block's output [B,S,E] in dtype; with output_scores, (that,
+        the attention's masked scores [B,H,S,S])."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return self._block(hidden, kv_mask, output_scores)
+        if self.remat == "full":
+            return remat_call("full", self._block, hidden, kv_mask,
+                              output_scores)
+        ctx = self.attention.context(hidden, kv_mask, output_scores)
+        if output_scores:
+            ctx, scores = ctx
+            return remat_call(self.remat, self._after_attention, hidden,
+                              ctx), scores
+        return remat_call(self.remat, self._after_attention, hidden, ctx)
+
+    def _block(self, hidden, kv_mask, output_scores=False):
+        ctx = self.attention.context(hidden, kv_mask, output_scores)
+        if output_scores:
+            ctx, scores = ctx
+            return self._after_attention(hidden, ctx), scores
+        return self._after_attention(hidden, ctx)
+
+    def _after_attention(self, hidden, ctx):
         dt = self.dtype
-        hidden = self.attention(hidden, kv_mask)
-        mlp = self.act(dense(self.intermediate.dense, hidden, dt))
-        mlp = self.output.dropout(dense(self.output.dense, mlp, dt))
+        hidden = self.attention.project(hidden, ctx)
+        with checkpoint_name("mlp_wi_out"):
+            mlp = dense(self.intermediate.dense, hidden, dt)
+        mlp = self.act(mlp)
+        with checkpoint_name("mlp_wo_out"):
+            mlp = dense(self.output.dense, mlp, dt)
+        mlp = self.output.dropout(mlp)
         return layer_norm(self.output.LayerNorm, hidden + mlp, dt)
 
 
@@ -181,15 +310,20 @@ class BertEncoder(nn.Module):
             BertLayer(config, dtype=dtype, device=device)
             for _ in range(config.num_hidden_layers))
 
-    def forward(self, hidden, kv_mask, output_hidden_states=False):
+    def forward(self, hidden, kv_mask, output_hidden_states=False,
+                output_attentions=False):
         """(the last layer's output, [L, B, S, E] of every layer's output
-        or None)."""
-        collected = []
+        or None, [L, B, H, S, S] of every layer's masked scores or None)."""
+        collected, scores = [], []
         for layer in self.layer:
-            hidden = layer(hidden, kv_mask)
+            hidden = layer(hidden, kv_mask, output_attentions)
+            if output_attentions:
+                hidden, layer_scores = hidden
+                scores.append(layer_scores)
             if output_hidden_states:
                 collected.append(hidden)
-        return hidden, torch.stack(collected) if collected else None
+        return (hidden, torch.stack(collected) if collected else None,
+                torch.stack(scores) if scores else None)
 
 
 class BertPooler(nn.Module):
@@ -204,14 +338,18 @@ class BertPooler(nn.Module):
 
 
 class BertModel(nn.Module):
-    """Returns {'last_hidden_state': [B,S,E], 'pooler_output': [B,E]}, and
-    with output_hidden_states 'hidden_states' [L,B,S,E], all in `dtype`."""
+    """Returns {'last_hidden_state': [B,S,E], 'pooler_output': [B,E]}, with
+    output_hidden_states 'hidden_states' [L,B,S,E], all in `dtype`, and
+    with output_attentions 'attentions' [L,B,H,S,S], the masked pre-softmax
+    scores in f32."""
 
     def __init__(self, config, dtype=torch.float32, add_pooling_layer=True,
-                 device=None, output_hidden_states=False):
+                 device=None, output_hidden_states=False,
+                 output_attentions=False):
         super().__init__()
         self.config = config
         self.output_hidden_states = output_hidden_states
+        self.output_attentions = output_attentions
         self.embeddings = BertEmbeddings(config, dtype=dtype, device=device)
         self.encoder = BertEncoder(config, dtype=dtype, device=device)
         self.pooler = (BertPooler(config, dtype=dtype, device=device)
@@ -261,11 +399,14 @@ class BertModel(nn.Module):
                 position_ids=None):
         hidden, kv_mask = self.embed(input_ids, attention_mask,
                                      token_type_ids, position_ids)
-        hidden, all_hidden = self.encoder(hidden, kv_mask,
-                                          self.output_hidden_states)
+        hidden, all_hidden, all_scores = self.encoder(
+            hidden, kv_mask, self.output_hidden_states,
+            self.output_attentions)
         out = {"last_hidden_state": hidden}
         if all_hidden is not None:
             out["hidden_states"] = all_hidden
+        if all_scores is not None:
+            out["attentions"] = all_scores
         if self.pooler is not None:
             out["pooler_output"] = self.pooler(hidden)
         return out

@@ -213,8 +213,10 @@ def test_device_cuda_never_falls_back_to_cpu():
 @pytest.mark.parametrize("argv,match", [
     (["--mode=export"], "ROADMAP"),  # train is ported: export still raises
     (["--mode=predict", "--app_name=clip"], "ROADMAP"),
-    (["--mode=predict", "--user_defined_parameters=enable_fewshot=true"],
-     "ROADMAP"),
+    # the A12 switches are ported; language_modeling's Kangaroo variant
+    # (A13) still raises
+    (["--mode=predict", "--app_name=language_modeling",
+      "--user_defined_parameters=enable_kangaroo=true"], "ROADMAP"),
 ])
 def test_unported_modes_and_apps_raise(fixture_dir, argv, match):
     from easynlp_tpu_torch.appzoo.api import default_main_fn

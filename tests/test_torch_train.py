@@ -598,9 +598,11 @@ def test_lion_trains_through_the_cli(tiny):
     assert float(moved.max()) == pytest.approx(4e-4, rel=1e-2)
 
 
-@pytest.mark.parametrize("flag", ["--remat=full", "--ema_decay=0.9",
-                                  "--async_save", "--remat=selective",
-                                  "--num_processes=2"])
+# --remat, --ema_decay and --async_save are ported
+# (test_torch_trainer_options.py); multi-process and mesh training (A23)
+# still raise
+@pytest.mark.parametrize("flag", ["--num_processes=2", "--mesh=dp=1",
+                                  "--mesh=dp=1,tp=2"])
 def test_unported_training_options_raise(tiny, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run_port(train_argv(tiny, os.path.join(tiny, "refused"),
