@@ -54,12 +54,26 @@ their attention scores and so compute attention on the explicit
 einsum-and-softmax path: no kernel launches there, and the phase checks
 that none does; and LoRA (the base bit for bit after training, the
 adapters moved, the merged checkpoint's logits the live model's bit for
-bit). Every phase raises on
+bit). Then phase 14, the knowledge models: DKPLM (TransE entity and
+relation tables), CKBERT (contrast_learning_flag) and Kangaroo (an entity
+CSV, contrastive samples and Poincaré concepts; ent_num 3, sample_num 4,
+entity_gap 5, concept_size 100) pretraining through `--mode=train
+--app_name=language_modeling`, 8 AdamW steps of 32 x 128 on
+bert-base-chinese widths, then `--mode=evaluate`, with and without the
+kernels (every step's loss and gradient norm held to the plain run's),
+all tables and rows written from --seed; MegatronBERT at HF's default
+widths (megatron-bert-cased-345m: 24 layers, 1024 wide, 16 heads) loaded
+through AutoModel.from_pretrained from an HF-named pytorch_model.bin, a
+bf16 forward and backward at 8 x 512 with and without the kernels (the
+loss, the pooler output, the last hidden state and every gradient held
+to the plain pass's); and K-BERT at bert-base widths with a visible
+matrix, which launches no kernel (an additive bias takes attention's
+plain path). Every phase raises on
 failure, so any failure exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it lists the kernels with their launches
-in the BART training run and phase 11's, 12's and 13's runs, errors, times
-(kernel, plain twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
-the JAX package.
+in the BART training run and phase 11's, 12's, 13's and 14's runs, errors,
+times (kernel, plain twin, the PyTorch library call) and bounds. Imports
+nothing of JAX or of the JAX package.
 """
 
 import argparse
@@ -473,9 +487,23 @@ def phase_kernel(torch, seed):
     ie_rng = np.random.RandomState(seed + 4)
     ie_cases = [("ie-128", 32, 128, 128, 12, 64,
                  np.r_[62, 22, ie_rng.randint(22, 63, size=30)], False)]
+    # phase 14's shapes, from a stream of their own: Kangaroo's sample
+    # encoding, 32 rows x 3 entity slots x 4 samples of 128 slots, sentences
+    # of 3-30 characters (with [CLS] and [SEP]: 5-32 keys) and about a
+    # third of the slots empty (their 4 rows fully masked); MegatronBERT-
+    # 345M's 8 x 512 over 16 heads, rows of 256-512 tokens (B2's route 2)
+    kg_rng = np.random.RandomState(seed + 5)
+    slots = kg_rng.rand(96) < 0.65
+    kg_cases = [
+        ("kangaroo-samples", 384, 128, 128, 12, 64,
+         np.where(np.repeat(slots, 4), kg_rng.randint(5, 33, 384), 0),
+         False),
+        ("megatron-512", 8, 512, 512, 16, 64,
+         np.r_[512, kg_rng.randint(256, 513, size=7)], False)]
     worst = {}
     for case_rng, group in ((rng, cases), (skip_rng, skip_cases),
-                            (mlm_rng, mlm_cases), (ie_rng, ie_cases)):
+                            (mlm_rng, mlm_cases), (ie_rng, ie_cases),
+                            (kg_rng, kg_cases)):
         for name, b, sq, skv, h, d, lens, causal in group:
             q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
             for dtype in (torch.float32, torch.bfloat16):
@@ -488,9 +516,14 @@ def phase_kernel(torch, seed):
     timings = {}
     for case_rng, (name, b, sq, skv, h, d, lens, causal) in (
             [(rng, c) for c in cases[:5]] + [(mlm_rng, c) for c in mlm_cases]
-            + [(ie_rng, c) for c in ie_cases]):
+            + [(ie_rng, c) for c in ie_cases]
+            + [(kg_rng, c) for c in kg_cases]):
         q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
-        for dtype in (torch.bfloat16, torch.float32):
+        # phase 14's shapes in bf16 only, the dtype phase 14 runs: the
+        # process's profiler sessions are few (phase_kernel_in_child)
+        for dtype in ((torch.bfloat16,) if name in ("kangaroo-samples",
+                                                    "megatron-512")
+                      else (torch.bfloat16, torch.float32)):
             tq, tk, tv = (t.to(dtype) for t in (q, k, v))
             ms = _time_ms(torch, lambda: A.short_attention_fwd(
                 tq, tk, tv, mask, causal))
@@ -5340,6 +5373,534 @@ def _lora_logits(torch, app, ckpt, tsv):
                  for k in ("live", "merged"))
 
 
+# --------------------------------------------------------------------------
+# phase 14: the knowledge models (DKPLM, CKBERT and Kangaroo pretraining
+# through language_modeling; MegatronBERT-345M; K-BERT)
+# --------------------------------------------------------------------------
+
+MEGATRON_345M = {  # HF MegatronBertConfig defaults: megatron-bert-cased-345m
+    "model_type": "megatron-bert", "architectures": ["MegatronBertModel"],
+    "vocab_size": 29056, "hidden_size": 1024, "num_hidden_layers": 24,
+    "num_attention_heads": 16, "intermediate_size": 4096,
+    "max_position_embeddings": 512, "type_vocab_size": 2,
+    "hidden_act": "gelu", "layer_norm_eps": 1e-12, "initializer_range": 0.02,
+    "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1,
+    "pad_token_id": 0,
+}
+MEGATRON_DIR = "megatron-bert-345m-random"
+MEGATRON_BATCH, MEGATRON_SEQ = 8, 512
+# kernel pass against plain pass, bf16 through 24 pre-LN layers: the loss's
+# relative |d| and the last hidden state's relative rms (readings 6.9e-3
+# and 1.4e-2 on an H100 80GB HBM3 at 700 W), and the gradients' relative
+# rms over all parameters (reading 3.2e-3, same card)
+MEGATRON_RTOL = 5e-2
+MEGATRON_GRAD_RTOL = 1e-2
+# the knowledge variants' training runs, kernels against plain: each
+# step's gradient norm, relative (largest reading 6.4e-4, same card)
+KG_GRAD_NORM_RTOL = 5e-3
+# DKPLM's TransE tables (knowledge_emb_size) and Kangaroo's knowledge sizes:
+# the JAX package's dataset defaults, in the config and the data alike
+KG_DIM = 100
+KG_ENTITIES, KG_RELATIONS = 2000, 50
+KANGAROO = {"ent_size": 100, "ent_heads": 4, "concept_size": 100,
+            "ent_num": 3, "sample_num": 4}
+KANGAROO_UDP = "ent_num=3 sample_num=4 entity_gap=5 concept_size=100"
+
+
+def _knowledge_tables(workdir, cjk, seed):
+    """DKPLM's entity and relation tables (comma-separated text), and
+    Kangaroo's entity CSV, contrastive samples (level_1..4 sentences of
+    3-30 characters) and Poincaré concept table (utils/poincare.py over a
+    tree of the entities), all from the seed. Returns (paths, entity
+    names)."""
+    import csv
+
+    import numpy as np
+    from easynlp_tpu_torch.utils.poincare import train_concept_embeddings
+    rng = np.random.RandomState(seed + 14)
+    common = cjk[:3000]
+    paths = {}
+    for name, n in (("entity_emb", KG_ENTITIES), ("rel_emb", KG_RELATIONS)):
+        paths[name] = os.path.join(workdir, name + ".txt")
+        np.savetxt(paths[name], rng.standard_normal((n, KG_DIM)) * 0.1,
+                   fmt="%.6f", delimiter=",")
+    names = []
+    seen = set()
+    while len(names) < 2 * KG_ENTITIES:
+        name = "".join(rng.choice(common[:400], rng.randint(2, 5)))
+        if name not in seen:
+            seen.add(name)
+            names.append(name)
+    paths["entity_file"] = os.path.join(workdir, "entities.csv")
+    with open(paths["entity_file"], "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["index", "main_name", "name_list"])
+        for i in range(KG_ENTITIES):
+            w.writerow([i, names[2 * i], names[2 * i + 1]])
+    samples = {}
+    for i in range(KG_ENTITIES):
+        samples[i] = {}
+        for level in range(1, KANGAROO["sample_num"] + 1 - i % 2):
+            text = "".join(rng.choice(common, rng.randint(3, 31)))
+            samples[i]["level_%d" % level] = [
+                {"tokens": text, "position_id": list(range(len(text)))}]
+    paths["samples_file"] = os.path.join(workdir, "samples.npy")
+    np.save(paths["samples_file"], samples, allow_pickle=True)
+    paths["concept_emb_file"] = os.path.join(workdir, "concepts.npy")
+    tree = [(i, (i - 1) // 4) for i in range(1, KG_ENTITIES)]
+    train_concept_embeddings(tree, KG_ENTITIES, dim=KANGAROO["concept_size"],
+                             out_file=paths["concept_emb_file"], epochs=2,
+                             seed=seed)
+    return paths, names
+
+
+def _knowledge_tsvs(workdir, cjk, names, seed):
+    """dkplm_{train,dev}.tsv (id, a dict literal with [ENT]-marked spans
+    and their relation and entity ids) and kangaroo_{train,dev}.tsv (id,
+    text naming 0-5 entities); N_ROWS and N_DEV_ROWS rows each."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 15)
+    common = cjk[400:3000]
+
+    def filler(lo, hi):
+        return "".join(rng.choice(common, rng.randint(lo, hi)))
+    for split, n in (("train", N_ROWS), ("dev", N_DEV_ROWS)):
+        with open(os.path.join(workdir, "dkplm_%s.tsv" % split), "w",
+                  encoding="utf-8") as f:
+            for i in range(n):
+                k = rng.randint(1, 4)
+                text = "".join(filler(5, 40) + "[ENT]%s[ENT]" % filler(2, 5)
+                               for _ in range(k)) + filler(5, 40)
+                rels = [int(x) for x in rng.randint(0, KG_RELATIONS, k)]
+                ents = [int(x) for x in rng.randint(0, KG_ENTITIES, k)]
+                f.write("%d\t%r\n" % (i, {"text": text, "relation_id": rels,
+                                          "replced_entity_id": ents}))
+        with open(os.path.join(workdir, "kangaroo_%s.tsv" % split), "w",
+                  encoding="utf-8") as f:
+            for i in range(n):
+                parts = []
+                for _ in range(rng.randint(0, 6)):
+                    parts += [filler(3, 20), names[rng.randint(len(names))]]
+                f.write("%d\t%s\n" % (i, "".join(parts) + filler(10, 60)))
+
+
+def _knowledge_argv(use_kernel, udp):
+    return ["--app_name=language_modeling", "--device=cuda",
+            "--dtype=bfloat16", "--sequence_length=%d" % SEQ_LEN,
+            "--micro_batch_size=%d" % BATCH,
+            "--input_schema=id:str:1,text:str:1", "--first_sequence=text",
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false"),
+            "--user_defined_parameters=" + udp]
+
+
+def _make_knowledge_dirs(torch, workdir, seed):
+    """(DKPLM dir, Kangaroo dir): phase 11's BERT-base masked LM with
+    knowledge_emb_size in its config (know_linear starts at its init from
+    seed 0, as a BERT checkpoint has none), and a Kangaroo directory at
+    bert-base-chinese widths with the default layer types (4 sim, 4 norm,
+    4 mix) whose pytorch_model.bin, under the reference names, is the
+    module's truncated-normal(0.02) init from the seed."""
+    import shutil
+    from easynlp_tpu_torch.modelzoo.models.kangaroo import (
+        KangarooConfig, KangarooForPreTraining)
+    from easynlp_tpu_torch.modelzoo.models.kangaroo.modeling_kangaroo import (
+        reference_state_dict)
+    src = os.path.join(workdir, MLM_MODEL_DIR)
+    dkplm = os.path.join(workdir, "dkplm-bert-base")
+    shutil.copytree(src, dkplm)
+    with open(os.path.join(dkplm, "config.json")) as f:
+        config = json.load(f)
+    config["knowledge_emb_size"] = KG_DIM
+    with open(os.path.join(dkplm, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    kangaroo = os.path.join(workdir, "kangaroo-base")
+    os.makedirs(kangaroo)
+    shutil.copy(os.path.join(src, "vocab.txt"), kangaroo)
+    cfg = dict(BERT_BASE_CHINESE, model_type="kangaroo",
+               architectures=["KangarooForPreTraining"], **KANGAROO)
+    with open(os.path.join(kangaroo, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2)
+    module = KangarooForPreTraining(
+        KangarooConfig.from_pretrained(kangaroo), device="cuda")
+    module.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    torch.save({k: v.cpu() for k, v in reference_state_dict(module).items()},
+               os.path.join(kangaroo, "pytorch_model.bin"))
+    del module
+    return dkplm, kangaroo
+
+
+def _megatron_dir(torch, workdir, seed):
+    """HF MegatronBertModel names and config.json (model_type
+    megatron-bert), truncated-normal(0.02) weights from the seed, unit
+    LayerNorms, zero biases."""
+    import numpy as np
+    path = os.path.join(workdir, MEGATRON_DIR)
+    os.makedirs(path)
+    c = MEGATRON_345M
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    rng = np.random.default_rng(seed + 16)
+    e, inter, std = c["hidden_size"], c["intermediate_size"], \
+        c["initializer_range"]
+    state = {}
+
+    def t(shape):
+        return torch.from_numpy(_truncated_normal(rng, shape, std))
+
+    def dense(name, n_out, n_in):
+        state[name + ".weight"] = t((n_out, n_in))
+        state[name + ".bias"] = torch.zeros(n_out)
+
+    def norm(name):
+        state[name + ".weight"] = torch.ones(e)
+        state[name + ".bias"] = torch.zeros(e)
+    for name, rows in (("word", c["vocab_size"]),
+                       ("position", c["max_position_embeddings"]),
+                       ("token_type", c["type_vocab_size"])):
+        state["embeddings.%s_embeddings.weight" % name] = t((rows, e))
+    for i in range(c["num_hidden_layers"]):
+        base = "encoder.layer.%d." % i
+        norm(base + "attention.ln")
+        for proj in ("query", "key", "value"):
+            dense(base + "attention.self." + proj, e, e)
+        dense(base + "attention.output.dense", e, e)
+        norm(base + "ln")
+        dense(base + "intermediate.dense", inter, e)
+        dense(base + "output.dense", e, inter)
+    norm("encoder.ln")
+    dense("pooler.dense", e, e)
+    torch.save(state, os.path.join(path, "pytorch_model.bin"))
+    return path, sum(v.numel() for v in state.values())
+
+
+def _encoder_pass(torch, module, inputs, w, backward=True):
+    """(f32 last hidden state, pooler output, loss, seconds): one forward
+    and, with backward, one backward of a fixed projection of both."""
+    module.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = module(**inputs)
+    loss = (out["last_hidden_state"].float() * w).mean() \
+        + (out["pooler_output"].float() * w).mean()
+    if backward:
+        loss.backward()
+    torch.cuda.synchronize()
+    return (out["last_hidden_state"].detach().float(),
+            out["pooler_output"].detach().float(), float(loss.detach()),
+            time.perf_counter() - t0)
+
+
+def phase_knowledge(torch, seed, workdir, cjk):
+    """Phase 14. DKPLM, CKBERT and Kangaroo pretraining (8 AdamW steps of
+    32 x 128 and evaluate, with and without the kernels), MegatronBERT-345M
+    through AutoModel (a bf16 forward and backward at 8 x 512) and K-BERT
+    at bert-base widths with a visible matrix (no kernel launch). Returns
+    the launches of each counted wrapper in the main path's runs, each
+    counted from 0."""
+    import shutil
+
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.language_modeling.model import (
+        KangarooLanguageModeling)
+    from easynlp_tpu_torch.modelzoo.models.auto import AutoModel
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 14: knowledge models (DKPLM, CKBERT, Kangaroo "
+        "pretraining; MegatronBERT-345M; K-BERT)")
+    t_phase = time.perf_counter()
+    counted = ("short_attention_fwd", "short_attention_bwd")
+    launches = dict.fromkeys(counted, 0)
+
+    def main_path(what, fn, want):
+        for w in counted:
+            getattr(A, w).launches = 0
+        out = fn()
+        used = {w: getattr(A, w).launches for w in counted}
+        log("%s launches: %s (want %s)" % (what, used, want))
+        if used != want:
+            raise AssertionError("%s launched %s, want %s"
+                                 % (what, used, want))
+        for w in counted:
+            launches[w] += used[w]
+        return out
+
+    def no_launch(what, fn):
+        before = {w: getattr(A, w).launches for w in counted}
+        out = fn()
+        if {w: getattr(A, w).launches for w in counted} != before:
+            raise AssertionError("%s launched a kernel" % what)
+        return out
+
+    t0 = time.perf_counter()
+    paths, names = _knowledge_tables(workdir, cjk, seed)
+    _knowledge_tsvs(workdir, cjk, names, seed)
+    dkplm_dir, kangaroo_dir = _make_knowledge_dirs(torch, workdir, seed)
+    log("knowledge tables (%d entities, %d relations, %d-wide TransE and "
+        "concept tables), TSVs and directories made from seed %d in %.3f s"
+        % (KG_ENTITIES, KG_RELATIONS, KG_DIM, seed,
+           time.perf_counter() - t0))
+    steps, eval_batches = N_ROWS // BATCH, -(-N_DEV_ROWS // BATCH)
+    n_sim = N_LAYERS // 3  # Kangaroo's default layer types: a third sim
+    variants = {
+        # name: (model dir, udp, table prefix, B1 per training step, B1
+        # per evaluated batch)
+        "DKPLM": (dkplm_dir, "enable_dkplm=true entity_emb_file=%s "
+                  "rel_emb_file=%s" % (paths["entity_emb"],
+                                       paths["rel_emb"]), "dkplm",
+                  N_LAYERS, N_LAYERS),
+        "CKBERT": (os.path.join(workdir, MLM_MODEL_DIR),
+                   "contrast_learning_flag=true", "kangaroo",
+                   2 * N_LAYERS, N_LAYERS),
+        "Kangaroo": (kangaroo_dir, "enable_kangaroo=true entity_file=%s "
+                     "samples_file=%s concept_emb_file=%s %s"
+                     % (paths["entity_file"], paths["samples_file"],
+                        paths["concept_emb_file"], KANGAROO_UDP),
+                     "kangaroo", N_LAYERS + n_sim, N_LAYERS + n_sim),
+    }
+    summary = {}
+    for name, (model_dir, udp, tables, per_step, per_batch) in \
+            variants.items():
+        t0 = time.perf_counter()
+        train_tsv = os.path.join(workdir, "%s_train.tsv" % tables)
+        dev_tsv = os.path.join(workdir, "%s_dev.tsv" % tables)
+        runs, ckpts = {}, {}
+        for use_kernel in (True, False):
+            tag = "kernel" if use_kernel else "plain"
+            ckpts[tag] = os.path.join(workdir, "%s_ckpt_%s" % (name, tag))
+
+            def train(k=use_kernel):
+                return run_train(torch, model_dir, train_tsv, dev_tsv,
+                                 ckpts[tag], k, seed,
+                                 common=_knowledge_argv(k, udp),
+                                 logging_steps=1)
+            runs[tag] = (main_path(
+                "%s training (%d steps + evaluation)" % (name, steps),
+                train, {"short_attention_fwd": per_step * steps
+                        + per_batch * eval_batches,
+                        "short_attention_bwd": per_step * steps})
+                if use_kernel else no_launch(name + " training", train))
+            _check_train_run(name + " " + tag, runs[tag], steps)
+            describe_train("%s-%s" % (name[:3], tag[0]), runs[tag])
+        results = {}
+        for tag, use_kernel in (("kernel", True), ("plain", False)):
+            argv = ["--mode=evaluate", "--tables=" + dev_tsv,
+                    "--checkpoint_dir=" + ckpts[tag]] + _knowledge_argv(
+                        use_kernel, udp)
+            run = (lambda a=argv: dict(_cli(torch, a)[0]))
+            results[tag] = (main_path(
+                name + " evaluate", run, {
+                    "short_attention_fwd": per_batch * eval_batches,
+                    "short_attention_bwd": 0})
+                if use_kernel else no_launch(name + " evaluate", run))
+        final = [r for r in map(json.loads, open(os.path.join(
+            ckpts["kernel"], "events.jsonl"))) if r["kind"] == "eval"][-1]
+        k, p = results["kernel"], results["plain"]
+        # every step's loss and gradient norm, kernel run against plain
+        # run: the later steps carry each earlier step's gradients
+        pairs = list(zip(runs["kernel"]["records"],
+                         runs["plain"]["records"]))
+        d_loss = max(abs(a["loss"] - b["loss"]) for a, b in pairs)
+        d_gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                      for a, b in pairs)
+        d_acc = abs(k["accuracy"] - p["accuracy"])
+        d_ppl = abs(np.log(k["perplexity"] / p["perplexity"]))
+        med = {tag: statistics.median(1e3 * r["seconds"]
+                                      for r in runs[tag]["records"])
+               for tag in runs}
+        log("%s: loss kernel %s vs plain %s (max |d| over the %d steps "
+            "%.3e, bound %.1e); gradient norm max relative |d| %.3e (bound "
+            "%.1e); evaluate accuracy %.6f vs %.6f (|d| %.3e, bound %.1e), "
+            "perplexity %.4f vs %.4f (|d log| %.3e, bound %.1e); step ms "
+            "median %.3f vs %.3f; peak %.3f vs %.3f GiB; %.1f s"
+            % (name, " ".join("%.6f" % a["loss"] for a, _ in pairs),
+               " ".join("%.6f" % b["loss"] for _, b in pairs), len(pairs),
+               d_loss, MLM_LOSS_ATOL, d_gnorm, KG_GRAD_NORM_RTOL,
+               k["accuracy"], p["accuracy"], d_acc, MLM_ACCURACY_ATOL,
+               -k["perplexity"], -p["perplexity"], d_ppl, MLM_LOSS_ATOL,
+               med["kernel"], med["plain"], runs["kernel"]["peak_gib"],
+               runs["plain"]["peak_gib"], time.perf_counter() - t0))
+        for metric in ("accuracy", "perplexity"):
+            if abs(final[metric] - k[metric]) > 1e-9 * abs(final[metric]):
+                raise AssertionError("%s evaluate disagrees with the "
+                                     "trainer's final evaluation: %s vs %s"
+                                     % (name, k, final))
+        if d_loss > MLM_LOSS_ATOL or d_gnorm > KG_GRAD_NORM_RTOL \
+                or d_acc > MLM_ACCURACY_ATOL \
+                or d_ppl > MLM_LOSS_ATOL or not (
+                    k["perplexity"] < 0
+                    and np.isfinite(list(k.values())).all()):
+            raise AssertionError("%s kernel and plain runs disagree" % name)
+        summary[name] = (med["kernel"], med["plain"],
+                         runs["kernel"]["peak_gib"])
+        if name == "Kangaroo":
+            _kangaroo_masked_samples(torch, ckpts["kernel"], dev_tsv, udp)
+        for ckpt in ckpts.values():
+            shutil.rmtree(ckpt)
+
+    # MegatronBERT-345M through AutoModel: a bf16 forward and backward
+    t0 = time.perf_counter()
+    mdir, n_params = _megatron_dir(torch, workdir, seed)
+    made_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    module = AutoModel.from_pretrained(mdir, dtype=torch.bfloat16,
+                                       device="cuda")
+    load_s = time.perf_counter() - t0
+    rng = np.random.RandomState(seed + 17)
+    lengths = np.r_[MEGATRON_SEQ, rng.randint(256, MEGATRON_SEQ + 1,
+                                              MEGATRON_BATCH - 1)]
+    mask = (np.arange(MEGATRON_SEQ)[None] < lengths[:, None]).astype(np.int32)
+    ids = np.where(mask == 1, rng.randint(
+        1000, MEGATRON_345M["vocab_size"], mask.shape), 0)
+    inputs = {"input_ids": torch.from_numpy(ids).cuda(),
+              "attention_mask": torch.from_numpy(mask).cuda()}
+    w = torch.linspace(-1, 1, MEGATRON_345M["hidden_size"], device="cuda")
+    n_layers = MEGATRON_345M["num_hidden_layers"]
+    # the kernels (--use_flash_attention=auto); the plain runs above left
+    # the override set
+    A.set_kernel_override(None)
+    hk, pk, lk, sk = main_path(
+        "MegatronBERT-345M forward + backward (%d x %d)"
+        % (MEGATRON_BATCH, MEGATRON_SEQ),
+        lambda: _encoder_pass(torch, module, inputs, w),
+        dict.fromkeys(counted, n_layers))
+    grads = [p.grad.detach().clone() for p in module.parameters()]
+    finite = all(torch.isfinite(g).all() for g in grads)
+    again = [_encoder_pass(torch, module, inputs, w)[3] for _ in range(3)]
+    A.set_kernel_override(False)
+    try:
+        hp, pp, lp, sp = no_launch("MegatronBERT-345M (plain)",
+                                   lambda: _encoder_pass(torch, module,
+                                                         inputs, w))
+        plain_grads = [p.grad.detach().clone() for p in module.parameters()]
+        plain_again = [_encoder_pass(torch, module, inputs, w)[3]
+                       for _ in range(3)]
+    finally:
+        A.set_kernel_override(None)
+    real = torch.from_numpy(mask).cuda().bool()
+    d_hidden = float((hk - hp).abs()[real].max())
+    rms = float((hk - hp)[real].pow(2).mean().sqrt()
+                / hp[real].pow(2).mean().sqrt())
+    d_pool = float((pk - pp).abs().max())
+    rel_loss = abs(lk - lp) / abs(lp)
+    # the gradients, kernel pass against plain pass: relative rms over all
+    # parameters (a single tensor's can be rounding noise: at this init the
+    # scores are near uniform, so the q/k projections' gradients are near
+    # zero)
+    sq = [(float((g.float() - h.float()).pow(2).sum()),
+           float(h.float().pow(2).sum())) for g, h in zip(grads, plain_grads)]
+    g_rel = (sum(d for d, _ in sq) / sum(n for _, n in sq)) ** 0.5
+    log("MegatronBERT-345M (%d parameters, %d layers, pre-LN, HF names): "
+        "written in %.3f s, AutoModel.from_pretrained %.3f s; forward + "
+        "backward %.3f s the first (the kernels' first launches), then "
+        "%s s, plain %s s; kernel vs plain: loss %.6f vs %.6f (relative "
+        "|d| %.3e, bound %.1e), pooler output max |d| %.3e (bound %.1e), "
+        "last hidden state max |d| %.3e over the real tokens, relative rms "
+        "%.3e (bound %.1e); gradients finite: %s, relative rms %.3e (bound "
+        "%.1e); peak device memory %.3f GiB"
+        % (n_params, n_layers, made_s, load_s, sk,
+           " ".join("%.3f" % s for s in again),
+           " ".join("%.3f" % s for s in [sp] + plain_again), lk, lp,
+           rel_loss, MEGATRON_RTOL, d_pool, SLICE_ATOL, d_hidden, rms,
+           MEGATRON_RTOL, finite, g_rel, MEGATRON_GRAD_RTOL,
+           torch.cuda.max_memory_allocated() / 2 ** 30))
+    if not finite or rel_loss > MEGATRON_RTOL or d_pool > SLICE_ATOL \
+            or rms > MEGATRON_RTOL or g_rel > MEGATRON_GRAD_RTOL \
+            or not torch.isfinite(hk).all():
+        raise AssertionError("MegatronBERT-345M: kernel and plain passes "
+                             "disagree, or non-finite values")
+    del module, grads, plain_grads
+    shutil.rmtree(mdir)
+
+    # K-BERT at bert-base widths with a visible matrix: no kernel launches
+    t0 = time.perf_counter()
+    kdir = os.path.join(workdir, "kbert-base")
+    os.makedirs(kdir)
+    src = os.path.join(workdir, MODEL_DIR)
+    shutil.copy(os.path.join(src, "pytorch_model.bin"), kdir)
+    with open(os.path.join(kdir, "config.json"), "w") as f:
+        json.dump(dict(BERT_BASE_CHINESE, model_type="kbert"), f)
+    module = AutoModel.from_pretrained(kdir, dtype=torch.bfloat16,
+                                       device="cuda")
+    rng = np.random.RandomState(seed + 18)
+    lengths = rng.randint(40, SEQ_LEN + 1, BATCH)
+    mask = (np.arange(SEQ_LEN)[None] < lengths[:, None]).astype(np.int32)
+    branch = (rng.rand(BATCH, SEQ_LEN) < 0.25) & (mask == 1)
+    branch[:, 0] = False
+    # a branch token sees its branch-mates and its anchor's trunk token;
+    # trunk tokens see the trunk
+    anchor = np.maximum.accumulate(np.where(branch, 0, np.arange(SEQ_LEN)),
+                                   axis=1)
+    same = anchor[:, :, None] == anchor[:, None, :]
+    visible = np.where(branch[:, :, None] | branch[:, None, :], same,
+                       True).astype(np.int32)
+    position = np.cumsum(~branch, axis=1) - 1 + np.where(
+        branch, np.cumsum(branch, axis=1) % 3, 0)
+    ids = np.where(mask == 1, rng.randint(
+        200, BERT_BASE_CHINESE["vocab_size"], mask.shape), 0)
+    inputs = {k: torch.from_numpy(v).cuda() for k, v in (
+        ("input_ids", ids), ("attention_mask", mask),
+        ("position_ids", position), ("visible_matrix", visible))}
+    w = torch.linspace(-1, 1, BERT_BASE_CHINESE["hidden_size"],
+                       device="cuda")
+    A.set_kernel_override(None)
+    hk, _, lk, sk = no_launch("K-BERT forward + backward",
+                              lambda: _encoder_pass(torch, module, inputs,
+                                                    w))
+    del inputs["visible_matrix"]
+    hv, _, _, _ = _encoder_pass(torch, module, inputs, w, backward=False)
+    moved = float((hk - hv).abs().max())
+    log("K-BERT (bert-base widths, %d x %d, %.1f%% of the real key pairs "
+        "hidden by the visible matrix, soft positions): forward + backward "
+        "%.3f s on attention's plain path (an additive bias: no kernel "
+        "launched, as designed); loss %.6f; the visible matrix moves the "
+        "hidden states by up to %.3e; %.1f s"
+        % (BATCH, SEQ_LEN, 100 * float(((visible == 0) & (mask[:, None] == 1)
+                                        & (mask[:, :, None] == 1)).sum())
+           / float((mask.sum(1) ** 2).sum()), sk, lk, moved,
+           time.perf_counter() - t0))
+    if not (np.isfinite(lk) and torch.isfinite(hk).all() and moved > 1e-2):
+        raise AssertionError("K-BERT: non-finite, or the visible matrix "
+                             "changed nothing")
+    del module
+    log("phase 14 step ms median kernel / plain, peak GiB: %s; total %.1f s"
+        % ("; ".join("%s %.3f / %.3f, %.3f" % ((n,) + v)
+                     for n, v in summary.items()),
+           time.perf_counter() - t_phase))
+    return launches
+
+
+def _kangaroo_masked_samples(torch, ckpt, dev_tsv, udp):
+    """The trained Kangaroo's sample encoding over the dev rows' samples
+    through the kernels: every [CLS] state finite, the fully masked sample
+    rows (entity slots with no entity) included."""
+    from easynlp_tpu_torch.appzoo.language_modeling.kangaroo_data import (
+        KangarooPretrainDataset)
+    from easynlp_tpu_torch.appzoo.language_modeling.model import (
+        KangarooLanguageModeling)
+    from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
+    app = KangarooLanguageModeling.from_pretrained(ckpt,
+                                                   dtype=torch.bfloat16)
+    ds = KangarooPretrainDataset(
+        dev_tsv, BertTokenizer.from_pretrained(ckpt), max_seq_length=SEQ_LEN,
+        input_schema="id:str:1,text:str:1", first_sequence="text",
+        user_defined_parameters=dict(kv.split("=", 1)
+                                     for kv in udp.split()))
+    batch = ds.batch_fn([ds[i] for i in range(BATCH)])
+    t = {k: torch.from_numpy(batch[k]).cuda() for k in
+         ("sample_token_id", "sample_position_id", "sample_mask")}
+    with torch.no_grad():
+        cls = app.module.kangaroo.encode_samples(**t)
+    empty = int((batch["sample_mask"].reshape(-1, SEQ_LEN).sum(1) == 0)
+                .sum())
+    log("Kangaroo sample encoding, %d x %d sample rows (%d fully masked): "
+        "[CLS] states finite %s" % (cls.shape[0] * cls.shape[1]
+                                    * cls.shape[2], SEQ_LEN, empty,
+                                    bool(torch.isfinite(cls).all())))
+    if not torch.isfinite(cls).all() or not empty:
+        raise AssertionError("Kangaroo's sample encoding: non-finite [CLS] "
+                             "states, or no fully masked sample row")
+
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -5429,6 +5990,9 @@ def main():
                                                  bart_run)
         seconds["13 trainer options, KD, PET, MetaKD, LoRA"] = \
             time.perf_counter() - t0
+        t0 = time.perf_counter()
+        knowledge_launches = phase_knowledge(torch, seed, workdir, cjk)
+        seconds["14 knowledge models"] = time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
 
@@ -5445,7 +6009,8 @@ def main():
             "replaces": replaces,
             "launches": launches[name] + mlm_launches.get(wrapper, 0)
             + apps2_launches.get(wrapper, 0)
-            + options_launches.get(wrapper, 0),
+            + options_launches.get(wrapper, 0)
+            + knowledge_launches.get(wrapper, 0),
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -8,7 +8,9 @@ train, evaluate and predict branches for the BERT apps `text_classify`
 user_defined_parameters two_tower or siamese), `sequence_labeling`,
 `machine_reading_comprehension`, `information_extraction` and
 `geep_classify`, train and evaluate for `language_modeling` (MLM
-pretraining on BERT and RoBERTa), predict for `vectorization` and
+pretraining on BERT and RoBERTa; with user_defined_parameters
+enable_dkplm, enable_kangaroo or contrast_learning_flag, DKPLM, Kangaroo
+and CKBERT pretraining), predict for `vectorization` and
 `data_augmentation`, and for `sequence_generation` train, evaluate and
 predict on BART and predict on GPT-2. text_classify's variants take the
 user_defined_parameters switches enable_distillation (vanilla KD against
@@ -82,8 +84,12 @@ DATASET_REGISTRY = _apps(
         "default": "machine_reading_comprehension.data:MRCDataset"},
     sequence_generation={"default": "sequence_generation.data:"
                                     "SequenceGenerationDataset"},
-    language_modeling={"default": "language_modeling.data:"
-                                  "LanguageModelingDataset"},
+    language_modeling={
+        "default": "language_modeling.data:LanguageModelingDataset",
+        "enable_kangaroo": "language_modeling.kangaroo_data:"
+                           "KangarooPretrainDataset",
+        "enable_dkplm": "language_modeling.dkplm_data:"
+                        "DKPLMPretrainDataset"},
     data_augmentation={"default": "language_modeling.data:"
                                   "LanguageModelingDataset"},
     information_extraction={"default": "information_extraction.data:"
@@ -113,8 +119,13 @@ MODEL_REGISTRY = _apps(
                    "MachineReadingComprehension"},
     sequence_generation={"default": "sequence_generation.model:"
                                     "SequenceGeneration"},
-    language_modeling={"default": "language_modeling.model:"
-                                  "LanguageModeling"},
+    language_modeling={
+        "default": "language_modeling.model:LanguageModeling",
+        "contrast_learning_flag": "language_modeling.model:"
+                                  "CKBertLanguageModeling",
+        "enable_kangaroo": "language_modeling.model:"
+                           "KangarooLanguageModeling",
+        "enable_dkplm": "language_modeling.model:DKPLMLanguageModeling"},
     data_augmentation={"default": "language_modeling.model:"
                                   "LanguageModeling"},
     information_extraction={"default": "information_extraction.model:"
@@ -177,9 +188,7 @@ _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
                  "enable_vqgan", "contrast_learning_flag")
 # user_defined_parameters switches whose app variant is not ported yet
 _NOT_PORTED_VARIANTS = {
-    "enable_kangaroo": "ROADMAP A13", "enable_dkplm": "ROADMAP A13",
-    "contrast_learning_flag": "ROADMAP A13", "enable_glm": "ROADMAP A19",
-    "enable_vit": "ROADMAP A21",
+    "enable_glm": "ROADMAP A19", "enable_vit": "ROADMAP A21",
     "enable_vqgan": "ROADMAP A21", "enable_controlnet": "ROADMAP A22",
 }
 
@@ -276,6 +285,14 @@ def _multi_label(args):
     return bool(args.user_defined_parameters_dict.get("multi_label"))
 
 
+def _check_dataset(app, dataset):
+    """The app's check of the dataset's knowledge widths against its
+    config (the language_modeling knowledge variants), before any step."""
+    check = getattr(app, "check_dataset", None)
+    if check is not None:
+        check(dataset)
+
+
 def _train_main(args, udp):
     """api.py's train branch: train (and valid) dataset, evaluator, the app
     from the pretrained directory (KD configured from the parameters, or
@@ -307,6 +324,7 @@ def _train_main(args, udp):
         device=args.device,
         num_labels=max(len(train_dataset.label_enumerate_values), 2),
         label_mapping=getattr(train_dataset, "label_mapping", None))
+    _check_dataset(app, train_dataset)
     if hasattr(app, "configure"):
         # KD's temperature and alpha (the JAX api never calls its
         # configure: ROADMAP reference fault 20)
@@ -343,6 +361,7 @@ def _evaluate_main(args, udp):
         args.checkpoint_dir, args=args, dtype=_dtype(args),
         device=args.device,
         num_labels=max(len(valid_dataset.label_enumerate_values), 2))
+    _check_dataset(app, valid_dataset)
     results = evaluator_cls(valid_dataset, args=args,
                             multi_label=_multi_label(args)).evaluate(app)
     for metric, score in results:

@@ -2,12 +2,15 @@
 
 Counterpart of easynlp_tpu/core/lora_app.py. The wrapper's module
 (`LoRAModule`) holds the inner app's module, frozen, and the adapters
-(modelzoo/lora.py); its forward merges them into the adapted weights and
-runs the inner module on the merged weights through
-torch.func.functional_call, so the adapters take the gradient and the
-base none. The Trainer trains only the parameters that require a
-gradient, the adapters (the JAX Trainer's `trainable_mask`). Checkpoints
-carry
+(modelzoo/lora.py). Each adapted weight carries a parametrization
+(torch.nn.utils.parametrize) that merges its adapter, W + s (A B)^T,
+wherever the weight is read: so the adapters take the gradient and the
+base none, the inner app serves the merged weights with no copy, and
+under --remat a checkpointed layer's recompute in the backward reads the
+merged weights as its forward did (the losses and adapters of
+--remat=none, bit for bit). The Trainer trains only the parameters that
+require a gradient, the adapters (the JAX Trainer's `trainable_mask`).
+Checkpoints carry
   - pytorch_model.bin        the merged weights under the inner app's names,
                              so predictors and pipelines load it as the
                              inner app's checkpoint
@@ -15,17 +18,20 @@ carry
   - pytorch_model_base.bin   the frozen base (exact resume)
 """
 
+import contextlib
 import os
 
 import torch
 from torch import nn
+from torch.nn.utils import parametrize
 
 from easynlp_tpu_torch.modelzoo.lora import (
     DEFAULT_TARGETS,
     count_lora_params,
-    lora_apply,
+    is_transposed,
     lora_init,
     lora_merge,
+    merge_weight,
 )
 from easynlp_tpu_torch.modelzoo.modeling_utils import (
     load_pytorch_state_dict,
@@ -37,53 +43,79 @@ LORA_WEIGHTS_NAME = "pytorch_model_lora.bin"
 BASE_WEIGHTS_NAME = "pytorch_model_base.bin"
 
 
+class _Merged(nn.Module):
+    """The parametrization of one adapted weight: W -> W + s * delta. The
+    adapter is held in a tuple, so it stays a parameter of LoRAModule and
+    not of the inner module."""
+
+    def __init__(self, adapter, scale, transposed):
+        super().__init__()
+        self.adapter = (adapter["a"], adapter["b"])
+        self.scale = scale
+        self.transposed = transposed
+
+    def forward(self, w):
+        a, b = self.adapter
+        return merge_weight(w, {"a": a, "b": b}, self.scale,
+                            self.transposed)
+
+
 class LoRAModule(nn.Module):
-    """The inner module (frozen) with adapters on the weights `lora` names.
-    `base` keeps the adapted weights' base values apart from the inner
-    module's own, which sync_merged() overwrites with the merged ones."""
+    """The inner module (frozen) with adapters on the weights `lora`
+    names, merged into them by a parametrization each; the base values
+    stay the inner module's parameters (`plain()` shows them under their
+    own names)."""
 
     def __init__(self, inner, lora, scale):
         super().__init__()
-        self.inner = inner
-        for p in inner.parameters():
-            p.requires_grad_(False)
         self.scale = scale
         self.names = list(lora)
+        # registered before the inner module: the trained parameters are
+        # named lora_a.{i} and lora_b.{i}
         self.lora_a = nn.ParameterList(lora[n]["a"] for n in self.names)
         self.lora_b = nn.ParameterList(lora[n]["b"] for n in self.names)
-        params = dict(inner.named_parameters())
-        self.base = {n: params[n].detach().clone() for n in self.names}
+        for p in inner.parameters():
+            p.requires_grad_(False)
+        self.inner = inner
+        self._merges = {n: _Merged(lora[n], scale, is_transposed(inner, n))
+                        for n in self.names}
+        self._attach()
 
     @property
     def lora(self):
         return {n: {"a": a, "b": b} for n, a, b in
                 zip(self.names, self.lora_a, self.lora_b)}
 
-    def merged(self):
-        return lora_apply(self.inner, self.base, self.lora, self.scale)
+    def _owners(self):
+        for name in self.names:
+            owner, attr = name.rsplit(".", 1)
+            yield name, self.inner.get_submodule(owner), attr
+
+    def _attach(self):
+        for name, owner, attr in self._owners():
+            parametrize.register_parametrization(owner, attr,
+                                                 self._merges[name])
+
+    @contextlib.contextmanager
+    def plain(self):
+        """Inside the block the adapted weights are the inner module's
+        plain parameters, the base, under their own names (for the inner
+        app's export and load)."""
+        for _, owner, attr in self._owners():
+            parametrize.remove_parametrizations(owner, attr,
+                                                leave_parametrized=False)
+        try:
+            yield self.inner
+        finally:
+            self._attach()
 
     def forward(self, *args, **kwargs):
-        return torch.func.functional_call(self.inner, self.merged(), args,
-                                          kwargs)
-
-    def sync_merged(self):
-        """The inner module's adapted weights := the merged ones."""
-        with torch.no_grad():
-            params = dict(self.inner.named_parameters())
-            for name, w in lora_merge(self.inner, self.base, self.lora,
-                                      self.scale).items():
-                params[name].copy_(w)
+        return self.inner(*args, **kwargs)
 
 
 class LoRAApplication:
     """Wraps a built app and stands in for it before the Trainer, the
     evaluators and the predictors (anything else is the inner app's)."""
-
-    # functional_call's weights last only for the forward, and a layer's
-    # recompute in the backward would read the base ones
-    remat_unsupported = ("--remat with enable_lora: the layers' recompute "
-                         "would read the base weights, not the merged ones "
-                         "(ROADMAP A12)")
 
     def __init__(self, inner, rank=4, alpha=None, targets=DEFAULT_TARGETS,
                  seed=0, lora=None):
@@ -121,9 +153,11 @@ class LoRAApplication:
     def export_state_dict(self):
         """The merged weights under the inner app's names."""
         m = self.module
-        with substituted(m.inner, lora_merge(m.inner, m.base, m.lora,
-                                             m.scale)):
-            return self.inner.export_state_dict()
+        with m.plain() as inner:
+            merged = lora_merge(inner, dict(inner.named_parameters()),
+                                m.lora, m.scale)
+            with substituted(inner, merged):
+                return self.inner.export_state_dict()
 
     def extra_save_artifacts(self):
         m = self.module
@@ -131,19 +165,16 @@ class LoRAApplication:
         for name, ad in m.lora.items():
             adapters[name + ".lora_a"] = ad["a"]
             adapters[name + ".lora_b"] = ad["b"]
-        with substituted(m.inner, m.base):
+        with m.plain():
             base = self.inner.export_state_dict()
         return {LORA_WEIGHTS_NAME: adapters, BASE_WEIGHTS_NAME: base}
 
     def restore_params(self, ckpt_dir):
         """Base and adapters from a checkpoint this wrapper wrote."""
         m = self.module
-        self.inner.load_state_dict(m.inner, load_pytorch_state_dict(
-            os.path.join(ckpt_dir, BASE_WEIGHTS_NAME)))
-        params = dict(m.inner.named_parameters())
-        with torch.no_grad():
-            for name in m.names:
-                m.base[name].copy_(params[name])
+        with m.plain() as inner:
+            self.inner.load_state_dict(inner, load_pytorch_state_dict(
+                os.path.join(ckpt_dir, BASE_WEIGHTS_NAME)))
         self._load_adapters(os.path.join(ckpt_dir, LORA_WEIGHTS_NAME))
 
     def _load_adapters(self, path):
@@ -152,11 +183,6 @@ class LoRAApplication:
             for name, ad in self.module.lora.items():
                 ad["a"].copy_(state[name + ".lora_a"])
                 ad["b"].copy_(state[name + ".lora_b"])
-
-    def sync_trained_params(self):
-        """The inner app serves the merged weights (before each evaluation
-        and after training, as in the JAX Trainer)."""
-        self.module.sync_merged()
 
     @classmethod
     def load_adapter(cls, inner, ckpt_dir, rank=4, alpha=None,

@@ -36,8 +36,7 @@ Counterpart of easynlp_tpu/core/trainer.py on one device:
   flight; a failed write raises at the next save or at the end;
 - only the parameters that require a gradient are trained (LoRA freezes
   its base), and an app may hook the checkpoint as the JAX package's
-  LoRA does: `extra_save_artifacts()`, `restore_params(dir)`,
-  `sync_trained_params()`.
+  LoRA does: `extra_save_artifacts()`, `restore_params(dir)`.
 
 Losses, gradient norms and skips stay on the device until a logging step,
 which reads every step since the last one back in one copy. Then
@@ -133,9 +132,6 @@ class Trainer:
             num_workers=getattr(args, "data_workers", 0))
         self.steps_per_epoch = max(1, len(self.train_loader))
         self.remat = getattr(args, "remat", "none") or "none"
-        if self.remat != "none" and getattr(model, "remat_unsupported",
-                                            None):
-            raise NotImplementedError(model.remat_unsupported)
         set_remat(self.app.module, self.remat)
         # frozen parameters (LoRA's base) get no optimizer state and no
         # update, as the JAX Trainer's trainable_mask
@@ -321,24 +317,15 @@ class Trainer:
         logger.info("profiler trace written to %s", path)
 
     def after_train(self):
-        self._sync_app()
         self._eval_and_save(final=True)
         # the last write is on disk before train() returns
         self._join_pending_save()
         self.stats.close()
 
-    def _sync_app(self):
-        """An app whose inner model serves other weights than it trains
-        (LoRA: the merged ones) brings them up to date."""
-        sync = getattr(self.app, "sync_trained_params", None)
-        if sync is not None:
-            sync()
-
     def _eval_and_save(self, final=False):
         args = self.args
         score = None
         if self.evaluator is not None:
-            self._sync_app()
             results = self.evaluator.evaluate(self.app)
             self.stats.log_eval(self.global_step, results)
             score = results[0][1]

@@ -34,7 +34,7 @@ def _match(name, param, targets):
     return param.dim() == 2 and any(t in name for t in targets)
 
 
-def _transposed(module, name):
+def is_transposed(module, name):
     """True where the weight `name` is [out, in] (an nn.Linear's)."""
     owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name \
         else module
@@ -55,7 +55,7 @@ def lora_init(module, rank=4, targets=DEFAULT_TARGETS, seed=0, dtype=None):
     for name, p in module.named_parameters():
         if not _match(name, p, targets):
             continue
-        d_out, d_in = p.shape if _transposed(module, name) \
+        d_out, d_in = p.shape if is_transposed(module, name) \
             else p.shape[::-1]
         dt = dtype or p.dtype
         a = torch.randn((d_in, rank), generator=gen) / rank
@@ -71,13 +71,18 @@ def _delta(adapter, scale, transposed):
     return d.t() if transposed else d
 
 
+def merge_weight(w, adapter, scale, transposed):
+    """W + scale * delta in W's dtype, differentiable in the adapter; W
+    takes no gradient (it is detached)."""
+    return (w.detach().float() + _delta(adapter, scale, transposed)
+            ).to(w.dtype)
+
+
 def lora_apply(module, base, lora, scale):
     """{name: merged weight} for the adapted names, W from `base` (name ->
-    tensor), in W's dtype. Differentiable in the adapters; the base takes
-    no gradient (it is detached)."""
-    return {name: (base[name].detach().float()
-                   + _delta(ad, scale, _transposed(module, name))
-                   ).to(base[name].dtype)
+    tensor), in W's dtype (merge_weight)."""
+    return {name: merge_weight(base[name], ad, scale,
+                               is_transposed(module, name))
             for name, ad in lora.items()}
 
 

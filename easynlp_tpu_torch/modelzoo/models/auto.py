@@ -1,18 +1,30 @@
-"""Tokenizer and config routing by a checkpoint's model_type, for the
+"""Config, model and tokenizer routing by a checkpoint's model_type, for the
 PyTorch port.
 
-Counterpart of easynlp_tpu/appzoo/api.py::_tokenizer_for over
-easynlp_tpu/modelzoo/models/auto/auto_factory.py, reduced to the ported
-families: GPT-2's byte-level BPE for `gpt2`; RoBERTa's (the same BPE with
-<s>, </s>, <pad>, <unk>, <mask>) for `roberta`; for `bart` the same BPE with
-BART's own specials (<s>, </s>, <pad>, <unk>, <mask>) where the vocabulary
-holds </s> at the config's EOS id, else the GPT-2 tokenizer, which is what
-the JAX route gives every BART checkpoint (ROADMAP C11); WordPiece otherwise
-(as the JAX route falls back to BertTokenizer for an unknown model_type or a
-directory with no config.json). The SentencePiece tokenizers of T5, mT5,
-Pegasus, Randeng and GLM are not ported: those model types raise.
-`bert_config_for` gives RobertaConfig to a `roberta` checkpoint and
-BertConfig to the others, as the JAX AutoConfig maps them.
+Counterpart of easynlp_tpu/modelzoo/models/auto/auto_factory.py and
+easynlp_tpu/appzoo/api.py::_tokenizer_for, reduced to the ported
+families: `bert`, `roberta`, `gpt2`, `bart`, `megatron_bert` (also HF's
+spelling `megatron-bert`), `kbert`, `dkplm`, `kangaroo` and `ckbert`.
+AutoConfig, AutoModel and AutoTokenizer raise NotImplementedError naming
+the ROADMAP item of every other model_type. AutoModel.from_pretrained
+returns the port's module with its weights loaded, from a
+`pytorch_model.bin` under HF/reference names or from the JAX package's
+`flax_params.msgpack` (through the family's state_dict_from_jax); the JAX
+AutoModel has no converter for megatron_bert, kbert, dkplm, kangaroo and
+ckbert (ROADMAP reference fault 22), the port's modules keep the
+reference names and need none. MegatronBERT and K-BERT have no app in
+either package: this is their entry point.
+
+`tokenizer_for`, the api's routing: GPT-2's byte-level BPE for `gpt2`;
+RoBERTa's (the same BPE with <s>, </s>, <pad>, <unk>, <mask>) for
+`roberta`; for `bart` the same BPE with BART's own specials where the
+vocabulary holds </s> at the config's EOS id, else the GPT-2 tokenizer,
+which is what the JAX route gives every BART checkpoint (ROADMAP C11);
+WordPiece otherwise (as the JAX route falls back to BertTokenizer for an
+unknown model_type or a directory with no config.json). The SentencePiece
+tokenizers of T5, mT5, Pegasus, Randeng and GLM are not ported: those
+model types raise. `bert_config_for` gives RobertaConfig to a `roberta`
+checkpoint and BertConfig to the others, as the JAX AutoConfig maps them.
 """
 
 import json
@@ -68,3 +80,162 @@ def tokenizer_for(model_dir):
             "A18)" % model_type)
     from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
     return BertTokenizer.from_pretrained(model_dir)
+
+
+_M = "easynlp_tpu_torch.modelzoo.models."
+# model_type -> (module under modelzoo/models, config class, model class)
+PORTED = {
+    "bert": ("bert", "BertConfig", "BertModel"),
+    "roberta": ("bert", "RobertaConfig", "BertModel"),
+    "gpt2": ("gpt2", "GPT2Config", "GPT2LMHeadModel"),
+    "bart": ("bart", "BartConfig", "BartForConditionalGeneration"),
+    "megatron_bert": ("megatron_bert", "MegatronBertConfig",
+                      "MegatronBertModel"),
+    "kbert": ("kbert", "KBertConfig", "KBertModel"),
+    "dkplm": ("dkplm", "DKPLMConfig", "DKPLMModel"),
+    "kangaroo": ("kangaroo", "KangarooConfig", "KangarooModel"),
+    "ckbert": ("ckbert", "CKBertConfig", "CKBertForPreTraining"),
+}
+_ALIASES = {"megatron-bert": "megatron_bert"}  # HF config.json's spelling
+# the JAX AutoConfig's other families and the ROADMAP item of each
+NOT_PORTED = {"t5": "A18c", "mt5": "A18c", "pegasus": "A18d",
+              "randeng": "A18d", "transformer": "A18", "glm": "A19",
+              "bloom": "A19", "clip": "A20", "cnn": "A21"}
+
+
+def _classes(model_type):
+    """(model_type, config class, model class) of a ported family;
+    NotImplementedError naming the ROADMAP item of an unported one."""
+    import importlib
+    model_type = _ALIASES.get(model_type, model_type)
+    if model_type in NOT_PORTED:
+        raise NotImplementedError(
+            "model_type %r is not ported yet (ROADMAP %s)"
+            % (model_type, NOT_PORTED[model_type]))
+    if model_type not in PORTED:
+        raise KeyError("unknown model_type %r (the port has %s)"
+                       % (model_type, sorted(PORTED)))
+    module, config_cls, model_cls = PORTED[model_type]
+    module = importlib.import_module(_M + module)
+    return model_type, getattr(module, config_cls), getattr(module,
+                                                           model_cls)
+
+
+def _family(model_dir):
+    """_classes of model_dir's config.json model_type."""
+    config = _config_of(model_dir)
+    if not config:
+        raise FileNotFoundError("no config.json under %r" % model_dir)
+    if not config.get("model_type"):
+        raise ValueError("config.json at %r has no model_type" % model_dir)
+    return _classes(config["model_type"])
+
+
+class AutoConfig:
+    @classmethod
+    def from_pretrained(cls, model_dir):
+        _, config_cls, _ = _family(model_dir)
+        return config_cls.from_pretrained(model_dir)
+
+
+class AutoTokenizer:
+    @classmethod
+    def from_pretrained(cls, model_dir):
+        _family(model_dir)
+        return tokenizer_for(model_dir)
+
+
+def _strip(state_dict, prefixes):
+    """gamma/beta renamed and one leading prefix of `prefixes` dropped."""
+    out = {}
+    for k, v in state_dict.items():
+        for p in prefixes:
+            if k.startswith(p):
+                k = k[len(p):]
+                break
+        out[k.replace(".gamma", ".weight").replace(".beta", ".bias")] = v
+    return out
+
+
+def _load_pytorch(model_type, module, state_dict):
+    """A reference/HF checkpoint into `module`, strictly: the module's own
+    names, under the family's prefix in the checkpoint or none; keys of
+    other parts (task heads) are left aside."""
+    if model_type in ("gpt2", "bart"):
+        from easynlp_tpu_torch.appzoo.sequence_generation.model import (
+            SequenceGeneration)
+        SequenceGeneration.load_state_dict(module, state_dict)
+    elif model_type == "ckbert":
+        from easynlp_tpu_torch.modelzoo.models.bert.conversion import (
+            load_mlm_state_dict)
+        load_mlm_state_dict(module, state_dict)
+    else:
+        state = _strip(state_dict, ("bert.", "roberta.", "kangaroo."))
+        own = module.state_dict()
+        module.load_state_dict({k: v for k, v in state.items() if k in own},
+                               strict=True)
+
+
+def _from_jax(model_type, params, config):
+    import importlib
+    if model_type in ("gpt2", "bart"):
+        from easynlp_tpu_torch.appzoo.sequence_generation.model import (
+            SequenceGeneration)
+        return SequenceGeneration.state_dict_from_jax(params, config)
+    if model_type == "ckbert":
+        from easynlp_tpu_torch.modelzoo.models.bert.conversion import (
+            mlm_state_dict_from_jax)
+        return mlm_state_dict_from_jax(params, config)
+    if model_type == "kangaroo":
+        from easynlp_tpu_torch.modelzoo.models.kangaroo.modeling_kangaroo \
+            import model_state_dict_from_jax
+        return model_state_dict_from_jax(params, config)
+    name = {"bert": "bert.conversion", "roberta": "bert.conversion",
+            "megatron_bert": "megatron_bert",
+            "kbert": "kbert.modeling_kbert",
+            "dkplm": "dkplm.modeling_dkplm"}[model_type]
+    return importlib.import_module(_M + name).state_dict_from_jax(params,
+                                                                  config)
+
+
+class AutoModel:
+    @classmethod
+    def from_config(cls, config, dtype=None, device="cuda"):
+        """The module of config.model_type, at its init from seed 0, on
+        `device` (the card unless the caller asks for the CPU)."""
+        import torch
+        _, _, model_cls = _classes(config.model_type)
+        device = torch.device(device)
+        module = model_cls(config, dtype=dtype or torch.float32,
+                           device=device)
+        module.init_weights(torch.Generator(device=device).manual_seed(0))
+        return module
+
+    @classmethod
+    def from_pretrained(cls, model_dir, dtype=None, device="cuda"):
+        """The port's module of model_dir's model_type, its weights loaded
+        from pytorch_model.bin or, where there is only that, the JAX
+        package's flax_params.msgpack; in eval mode on `device`."""
+        import torch
+
+        from easynlp_tpu_torch.modelzoo.modeling_utils import (
+            PARAMS_NAME, available_checkpoint, load_pytorch_state_dict)
+        model_type, config_cls, _ = _family(model_dir)
+        config = config_cls.from_pretrained(model_dir)
+        device = torch.device(device)
+        module = cls.from_config(config, dtype=dtype, device=device)
+        flavour = available_checkpoint(model_dir)
+        if flavour == "pytorch":
+            _load_pytorch(model_type, module,
+                          load_pytorch_state_dict(model_dir))
+        elif flavour == "flax":
+            from easynlp_tpu_torch.utils.flax_checkpoint import (
+                load_flax_params)
+            params = load_flax_params(os.path.join(model_dir, PARAMS_NAME))
+            module.load_state_dict(_from_jax(model_type, params, config),
+                                   strict=True)
+        else:
+            raise FileNotFoundError(
+                "no pytorch_model.bin or %s under %r" % (PARAMS_NAME,
+                                                          model_dir))
+        return module.eval()

@@ -100,7 +100,10 @@ def state_dict_from_jax(params, config):
     """The port's BertModel state dict from a JAX BertModel param tree with
     numpy leaves: unstacks the [L, ...] scanned layers, splits the fused
     [E, 3E] qkv kernel into q|k|v columns and transposes [in,out] kernels to
-    torch's [out,in]."""
+    torch's [out,in]. A pre-LN tree (a `final_ln` beside the layers, no
+    embedding LayerNorm) maps onto the pre-LN names: attention_ln to
+    `attention.ln`, output_ln to `ln`, final_ln to `encoder.ln` (the
+    inverse of the JAX package's convert_megatron_bert)."""
     state = {}
 
     def put(key, arr):
@@ -125,9 +128,13 @@ def state_dict_from_jax(params, config):
     if "token_type_embeddings" in emb:
         put("embeddings.token_type_embeddings.weight",
             emb["token_type_embeddings"]["embedding"])
-    put_ln("embeddings.LayerNorm", emb["LayerNorm"], None)
+    if "LayerNorm" in emb:
+        put_ln("embeddings.LayerNorm", emb["LayerNorm"], None)
 
     layers = params["encoder"]["layers"]
+    pre_ln = "final_ln" in params["encoder"]
+    ln_names = (("attention.ln", "ln") if pre_ln else
+                ("attention.output.LayerNorm", "output.LayerNorm"))
     e = config.hidden_size
     for i in range(config.num_hidden_layers):
         base = "encoder.layer.%d." % i
@@ -140,10 +147,12 @@ def state_dict_from_jax(params, config):
                 qkv_bias[j * e:(j + 1) * e])
         put_dense(base + "attention.output.dense",
                   layers["attention"]["output"], i)
-        put_ln(base + "attention.output.LayerNorm", layers["attention_ln"], i)
+        put_ln(base + ln_names[0], layers["attention_ln"], i)
         put_dense(base + "intermediate.dense", layers["intermediate"], i)
         put_dense(base + "output.dense", layers["output"], i)
-        put_ln(base + "output.LayerNorm", layers["output_ln"], i)
+        put_ln(base + ln_names[1], layers["output_ln"], i)
+    if pre_ln:
+        put_ln("encoder.ln", params["encoder"]["final_ln"], None)
     if "pooler" in params:
         put_dense("pooler.dense", params["pooler"]["dense"])
     return state
@@ -166,12 +175,15 @@ def _mlm_names(config):
     return MLM_NAMES["roberta" if config.model_type == "roberta" else "bert"]
 
 
-def load_mlm_state_dict(module, state_dict):
+def load_mlm_state_dict(module, state_dict, optional=()):
     """An HF/reference masked-LM checkpoint into a BertForMaskedLM, by the
     names of its config's model type: the backbone strictly (with or
     without its prefix, gamma/beta renamed, pooler dropped), the head
     strictly when the checkpoint has it (a bare backbone leaves the head at
-    its init). Keys that nothing takes are logged."""
+    its init). `optional`: prefixes of backbone parameters beyond BERT's
+    (DKPLM's `know_linear.`), loaded where the checkpoint has them and
+    left at their init where it has not (a BERT checkpoint). Keys that
+    nothing takes are logged."""
     from easynlp_tpu_torch.utils.logger import logger
     prefix, head_names = _mlm_names(module.config)
     state = {}
@@ -179,6 +191,14 @@ def load_mlm_state_dict(module, state_dict):
         k = k[len(prefix):] if k.startswith(prefix) else k
         state[k.replace(".gamma", ".weight").replace(".beta", ".bias")] = v
     backbone, other = split_backbone(state, pooler=False)
+    own = module.bert.state_dict()
+    for extra in optional:
+        found = {k: other.pop(k) for k in list(other) if k.startswith(extra)}
+        if not found:
+            logger.info("%s initialised from scratch (not in checkpoint)",
+                        extra.rstrip("."))
+            found = {k: v for k, v in own.items() if k.startswith(extra)}
+        backbone.update(found)
     module.bert.load_state_dict(backbone, strict=True)
     head, used = {}, set()
     for k, v in other.items():
@@ -215,13 +235,18 @@ def mlm_state_dict_from_jax(params, config):
     with its [in, out] transform kernel transposed)."""
     state = {"bert." + k: v
              for k, v in state_dict_from_jax(params["bert"], config).items()}
-    head = params["cls"]
-
-    def put(key, arr):
-        state["cls." + key] = torch.tensor(np.asarray(arr, dtype=np.float32))
-    put("dense.weight", np.asarray(head["transform"]["kernel"]).T)
-    put("dense.bias", head["transform"]["bias"])
-    put("LayerNorm.weight", head["transform_ln"]["scale"])
-    put("LayerNorm.bias", head["transform_ln"]["bias"])
-    put("bias", head["bias"])
+    state.update({"cls." + k: v
+                  for k, v in mlm_head_from_jax(params["cls"]).items()})
     return state
+
+
+def mlm_head_from_jax(head):
+    """A BertMLMHead state dict from the JAX MLM head's params (transform,
+    transform_ln, bias), its [in, out] transform kernel transposed."""
+    def t(arr):
+        return torch.tensor(np.asarray(arr, dtype=np.float32))
+    return {"dense.weight": t(np.asarray(head["transform"]["kernel"]).T),
+            "dense.bias": t(head["transform"]["bias"]),
+            "LayerNorm.weight": t(head["transform_ln"]["scale"]),
+            "LayerNorm.bias": t(head["transform_ln"]["bias"]),
+            "bias": t(head["bias"])}

@@ -1,8 +1,9 @@
 """BERT encoder for the PyTorch port.
 
-Counterpart of easynlp_tpu/modelzoo/models/bert/modeling_bert.py (post-LN
-BertEmbeddings, BertAttention, BertLayer, BertEncoder, BertPooler,
-BertModel, BertMLMHead, BertForMaskedLM), with the same numerics:
+Counterpart of easynlp_tpu/modelzoo/models/bert/modeling_bert.py
+(BertEmbeddings, BertAttention, BertLayer, BertEncoder, BertPooler,
+BertModel, BertMLMHead, BertForMaskedLM), post-LN or, with
+`pre_layer_norm=True` (MegatronBERT), pre-LN, with the same numerics:
 
 - parameters are f32; the dense layers compute in `dtype` (bf16 by default)
   and LayerNorm in f32, casting back to `dtype`;
@@ -23,8 +24,12 @@ layers' outputs as one [L, B, S, E] tensor, as the JAX scan collects them
 `output_attentions` stacks each layer's masked pre-softmax scores as
 [L, B, H, S, S], -1e4 on masked keys, as the JAX module's explicit-scores
 path gives them (not HF's probabilities). Activation checkpointing
-(`--remat`) follows the JAX package's REMAT_POLICIES (below). Not ported
-yet: pre-LN (ROADMAP A13).
+(`--remat`) follows the JAX package's REMAT_POLICIES (below).
+
+Pre-LN (the JAX module's `pre_layer_norm`, modeling_bert.py:157-200,
+:259, :284-314) keeps HF MegatronBertModel's names: no embedding
+LayerNorm, `attention.ln` before the attention, `ln` before the MLP,
+residuals without a norm, and a final `encoder.ln`.
 """
 
 import contextlib
@@ -63,7 +68,11 @@ def layer_norm(layer, x, dtype):
 
 
 class BertEmbeddings(nn.Module):
-    def __init__(self, config, dtype=torch.float32, device=None):
+    """Word + position (+ token-type) embeddings, then an f32 LayerNorm
+    unless use_layer_norm is False (pre-LN: the first layer normalises)."""
+
+    def __init__(self, config, dtype=torch.float32, device=None,
+                 use_layer_norm=True):
         super().__init__()
         c = config
         self.dtype = dtype
@@ -74,8 +83,9 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = (
             nn.Embedding(c.type_vocab_size, c.hidden_size, device=device)
             if c.type_vocab_size else None)
-        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
-                                      device=device)
+        self.LayerNorm = (nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
+                                       device=device)
+                          if use_layer_norm else None)
         self.dropout = nn.Dropout(c.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids, position_ids):
@@ -83,10 +93,10 @@ class BertEmbeddings(nn.Module):
             + self.position_embeddings(position_ids)
         if self.token_type_embeddings is not None:
             emb = emb + self.token_types(token_type_ids)
-        # f32 LayerNorm: the sum is bf16 when serving casts the tables
-        emb = self.LayerNorm(emb.float())
+        if self.LayerNorm is not None:
+            # f32 LayerNorm: the sum is bf16 when serving casts the tables
+            emb = self.LayerNorm(emb.float())
         return self.dropout(emb).to(self.dtype)
-
 
     def token_types(self, token_type_ids):
         """The token-type rows of the ids, selected type by type with
@@ -103,26 +113,48 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    """The q/k/v projections (HF's `attention.self`)."""
+    """The q/k/v projections (HF's `attention.self`), `width` wide (the
+    hidden size unless given: Kangaroo's entity stream is narrower)."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, width=None):
         super().__init__()
-        e = config.hidden_size
+        e = width or config.hidden_size
         self.query = nn.Linear(e, e, device=device)
         self.key = nn.Linear(e, e, device=device)
         self.value = nn.Linear(e, e, device=device)
 
+    def heads(self, hidden, num_heads, dtype):
+        """q, k, v [B,S,H,W/H] in dtype of hidden [B,S,W]."""
+        b, s, w = hidden.shape
+        with checkpoint_name("qkv_out"):
+            return tuple(dense(p, hidden, dtype).view(b, s, num_heads,
+                                                      w // num_heads)
+                         for p in (self.query, self.key, self.value))
+
 
 class BertSelfOutput(nn.Module):
-    """Output projection + post-LN (HF's `attention.output`)."""
+    """Output projection + post-LN (HF's `attention.output`), `width` wide
+    as BertSelfAttention; no LayerNorm under pre-LN."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, pre_layer_norm=False,
+                 width=None):
         super().__init__()
-        e = config.hidden_size
+        e = width or config.hidden_size
         self.dense = nn.Linear(e, e, device=device)
-        self.LayerNorm = nn.LayerNorm(e, eps=config.layer_norm_eps,
-                                      device=device)
+        self.LayerNorm = (None if pre_layer_norm else
+                          nn.LayerNorm(e, eps=config.layer_norm_eps,
+                                       device=device))
         self.dropout = nn.Dropout(config.hidden_dropout_prob)
+
+    def forward(self, hidden, ctx, dtype):
+        """hidden + the projection of the attention context ctx, in dtype;
+        post-LN then normalises the sum."""
+        with checkpoint_name("attn_proj_out"):
+            out = dense(self.dense, ctx, dtype)
+        out = hidden + self.dropout(out)
+        if self.LayerNorm is None:
+            return out
+        return layer_norm(self.LayerNorm, out, dtype)
 
 
 # --remat: what each policy keeps for the backward pass, as the JAX
@@ -192,25 +224,33 @@ def set_remat(module, policy):
 
 
 class BertAttention(nn.Module):
-    def __init__(self, config, dtype=torch.float32, device=None):
+    """q/k/v, the attention and the output projection; under pre-LN also
+    `ln`, the LayerNorm of its input (HF MegatronBERT's `attention.ln`)."""
+
+    def __init__(self, config, dtype=torch.float32, device=None,
+                 pre_layer_norm=False):
         super().__init__()
         self.dtype = dtype
         self.num_heads = config.num_attention_heads
+        if pre_layer_norm:
+            self.ln = nn.LayerNorm(config.hidden_size,
+                                   eps=config.layer_norm_eps, device=device)
         self.self = BertSelfAttention(config, device=device)
-        self.output = BertSelfOutput(config, device=device)
+        self.output = BertSelfOutput(config, device=device,
+                                     pre_layer_norm=pre_layer_norm)
 
-    def context(self, hidden, kv_mask, output_scores=False):
-        """hidden [B,S,E] in dtype, kv_mask [B,S] int32 -> the attention
-        context [B,S,E] in dtype, and with output_scores the masked
-        pre-softmax scores [B,H,S,S] in f32."""
+    def context(self, hidden, kv_mask, output_scores=False, bias=None):
+        """hidden [B,S,E] in dtype, kv_mask [B,S] int32 (or None) -> the
+        attention context [B,S,E] in dtype, and with output_scores the
+        masked pre-softmax scores [B,H,S,S] in f32. An additive f32 `bias`
+        [B,1|H,S,S] (K-BERT's visible matrix) takes attention's plain
+        path, as in the JAX package: no kernel takes a bias."""
         b, s, e = hidden.shape
         h, dt = self.num_heads, self.dtype
-        with checkpoint_name("qkv_out"):
-            q = dense(self.self.query, hidden, dt).view(b, s, h, e // h)
-            k = dense(self.self.key, hidden, dt).view(b, s, h, e // h)
-            v = dense(self.self.value, hidden, dt).view(b, s, h, e // h)
+        q, k, v = self.self.heads(hidden, h, dt)
         if not output_scores:
-            return attention(q, k, v, kv_mask=kv_mask).reshape(b, s, e)
+            return attention(q, k, v, kv_mask=kv_mask,
+                             bias=bias).reshape(b, s, e)
         # The JAX module's explicit-scores path (modeling_bert.py:116-128),
         # which never calls attention(): the scores of attention-transfer
         # distillation (MetaKD), -1e4 on masked keys as the reference's
@@ -225,12 +265,9 @@ class BertAttention(nn.Module):
         return ctx.reshape(b, s, e), scores
 
     def project(self, hidden, ctx):
-        """LN(hidden + the output projection of ctx), in dtype."""
-        dt = self.dtype
-        with checkpoint_name("attn_proj_out"):
-            out = dense(self.output.dense, ctx, dt)
-        return layer_norm(self.output.LayerNorm,
-                          hidden + self.output.dropout(out), dt)
+        """hidden + the output projection of ctx, in dtype; post-LN then
+        normalises the sum."""
+        return self.output(hidden, ctx, self.dtype)
 
 
 class BertIntermediate(nn.Module):
@@ -241,51 +278,71 @@ class BertIntermediate(nn.Module):
 
 
 class BertOutput(nn.Module):
-    def __init__(self, config, device=None):
+    """The MLP's output projection + post-LN; no LayerNorm under pre-LN."""
+
+    def __init__(self, config, device=None, pre_layer_norm=False):
         super().__init__()
         self.dense = nn.Linear(config.intermediate_size, config.hidden_size,
                                device=device)
-        self.LayerNorm = nn.LayerNorm(config.hidden_size,
-                                      eps=config.layer_norm_eps,
-                                      device=device)
+        self.LayerNorm = (None if pre_layer_norm else
+                          nn.LayerNorm(config.hidden_size,
+                                       eps=config.layer_norm_eps,
+                                       device=device))
         self.dropout = nn.Dropout(config.hidden_dropout_prob)
 
 
 class BertLayer(nn.Module):
-    """One post-LN transformer block. `remat` (set_remat) is its --remat
+    """One transformer block, post-LN or (pre_layer_norm, MegatronBERT)
+    pre-LN: `attention.ln` before the attention, `ln` before the MLP,
+    both residuals without a norm. `remat` (set_remat) is its --remat
     policy while it trains: 'full' recomputes the whole block in the
     backward, attention kernel included; 'selective' and 'names' keep the
-    q/k/v projections and the attention kernel out of the recomputed part
-    (the kernel's autograd Function keeps q, k, v and the context for its
-    own backward: JAX's qkv_out and attn_out, saved by both policies) and
-    recompute the rest under the policy."""
+    q/k/v projections and the attention kernel (and pre-LN's
+    attention.ln) out of the recomputed part (the kernel's autograd
+    Function keeps q, k, v and the context for its own backward: JAX's
+    qkv_out and attn_out, saved by both policies) and recompute the rest
+    under the policy."""
 
-    def __init__(self, config, dtype=torch.float32, device=None):
+    def __init__(self, config, dtype=torch.float32, device=None,
+                 pre_layer_norm=False):
         super().__init__()
         self.dtype = dtype
         self.remat = "none"
         self.act = ACT2FN[config.hidden_act]
-        self.attention = BertAttention(config, dtype=dtype, device=device)
+        self.attention = BertAttention(config, dtype=dtype, device=device,
+                                       pre_layer_norm=pre_layer_norm)
+        if pre_layer_norm:
+            self.ln = nn.LayerNorm(config.hidden_size,
+                                   eps=config.layer_norm_eps, device=device)
+        self.pre_layer_norm = pre_layer_norm
         self.intermediate = BertIntermediate(config, device=device)
-        self.output = BertOutput(config, device=device)
+        self.output = BertOutput(config, device=device,
+                                 pre_layer_norm=pre_layer_norm)
 
-    def forward(self, hidden, kv_mask, output_scores=False):
+    def forward(self, hidden, kv_mask, output_scores=False, bias=None):
         """The block's output [B,S,E] in dtype; with output_scores, (that,
         the attention's masked scores [B,H,S,S])."""
         if self.remat == "none" or not torch.is_grad_enabled():
-            return self._block(hidden, kv_mask, output_scores)
+            return self._block(hidden, kv_mask, output_scores, bias)
         if self.remat == "full":
             return remat_call("full", self._block, hidden, kv_mask,
-                              output_scores)
-        ctx = self.attention.context(hidden, kv_mask, output_scores)
+                              output_scores, bias)
+        ctx = self.attention.context(self._attention_input(hidden), kv_mask,
+                                     output_scores, bias)
         if output_scores:
             ctx, scores = ctx
             return remat_call(self.remat, self._after_attention, hidden,
                               ctx), scores
         return remat_call(self.remat, self._after_attention, hidden, ctx)
 
-    def _block(self, hidden, kv_mask, output_scores=False):
-        ctx = self.attention.context(hidden, kv_mask, output_scores)
+    def _attention_input(self, hidden):
+        if not self.pre_layer_norm:
+            return hidden
+        return layer_norm(self.attention.ln, hidden, self.dtype)
+
+    def _block(self, hidden, kv_mask, output_scores=False, bias=None):
+        ctx = self.attention.context(self._attention_input(hidden), kv_mask,
+                                     output_scores, bias)
         if output_scores:
             ctx, scores = ctx
             return self._after_attention(hidden, ctx), scores
@@ -294,34 +351,52 @@ class BertLayer(nn.Module):
     def _after_attention(self, hidden, ctx):
         dt = self.dtype
         hidden = self.attention.project(hidden, ctx)
+        normed = layer_norm(self.ln, hidden, dt) if self.pre_layer_norm \
+            else hidden
         with checkpoint_name("mlp_wi_out"):
-            mlp = dense(self.intermediate.dense, hidden, dt)
+            mlp = dense(self.intermediate.dense, normed, dt)
         mlp = self.act(mlp)
         with checkpoint_name("mlp_wo_out"):
             mlp = dense(self.output.dense, mlp, dt)
         mlp = self.output.dropout(mlp)
+        if self.pre_layer_norm:
+            return hidden + mlp
         return layer_norm(self.output.LayerNorm, hidden + mlp, dt)
 
 
 class BertEncoder(nn.Module):
-    def __init__(self, config, dtype=torch.float32, device=None):
+    """The layers; under pre-LN also `ln`, the final LayerNorm (HF
+    MegatronBERT's `encoder.ln`, JAX's `final_ln`), which normalises the
+    last layer's output but not the collected hidden states."""
+
+    def __init__(self, config, dtype=torch.float32, device=None,
+                 pre_layer_norm=False):
         super().__init__()
+        self.dtype = dtype
         self.layer = nn.ModuleList(
-            BertLayer(config, dtype=dtype, device=device)
+            BertLayer(config, dtype=dtype, device=device,
+                      pre_layer_norm=pre_layer_norm)
             for _ in range(config.num_hidden_layers))
+        if pre_layer_norm:
+            self.ln = nn.LayerNorm(config.hidden_size,
+                                   eps=config.layer_norm_eps, device=device)
+        self.pre_layer_norm = pre_layer_norm
 
     def forward(self, hidden, kv_mask, output_hidden_states=False,
-                output_attentions=False):
+                output_attentions=False, bias=None):
         """(the last layer's output, [L, B, S, E] of every layer's output
-        or None, [L, B, H, S, S] of every layer's masked scores or None)."""
+        or None, [L, B, H, S, S] of every layer's masked scores or None).
+        `bias`: an additive attention bias for every layer (K-BERT)."""
         collected, scores = [], []
         for layer in self.layer:
-            hidden = layer(hidden, kv_mask, output_attentions)
+            hidden = layer(hidden, kv_mask, output_attentions, bias)
             if output_attentions:
                 hidden, layer_scores = hidden
                 scores.append(layer_scores)
             if output_hidden_states:
                 collected.append(hidden)
+        if self.pre_layer_norm:
+            hidden = layer_norm(self.ln, hidden, self.dtype)
         return (hidden, torch.stack(collected) if collected else None,
                 torch.stack(scores) if scores else None)
 
@@ -337,38 +412,43 @@ class BertPooler(nn.Module):
         return torch.tanh(dense(self.dense, hidden[:, 0], self.dtype))
 
 
+@torch.no_grad()
+def init_bert_weights(module, std, generator):
+    """Truncated-normal(std) kernels and embeddings, zero biases, unit
+    LayerNorm scales, drawn from `generator` in module order."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding)):
+            truncated_normal_(m.weight, std, generator)
+        if isinstance(m, nn.Linear):
+            m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
 class BertModel(nn.Module):
     """Returns {'last_hidden_state': [B,S,E], 'pooler_output': [B,E]}, with
     output_hidden_states 'hidden_states' [L,B,S,E], all in `dtype`, and
     with output_attentions 'attentions' [L,B,H,S,S], the masked pre-softmax
-    scores in f32."""
+    scores in f32. pre_layer_norm=True is MegatronBERT's pre-LN layout."""
 
     def __init__(self, config, dtype=torch.float32, add_pooling_layer=True,
                  device=None, output_hidden_states=False,
-                 output_attentions=False):
+                 output_attentions=False, pre_layer_norm=False):
         super().__init__()
         self.config = config
         self.output_hidden_states = output_hidden_states
         self.output_attentions = output_attentions
-        self.embeddings = BertEmbeddings(config, dtype=dtype, device=device)
-        self.encoder = BertEncoder(config, dtype=dtype, device=device)
+        self.embeddings = BertEmbeddings(config, dtype=dtype, device=device,
+                                         use_layer_norm=not pre_layer_norm)
+        self.encoder = BertEncoder(config, dtype=dtype, device=device,
+                                   pre_layer_norm=pre_layer_norm)
         self.pooler = (BertPooler(config, dtype=dtype, device=device)
                        if add_pooling_layer else None)
 
     @torch.no_grad()
     def init_weights(self, generator):
-        """Truncated-normal(initializer_range) kernels and embeddings, zero
-        biases, unit LayerNorm scales, drawn from `generator` in module
-        order."""
-        std = self.config.initializer_range
-        for module in self.modules():
-            if isinstance(module, (nn.Linear, nn.Embedding)):
-                truncated_normal_(module.weight, std, generator)
-            if isinstance(module, nn.Linear):
-                module.bias.zero_()
-            elif isinstance(module, nn.LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
+        init_bert_weights(self, self.config.initializer_range, generator)
 
     def embed(self, input_ids, attention_mask=None, token_type_ids=None,
               position_ids=None):

@@ -13,8 +13,8 @@ Each test skips itself where there is no card.
   other policies once.
 - LoRA: the merged weights on the card against the CPU's (1e-6 of the
   largest weight; one f32 rank-4 product), and the LoRA module's forward
-  (the merge through functional_call) against the plain module holding
-  the merged weights, bit for bit.
+  (the merge through each adapted weight's parametrization) against the
+  plain module holding the merged weights, bit for bit.
 - The EMA: 4 updates on the card against the CPU's (1e-6), the count on
   the device.
 - The checkpoint snapshot (host_copy): pinned, equal, finished.
@@ -125,6 +125,7 @@ def test_lora_merge_on_the_card():
     _need_card()
     from easynlp_tpu_torch.core.lora_app import LoRAModule
     from easynlp_tpu_torch.modelzoo import lora
+    from easynlp_tpu_torch.modelzoo.modeling_utils import substituted
     app, module, inputs, _ = _bert(torch.float32)
     adapters = lora.lora_init(module, rank=4, seed=1)
     assert len(adapters) == 6  # query, key and value of 2 layers
@@ -145,8 +146,8 @@ def test_lora_merge_on_the_card():
     wrapped = LoRAModule(module, adapters, 0.5).eval()
     with torch.no_grad():
         live = wrapped(**inputs)["logits"]
-        wrapped.sync_merged()
-        plain = module(**inputs)["logits"]
+        with wrapped.plain() as inner, substituted(inner, merged):
+            plain = inner(**inputs)["logits"]
     assert torch.equal(live, plain)
 
 

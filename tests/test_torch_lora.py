@@ -305,10 +305,24 @@ def test_lora_resume_restores_base_and_adapters(fixture_dir):
 
 
 def test_lora_with_remat_is_refused(fixture_dir):
-    with pytest.raises(NotImplementedError, match="remat"):
-        run_port(train_argv(fixture_dir,
-                            os.path.join(fixture_dir, "lora_remat"),
-                            "enable_lora=true", "--remat=full"))
+    """--remat with enable_lora was refused until the recompute could read
+    the merged weights; it now trains, and --remat=full gives the losses
+    and adapters of --remat=none bit for bit (the name is kept;
+    test_torch_knowledge.py::test_lora_trains_under_remat_bit_for_bit
+    holds selective and adapters inside the checkpointed regions too)."""
+    runs = {}
+    for policy in ("none", "full"):
+        ckpt = os.path.join(fixture_dir, "lora_remat_" + policy)
+        trainer = run_port(train_argv(fixture_dir, ckpt, "enable_lora=true",
+                                      "--remat=" + policy))
+        runs[policy] = ([r["loss"] for r in trainer.step_records],
+                        torch.load(os.path.join(ckpt,
+                                                "pytorch_model_lora.bin"),
+                                   weights_only=True))
+    assert runs["full"][0] == runs["none"][0]
+    assert len(runs["none"][0]) == 4
+    for k, v in runs["none"][1].items():
+        assert torch.equal(runs["full"][1][k], v), k
 
 
 def test_lora_cli_imports_no_jax(fixture_dir):

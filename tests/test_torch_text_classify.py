@@ -213,8 +213,8 @@ def test_device_cuda_never_falls_back_to_cpu():
 @pytest.mark.parametrize("argv,match", [
     (["--mode=export"], "ROADMAP"),  # train is ported: export still raises
     (["--mode=predict", "--app_name=clip"], "ROADMAP"),
-    # the A12 switches are ported; language_modeling's Kangaroo variant
-    # (A13) still raises
+    # the A12 and A13 switches are ported; language_modeling has no
+    # predictor, in the port as in the JAX package
     (["--mode=predict", "--app_name=language_modeling",
       "--user_defined_parameters=enable_kangaroo=true"], "ROADMAP"),
 ])
