@@ -68,12 +68,27 @@ bf16 forward and backward at 8 x 512 with and without the kernels (the
 loss, the pooler output, the last hidden state and every gradient held
 to the plain pass's); and K-BERT at bert-base widths with a visible
 matrix, which launches no kernel (an additive bias takes attention's
-plain path). Every phase raises on
+plain path). Then phase 15, slice 10's paths, each with the kernels and
+with --use_flash_attention=false, all weights the port's own init from
+--seed and every tokenizer synthetic (SentencePiece models written by
+sp_model_bytes, the CJK WordPiece vocab, ParlAI BPE codecs): T5-base (HF
+`t5-base` widths, dropout 0) 8 bf16 AdamW steps of 8 x 512 sources with
+64-token targets, `--mode=evaluate` and f32 `--mode=predict` of 16 rows
+greedy and with 4 beams; mT5-base f32 predict of 8 rows; Pegasus-large 4
+steps of 4 x 1024 and f32 predict of 8 rows with 4 beams; Randeng (its
+238M widths) f32 predict of 8 CJK rows; GPT-2 small `--mode=evaluate` in
+f32 on phase 4's dev table; open_domain_dialogue on the `transformer`
+family's default widths, 8 steps of 16 x 128 and f32 predict. Training
+holds every step's loss and gradient norm to the plain run's, f32
+generation token for token, and each path's launches are counted from 0;
+it also times the SentencePiece encoder native against Python. Phase 2
+adds these paths' attention shapes: T5's unscaled cross-attention, head
+dim 32 and Pegasus-large's 16 heads. Every phase raises on
 failure, so any failure exits non-zero. The last line is {"ok": true,
 "device": {...}}; the line before it lists the kernels with their launches
-in the BART training run and phase 11's, 12's, 13's and 14's runs, errors,
-times (kernel, plain twin, the PyTorch library call) and bounds. Imports
-nothing of JAX or of the JAX package.
+in the BART training run and phase 11's, 12's, 13's, 14's and 15's runs,
+errors, times (kernel, plain twin, the PyTorch library call) and bounds.
+Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
@@ -415,19 +430,21 @@ def _sdpa_backend(torch, q, k, v, keep):
         return "unknown (%s)" % type(err).__name__
 
 
-def _time_sdpa(torch, tq, tk, tv, mask, causal, do, iters):
+def _time_sdpa(torch, tq, tk, tv, mask, causal, do, iters, scale=None):
     """PyTorch's one call for the same function, the yardstick of
     `library_ms` (a measurement only: the port never calls it):
-    scaled_dot_product_attention with the same boolean mask, forward, and
-    backward from a kept graph. (forward ms, backward ms, backend)."""
+    scaled_dot_product_attention with the same boolean mask and scale,
+    forward, and backward from a kept graph. (forward ms, backward ms,
+    backend)."""
     F = torch.nn.functional
     keep = _sdpa_mask(torch, mask, tq.shape[1], tk.shape[1], causal)
     q, k, v = (t.transpose(1, 2) for t in (tq, tk, tv))
     backend = _sdpa_backend(torch, q, k, v, keep)
     fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=keep), iters=iters)
+        q, k, v, attn_mask=keep, scale=scale), iters=iters)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=keep,
+                                         scale=scale)
     g = do.transpose(1, 2)
     bwd = _time_ms(torch, lambda: torch.autograd.grad(
         out, leaves, g, retain_graph=True), iters=iters)
@@ -593,11 +610,15 @@ def phase_kernel(torch, seed):
     # the serving shapes, from a stream of their own
     _check_serving_shapes(torch, A, np.random.RandomState(seed + 2), worst,
                           worst_flash, timings)
-    return {"short_attention_fwd": worst,
-            "short_attention_bwd": worst_bwd,
-            "flash_attention_fwd": worst_flash,
-            "flash_attention_bwd_dkdv": worst_flash_bwd,
-            "flash_attention_bwd_dq": worst_flash_bwd}, timings
+    out = {"short_attention_fwd": worst,
+           "short_attention_bwd": worst_bwd,
+           "flash_attention_fwd": worst_flash,
+           "flash_attention_bwd_dkdv": worst_flash_bwd,
+           "flash_attention_bwd_dq": dict(worst_flash_bwd)}
+    # phase 15's shapes: T5's unscaled cross-attention, head dim 32,
+    # Pegasus-large's 16 heads
+    _check_seq2seq_cases(torch, A, seed, out, timings)
+    return out, timings
 
 
 def _check_short_fwd(torch, A, name, tq, tk, tv, mask, causal):
@@ -653,6 +674,186 @@ def _check_short_fwd(torch, A, name, tq, tk, tv, mask, causal):
         log("check %-22s bfloat16 two runs and the flash forward (every key "
             "tile walked) give the same bits" % name)
     return worst
+
+
+def seq2seq_cases(rng):
+    """Phase 15's attention shapes, from a stream of their own. Each: name,
+    path ('short' or 'flash'), B, Sq, Skv, H, D, each row's real keys,
+    causal, scale (None: 1/sqrt(D)), and whether its backward runs. T5's
+    cross-attention is unscaled (scale 1.0) over ragged 512-token sources:
+    training's 8 x 64 targets and the 4-beam decode step's 16 rows x 4
+    beams x 1 query; the dialogue transformer's head dim 32 (16 heads over
+    512): its encoder's 16 x 128 and its decoder's causal 16 x 64;
+    Pegasus-large's 16 heads: the decoder's causal 4 x 64, the encoder's 4
+    x 1024, the cross-attention's 4 x 64 x 1024 and the 4-beam decode's 32
+    x 1 x 1024."""
+    import numpy as np
+    t5_src = np.r_[512, rng.randint(200, 513, size=7)]
+    peg_src = [1024, 800] + list(rng.randint(300, 1025, size=2))
+    return [
+        ("t5-cross-512", "short", 8, 64, 512, 12, 64, t5_src, False, 1.0,
+         True),
+        ("t5-decode-cross", "short", 64, 1, 512, 12, 64,
+         np.repeat(np.r_[t5_src, rng.randint(200, 513, size=8)], 4), False,
+         1.0, False),
+        ("dialogue-d32", "short", 16, 128, 128, 16, 32,
+         np.r_[128, rng.randint(20, 129, size=15)], False, None, True),
+        ("dialogue-d32-causal", "short", 16, 64, 64, 16, 32,
+         np.r_[64, rng.randint(5, 65, size=15)], True, None, True),
+        ("pegasus-decoder", "short", 4, 64, 64, 16, 64,
+         np.r_[64, rng.randint(5, 65, size=3)], True, None, True),
+        ("pegasus-encoder", "flash", 4, 1024, 1024, 16, 64, peg_src, False,
+         None, True),
+        ("pegasus-cross", "flash", 4, 64, 1024, 16, 64, peg_src, False, None,
+         True),
+        ("pegasus-decode-cross", "flash", 32, 1, 1024, 16, 64,
+         np.repeat(peg_src * 2, 4), False, None, False),
+    ]
+
+
+def _check_seq2seq_cases(torch, A, seed, worst, timings):
+    """Phase 15's shapes (seq2seq_cases): each kernel against its f32 twin
+    at the case's scale, f32 within 2e-5 (the backward 2e-5 + 1e-5 |g|),
+    bf16 within the tensor-core bounds with R re-derived at that scale by
+    flash_attention_{fwd,bwd}_rss (bf16 attention_reference's ratio to the
+    same bound logged beside); then bf16 times by CUDA events against the
+    twin and SDPA (given the same scale), and each bound. No profiler
+    session: the child's are spent on the shapes above."""
+    import numpy as np
+    case_rng = np.random.RandomState(seed + 6)
+    for (name, path, b, sq, skv, h, d, lens, causal, scale,
+         backward) in seq2seq_cases(case_rng):
+        q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
+        if scale == 1.0:  # T5's q projection keeps unscaled scores O(1)
+            q = q * d ** -0.5
+        do = torch.from_numpy(case_rng.standard_normal(
+            (b, sq, h, d)).astype(np.float32)).cuda()
+        if path == "short":
+            def fwd(*t):
+                return A.short_attention_fwd(*t, mask, causal, scale), None
+
+            def bwd(t, o, lse, g):
+                return A.short_attention_bwd(*t, mask, o, g, causal, scale)
+
+            def bwd_twin(t, o, lse, g):
+                return A.short_attention_bwd_reference(*t, mask, o, g,
+                                                       causal, scale)
+        else:
+            def fwd(*t):
+                return A.flash_attention_fwd(*t, mask, causal, scale)
+
+            def bwd(t, o, lse, g):
+                return A.flash_attention_bwd(*t, mask, o, lse, g, causal,
+                                             scale)
+
+            def bwd_twin(t, o, lse, g):
+                return A.flash_attention_bwd_reference(*t, mask, o, lse, g,
+                                                       causal, scale)
+        kernels = {"fwd": ("%s_attention_fwd" % path,),
+                   "bwd": (("short_attention_bwd",) if path == "short" else
+                           ("flash_attention_bwd_dkdv",
+                            "flash_attention_bwd_dq"))}
+        for dtype in (torch.float32, torch.bfloat16):
+            tq, tk, tv, tdo = (t.to(dtype) for t in (q, k, v, do))
+            # the twin on the same (rounded) inputs, in f32
+            f32 = (tq.float(), tk.float(), tv.float())
+            want, lse = A.flash_attention_fwd_reference(*f32, mask, causal,
+                                                        scale)
+            got, got_lse = fwd(tq, tk, tv)
+            err = (got.float() - want).abs().max().item()
+            if dtype == torch.float32:
+                ok, note = err <= ATOL_F32, "atol %.1e" % ATOL_F32
+            else:
+                rss = A.flash_attention_fwd_rss(*f32, mask, causal, scale)
+                ratio = _flash_fwd_bf16_ratio(A, got, want, rss)
+                ref = A.attention_reference(tq, tk, tv, kv_mask=mask,
+                                            causal=causal, scale=scale)
+                ok = ratio <= 1
+                note = ("error / bound %.3f; bf16 attention_reference's "
+                        "%.3f" % (ratio, _flash_fwd_bf16_ratio(A, ref, want,
+                                                               rss)))
+            log("check s2s %-20s %-8s %s forward, scale %.4g: max_abs_err "
+                "%.3e (%s) %s" % (name, str(dtype).split(".")[1], path,
+                                  scale or d ** -0.5, err, note,
+                                  "ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("%s forward disagrees with its plain "
+                                     "version at %s %s: %.3e" % (
+                                         path, name, dtype, err))
+            for kernel in kernels["fwd"]:
+                worst[kernel][(name, dtype)] = err
+            if not backward:
+                continue
+            o32 = got.float()
+            want_grads = bwd_twin(f32, o32, lse, tdo.float())
+            grads = bwd((tq, tk, tv), got, got_lse, tdo)
+            gerr = max((g.float() - w).abs().max().item()
+                       for g, w in zip(grads, want_grads))
+            if dtype == torch.float32:
+                ok = all(((g - w).abs() - BWD_ATOL_F32 - BWD_RTOL_F32
+                          * w.abs()).max().item() <= 0
+                         for g, w in zip(grads, want_grads))
+                note = "bound %.1e + %.1e |g|" % (BWD_ATOL_F32, BWD_RTOL_F32)
+            else:
+                rss = A.flash_attention_bwd_rss(*f32, mask, o32, lse,
+                                                tdo.float(), causal, scale)
+                ratio = 0.0
+                for g, w, r in zip(grads, want_grads, rss):
+                    bound = FLASH_BWD_ATOL_BF16 + FLASH_BWD_RTOL_BF16 \
+                        * w.abs() + FLASH_BWD_RSS_BF16 * r
+                    ratio = max(ratio, ((g.float() - w).abs()
+                                        / bound).max().item())
+                ok = ratio <= 1
+                note = "error / bound %.3f" % ratio
+            log("check s2s %-20s %-8s %s backward: max_abs_err %.3e (%s) %s"
+                % (name, str(dtype).split(".")[1], path, gerr, note,
+                   "ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("%s backward disagrees with its plain "
+                                     "version at %s %s: %.3e" % (
+                                         path, name, dtype, gerr))
+            for kernel in kernels["bwd"]:
+                worst[kernel][(name, dtype)] = gerr
+        # bf16 times, bounds and SDPA at the same scale
+        tq, tk, tv, tdo = (t.to(torch.bfloat16) for t in (q, k, v, do))
+        o, o_lse = fwd(tq, tk, tv)
+        ms = _time_ms(torch, lambda: fwd(tq, tk, tv))
+        plain_ms = _time_ms(torch, lambda: A.flash_attention_fwd_reference(
+            tq, tk, tv, mask, causal, scale) if path == "flash" else
+            A.short_attention_fwd_reference(tq, tk, tv, mask, causal, scale))
+        lib_fwd, lib_bwd, backend = _time_sdpa(torch, tq, tk, tv, mask,
+                                               causal, tdo, 50, scale=scale)
+        pairs = _pairs(mask, b, sq, skv, h, causal)
+        nbytes = _attention_bytes(mask, b, sq, skv, h, d, causal, 2) + (
+            b * h * sq * 4 if path == "flash" else 0)
+        bound_ms, bound_by = _bound(nbytes, 4 * pairs * d)
+        for kernel in kernels["fwd"]:
+            timings[(kernel, name, torch.bfloat16)] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_fwd,
+                bound_ms=bound_ms, bound_by=bound_by)
+        line = ("time s2s %-20s bf16 %s forward %.4f ms (bound %.4f ms by "
+                "%s), plain twin %.4f ms, SDPA %.4f ms (%s)"
+                % (name, path, ms, bound_ms, bound_by, plain_ms, lib_fwd,
+                   backend))
+        if backward:
+            _, lse = A.flash_attention_fwd_reference(tq, tk, tv, mask,
+                                                     causal, scale)
+            bms = _time_ms(torch, lambda: bwd((tq, tk, tv), o, o_lse, tdo))
+            bplain = _time_ms(torch, lambda: bwd_twin((tq, tk, tv), o, lse,
+                                                      tdo))
+            bbytes = _attention_bytes(mask, b, sq, skv, h, d, causal, 2,
+                                      backward=True)
+            bbound, bby = _bound(bbytes, 10 * pairs * d)
+            for kernel in kernels["bwd"]:
+                timings[(kernel, name, torch.bfloat16)] = dict(
+                    ms=bms, plain_ms=bplain, library_ms=lib_bwd,
+                    bound_ms=bbound, bound_by=bby)
+            line += ("; backward %.4f ms (bound %.4f ms by %s), plain twin "
+                     "%.4f ms, SDPA backward %.4f ms"
+                     % (bms, bbound, bby, bplain, lib_bwd))
+        log(line)
+        del q, k, v, do, tq, tk, tv, tdo, o
+        torch.cuda.empty_cache()
 
 
 def serving_cases(rng):
@@ -5901,6 +6102,517 @@ def _kangaroo_masked_samples(torch, ckpt, dev_tsv, udp):
                              "states, or no fully masked sample row")
 
 
+# --------------------------------------------------------------------------
+# phase 15: T5, mT5, Pegasus, Randeng, GPT-2 evaluate, open_domain_dialogue
+# --------------------------------------------------------------------------
+
+T5_BASE = {  # HF t5-base config.json, dropout set to 0
+    "model_type": "t5", "architectures": ["T5ForConditionalGeneration"],
+    "vocab_size": 32128, "d_model": 768, "d_kv": 64, "d_ff": 3072,
+    "num_layers": 12, "num_decoder_layers": 12, "num_heads": 12,
+    "relative_attention_num_buckets": 32,
+    "relative_attention_max_distance": 128, "dropout_rate": 0.0,
+    "layer_norm_epsilon": 1e-6, "initializer_factor": 1.0,
+    "feed_forward_proj": "relu", "tie_word_embeddings": True,
+    "is_encoder_decoder": True, "pad_token_id": 0, "eos_token_id": 1,
+    "decoder_start_token_id": 0,
+}
+MT5_BASE = dict(  # HF google/mt5-base config.json, dropout set to 0
+    T5_BASE, model_type="mt5", architectures=["MT5ForConditionalGeneration"],
+    vocab_size=250112, d_ff=2048, feed_forward_proj="gated-gelu",
+    tie_word_embeddings=False)
+PEGASUS_LARGE = {  # HF google/pegasus-large config.json, dropout set to 0
+    "model_type": "pegasus",
+    "architectures": ["PegasusForConditionalGeneration"],
+    "vocab_size": 96103, "d_model": 1024, "encoder_layers": 16,
+    "decoder_layers": 16, "encoder_attention_heads": 16,
+    "decoder_attention_heads": 16, "encoder_ffn_dim": 4096,
+    "decoder_ffn_dim": 4096, "max_position_embeddings": 1024,
+    "activation_function": "relu", "dropout": 0.0, "attention_dropout": 0.0,
+    "activation_dropout": 0.0, "scale_embedding": True,
+    "normalize_before": True, "is_encoder_decoder": True,
+    "pad_token_id": 0, "eos_token_id": 1, "decoder_start_token_id": 0,
+}
+RANDENG = dict(  # IDEA-CCNL/Randeng-Pegasus-238M-Summary-Chinese widths
+    PEGASUS_LARGE, model_type="randeng", vocab_size=50000, d_model=768,
+    encoder_layers=12, decoder_layers=12, encoder_attention_heads=12,
+    decoder_attention_heads=12, encoder_ffn_dim=3072, decoder_ffn_dim=3072,
+    max_position_embeddings=512)
+DIALOGUE = {  # the `transformer` family's defaults (ParlAI's reference)
+    "model_type": "transformer", "vocab_size": 54944,
+    "embedding_size": 512, "ffn_size": 2048, "n_layers": 8, "n_heads": 16,
+    "n_positions": 512, "dropout": 0.0, "activation": "gelu",
+}
+T5_SP_PIECES = 32000      # t5-base's spiece.model; + 100 sentinels
+PEGASUS_SP_PIECES = 96000  # pegasus-large's; + the 103 offset ids
+# family: (--sequence_length, --micro_batch_size, training steps, dev or
+# predict rows); every target is the dataset's 64 tokens (63 + EOS: the
+# CLI's SequenceGenerationDataset fixes max_target_length at 64, as JAX's)
+S2S_RUNS = {"t5": (512, 8, 8, 16), "mt5": (512, 8, 0, 8),
+            "pegasus": (1024, 4, 4, 8), "randeng": (512, 8, 0, 8),
+            "dialogue": (128, 16, 8, 16)}
+S2S_TARGET_TOKENS = 64
+S2S_LR = 5e-5
+# Training, kernel run against the --use_flash_attention=false run, per
+# step: both bf16 end to end and differing only in attention's rounding.
+# Bounds from the card's readings (NVIDIA H100 80GB HBM3, 700 W): the
+# largest loss gap 1.9e-3 (T5; Pegasus 9.1e-4, dialogue 9.5e-5), the
+# largest relative gradient-norm gap 3.7e-3 (T5; Pegasus 2.6e-3, dialogue
+# 5.4e-5). T5 has the largest: its unscaled cross-attention scores.
+S2S_LOSS_ATOL = 1e-2
+S2S_GNORM_RTOL = 1.5e-2
+
+
+def sp_model_bytes(pieces, model_type=1, unk_id=2, bos_id=-1, eos_id=1,
+                   pad_id=0, byte_fallback=False):
+    """A SentencePiece ModelProto in protobuf's wire format: each piece's
+    text, score and type, the trainer spec's model type, vocab size, byte
+    fallback and special ids, and an nfkc normaliser spec that adds the
+    dummy prefix, removes extra spaces and escapes them (the fields
+    tokenization_sentencepiece reads). Written here because the card's
+    machine has neither protobuf nor transformers."""
+    import struct
+
+    def varint(n):
+        n &= (1 << 64) - 1  # negative int32s as 10-byte two's complement
+        out = bytearray()
+        while True:
+            b = n & 0x7F
+            n >>= 7
+            if n:
+                out.append(b | 0x80)
+            else:
+                out.append(b)
+                return bytes(out)
+
+    def field(num, wire, payload):
+        key = varint(num << 3 | wire)
+        if wire == 2:
+            return key + varint(len(payload)) + payload
+        return key + payload
+
+    def integer(num, n):
+        return field(num, 0, varint(int(n)))
+
+    out = bytearray()
+    for piece, score, ptype in pieces:
+        out += field(1, 2, field(1, 2, piece.encode("utf-8"))
+                     + field(2, 5, struct.pack("<f", score))
+                     + integer(3, ptype))
+    out += field(2, 2, integer(3, model_type) + integer(4, len(pieces))
+                 + integer(35, byte_fallback) + integer(40, unk_id)
+                 + integer(41, bos_id) + integer(42, eos_id)
+                 + integer(43, pad_id))
+    out += field(3, 2, field(1, 2, b"nfkc") + integer(3, 1) + integer(4, 1)
+                 + integer(5, 1))
+    return bytes(out)
+
+
+def t5_sp_pieces(rng, n=T5_SP_PIECES):
+    """n unigram pieces (text, score, type): <pad>, </s> and <unk> (T5's
+    and Pegasus's ids 0-2), the 26 letters alone and after U+2581, then
+    random lowercase strings of 2-5 letters, half of them after U+2581,
+    each scoring higher the longer it is (words split into 2-3 pieces)."""
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2)]
+    seen = set()
+    for c in GEN_LETTERS:
+        for p in (c, "▁" + c):
+            pieces.append((p, -12.0 - rng.random(), 1))
+            seen.add(p)
+    while len(pieces) < n:
+        p = "".join(rng.choice(GEN_LETTERS)
+                    for _ in range(rng.randint(2, 5)))
+        if rng.random() < 0.5:
+            p = "▁" + p
+        if p not in seen:
+            seen.add(p)
+            pieces.append((p, -9.0 - rng.random() + 0.8 * len(p), 1))
+    return pieces
+
+
+def dialogue_bpe(rng, words, vocab_size):
+    """(vocab tokens, merges): subword-nmt codecs v0.2 that build each of
+    `words` letter by letter (so each is one token), the ParlAI specials,
+    the letters, every merged piece alone and with the "@@" continuation
+    mark, and filler tokens up to vocab_size."""
+    merges, pieces = [], set()
+    for w in words:
+        for i in range(1, len(w)):
+            pair = (w[:i], w[i] + ("</w>" if i == len(w) - 1 else ""))
+            if pair[0] + pair[1] not in pieces:
+                pieces.add(pair[0] + pair[1])
+                merges.append(pair)
+    tokens = ["__null__", "__start__", "__end__", "__unk__", "__newln__"]
+    letters = sorted(set(GEN_LETTERS))
+    body = sorted({p.replace("</w>", "") for p in pieces} | set(letters))
+    tokens += body + [p + "@@" for p in body]
+    tokens += ["__fill%d__" % i for i in range(vocab_size - len(tokens))]
+    if len(tokens) != vocab_size:
+        raise AssertionError("%d dialogue tokens for a %d vocab"
+                             % (len(tokens), vocab_size))
+    return tokens, merges
+
+
+def make_s2s_model_dir(torch, path, config, seed, files):
+    """A model directory: config.json, the tokenizer `files` ({name:
+    bytes or text}) and pytorch_model.bin, the port's own init of the
+    family's module from `seed` (HF T5 factors; BART's truncated 0.02) on
+    the card, saved under HF names."""
+    from easynlp_tpu_torch.modelzoo.models.auto import AutoConfig, AutoModel
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    for name, data in files.items():
+        mode = "wb" if isinstance(data, bytes) else "w"
+        with open(os.path.join(path, name), mode) as f:
+            f.write(data)
+    module = AutoModel.from_config(AutoConfig.from_pretrained(path))
+    module.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    torch.save(module.state_dict(), os.path.join(path, "pytorch_model.bin"))
+    n = sum(p.numel() for p in module.parameters())
+    del module
+    torch.cuda.empty_cache()
+    return n
+
+
+def make_s2s_tsv(path, tokenize, words, rng, n_rows, src_tokens,
+                 tgt_tokens=S2S_TARGET_TOKENS + 8):
+    """n_rows of (id, source, target): random `words` until each side
+    passes its token count (`tokenize` counts them), so sources fill
+    --sequence_length and targets the 63 + EOS target slots."""
+    cost = {}
+
+    def text(target):
+        out, n = [], 0
+        while n < target:
+            w = rng.choice(words)
+            if w not in cost:
+                cost[w] = len(tokenize(w))
+            out.append(w)
+            n += cost[w]
+        return " ".join(out)
+
+    with open(path, "w", encoding="utf-8") as f:
+        for i in range(n_rows):
+            f.write("%d\t%s\t%s\n" % (i, text(src_tokens), text(tgt_tokens)))
+
+
+def _s2s_argv(app, seq_len, batch, use_kernel, dtype="bfloat16"):
+    return ["--app_name=" + app, "--device=cuda", "--dtype=" + dtype,
+            "--sequence_length=%d" % seq_len,
+            "--micro_batch_size=%d" % batch,
+            "--input_schema=id:str:1,src:str:1,tgt:str:1",
+            "--first_sequence=src", "--second_sequence=tgt",
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false")]
+
+
+def _s2s_predict(torch, app, ckpt, tsv, out, use_kernel, seq_len, batch,
+                 udp, dtype="float32"):
+    """--mode=predict through the CLI entry: (seconds with load, the
+    predictor's batch seconds, generated_ids [N, T])."""
+    import numpy as np
+    argv = ["--mode=predict", "--tables=" + tsv, "--outputs=" + out,
+            "--checkpoint_dir=" + ckpt,
+            "--output_schema=predictions,generated_ids", "--append_cols=id",
+            "--user_defined_parameters=" + udp] + _s2s_argv(
+                app, seq_len, batch, use_kernel, dtype)
+    manager, seconds = _cli(torch, argv)
+    with open(out, encoding="utf-8") as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    if [r[2] for r in rows] != [str(i) for i in range(len(rows))]:
+        raise AssertionError("%s does not parse as predictions, "
+                             "generated_ids, id rows" % out)
+    return seconds, list(manager.predictor.batch_seconds), np.array(
+        [[int(x) for x in r[1].split()] for r in rows])
+
+
+def _s2s_evaluate(torch, app, ckpt, tsv, use_kernel, seq_len, batch,
+                  dtype="bfloat16", schema=None):
+    argv = ["--mode=evaluate", "--tables=" + tsv,
+            "--checkpoint_dir=" + ckpt] + _s2s_argv(app, seq_len, batch,
+                                                    use_kernel, dtype)
+    if schema:
+        argv = [a for a in argv if not a.startswith(
+            ("--input_schema", "--first_sequence", "--second_sequence"))]
+        argv += schema
+    results, seconds = _cli(torch, argv)
+    if [m for m, _ in results] != ["bleu", "rouge_l"] or not all(
+            0.0 <= x <= 1.0 for _, x in results):
+        raise AssertionError("%s evaluate gave %s" % (app, results))
+    return results, seconds
+
+
+def _s2s_compare_training(tag, runs):
+    """Every step's loss and gradient norm of the kernel run against the
+    plain run's, within S2S_LOSS_ATOL and S2S_GNORM_RTOL; logs both runs'
+    step ms (steps 2..) and peak memory."""
+    rec_k, rec_p = runs[True]["records"], runs[False]["records"]
+    d_loss = max(abs(a["loss"] - b["loss"]) for a, b in zip(rec_k, rec_p))
+    d_gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                  for a, b in zip(rec_k, rec_p))
+    for use_kernel, run in runs.items():
+        ms = [1e3 * r["seconds"] for r in run["records"]]
+        log("%s train %-6s %d steps: step ms median %.3f (steps 2-%d; first "
+            "%.3f), peak device memory %.3f GiB above the run's start, run "
+            "%.3f s with load and save; losses %s; grad norms %s"
+            % (tag, "kernel" if use_kernel else "plain", len(ms),
+               statistics.median(ms[1:]), len(ms), ms[0], run["peak_gib"],
+               run["total_s"], " ".join("%.5f" % r["loss"]
+                                        for r in run["records"]),
+               " ".join("%.4f" % r["grad_norm"] for r in run["records"])))
+    log("%s kernel vs plain training: max |d loss| per step %.3e (bound "
+        "%.1e), max relative grad-norm gap %.3e (bound %.1e)"
+        % (tag, d_loss, S2S_LOSS_ATOL, d_gnorm, S2S_GNORM_RTOL))
+    if d_loss > S2S_LOSS_ATOL or d_gnorm > S2S_GNORM_RTOL:
+        raise AssertionError("%s: kernel and plain training disagree (loss "
+                             "%.3e, grad norm %.3e)" % (tag, d_loss, d_gnorm))
+
+
+def phase_seq2seq(torch, seed, workdir, cjk):
+    """Phase 15: every path of this slice with the kernels and with
+    --use_flash_attention=false. Training in bf16 (every step's loss and
+    gradient norm held to the plain run's), generation in f32 (token for
+    token), each path's launches counted from 0. Returns the launches of
+    the paths' kernel runs by wrapper."""
+    import numpy as np
+    from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
+    from easynlp_tpu_torch.modelzoo.models.pegasus import PegasusTokenizer
+    from easynlp_tpu_torch.modelzoo.models.t5 import T5Tokenizer
+    from easynlp_tpu_torch.modelzoo.models.transformer import (
+        TransformerTokenizer)
+    from easynlp_tpu_torch.ops import attention as A
+    log("== phase 15: T5-base, mT5-base, Pegasus-large, Randeng, GPT-2 "
+        "evaluate, open_domain_dialogue")
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+    total = dict.fromkeys(wrappers, 0)
+
+    def zero():
+        for w in wrappers:
+            getattr(A, w).launches = 0
+
+    def read():
+        return {w: getattr(A, w).launches for w in wrappers}
+
+    def main_path(tag, fn, want=None):
+        """fn() with every count 0 just before and read just after; the
+        counts must be `want` where given, else nonzero for some kernel."""
+        zero()
+        out = fn()
+        got = read()
+        for w in wrappers:
+            total[w] += got[w]
+        log("%s launches: %s%s" % (tag, got, "" if want is None
+                                   else " (want %s)" % want))
+        if (want is not None and got != want) or not any(got.values()):
+            raise AssertionError("%s launched %s, want %s" % (tag, got,
+                                                              want))
+        return out
+
+    def plain(tag, fn):
+        before = read()
+        out = fn()
+        if read() != before:
+            raise AssertionError("--use_flash_attention=false %s launched "
+                                 "a kernel" % tag)
+        return out
+
+    rng = random.Random(seed + 15)
+    words = ["".join(rng.choice(GEN_LETTERS) for _ in range(rng.randint(2,
+                                                                        9)))
+             for _ in range(3000)]
+    t0 = time.perf_counter()
+    t5_sp = sp_model_bytes(t5_sp_pieces(rng))
+    dirs = {}
+    for name, config, files in (
+            ("t5", T5_BASE, {"spiece.model": t5_sp}),
+            ("mt5", MT5_BASE, {"spiece.model": t5_sp}),
+            ("pegasus", PEGASUS_LARGE, {"spiece.model": sp_model_bytes(
+                t5_sp_pieces(rng, PEGASUS_SP_PIECES))})):
+        dirs[name] = os.path.join(workdir, name + "-random")
+        n = make_s2s_model_dir(torch, dirs[name], config, seed, files)
+        log("%s model dir: %d parameters, %d-piece spiece.model"
+            % (name, n, PEGASUS_SP_PIECES if name == "pegasus"
+               else T5_SP_PIECES))
+    tokens, _ = _vocab()  # bert-base-chinese's synthetic CJK WordPiece
+    tokens += ["[unused%d]" % i for i in range(100, 100 + RANDENG[
+        "vocab_size"] - len(tokens))]
+    dirs["randeng"] = os.path.join(workdir, "randeng-random")
+    make_s2s_model_dir(torch, dirs["randeng"], RANDENG, seed,
+                       {"vocab.txt": "\n".join(tokens) + "\n"})
+    vocab, merges = dialogue_bpe(rng, words, DIALOGUE["vocab_size"])
+    dirs["dialogue"] = os.path.join(workdir, "dialogue-random")
+    make_s2s_model_dir(torch, dirs["dialogue"], DIALOGUE, seed, {
+        "vocab.txt": "\n".join(vocab) + "\n",
+        "codecs.txt": "#version: 0.2\n" + "".join("%s %s\n" % m
+                                                  for m in merges)})
+    toks = {"t5": T5Tokenizer.from_pretrained(dirs["t5"]),
+            "pegasus": PegasusTokenizer.from_pretrained(dirs["pegasus"]),
+            "dialogue": TransformerTokenizer.from_pretrained(
+                dirs["dialogue"])}
+    toks["mt5"] = toks["t5"]
+    tsvs = {}
+    for name, (seq_len, batch, steps, rows) in S2S_RUNS.items():
+        if name == "randeng":
+            continue
+        tokenize = toks[name].tokenize
+        for kind, n in (("train", batch * steps), ("dev", rows)):
+            if n:
+                tsvs[name, kind] = os.path.join(workdir, "%s_%s.tsv"
+                                                % (name, kind))
+                make_s2s_tsv(tsvs[name, kind], tokenize, words, rng, n,
+                             seq_len + 16)
+    tsvs["randeng", "dev"] = os.path.join(workdir, "randeng_dev.tsv")
+    with open(tsvs["randeng", "dev"], "w", encoding="utf-8") as f:
+        for i in range(S2S_RUNS["randeng"][3]):
+            f.write("%d\t%s\t%s\n" % (i, "".join(rng.choice(cjk[:3000])
+                                                 for _ in range(600)),
+                                        "".join(rng.choice(cjk[:3000])
+                                                for _ in range(40))))
+    log("phase 15 model dirs and tables made from seed %d in %.3f s"
+        % (seed, time.perf_counter() - t0))
+
+    # the SentencePiece encoder: 16 x 512 tokens, native against Python
+    sp_model = toks["t5"].sp
+    with open(tsvs["t5", "train"], encoding="utf-8") as f:
+        texts = [line.split("\t")[1] for line in f][:16]
+    texts = [sp_model.normalize(t) for t in texts]
+    timing = {}
+    for native in (True, False):
+        fast = sp_model._fast
+        if not native:
+            sp_model._fast = False
+        t0 = time.perf_counter()
+        ids = [sp_model._encode_unigram(t) for t in texts]
+        timing[native] = (time.perf_counter() - t0, ids)
+        sp_model._fast = fast
+    if timing[True][1] != timing[False][1] or not sp_model._fast:
+        raise AssertionError("the native SentencePiece encoder gave other "
+                             "ids, or did not load")
+    log("sentencepiece encode, 16 texts of %d tokens (normalised first): "
+        "native %.4f s, Python %.4f s (%.1fx); ids identical"
+        % (statistics.median(len(i) for i in timing[True][1]),
+           timing[True][0], timing[False][0],
+           timing[False][0] / timing[True][0]))
+
+    eos_banned = "max_decoder_length=%d min_decoder_length=%d" % (
+        S2S_TARGET_TOKENS, S2S_TARGET_TOKENS)
+    scores = {}
+
+    def generation(tag, app, ckpt, name, udp, want_kernels):
+        """The f32 CLI predict with the kernels (the main path) and plain:
+        the same tokens."""
+        seq_len, batch, _, rows = S2S_RUNS[name]
+        tsv = tsvs[name, "dev"]
+        out_k = os.path.join(workdir, "%s_%s_k.tsv" % (name, tag))
+        out_p = os.path.join(workdir, "%s_%s_p.tsv" % (name, tag))
+        sec_k, batches_k, ids_k = main_path(
+            "%s %s predict (f32)" % (name, tag), lambda: _s2s_predict(
+                torch, app, ckpt, tsv, out_k, True, seq_len, batch, udp))
+        if not all(read()[w] for w in want_kernels):
+            raise AssertionError("%s %s predict did not launch %s"
+                                 % (name, tag, want_kernels))
+        sec_p, batches_p, ids_p = plain("%s %s predict" % (name, tag),
+                                        lambda: _s2s_predict(
+                                            torch, app, ckpt, tsv, out_p,
+                                            False, seq_len, batch, udp))
+        same = (ids_k == ids_p).all(axis=1)
+        log("%s %s predict, %d rows x %d slots, f32: kernel %.3f s (batch "
+            "median %.3f s), plain %.3f s (%.3f s) with load; %d of %d rows "
+            "token for token; %d distinct tokens"
+            % (name, tag, rows, ids_k.shape[1], sec_k,
+               statistics.median(batches_k), sec_p,
+               statistics.median(batches_p), int(same.sum()), rows,
+               len(set(ids_k[:, 1:].ravel().tolist()))))
+        if ids_k.shape != ids_p.shape or ids_k.shape[0] != rows \
+                or not same.all():
+            raise AssertionError("%s %s predict: kernel and plain f32 "
+                                 "generation differ" % (name, tag))
+
+    def training(name, want_per_step):
+        seq_len, batch, steps, _ = S2S_RUNS[name]
+        app = "open_domain_dialogue" if name == "dialogue" else \
+            "sequence_generation"
+        ckpt = os.path.join(workdir, name + "_ckpt")
+        want = {w: n * steps for w, n in want_per_step.items()}
+        runs = {True: main_path("%s train (bf16)" % name, lambda: run_train(
+            torch, dirs[name], tsvs[name, "train"], None, ckpt, True, seed,
+            common=_s2s_argv(app, seq_len, batch, True)), want)}
+        runs[False] = plain("%s train" % name, lambda: run_train(
+            torch, dirs[name], tsvs[name, "train"], None, None, False, seed,
+            common=_s2s_argv(app, seq_len, batch, False)))
+        for use_kernel, run in runs.items():
+            _check_train_run("%s %s" % (name, use_kernel), run, steps)
+        _s2s_compare_training(name, runs)
+        return app, ckpt
+
+    # T5-base: train, evaluate, predict (greedy and 4 beams)
+    layers = T5_BASE["num_layers"]
+    app, ckpt = training("t5", {"short_attention_fwd": layers,
+                                "short_attention_bwd": layers,
+                                "flash_attention_fwd": 0,
+                                "flash_attention_bwd": 0})
+    seq_len, batch, _, rows = S2S_RUNS["t5"]
+    for use_kernel in (True, False):
+        run = (lambda: _s2s_evaluate(torch, app, ckpt, tsvs["t5", "dev"],
+                                     use_kernel, seq_len, batch))
+        results, seconds = (main_path("t5 evaluate (bf16)", run)
+                            if use_kernel else plain("t5 evaluate", run))
+        scores["t5", use_kernel] = results
+        log("t5 evaluate %-6s %d rows: %s in %.3f s"
+            % ("kernel" if use_kernel else "plain", rows, ", ".join(
+                "%s %.6f" % kv for kv in results), seconds))
+    generation("greedy", app, ckpt, "t5", eos_banned,
+               ("short_attention_fwd",))
+    generation("beam4", app, ckpt, "t5", eos_banned + " num_beams=4",
+               ("short_attention_fwd",))
+    # mT5-base: predict on its random init (gated FFN, untied f32 head)
+    generation("greedy", "sequence_generation", dirs["mt5"], "mt5",
+               eos_banned, ("short_attention_fwd",))
+    # Pegasus-large: train at 4 x 1024, predict with 4 beams
+    layers = PEGASUS_LARGE["encoder_layers"]
+    app, ckpt = training("pegasus", {"short_attention_fwd": layers,
+                                     "short_attention_bwd": layers,
+                                     "flash_attention_fwd": 2 * layers,
+                                     "flash_attention_bwd": 2 * layers})
+    generation("beam4", app, ckpt, "pegasus", eos_banned + " num_beams=4",
+               ("short_attention_fwd", "flash_attention_fwd"))
+    # Randeng: predict with its WordPiece tokenizer on CJK sources
+    generation("greedy", "sequence_generation", dirs["randeng"], "randeng",
+               eos_banned, ("short_attention_fwd",))
+    # GPT-2 small evaluate on phase 4's dev table (sources the sentences,
+    # targets the labels), phase 5's model directory, f32
+    gpt2_dir = os.path.join(workdir, GPT2_MODEL_DIR)
+    schema = ["--input_schema=id:str:1,sent:str:1,label:str:1",
+              "--first_sequence=sent", "--second_sequence=label"]
+    for use_kernel in (True, False):
+        run = (lambda: _s2s_evaluate(
+            torch, "sequence_generation", gpt2_dir,
+            os.path.join(workdir, "dev.tsv"), use_kernel, SEQ_LEN, BATCH,
+            "float32", schema))
+        results, seconds = (main_path("gpt2 evaluate (f32)", run)
+                            if use_kernel else plain("gpt2 evaluate", run))
+        scores["gpt2", use_kernel] = results
+        log("gpt2 evaluate %-6s %d rows: %s in %.3f s"
+            % ("kernel" if use_kernel else "plain", N_DEV_ROWS, ", ".join(
+                "%s %.6f" % kv for kv in results), seconds))
+    if scores["gpt2", True] != scores["gpt2", False]:
+        raise AssertionError("GPT-2 f32 evaluate: kernel %s, plain %s"
+                             % (scores["gpt2", True], scores["gpt2", False]))
+    # open_domain_dialogue: train at 16 x 128 (head dim 32), predict
+    layers = DIALOGUE["n_layers"]
+    app, ckpt = training("dialogue", {"short_attention_fwd": 3 * layers,
+                                      "short_attention_bwd": 3 * layers,
+                                      "flash_attention_fwd": 0,
+                                      "flash_attention_bwd": 0})
+    generation("greedy", app, ckpt, "dialogue", eos_banned,
+               ("short_attention_fwd",))
+    log("phase 15 launches of the kernel runs: %s" % total)
+    total["flash_attention_bwd_dkdv"] = total["flash_attention_bwd"]
+    total["flash_attention_bwd_dq"] = total["flash_attention_bwd"]
+    return total
+
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -5993,6 +6705,10 @@ def main():
         t0 = time.perf_counter()
         knowledge_launches = phase_knowledge(torch, seed, workdir, cjk)
         seconds["14 knowledge models"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s2s_launches = phase_seq2seq(torch, seed, workdir, cjk)
+        seconds["15 T5, mT5, Pegasus, Randeng, GPT-2 evaluate, dialogue"] = \
+            time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
 
@@ -6010,7 +6726,8 @@ def main():
             "launches": launches[name] + mlm_launches.get(wrapper, 0)
             + apps2_launches.get(wrapper, 0)
             + options_launches.get(wrapper, 0)
-            + knowledge_launches.get(wrapper, 0),
+            + knowledge_launches.get(wrapper, 0)
+            + s2s_launches[name],
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

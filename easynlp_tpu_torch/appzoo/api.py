@@ -11,8 +11,9 @@ user_defined_parameters two_tower or siamese), `sequence_labeling`,
 pretraining on BERT and RoBERTa; with user_defined_parameters
 enable_dkplm, enable_kangaroo or contrast_learning_flag, DKPLM, Kangaroo
 and CKBERT pretraining), predict for `vectorization` and
-`data_augmentation`, and for `sequence_generation` train, evaluate and
-predict on BART and predict on GPT-2. text_classify's variants take the
+`data_augmentation`, for `sequence_generation` train, evaluate and predict
+on BART, T5, mT5, Pegasus and Randeng and evaluate and predict on GPT-2,
+and for `open_domain_dialogue` the same on the dialogue `transformer`. text_classify's variants take the
 user_defined_parameters switches enable_distillation (vanilla KD against
 saved teacher logits, with `temperature` and `alpha`), enable_metakd (the
 meta-teacher, trained by MetaTeacherTrainer), enable_fewshot (PET) and,
@@ -84,6 +85,8 @@ DATASET_REGISTRY = _apps(
         "default": "machine_reading_comprehension.data:MRCDataset"},
     sequence_generation={"default": "sequence_generation.data:"
                                     "SequenceGenerationDataset"},
+    open_domain_dialogue={"default": "sequence_generation.data:"
+                                     "SequenceGenerationDataset"},
     language_modeling={
         "default": "language_modeling.data:LanguageModelingDataset",
         "enable_kangaroo": "language_modeling.kangaroo_data:"
@@ -119,6 +122,8 @@ MODEL_REGISTRY = _apps(
                    "MachineReadingComprehension"},
     sequence_generation={"default": "sequence_generation.model:"
                                     "SequenceGeneration"},
+    open_domain_dialogue={"default": "open_domain_dialogue.model:"
+                                     "OpenDomainDialogue"},
     language_modeling={
         "default": "language_modeling.model:LanguageModeling",
         "contrast_learning_flag": "language_modeling.model:"
@@ -145,6 +150,8 @@ EVALUATOR_REGISTRY = _apps(
         "default": "machine_reading_comprehension.evaluator:MRCEvaluator"},
     sequence_generation={"default": "sequence_generation.evaluator:"
                                     "SequenceGenerationEvaluator"},
+    open_domain_dialogue={"default": "sequence_generation.evaluator:"
+                                     "SequenceGenerationEvaluator"},
     language_modeling={"default": "language_modeling.evaluator:"
                                   "LanguageModelingEvaluator"},
     information_extraction={"default": "information_extraction.evaluator:"
@@ -168,6 +175,8 @@ PREDICTOR_REGISTRY = _apps(
         "default": "machine_reading_comprehension.predictor:MRCPredictor"},
     sequence_generation={"default": "sequence_generation.predictor:"
                                     "SequenceGenerationPredictor"},
+    open_domain_dialogue={"default": "sequence_generation.predictor:"
+                                     "SequenceGenerationPredictor"},
     data_augmentation={"default": "data_augmentation.predictor:"
                                   "DataAugmentationPredictor"},
     information_extraction={"default": "information_extraction.predictor:"
@@ -179,7 +188,6 @@ PREDICTOR_REGISTRY = _apps(
 _NOT_PORTED_MODES = {
     "export": "ROADMAP A26",
 }
-_ENCODER_DECODER = ("t5", "mt5", "bart", "pegasus", "randeng")
 # the JAX package's variant switches, in its order (easynlp_tpu
 # appzoo/api.py::_variant_key)
 _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
@@ -217,33 +225,18 @@ def _resolve(registry, app_name, udp):
 
 
 def _check_generation_backbone(args):
-    """sequence_generation trains and evaluates encoder-decoder backbones
-    (BART) and predicts with GPT-2 and BART, in the port as far as it
-    goes."""
-    if args.app_name != "sequence_generation":
+    """sequence_generation and open_domain_dialogue train encoder-decoder
+    backbones; GPT-2 checkpoints evaluate and predict only."""
+    if args.app_name not in ("sequence_generation", "open_domain_dialogue") \
+            or args.mode != "train":
         return
-    path = (args.pretrained_model_name_or_path if args.mode == "train"
-            else args.predict_checkpoint_path or args.checkpoint_dir)
-    if not path:
-        return
-    model_type = model_type_of(path) or "t5"
-    seq2seq = model_type in _ENCODER_DECODER
-    if args.mode == "train" and not seq2seq:
+    path = args.pretrained_model_name_or_path
+    if path and model_type_of(path) == "gpt2":
         raise NotImplementedError(
-            "--mode=train --app_name=sequence_generation on a decoder-only "
-            "checkpoint: the JAX package does not train GPT-2 through this "
-            "app (its trainer passes decoder_input_ids, which its "
-            "GPT2LMHeadModel does not take), so neither does the port")
-    if args.mode == "evaluate" and not seq2seq:
-        raise NotImplementedError(
-            "--mode=evaluate --app_name=sequence_generation on a "
-            "decoder-only checkpoint is not ported yet (ROADMAP A15b); the "
-            "port evaluates encoder-decoder backbones")
-    if args.mode == "predict" and seq2seq and model_type != "bart":
-        raise NotImplementedError(
-            "--mode=predict --app_name=sequence_generation on a %s "
-            "checkpoint is not ported yet (ROADMAP A18c, A18d); the port "
-            "predicts with GPT-2 and BART" % model_type)
+            "--mode=train --app_name=%s on a decoder-only checkpoint: the "
+            "JAX package does not train GPT-2 through this app (its trainer "
+            "passes decoder_input_ids, which its GPT2LMHeadModel does not "
+            "take), so neither does the port" % args.app_name)
 
 
 def default_main_fn(args=None):

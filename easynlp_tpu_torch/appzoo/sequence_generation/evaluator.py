@@ -7,6 +7,13 @@ at most max_decode_length tokens), and the generated ids, special tokens
 removed, are scored against the row's labels (the -100 padding and special
 tokens removed): sentence BLEU-4 with +1 smoothing and ROUGE-L F1, averaged
 over the rows.
+
+For the encoder-decoders the hypothesis is the decoder's whole buffer,
+special ids removed, as in the JAX evaluator. For GPT-2 it is
+SequenceGeneration.generated_tokens: the new tokens up to and including
+the first EOS. The JAX evaluator scores GPT-2's whole buffer, the prompt
+and the pad id 0 ("!") slots after EOS included, against the labels
+(ROADMAP reference fault 23).
 """
 
 import math
@@ -77,6 +84,9 @@ class SequenceGenerationEvaluator(Evaluator):
                 seqs = seqs.cpu().numpy()[valid]
                 labels = batch["labels"][valid]
                 for hyp, ref in zip(seqs, labels):
+                    if not app.config.is_encoder_decoder:
+                        hyp = app.generated_tokens(hyp,
+                                                   self.max_decode_length)
                     h = [int(t) for t in hyp if int(t) not in specials]
                     r = [int(t) for t in ref if t != -100
                          and int(t) not in specials]

@@ -7,15 +7,15 @@ num_beam_groups, diversity_penalty, num_return_sequences) and the same
 output columns: `generated_ids` (the whole token buffer, space-separated;
 for beams the best one), `predictions` (the best text) and `beams` (the
 returned beams' texts joined by "||"). The buffer is GPT-2's prompt, left-
-padded to the batch width, then max_decoder_length generated slots; or
-BART's decoder buffer of max_decoder_length slots, the decoder start token
-first, as the JAX app writes both.
+padded to the batch width, then max_decoder_length generated slots; or an
+encoder-decoder's buffer of max_decoder_length slots, the decoder start
+token first, as the JAX app writes both.
 
 One difference: the text columns decode only real tokens (ROADMAP C9).
 GPT-2: the prompt's own tokens, then the generated ones up to and including
-the first EOS. BART: the tokens after the start column, up to and including
-the first EOS; BART's start token is its EOS (both id 2), so the cut never
-looks at the start column. skip_special_tokens drops EOS where the
+the first EOS. Encoder-decoders: the tokens after the start column, up to
+and including the first EOS (BART's start token is its EOS, id 2, so the
+cut never looks at the start column). skip_special_tokens drops EOS where the
 tokenizer knows it as special. The JAX predictor decodes the whole buffer,
 so each pad and each slot after EOS (GPT-2's pad id 0 is "!") and BART's
 start token come out as text. `generated_ids` stays as JAX writes it.
@@ -115,17 +115,12 @@ class SequenceGenerationPredictor(Predictor):
         """The decoded real tokens of one buffer row (see the module
         docstring): for GPT-2, whose prompt (left-padded to the batch width)
         holds prompt_len real tokens, the prompt's tokens and the generated
-        ones; for BART the tokens after the start column. Generated tokens
-        are cut after the first EOS."""
-        if self.app.config.is_encoder_decoder:
-            p, prompt = 1, []
-        else:
+        ones; for the encoder-decoders the generated ones."""
+        prompt = []
+        if not self.app.config.is_encoder_decoder:
             p = len(row) - self.max_decode_length
-            prompt = list(row[p - prompt_len:p])
-        generated = list(row[p:])
-        eos = self.app.config.eos_token_id
-        if eos in generated:
-            generated = generated[:generated.index(eos) + 1]
+            prompt = [int(t) for t in row[p - prompt_len:p]]
+        generated = self.app.generated_tokens(row, self.max_decode_length)
         return self.tokenizer.decode(prompt + generated,
                                      skip_special_tokens=True)
 

@@ -3,8 +3,9 @@ PyTorch port.
 
 Counterpart of easynlp_tpu/modelzoo/models/auto/auto_factory.py and
 easynlp_tpu/appzoo/api.py::_tokenizer_for, reduced to the ported
-families: `bert`, `roberta`, `gpt2`, `bart`, `megatron_bert` (also HF's
-spelling `megatron-bert`), `kbert`, `dkplm`, `kangaroo` and `ckbert`.
+families: `bert`, `roberta`, `gpt2`, `bart`, `t5`, `mt5`, `pegasus`,
+`randeng`, `transformer`, `megatron_bert` (also HF's spelling
+`megatron-bert`), `kbert`, `dkplm`, `kangaroo` and `ckbert`.
 AutoConfig, AutoModel and AutoTokenizer raise NotImplementedError naming
 the ROADMAP item of every other model_type. AutoModel.from_pretrained
 returns the port's module with its weights loaded, from a
@@ -20,10 +21,12 @@ RoBERTa's (the same BPE with <s>, </s>, <pad>, <unk>, <mask>) for
 `roberta`; for `bart` the same BPE with BART's own specials where the
 vocabulary holds </s> at the config's EOS id, else the GPT-2 tokenizer,
 which is what the JAX route gives every BART checkpoint (ROADMAP C11);
-WordPiece otherwise (as the JAX route falls back to BertTokenizer for an
-unknown model_type or a directory with no config.json). The SentencePiece
-tokenizers of T5, mT5, Pegasus, Randeng and GLM are not ported: those
-model types raise. `bert_config_for` gives RobertaConfig to a `roberta`
+SentencePiece for `t5`, `mt5` (T5Tokenizer) and `pegasus`
+(PegasusTokenizer); Randeng's WordPiece (RandengTokenizer) for `randeng`;
+subword-nmt BPE (TransformerTokenizer) for `transformer`; WordPiece
+otherwise (as the JAX route falls back to BertTokenizer for an unknown
+model_type or a directory with no config.json). GLM's SentencePiece
+tokenizer is not ported: `glm` raises (ROADMAP A19). `bert_config_for` gives RobertaConfig to a `roberta`
 checkpoint and BertConfig to the others, as the JAX AutoConfig maps them.
 """
 
@@ -48,7 +51,15 @@ def model_type_of(model_dir):
     return _config_of(model_dir).get("model_type")
 
 
-_SENTENCEPIECE = ("t5", "mt5", "pegasus", "randeng", "glm")
+# model_type -> (module under modelzoo/models, tokenizer class), the JAX
+# TOKENIZER_MAPPING's rows for these families (auto_factory.py:81-85, :98)
+_TOKENIZERS = {
+    "t5": ("t5", "T5Tokenizer"),
+    "mt5": ("t5", "MT5Tokenizer"),
+    "pegasus": ("pegasus", "PegasusTokenizer"),
+    "randeng": ("randeng", "RandengTokenizer"),
+    "transformer": ("transformer", "TransformerTokenizer"),
+}
 
 
 def bert_config_for(model_dir):
@@ -74,10 +85,15 @@ def tokenizer_for(model_dir):
     if model_type in ("gpt2", "bart"):
         from easynlp_tpu_torch.modelzoo.models.gpt2 import GPT2Tokenizer
         return GPT2Tokenizer.from_pretrained(model_dir)
-    if model_type in _SENTENCEPIECE:
+    if model_type in _TOKENIZERS:
+        import importlib
+        module, name = _TOKENIZERS[model_type]
+        cls = getattr(importlib.import_module(_M + module), name)
+        return cls.from_pretrained(model_dir)
+    if model_type == "glm":
         raise NotImplementedError(
-            "the %s tokenizer (SentencePiece) is not ported yet (ROADMAP "
-            "A18)" % model_type)
+            "the glm tokenizer (SentencePiece with GLM's command tokens) is "
+            "not ported yet (ROADMAP A19)")
     from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
     return BertTokenizer.from_pretrained(model_dir)
 
@@ -89,6 +105,14 @@ PORTED = {
     "roberta": ("bert", "RobertaConfig", "BertModel"),
     "gpt2": ("gpt2", "GPT2Config", "GPT2LMHeadModel"),
     "bart": ("bart", "BartConfig", "BartForConditionalGeneration"),
+    "t5": ("t5", "T5Config", "T5ForConditionalGeneration"),
+    "mt5": ("t5", "MT5Config", "T5ForConditionalGeneration"),
+    "pegasus": ("pegasus", "PegasusConfig",
+                "PegasusForConditionalGeneration"),
+    "randeng": ("randeng", "RandengConfig",
+                "RandengForConditionalGeneration"),
+    "transformer": ("transformer", "TransformerConfig",
+                    "TransformerGeneratorModel"),
     "megatron_bert": ("megatron_bert", "MegatronBertConfig",
                       "MegatronBertModel"),
     "kbert": ("kbert", "KBertConfig", "KBertModel"),
@@ -98,9 +122,10 @@ PORTED = {
 }
 _ALIASES = {"megatron-bert": "megatron_bert"}  # HF config.json's spelling
 # the JAX AutoConfig's other families and the ROADMAP item of each
-NOT_PORTED = {"t5": "A18c", "mt5": "A18c", "pegasus": "A18d",
-              "randeng": "A18d", "transformer": "A18", "glm": "A19",
-              "bloom": "A19", "clip": "A20", "cnn": "A21"}
+NOT_PORTED = {"glm": "A19", "bloom": "A19", "clip": "A20", "cnn": "A21"}
+# the families whose checkpoints the sequence_generation app reads
+_GENERATION = ("gpt2", "bart", "t5", "mt5", "pegasus", "randeng",
+               "transformer")
 
 
 def _classes(model_type):
@@ -161,7 +186,7 @@ def _load_pytorch(model_type, module, state_dict):
     """A reference/HF checkpoint into `module`, strictly: the module's own
     names, under the family's prefix in the checkpoint or none; keys of
     other parts (task heads) are left aside."""
-    if model_type in ("gpt2", "bart"):
+    if model_type in _GENERATION:
         from easynlp_tpu_torch.appzoo.sequence_generation.model import (
             SequenceGeneration)
         SequenceGeneration.load_state_dict(module, state_dict)
@@ -178,7 +203,7 @@ def _load_pytorch(model_type, module, state_dict):
 
 def _from_jax(model_type, params, config):
     import importlib
-    if model_type in ("gpt2", "bart"):
+    if model_type in _GENERATION:
         from easynlp_tpu_torch.appzoo.sequence_generation.model import (
             SequenceGeneration)
         return SequenceGeneration.state_dict_from_jax(params, config)

@@ -1,7 +1,7 @@
 """BART / Pegasus / Randeng configs for the PyTorch port (the port's own copy
 of easynlp_tpu/modelzoo/models/bart/configuration_bart.py: HF names and the
-same defaults). The port's model takes BART; Pegasus and Randeng load as
-configs only (their SentencePiece tokenizer is not ported)."""
+same defaults). The port's BartForConditionalGeneration builds each
+family's layout from these switches (modeling_bart.py)."""
 
 from easynlp_tpu_torch.modelzoo.configuration_utils import PretrainedConfig
 

@@ -1,14 +1,18 @@
-"""Checkpoint keys and layouts for the port's BART.
+"""Checkpoint keys and layouts for the port's BART, Pegasus, Randeng and
+dialogue `transformer`.
 
 The port's module carries the HF names under `model.`, so a reference/HF
-BART `pytorch_model.bin` needs only key normalisation (normalize_keys): the
+BART or Pegasus `pytorch_model.bin` needs only key normalisation
+(normalize_keys): the
 `model.` prefix added where a checkpoint lacks it, each stack's
 `embed_tokens.weight` filled from `shared.weight` where absent, the tied
 `lm_head.weight` and `shared.weight` dropped (the head reads the decoder's
 embedding, as in the JAX model), and `final_logits_bias` taken as [1,V]
-(zeros where absent), and `layernorm_embedding` dropped where the config
-has none (use_layernorm_embedding=False). The result loads with
-strict=True.
+(zeros where absent), `layernorm_embedding` dropped where the config
+has none (use_layernorm_embedding=False), and the sinusoidal
+`embed_positions` tables dropped where the positions are sinusoidal (they
+are recomputed, as the JAX package's convert_pegasus_state_dict skips
+them). The result loads with strict=True.
 `state_dict_from_jax` goes the other way from the JAX package's own layout
 (the inverse of easynlp_tpu/modelzoo/models/bart/conversion.py's
 convert_bart_state_dict).
@@ -36,6 +40,9 @@ def normalize_keys(state_dict, config):
     if not config.use_layernorm_embedding:
         # the model has none, and the JAX conversion skips them too
         s = {k: v for k, v in s.items() if ".layernorm_embedding." not in k}
+    if config.position_type != "learned":
+        s = {k: v for k, v in s.items()
+             if not k.endswith(".embed_positions.weight")}
     bias = s.get("final_logits_bias")
     s["final_logits_bias"] = (
         torch.zeros(1, config.vocab_size) if bias is None
@@ -58,7 +65,11 @@ def state_dict_from_jax(params, config):
         tree = params[side]
         base = "model.%s." % side
         put(base + "embed_tokens.weight", tree["embed_tokens"]["embedding"])
-        put(base + "embed_positions.weight", tree["embed_positions"])
+        if config.position_type == "learned":
+            put(base + "embed_positions.weight", tree["embed_positions"])
+        if config.final_layer_norm:
+            put(base + "layer_norm.weight", tree["layer_norm"]["scale"])
+            put(base + "layer_norm.bias", tree["layer_norm"]["bias"])
         if config.use_layernorm_embedding:
             put(base + "layernorm_embedding.weight",
                 tree["layernorm_embedding"]["scale"])

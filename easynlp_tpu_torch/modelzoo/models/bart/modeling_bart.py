@@ -1,19 +1,31 @@
-"""BART for the PyTorch port.
+"""BART, Pegasus, Randeng and the dialogue `transformer` for the PyTorch
+port.
 
-Counterpart of easynlp_tpu/modelzoo/models/bart/modeling_bart.py for BART's
-layout (post-LN blocks, learned positions with offset 2, `layernorm_embedding`,
-the LM head tied to the decoder's token embedding plus `final_logits_bias`),
-with the same numerics:
+Counterpart of easynlp_tpu/modelzoo/models/bart/modeling_bart.py: one
+encoder-decoder stack whose layout the config's switches set, with the same
+numerics.
 
-- parameters are f32; projections compute in `dtype` (bf16 by default),
-  LayerNorm in f32 cast back to `dtype`, the embedding sum in f32;
-- attention goes through ops/attention.py: the encoder's self-attention and
-  the decoder's cross-attention over a source longer than 512 tokens take
-  the flash kernels (forward and backward), the decoder's causal
-  self-attention over its short target the short kernels;
-- the encoder and the decoder each own their token embedding, as in the JAX
-  model (an HF checkpoint's `shared.weight` fills both), and the head reads
-  the decoder's.
+- BART: post-LN blocks, learned positions with offset 2,
+  `layernorm_embedding`, the LM head tied to the decoder's token embedding
+  plus `final_logits_bias`.
+- Pegasus and Randeng (`normalize_before`, `position_type='sinusoidal'`,
+  `scale_embedding`, `final_layer_norm`, no `use_layernorm_embedding`):
+  pre-LN blocks, the half-sin/half-cos position table with no offset
+  (recomputed, never loaded: a non-persistent buffer), the embeddings
+  scaled by sqrt(d_model), and a LayerNorm (`layer_norm`) after each
+  stack's last block.
+- The dialogue `transformer` (TransformerConfig): post-LN, learned
+  positions with offset 0, the embedding LayerNorm and the sqrt(d) scale;
+  pre-LN under variant='prelayernorm'.
+
+Parameters are f32; projections compute in `dtype` (bf16 by default),
+LayerNorm in f32 cast back to `dtype`, the embedding sum in f32. Attention
+goes through ops/attention.py: the encoder's self-attention and the
+decoder's cross-attention over a source longer than 512 tokens take the
+flash kernels (forward and backward), the decoder's causal self-attention
+over its short target the short kernels. The encoder and the decoder each
+own their token embedding, as in the JAX model (an HF checkpoint's
+`shared.weight` fills both), and the head reads the decoder's.
 
 It keeps one module per layer with HF names
 (`model.encoder.layers.{i}.self_attn.q_proj.weight`, ...), so a reference
@@ -21,13 +33,13 @@ It keeps one module per layer with HF names
 decode cache is a `Seq2SeqCache`: one [B,T,H,D] self-attention K and V per
 decoder layer, written in place at the write index, and the cross-attention
 K/V of each layer computed once from the encoder output. It replaces the
-JAX model's stacked [L,B,T,H,D] scan carry. Pre-LN Pegasus/Randeng (sinusoidal
-positions, a final LayerNorm) and decode chunks of more than one token
-(speculative decoding, ROADMAP A16) are not ported.
+JAX model's stacked [L,B,T,H,D] scan carry. Decode chunks of more than one
+token (speculative decoding, ROADMAP A16) are not ported.
 """
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -41,6 +53,19 @@ from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
 from easynlp_tpu_torch.ops.attention import attention
 
 LN_EPS = 1e-5
+
+
+def sinusoidal_positions(n_pos, dim):
+    """The Pegasus/Marian position table [n_pos, dim] in f32: the first
+    dim/2 columns sin, the last dim/2 cos, not interleaved (the JAX
+    package's sinusoidal_positions, computed the same way in numpy)."""
+    pos = np.arange(n_pos)[:, None]
+    div = np.exp(np.arange(0, dim, 2) * -(np.log(10000.0) / dim))
+    table = np.zeros((n_pos, dim), np.float32)
+    half = (dim + 1) // 2
+    table[:, :half] = np.sin(pos * div)
+    table[:, half:] = np.cos(pos * div)[:, : dim - half]
+    return torch.from_numpy(table)
 
 
 class Seq2SeqCache:
@@ -100,7 +125,9 @@ class BartAttention(nn.Module):
 
 
 class BartLayer(nn.Module):
-    """One post-LN block: self-attention, cross-attention (decoder), FFN.
+    """One block: self-attention, cross-attention (decoder), FFN, each a
+    residual with its LayerNorm after it (post-LN) or, under the config's
+    normalize_before, before it (pre-LN).
     `remat` (modeling_bert.set_remat) is its --remat policy while it trains
     without a cache: the whole block is recomputed in the backward, its
     attention kernels included, but for what the policy keeps. As in the
@@ -116,6 +143,7 @@ class BartLayer(nn.Module):
         ffn = c.decoder_ffn_dim if is_decoder else c.encoder_ffn_dim
         self.dtype = dtype
         self.is_decoder = is_decoder
+        self.pre = c.normalize_before
         self.remat = "none"
         self.self_attn = BartAttention(c, heads, dtype=dtype, device=device)
         self.self_attn_layer_norm = nn.LayerNorm(e, eps=LN_EPS, device=device)
@@ -142,27 +170,42 @@ class BartLayer(nn.Module):
     def _block(self, hidden, self_mask, enc_hidden=None, enc_mask=None,
                cache=None, layer_idx=None):
         dt = self.dtype
+
+        def residual(ln, sublayer, hidden):
+            if self.pre:
+                return hidden + sublayer(layer_norm(ln, hidden, dt))
+            return layer_norm(ln, hidden + sublayer(hidden), dt)
+
         # with a cache, the self mask covers the cache's slots and no causal
         # mask is needed (one token per step)
-        out = self.self_attn(hidden, hidden, self_mask,
-                             causal=self.is_decoder and cache is None,
-                             cache=cache, layer_idx=layer_idx)
-        hidden = layer_norm(self.self_attn_layer_norm, hidden + out, dt)
+        hidden = residual(
+            self.self_attn_layer_norm,
+            lambda x: self.self_attn(x, x, self_mask,
+                                     causal=self.is_decoder and cache is None,
+                                     cache=cache, layer_idx=layer_idx),
+            hidden)
         if self.is_decoder:
             static = None
             if cache is not None and cache.cross_k is not None:
                 static = (cache.cross_k[layer_idx], cache.cross_v[layer_idx])
-            out = self.encoder_attn(hidden, enc_hidden, enc_mask,
-                                    static_kv=static)
-            hidden = layer_norm(self.encoder_attn_layer_norm, hidden + out, dt)
-        x = self.activation_dropout(self.act(dense(self.fc1, hidden, dt)))
-        x = self.dropout(dense(self.fc2, x, dt))
-        return layer_norm(self.final_layer_norm, hidden + x, dt)
+            hidden = residual(
+                self.encoder_attn_layer_norm,
+                lambda x: self.encoder_attn(x, enc_hidden, enc_mask,
+                                            static_kv=static),
+                hidden)
+        return residual(self.final_layer_norm, self._ffn, hidden)
+
+    def _ffn(self, x):
+        dt = self.dtype
+        x = self.activation_dropout(self.act(dense(self.fc1, x, dt)))
+        return self.dropout(dense(self.fc2, x, dt))
 
 
 class BartStack(nn.Module):
-    """Token and learned position embeddings, layernorm_embedding (where
-    config.use_layernorm_embedding is set), layers."""
+    """Token embeddings (scaled by sqrt(d_model) under scale_embedding),
+    learned or sinusoidal positions, layernorm_embedding (where
+    config.use_layernorm_embedding is set), the layers, and the final
+    `layer_norm` (where config.final_layer_norm is set)."""
 
     def __init__(self, config, is_decoder, dtype=torch.float32, device=None):
         super().__init__()
@@ -171,9 +214,15 @@ class BartStack(nn.Module):
         self.dtype = dtype
         self.embed_tokens = nn.Embedding(c.vocab_size, c.d_model,
                                          device=device)
-        self.embed_positions = nn.Embedding(
-            c.max_position_embeddings + c.position_offset, c.d_model,
-            device=device)
+        if c.position_type == "learned":
+            self.embed_positions = nn.Embedding(
+                c.max_position_embeddings + c.position_offset, c.d_model,
+                device=device)
+        else:
+            self.register_buffer(
+                "sinusoidal", sinusoidal_positions(c.max_position_embeddings,
+                                                   c.d_model).to(device),
+                persistent=False)
         # as in the JAX model: only where the config asks for it
         self.layernorm_embedding = (
             nn.LayerNorm(c.d_model, eps=LN_EPS, device=device)
@@ -183,6 +232,8 @@ class BartStack(nn.Module):
         self.layers = nn.ModuleList(
             BartLayer(c, is_decoder, dtype=dtype, device=device)
             for _ in range(n))
+        self.layer_norm = (nn.LayerNorm(c.d_model, eps=LN_EPS, device=device)
+                           if c.final_layer_norm else None)
 
     def forward(self, input_ids, self_mask, positions, enc_hidden=None,
                 enc_mask=None, cache=None):
@@ -190,12 +241,17 @@ class BartStack(nn.Module):
         x = self.embed_tokens(input_ids)
         if c.scale_embedding:
             x = x * math.sqrt(c.d_model)
-        x = x + self.embed_positions(positions + c.position_offset)
+        if c.position_type == "learned":
+            x = x + self.embed_positions(positions + c.position_offset)
+        else:
+            x = x + self.sinusoidal[positions]
         if self.layernorm_embedding is not None:
             x = self.layernorm_embedding(x.float())  # f32, as elsewhere
         x = self.dropout(x).to(self.dtype)
         for i, layer in enumerate(self.layers):
             x = layer(x, self_mask, enc_hidden, enc_mask, cache, i)
+        if self.layer_norm is not None:
+            x = layer_norm(self.layer_norm, x, self.dtype)
         return x
 
 
@@ -212,11 +268,6 @@ class BartForConditionalGeneration(nn.Module):
 
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
-        if config.normalize_before or config.position_type != "learned" \
-                or config.final_layer_norm:
-            raise NotImplementedError(
-                "%s's pre-LN layout with sinusoidal positions is not ported "
-                "yet (ROADMAP A18); the port has BART" % config.model_type)
         self.config = config
         self.dtype = dtype
         self.model = BartModel(config, dtype=dtype, device=device)

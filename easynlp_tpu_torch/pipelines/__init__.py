@@ -2,7 +2,8 @@
 
 Counterpart of easynlp_tpu/pipelines/__init__.py, reduced to the tasks the
 port runs: text_classify, text_match, sequence_labeling, vectorization,
-machine_reading_comprehension and sequence_generation. pipeline(model_dir)
+machine_reading_comprehension, sequence_generation and
+open_domain_dialogue. pipeline(model_dir)
 infers the task from the directory's train_config.json, and
 pipeline(task, model_path=dir) names it. A task name without model_path
 (its default model) and a registered model name resolve through the model
@@ -25,6 +26,7 @@ SUPPORTED_TASKS = {
     "machine_reading_comprehension": {
         "app": "machine_reading_comprehension"},
     "sequence_generation": {"app": "sequence_generation"},
+    "open_domain_dialogue": {"app": "open_domain_dialogue"},
     # the JAX package's other tasks, each with the item that ports it
     "data_augmentation": {"app": "data_augmentation",
                           "not_ported": "ROADMAP A9, A11"},
@@ -32,8 +34,6 @@ SUPPORTED_TASKS = {
                               "not_ported": "ROADMAP A21"},
     "image2text_generation": {"app": "image2text_generation",
                               "not_ported": "ROADMAP A21"},
-    "open_domain_dialogue": {"app": "open_domain_dialogue",
-                             "not_ported": "ROADMAP A18"},
 }
 # the PAI-Diffusion family: prompt -> image (ROADMAP A22)
 for _ldm_task in ("latent_diffusion", "chinese-ldm-general",

@@ -218,5 +218,16 @@ def test_post_ln_without_layernorm_embedding_matches_jax():
 
 
 def test_pegasus_layout_is_refused():
-    with pytest.raises(NotImplementedError, match="A18"):
-        BartForConditionalGeneration(PegasusConfig(**TINY))
+    """The BART stack builds Pegasus's layout from its config (a final
+    LayerNorm per stack, recomputed sinusoidal positions, no embedding
+    LayerNorm; held to JAX in test_torch_pegasus.py), and the Pegasus class
+    refuses a config whose switches give BART's layout."""
+    from easynlp_tpu_torch.modelzoo.models.pegasus import (
+        PegasusForConditionalGeneration)
+    model = BartForConditionalGeneration(PegasusConfig(**TINY))
+    names = set(model.state_dict())
+    assert "model.encoder.layer_norm.weight" in names
+    assert not [n for n in names
+                if "embed_positions" in n or "layernorm_embedding" in n]
+    with pytest.raises(ValueError, match="normalize_before"):
+        PegasusForConditionalGeneration(BartConfig(**TINY))

@@ -264,7 +264,7 @@ def test_checkpoint_keys_load_strictly(fixture_dir):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mode=train"], "does not train GPT-2"),
-    (["--mode=evaluate"], "A15b"),
+    (["--mode=export"], "A26"),
     (["--mode=predict",
       "--user_defined_parameters=speculative_decoding=prompt_lookup"], "A16"),
     (["--mode=predict", "--user_defined_parameters=kv_cache_dtype=int8"],
@@ -285,31 +285,24 @@ def test_unported_generation_modes_raise(fixture_dir, argv, match):
         default_main_fn(args)
 
 
-@pytest.mark.parametrize("model_type,match", [("bart", "A18"), ("t5", "A18")])
+@pytest.mark.parametrize("model_type,match", [("glm", "no backbone"),
+                                              ("bloom", "no backbone")])
 def test_encoder_decoder_backbones_raise(tmp_path, model_type, match):
-    """--mode=predict on an encoder-decoder checkpoint other than BART
-    raises: BART passes the gate (its predict is held to JAX in
-    test_torch_seq2seq_predict.py), Pegasus, its config sibling, and T5 do
-    not (BART trains and evaluates, see test_torch_seq2seq_train.py)."""
-    from easynlp_tpu_torch.appzoo.api import (
-        _check_generation_backbone,
-        default_main_fn,
-    )
+    """sequence_generation on a checkpoint of a family it has no backbone
+    for raises, from load_config and from the CLI (BART, T5, mT5, Pegasus,
+    Randeng, the dialogue transformer and GPT-2 are held to JAX in their own
+    test files)."""
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
     from easynlp_tpu_torch.appzoo.sequence_generation.model import (
         SequenceGeneration)
     from easynlp_tpu_torch.utils.initializer import initialize_easynlp
     (tmp_path / "config.json").write_text(json.dumps(
         {"model_type": model_type}))
-    if model_type == "t5":
-        with pytest.raises(NotImplementedError, match=match):
-            SequenceGeneration.load_config(str(tmp_path))
+    with pytest.raises(NotImplementedError, match=match):
+        SequenceGeneration.load_config(str(tmp_path))
     args = initialize_easynlp(args_list=[
         "--mode=predict", "--app_name=sequence_generation", "--device=cpu",
         "--checkpoint_dir=%s" % tmp_path, "--tables=unused.tsv"])
-    if model_type == "bart":
-        _check_generation_backbone(args)
-        (tmp_path / "config.json").write_text(json.dumps(
-            {"model_type": "pegasus"}))
     with pytest.raises(NotImplementedError, match=match):
         default_main_fn(args)
 
