@@ -42,7 +42,7 @@ directory and phase 4's tables: text_classify for 8 steps at
 step ms and peak memory of each; `full` launches the short forward twice
 a layer), BART-base at --remat=full against phase 6's first kernel run
 (the same 8 losses, less peak memory); --ema_decay=0.999 with
---save_checkpoint_steps=2, once with --async_save and once with
+--save_checkpoint_steps=4, once with --async_save and once with
 synchronous saves (the EMA artifact and count, the same files bit for
 bit, the save time on the training thread of each); KD (the student
 trained on the logits --mode=predict gives on phase 4's checkpoint,
@@ -83,12 +83,31 @@ holds every step's loss and gradient norm to the plain run's, f32
 generation token for token, and each path's launches are counted from 0;
 it also times the SentencePiece encoder native against Python. Phase 2
 adds these paths' attention shapes: T5's unscaled cross-attention, head
-dim 32 and Pegasus-large's 16 heads. Every phase raises on
-failure, so any failure exits non-zero. The last line is {"ok": true,
-"device": {...}}; the line before it lists the kernels with their launches
-in the BART training run and phase 11's, 12's, 13's, 14's and 15's runs,
-errors, times (kernel, plain twin, the PyTorch library call) and bounds.
-Imports nothing of JAX or of the JAX package.
+dim 32 and Pegasus-large's 16 heads. Then phase 16, slice 11's paths,
+with the kernels and with --use_flash_attention=false: on phase 5's GPT-2
+small and prompts, f32 `--mode=predict` greedy, with
+speculative_decoding=prompt_lookup (token for token with greedy, the
+accepted tokens per verify forward and ms per output token) and with
+kv_cache_dtype=int8 (token match and mean logit KL against the f32
+cache); DeviceContinuousDecoder(speculative=(2, 8)) over 16 requests
+against speculative=None and standalone greedy decoding; `/generate` with
+serve_quantize=int8 against f32 and bf16 weights (token match, KL,
+quantization_report's bytes, ms per output token); pipeline(quantize=
+"int8") on phase 4's checkpoint against f32 weights; BART-base f32
+speculative predict of 8 rows against greedy; and GLM at glm-large widths
+(the port's init from --seed, a synthetic SentencePiece model of 50040
+pieces and GLM's 8 command tokens): `--app_name=sequence_generation
+enable_glm=true` 8 bf16 AdamW steps of 8 x 512 with 64-token targets,
+`--mode=evaluate`, f32 predict of 16 rows greedy, with 4 beams and
+speculative; `--app_name=language_modeling enable_glm=true` 4 steps of 8
+x 512 and `--mode=evaluate`. Phase 2 adds their attention shapes: a
+verify chunk of 9 queries at offset 247, GLM's decode step and verify
+chunk over 512 keys at 16 heads. Every phase raises on failure, so any
+failure exits non-zero. The last line is {"ok": true, "device": {...}};
+the line before it lists the kernels with their launches in the BART
+training run and phase 11's to 16's runs, errors, times (kernel, plain
+twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
+the JAX package.
 """
 
 import argparse
@@ -276,6 +295,11 @@ MODEL_DIR = "bert-base-chinese-random"
 
 
 def log(msg):
+    if msg.startswith("== phase"):
+        # each phase's header: what this process has written so far
+        written = _written_gib()
+        if written is not None:
+            msg += " [written so far %.2f GiB]" % written
     print(msg, flush=True)
 
 
@@ -711,18 +735,46 @@ def seq2seq_cases(rng):
     ]
 
 
+def slice11_cases(rng):
+    """Phase 16's attention shapes (as seq2seq_cases), forward only: a
+    shared-index speculative verify chunk of K+1 = 9 queries causal at
+    offset 247 over 256 keys (GPT-2 small's 12 heads); GLM-large's decode
+    step over a 512-slot cache (16 heads, rows of 200-512 written slots)
+    and its verify chunk, 9 queries causal over 512 keys."""
+    import numpy as np
+    return [
+        ("spec-verify", "short", 16, 9, 256, 12, 64, np.full(16, 256), True,
+         None, False),
+        ("glm-decode", "short", 16, 1, 512, 16, 64,
+         np.r_[512, rng.randint(200, 513, size=15)], False, None, False),
+        ("glm-verify", "short", 16, 9, 512, 16, 64, np.full(16, 512), True,
+         None, False),
+    ]
+
+
 def _check_seq2seq_cases(torch, A, seed, worst, timings):
-    """Phase 15's shapes (seq2seq_cases): each kernel against its f32 twin
-    at the case's scale, f32 within 2e-5 (the backward 2e-5 + 1e-5 |g|),
-    bf16 within the tensor-core bounds with R re-derived at that scale by
+    """Phase 15's shapes (seq2seq_cases) and phase 16's (slice11_cases),
+    each from a stream of its own, through _check_attention_cases."""
+    import numpy as np
+    case_rng = np.random.RandomState(seed + 6)
+    _check_attention_cases(torch, A, case_rng, seq2seq_cases(case_rng),
+                           worst, timings, "s2s")
+    case_rng = np.random.RandomState(seed + 7)
+    _check_attention_cases(torch, A, case_rng, slice11_cases(case_rng),
+                           worst, timings, "s11")
+
+
+def _check_attention_cases(torch, A, case_rng, cases, worst, timings, tag):
+    """Each case's kernel against its f32 twin at the case's scale, f32
+    within 2e-5 (the backward 2e-5 + 1e-5 |g|), bf16 within the
+    tensor-core bounds with R re-derived at that scale by
     flash_attention_{fwd,bwd}_rss (bf16 attention_reference's ratio to the
     same bound logged beside); then bf16 times by CUDA events against the
     twin and SDPA (given the same scale), and each bound. No profiler
     session: the child's are spent on the shapes above."""
     import numpy as np
-    case_rng = np.random.RandomState(seed + 6)
     for (name, path, b, sq, skv, h, d, lens, causal, scale,
-         backward) in seq2seq_cases(case_rng):
+         backward) in cases:
         q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
         if scale == 1.0:  # T5's q projection keeps unscaled scores O(1)
             q = q * d ** -0.5
@@ -772,8 +824,8 @@ def _check_seq2seq_cases(torch, A, seed, worst, timings):
                 note = ("error / bound %.3f; bf16 attention_reference's "
                         "%.3f" % (ratio, _flash_fwd_bf16_ratio(A, ref, want,
                                                                rss)))
-            log("check s2s %-20s %-8s %s forward, scale %.4g: max_abs_err "
-                "%.3e (%s) %s" % (name, str(dtype).split(".")[1], path,
+            log("check %s %-20s %-8s %s forward, scale %.4g: max_abs_err "
+                "%.3e (%s) %s" % (tag, name, str(dtype).split(".")[1], path,
                                   scale or d ** -0.5, err, note,
                                   "ok" if ok else "FAIL"))
             if not ok:
@@ -805,8 +857,8 @@ def _check_seq2seq_cases(torch, A, seed, worst, timings):
                                         / bound).max().item())
                 ok = ratio <= 1
                 note = "error / bound %.3f" % ratio
-            log("check s2s %-20s %-8s %s backward: max_abs_err %.3e (%s) %s"
-                % (name, str(dtype).split(".")[1], path, gerr, note,
+            log("check %s %-20s %-8s %s backward: max_abs_err %.3e (%s) %s"
+                % (tag, name, str(dtype).split(".")[1], path, gerr, note,
                    "ok" if ok else "FAIL"))
             if not ok:
                 raise AssertionError("%s backward disagrees with its plain "
@@ -831,9 +883,9 @@ def _check_seq2seq_cases(torch, A, seed, worst, timings):
             timings[(kernel, name, torch.bfloat16)] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_fwd,
                 bound_ms=bound_ms, bound_by=bound_by)
-        line = ("time s2s %-20s bf16 %s forward %.4f ms (bound %.4f ms by "
+        line = ("time %s %-20s bf16 %s forward %.4f ms (bound %.4f ms by "
                 "%s), plain twin %.4f ms, SDPA %.4f ms (%s)"
-                % (name, path, ms, bound_ms, bound_by, plain_ms, lib_fwd,
+                % (tag, name, path, ms, bound_ms, bound_by, plain_ms, lib_fwd,
                    backend))
         if backward:
             _, lse = A.flash_attention_fwd_reference(tq, tk, tv, mask,
@@ -2090,11 +2142,12 @@ def make_gen_tsv(path, tokenizer, seed, n_rows=GEN_ROWS):
     return targets
 
 
-def run_generate(torch, model_dir, tsv, out, use_kernel, udp):
+def run_generate(torch, model_dir, tsv, out, use_kernel, udp,
+                 dtype="bfloat16"):
     from easynlp_tpu_torch.appzoo.api import default_main_fn
     from easynlp_tpu_torch.utils.initializer import initialize_easynlp
     argv = ["--mode=predict", "--app_name=sequence_generation",
-            "--device=cuda", "--dtype=bfloat16",
+            "--device=cuda", "--dtype=" + dtype,
             "--sequence_length=%d" % GEN_PROMPT_WIDTH,
             "--micro_batch_size=%d" % GEN_BATCH, "--tables=" + tsv,
             "--outputs=" + out, "--checkpoint_dir=" + model_dir,
@@ -3483,14 +3536,15 @@ def _drive(port, payloads, clients):
     return results, wall
 
 
-def start_generation_server(torch, model_dir, dtype, use_kernel):
-    """`--mode=serve` with serve_continuous=true on the card, not blocking:
-    (the GenerationServer, seconds to start it: model load, kernel build or
-    load, batcher)."""
+def start_generation_server(torch, model_dir, dtype, use_kernel, extra=""):
+    """`--mode=serve` with serve_continuous=true on the card, not blocking
+    (`extra`: more user_defined_parameters): (the GenerationServer, seconds
+    to start it: model load, kernel build or load, batcher)."""
     from easynlp_tpu_torch.appzoo.api import default_main_fn
     from easynlp_tpu_torch.utils.initializer import initialize_easynlp
     udp = ("serve_continuous=true serve_blocking=False serve_port=0 "
-           "serve_slots=%d serve_chunk_size=%d" % (SERVE_SLOTS, SERVE_CHUNK))
+           "serve_slots=%d serve_chunk_size=%d %s"
+           % (SERVE_SLOTS, SERVE_CHUNK, extra)).strip()
     argv = ["--mode=serve", "--checkpoint_dir=" + model_dir,
             "--device=cuda", "--dtype=" + dtype,
             "--sequence_length=%d" % SERVE_WINDOW,
@@ -3804,9 +3858,7 @@ def phase_serving(torch, seed, workdir):
     total = sum(min(len(a), len(b)) for a, b in zip(main_ids, f32_ids))
     lg32 = _teacher_forced_logits(torch, app32.module, prompts, f32_ids, pad)
     lg16 = _teacher_forced_logits(torch, app16.module, prompts, f32_ids, pad)
-    kl = torch.cat([(torch.log_softmax(a, -1).exp()
-                     * (torch.log_softmax(a, -1) - torch.log_softmax(b, -1))
-                     ).sum(-1) for a, b in zip(lg32, lg16)])
+    kl = torch.cat([_kl(torch, a, b) for a, b in zip(lg32, lg16)])
     log("bf16 serving weights vs f32 (C5; printed, not gated): token-match "
         "rate %.4f (mean share of each f32 output before the first "
         "divergence), %.4f of aligned positions equal (%d of %d); mean KL(f32 "
@@ -5016,7 +5068,10 @@ def phase_encoder_apps2(torch, seed, workdir, cjk):
 
 REMAT = ("none", "full", "selective", "names")
 EMA_DECAY = 0.999
-EMA_SAVE_STEPS = 2
+# a save every 4 of the 8 steps, so 3 saves a run: each writes 1.6 GB
+# (weights, EMA, AdamW state), and the card's machine allows 45 GiB of
+# disk writes to the whole script
+EMA_SAVE_STEPS = 4
 KD_UDP = "enable_distillation=true temperature=2 alpha=0.5"
 PET_PATTERN = {"pattern": "{sent1},{mask}", "label_desc": "bad,good"}
 METAKD_DOMAINS = ("books", "dvd", "electronics", "kitchen")
@@ -6385,37 +6440,10 @@ def phase_seq2seq(torch, seed, workdir, cjk):
         "evaluate, open_domain_dialogue")
     wrappers = ("short_attention_fwd", "short_attention_bwd",
                 "flash_attention_fwd", "flash_attention_bwd")
-    total = dict.fromkeys(wrappers, 0)
-
-    def zero():
-        for w in wrappers:
-            getattr(A, w).launches = 0
+    main_path, plain, total = _launch_counter(A, wrappers)
 
     def read():
         return {w: getattr(A, w).launches for w in wrappers}
-
-    def main_path(tag, fn, want=None):
-        """fn() with every count 0 just before and read just after; the
-        counts must be `want` where given, else nonzero for some kernel."""
-        zero()
-        out = fn()
-        got = read()
-        for w in wrappers:
-            total[w] += got[w]
-        log("%s launches: %s%s" % (tag, got, "" if want is None
-                                   else " (want %s)" % want))
-        if (want is not None and got != want) or not any(got.values()):
-            raise AssertionError("%s launched %s, want %s" % (tag, got,
-                                                              want))
-        return out
-
-    def plain(tag, fn):
-        before = read()
-        out = fn()
-        if read() != before:
-            raise AssertionError("--use_flash_attention=false %s launched "
-                                 "a kernel" % tag)
-        return out
 
     rng = random.Random(seed + 15)
     words = ["".join(rng.choice(GEN_LETTERS) for _ in range(rng.randint(2,
@@ -6529,11 +6557,11 @@ def phase_seq2seq(torch, seed, workdir, cjk):
             raise AssertionError("%s %s predict: kernel and plain f32 "
                                  "generation differ" % (name, tag))
 
-    def training(name, want_per_step):
+    def training(name, want_per_step, save=True):
         seq_len, batch, steps, _ = S2S_RUNS[name]
         app = "open_domain_dialogue" if name == "dialogue" else \
             "sequence_generation"
-        ckpt = os.path.join(workdir, name + "_ckpt")
+        ckpt = os.path.join(workdir, name + "_ckpt") if save else None
         want = {w: n * steps for w, n in want_per_step.items()}
         runs = {True: main_path("%s train (bf16)" % name, lambda: run_train(
             torch, dirs[name], tsvs[name, "train"], None, ckpt, True, seed,
@@ -6571,11 +6599,16 @@ def phase_seq2seq(torch, seed, workdir, cjk):
                eos_banned, ("short_attention_fwd",))
     # Pegasus-large: train at 4 x 1024, predict with 4 beams
     layers = PEGASUS_LARGE["encoder_layers"]
-    app, ckpt = training("pegasus", {"short_attention_fwd": layers,
-                                     "short_attention_bwd": layers,
-                                     "flash_attention_fwd": 2 * layers,
-                                     "flash_attention_bwd": 2 * layers})
-    generation("beam4", app, ckpt, "pegasus", eos_banned + " num_beams=4",
+    # (no checkpoint: its 6.8 GB of weights and AdamW state would take a
+    # sixth of the disk writes the card's machine allows the script; the
+    # 4-beam predict reads the model directory's init instead)
+    app, _ = training("pegasus", {"short_attention_fwd": layers,
+                                  "short_attention_bwd": layers,
+                                  "flash_attention_fwd": 2 * layers,
+                                  "flash_attention_bwd": 2 * layers},
+                      save=False)
+    generation("beam4", app, dirs["pegasus"], "pegasus",
+               eos_banned + " num_beams=4",
                ("short_attention_fwd", "flash_attention_fwd"))
     # Randeng: predict with its WordPiece tokenizer on CJK sources
     generation("greedy", "sequence_generation", dirs["randeng"], "randeng",
@@ -6613,6 +6646,564 @@ def phase_seq2seq(torch, seed, workdir, cjk):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 16: speculative decoding, int8 weights and KV cache, GLM
+# --------------------------------------------------------------------------
+
+SPEC_DRAFTS, SPEC_NGRAM = 8, 2       # num_draft_tokens, lookup_ngram_size
+SPEC_UDP = ("speculative_decoding=prompt_lookup num_draft_tokens=%d "
+            "lookup_ngram_size=%d" % (SPEC_DRAFTS, SPEC_NGRAM))
+SPEC_DECODER = (SPEC_NGRAM, SPEC_DRAFTS)   # DeviceContinuousDecoder's
+SPEC_REQUESTS = 16
+BART_SPEC_ROWS = 8
+GLM_LARGE = {  # JAX GLMConfig's defaults: glm-large-chinese's widths at
+    # 512 positions, dropout set to 0
+    "model_type": "glm", "vocab_size": 50048, "hidden_size": 1024,
+    "num_layers": 24, "num_attention_heads": 16, "max_sequence_length": 512,
+    "embedding_dropout_prob": 0.0, "attention_dropout_prob": 0.0,
+    "output_dropout_prob": 0.0,
+}
+GLM_SP_PIECES = GLM_LARGE["vocab_size"] - 8   # + the 8 command tokens
+GLM_SEQ_LEN, GLM_TARGET, GLM_BATCH, GLM_STEPS = 512, 64, 8, 8
+GLM_SRC_LEN = GLM_SEQ_LEN - GLM_TARGET - 3     # src, gMASK, sop, tgt, eop
+GLM_UDP = "enable_glm=true src_len=%d tgt_len=%d" % (GLM_SRC_LEN, GLM_TARGET)
+GLM_LM_STEPS, GLM_DEV_ROWS = 4, 16
+GLM_NEW_TOKENS = 32
+# predict's --sequence_length: the prompt, gMASK and sop, the new tokens
+# and a verify chunk's K+1 slots fill the 512 keys B1 takes
+GLM_PREDICT_SEQ = GLM_SEQ_LEN - GLM_NEW_TOKENS - (SPEC_DRAFTS + 1) - 2
+
+
+def _launch_counter(A, wrappers):
+    """(main_path, plain, total) over the `wrappers`' launch counts:
+    main_path(tag, fn, want=None) runs fn() with every count 0 just before
+    and read just after, adds them to `total`, and fails unless they equal
+    `want` (where given) or some kernel launched (want_any); plain(tag, fn)
+    fails if fn() (a --use_flash_attention=false run) launches any."""
+    total = dict.fromkeys(wrappers, 0)
+
+    def read():
+        return {w: getattr(A, w).launches for w in wrappers}
+
+    def main_path(tag, fn, want=None, want_any=True):
+        for w in wrappers:
+            getattr(A, w).launches = 0
+        out = fn()
+        got = read()
+        for w in wrappers:
+            total[w] += got[w]
+        log("%s launches: %s%s" % (tag, got, "" if want is None
+                                   else " (want %s)" % want))
+        if (want is not None and got != want) or (
+                want_any and not any(got.values())):
+            raise AssertionError("%s launched %s, want %s" % (tag, got,
+                                                              want))
+        return out
+
+    def plain(tag, fn):
+        before = read()
+        out = fn()
+        if read() != before:
+            raise AssertionError("--use_flash_attention=false %s launched "
+                                 "a kernel" % tag)
+        return out
+
+    return main_path, plain, total
+
+
+def _f32_margin(torch, model, prefix):
+    """The top-2 logit margin of `model` (f32, plain attention) after the
+    token list `prefix`: one forward."""
+    from easynlp_tpu_torch.ops import attention as A
+    A.set_kernel_override(False)
+    try:
+        with torch.inference_mode():
+            ids = torch.tensor([prefix],
+                               device=next(model.parameters()).device)
+            top2 = model(ids)["logits"][0, -1].float().topk(2).values
+    finally:
+        A.set_kernel_override(None)
+    return (top2[0] - top2[1]).item()
+
+
+def _same_or_tie(tag, rows_a, rows_b, margin_at):
+    """Rows token for token, but where they part at a near-tie (the f32
+    top-2 margin margin_at(row, step) <= SERVE_F32_TIE). Returns (rows
+    identical, rows parting at a tie)."""
+    same = ties = 0
+    for i, (a, b) in enumerate(zip(rows_a, rows_b)):
+        j = _first_divergence(list(a), list(b))
+        if j is None:
+            same += 1
+            continue
+        m = margin_at(i, j)
+        if m > SERVE_F32_TIE:
+            raise AssertionError("%s: row %d parts at step %d (%s vs %s) at "
+                                 "an f32 top-2 margin of %.3e > %.0e"
+                                 % (tag, i, j, list(a[j:j + 2]),
+                                    list(b[j:j + 2]), m, SERVE_F32_TIE))
+        ties += 1
+    return same, ties
+
+
+def _kl(torch, ref, other):
+    """Per-position KL(softmax(ref) || softmax(other)) of f32 logits."""
+    lp, lq = torch.log_softmax(ref, -1), torch.log_softmax(other, -1)
+    return (lp.exp() * (lp - lq)).sum(-1)
+
+
+def phase_slice11(torch, seed, workdir):
+    """Phase 16: slice 11's paths, each with the kernels (its launches
+    counted from 0) and with --use_flash_attention=false: GPT-2 small
+    speculative decoding and the int8 KV cache (CLI predict, f32), the
+    speculative device decoder, `/generate` with serve_quantize=int8,
+    pipeline(quantize="int8") on phase 4's text_classify checkpoint, BART
+    speculative predict on phase 6's checkpoint, and GLM (glm-large
+    widths) blank-infilling train, evaluate and predict (greedy, 4 beams,
+    speculative) and block-infilling pretraining. Returns the kernel runs'
+    launches by wrapper."""
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.sequence_generation.model import (
+        SequenceGeneration)
+    from easynlp_tpu_torch.modelzoo import speculative as S
+    from easynlp_tpu_torch.modelzoo.models.glm import GLMTokenizer
+    from easynlp_tpu_torch.modelzoo.models.gpt2.generation import (
+        make_gpt2_generation_fns)
+    from easynlp_tpu_torch.modelzoo.quantization import (
+        cast_params, quantization_report, quantize_params)
+    from easynlp_tpu_torch.ops import attention as A
+    from easynlp_tpu_torch.pipelines import pipeline
+    from easynlp_tpu_torch.serving.continuous import DeviceContinuousDecoder
+    log("== phase 16: speculative decoding, int8 weights and KV cache "
+        "(GPT-2 small, BART-base, BERT-base), GLM (glm-large widths)")
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+    main_path, plain, total = _launch_counter(A, wrappers)
+    eos = GPT2_SMALL["eos_token_id"]
+    gpt2_dir = os.path.join(workdir, GPT2_MODEL_DIR)   # phase 5's
+    tsv = os.path.join(workdir, "prompts.tsv")
+    app32 = SequenceGeneration.from_pretrained(gpt2_dir, dtype=torch.float32,
+                                               device="cuda")
+    width = GEN_PROMPT_WIDTH
+
+    # speculative stats from the CLI runs: every call's verify rounds and
+    # accepted drafts
+    stats = []
+    real_rowwise = S.speculative_greedy_rowwise
+
+    def recorded(*args, **kwargs):
+        out = real_rowwise(*args, **kwargs)
+        stats.append(out[2])
+        return out
+    S.speculative_greedy_rowwise = recorded
+
+    def predict(tag, udp, use_kernel):
+        out = os.path.join(workdir, "p16_%s_%s.tsv"
+                           % (tag, "k" if use_kernel else "p"))
+        run = (lambda: run_generate(torch, gpt2_dir, tsv, out, use_kernel,
+                                    udp, dtype="float32"))
+        return (main_path("GPT-2 %s predict (f32)" % tag, run) if use_kernel
+                else plain("GPT-2 %s predict" % tag, run))
+
+    def prefix(ids, i, j):
+        """Row i's real prompt tokens (the left pads, id 0, dropped: the
+        prompts hold no "!") and its first j generated ones."""
+        row = ids[i].tolist()
+        start = next(k for k, t in enumerate(row) if t)
+        return row[start:width + j]
+
+    try:
+        base = "max_decoder_length=%d" % GEN_NEW_TOKENS
+        greedy = predict("greedy", base, True)
+        spec = predict("speculative", base + " " + SPEC_UDP, True)
+        spec_stats = list(stats)
+        spec_p = predict("speculative", base + " " + SPEC_UDP, False)
+    finally:
+        S.speculative_greedy_rowwise = real_rowwise
+    gen = [generated_lengths(r["ids"], width, eos) for r in (greedy, spec)]
+    rounds = sum(s["verify_rounds"] for s in spec_stats)
+    accepted = sum(s["accepted_drafts"] for s in spec_stats)
+    committed = sum(s["generated"] for s in spec_stats)
+    same, ties = _same_or_tie("speculative vs greedy", spec["ids"][:, width:],
+                              greedy["ids"][:, width:],
+                              lambda i, j: _f32_margin(
+                                  torch, app32.module,
+                                  prefix(greedy["ids"], i, j)))
+    same_p, ties_p = _same_or_tie("speculative kernel vs plain",
+                                  spec["ids"][:, width:],
+                                  spec_p["ids"][:, width:],
+                                  lambda i, j: 0.0)
+    ms_tok = {tag: 1e3 * sum(r["batch_s"]) / sum(lens) for tag, r, lens in
+              (("greedy", greedy, gen[0]), ("speculative", spec, gen[1]))}
+    log("GPT-2 f32 predict, %d rows x %d new tokens: speculative (K=%d, "
+        "n-gram %d, per-row acceptance) %d rows token for token with "
+        "greedy, %d part at a near-tie; kernel vs plain %d rows identical; "
+        "%d verify forwards of %d rows committed %d tokens (%.3f a forward, "
+        "%.3f a row a forward; %d accepted drafts; one read-back a round "
+        "plus one a call: %d); ms per output token (batch time / generated "
+        "tokens, host clock) greedy %.3f, speculative %.3f (%.2fx)"
+        % (GEN_ROWS, GEN_NEW_TOKENS, SPEC_DRAFTS, SPEC_NGRAM, same, ties,
+           same_p, rounds, GEN_BATCH, committed, committed / max(rounds, 1),
+           committed / max(rounds * GEN_BATCH, 1), accepted,
+           sum(s["read_backs"] for s in spec_stats), ms_tok["greedy"],
+           ms_tok["speculative"], ms_tok["greedy"] / ms_tok["speculative"]))
+    if same_p != GEN_ROWS:
+        raise AssertionError("speculative predict: kernel and plain differ")
+
+    # the int8 KV cache: kernel and plain token for token; token match and
+    # mean logit KL against the f32 cache along the f32 greedy tokens
+    kv = predict("int8-kv", base + " kv_cache_dtype=int8", True)
+    kv_p = predict("int8-kv", base + " kv_cache_dtype=int8", False)
+    kv_same, _ = _same_or_tie("int8 KV kernel vs plain",
+                              kv["ids"][:, width:], kv_p["ids"][:, width:],
+                              lambda i, j: 0.0)
+    match = [(_first_divergence(list(a), list(b)) or len(b)) / len(b)
+             for a, b in zip(kv["ids"][:, width:], greedy["ids"][:, width:])]
+    ids0 = torch.from_numpy(greedy["ids"][:GEN_BATCH]).cuda()
+    mask0 = ((ids0[:, :width] != 0).cumsum(-1) > 0).to(torch.int32)
+    with torch.inference_mode():
+        logits = {}
+        for kvc in (None, "int8"):
+            prefill, decode = make_gpt2_generation_fns(
+                app32.module, width + GEN_NEW_TOKENS, kv_cache=kvc)
+            lg, cache = prefill(ids0[:, :width], mask0)
+            steps = [lg]
+            for j in range(GEN_NEW_TOKENS - 1):
+                lg, cache = decode(ids0[:, width + j:width + j + 1], cache)
+                steps.append(lg)
+            logits[kvc] = torch.stack(steps, 1)
+        kls = _kl(torch, logits[None], logits["int8"])
+    log("GPT-2 int8 KV cache, f32: kernel vs plain %d of %d rows token for "
+        "token; against the f32 cache: token-match rate %.4f (mean share "
+        "of each f32 output before the first divergence); mean KL(f32 || "
+        "int8 KV) %.6e nats over %d positions (max %.6e), teacher-forced "
+        "along the f32 run's tokens, batch 0"
+        % (kv_same, GEN_ROWS, float(np.mean(match)), kls.mean().item(),
+           kls.numel(), kls.max().item()))
+    if kv_same != GEN_ROWS:
+        raise AssertionError("int8 KV predict: kernel and plain differ")
+    del logits, kls
+
+    # DeviceContinuousDecoder(speculative=(2, 8)) over 16 requests, f32,
+    # against speculative=None; both held to standalone greedy decoding
+    A.set_kernel_override(None)   # the plain CLI run above turned it off
+    work = serve_workload(seed)[:SPEC_REQUESTS]
+    prompts = [p for p, _ in work]
+    budgets = [n for _, n in work]
+    outs, secs, spec_dec = {}, {}, None
+    for name, use_kernel, speculative in (("plain decoder", True, None),
+                                          ("speculative", True,
+                                           SPEC_DECODER),
+                                          ("speculative", False,
+                                           SPEC_DECODER)):
+        dec = DeviceContinuousDecoder(
+            app32.module, max_slots=SERVE_SLOTS, max_length=SERVE_WINDOW,
+            prompt_bucket=SERVE_BUCKET, eos_token_id=eos,
+            chunk_size=SERVE_CHUNK, speculative=speculative)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dec(prompts, max_new_tokens=budgets)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        tag = "device decoder, %s" % name
+        if use_kernel:
+            outs[name], secs[name] = main_path(tag, run)
+        else:
+            A.set_kernel_override(False)
+            try:
+                outs["plain"], secs["plain"] = plain(tag, run)
+            finally:
+                A.set_kernel_override(None)
+        if speculative and use_kernel:
+            spec_dec = dict(dec.last_spec_stats)
+    want, gaps = _greedy_reference(torch, app32.module, work, 0, "f32")
+    checks = {}
+    for name in ("plain decoder", "speculative", "plain"):
+        checks[name] = _same_or_tie("device decoder %s vs greedy" % name,
+                                    outs[name], want,
+                                    lambda i, j: gaps[i][j]
+                                    if j < len(gaps[i]) else 0.0)
+    n_tok = sum(len(o) for o in outs["speculative"])
+    log("device decoder, %d requests, %d slots, f32: speculative %s rows "
+        "identical to standalone greedy (%d at a near-tie), speculative=None "
+        "%s (%d), speculative plain attention %s (%d); speculative and "
+        "not: %d of %d identical; %d verify rounds over %d slots "
+        "committed %d tokens (%.3f a round, %d read-backs); wall %.3f s "
+        "against %.3f s (%.2f ms per output token against %.2f)"
+        % (SPEC_REQUESTS, SERVE_SLOTS, checks["speculative"][0],
+           checks["speculative"][1], checks["plain decoder"][0],
+           checks["plain decoder"][1], checks["plain"][0], checks["plain"][1],
+           sum(a == b for a, b in zip(outs["speculative"],
+                                      outs["plain decoder"])),
+           SPEC_REQUESTS, spec_dec["verify_rounds"], SERVE_SLOTS,
+           spec_dec["tokens_committed_in_rounds"],
+           spec_dec["tokens_committed_in_rounds"]
+           / max(spec_dec["verify_rounds"], 1), spec_dec["read_backs"],
+           secs["speculative"], secs["plain decoder"],
+           1e3 * secs["speculative"] / n_tok,
+           1e3 * secs["plain decoder"] / sum(len(o) for o in
+                                            outs["plain decoder"])))
+
+    # /generate with serve_quantize=int8 (bf16 compute, the rest of the
+    # weights cast to bf16 as the server does), against f32 and bf16
+    # weights on the same 16 requests
+    load = [{"prompt_ids": p, "max_new_tokens": n} for p, n in work]
+    served, tpot, report = {}, {}, None
+    for tag, dtype, extra in (("f32", "float32", ""),
+                              ("bf16", "bfloat16", ""),
+                              ("int8", "bfloat16", "serve_quantize=int8")):
+        srv, _ = start_generation_server(torch, gpt2_dir, dtype, True, extra)
+        try:
+            _drive(srv.port, load[:2], 2)
+            srv.timings.clear()
+            if tag == "int8":
+                report = quantization_report(srv.batcher.model)
+                results, wall = main_path("/generate int8", lambda: _drive(
+                    srv.port, load, SERVE_CLIENTS))
+            else:
+                results, wall = _drive(srv.port, load, SERVE_CLIENTS)
+            timings = list(srv.timings)
+        finally:
+            srv.stop()
+        describe_serving(tag, results, wall, timings)
+        served[tag] = [r["ids"] for r in results]
+        tpot[tag] = _pct([1e3 * (b - a) / (k - 1) for a, b, k in timings
+                          if k > 1], 50)
+    app8 = SequenceGeneration.from_pretrained(gpt2_dir, dtype=torch.bfloat16,
+                                              device="cuda")
+    quantize_params(app8.module)
+    cast_params(app8.module, torch.bfloat16)   # as the server does
+    lg32 = _teacher_forced_logits(torch, app32.module, prompts,
+                                  served["f32"], 0)
+    lg8 = _teacher_forced_logits(torch, app8.module, prompts,
+                                 served["f32"], 0)
+    kl = torch.cat([_kl(torch, a, b) for a, b in zip(lg32, lg8)])
+    match = [(_first_divergence(a, b) or len(b)) / len(b)
+             for a, b in zip(served["int8"], served["f32"])]
+    log("int8 serving weights (serve_quantize=int8, bf16 compute) vs f32 "
+        "(C5; printed, not gated): token-match rate %.4f; mean KL(f32 || "
+        "int8) of the next-token distribution %.6e nats over %d positions "
+        "(max %.6e); quantization_report: %d bytes against %d (%.3fx), %d "
+        "int8 weights; decode ms per output token p50 (server timings): "
+        "int8 %.3f, bf16 %.3f, f32 %.3f"
+        % (float(np.mean(match)), kl.mean().item(), kl.numel(),
+           kl.max().item(), report[0], report[1], report[0] / report[1],
+           report[2], tpot["int8"], tpot["bf16"], tpot["f32"]))
+    del app8, lg32, lg8, kl
+    torch.cuda.empty_cache()
+
+    # pipeline(quantize="int8") on phase 4's text_classify checkpoint
+    ckpt = os.path.join(workdir, "ckpt_kernel")
+    with open(os.path.join(workdir, "train.tsv"), encoding="utf-8") as f:
+        texts = [line.rstrip("\n").split("\t")[1] for line in f]
+    A.set_kernel_override(None)
+    kw = dict(first_sequence="sentence", sequence_length=SEQ_LEN,
+              batch_size=BATCH, dtype=torch.float32, device="cuda")
+    rows = {"f32": pipeline(ckpt, **kw)(texts)}
+    rows["int8"] = main_path("pipeline int8 (f32)", lambda: pipeline(
+        ckpt, quantize="int8", **kw)(texts))
+    lg = {k: np.array([[float(x) for x in r["logits"].split()] for r in v])
+          for k, v in rows.items()}
+    agree = np.mean(lg["f32"].argmax(1) == lg["int8"].argmax(1))
+    log("pipeline(quantize=\"int8\"), BERT-base text_classify, %d rows, "
+        "f32: argmax agreement with f32 weights %.4f, largest logit gap "
+        "%.4e" % (len(texts), agree, np.abs(lg["f32"] - lg["int8"]).max()))
+    del app32
+    torch.cuda.empty_cache()
+
+    # BART-base f32 predict of 8 rows, speculative against greedy
+    bart_tsv = os.path.join(workdir, "bart_spec.tsv")
+    with open(os.path.join(workdir, "bart_dev.tsv"), encoding="utf-8") as f:
+        lines = f.readlines()[:BART_SPEC_ROWS]
+    with open(bart_tsv, "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    bart_ckpt = os.path.join(workdir, "bart_ckpt")
+    bart = {}
+    for tag, udp, use_kernel in (
+            ("greedy", BART_PREDICT_UDP["greedy"], True),
+            ("speculative", BART_PREDICT_UDP["greedy"] + " " + SPEC_UDP,
+             True),
+            ("speculative", BART_PREDICT_UDP["greedy"] + " " + SPEC_UDP,
+             False)):
+        out = os.path.join(workdir, "bart_%s_%d.tsv" % (tag, use_kernel))
+        argv = ["--mode=predict", "--tables=" + bart_tsv, "--outputs=" + out,
+                "--checkpoint_dir=" + bart_ckpt,
+                "--output_schema=predictions,generated_ids",
+                "--append_cols=id", "--user_defined_parameters=" + udp] + [
+                    a.replace("bfloat16", "float32")
+                    for a in _bart_argv(use_kernel)]
+
+        def run():
+            manager, seconds = _cli(torch, argv)
+            with open(out, encoding="utf-8") as f:
+                return [[int(x) for x in line.split("\t")[1].split()]
+                        for line in f], seconds
+        bart[tag, use_kernel] = (main_path("BART %s predict (f32)" % tag, run)
+                                 if use_kernel else
+                                 plain("BART %s predict" % tag, run))
+    b_same = sum(a == b for a, b in zip(bart["speculative", True][0],
+                                        bart["greedy", True][0]))
+    b_plain = sum(a == b for a, b in zip(bart["speculative", True][0],
+                                         bart["speculative", False][0]))
+    log("BART-base f32 predict, %d rows x %d slots: speculative %d rows "
+        "token for token with greedy, %d with its plain run; %.3f s against "
+        "greedy's %.3f s with load"
+        % (BART_SPEC_ROWS, len(bart["greedy", True][0][0]), b_same, b_plain,
+           bart["speculative", True][1], bart["greedy", True][1]))
+    if b_same != BART_SPEC_ROWS or b_plain != BART_SPEC_ROWS:
+        raise AssertionError("BART speculative predict differs from greedy "
+                             "or from its plain run")
+
+    # GLM at glm-large widths: the model dir (the port's init from --seed,
+    # a synthetic SentencePiece model of ~50000 pieces), tables
+    rng = random.Random(seed + 16)
+    t0 = time.perf_counter()
+    glm_dir = os.path.join(workdir, "glm-large-random")
+    n_params = make_s2s_model_dir(torch, glm_dir, GLM_LARGE, seed, {
+        "spiece.model": sp_model_bytes(t5_sp_pieces(rng, GLM_SP_PIECES))})
+    tok = GLMTokenizer.from_pretrained(glm_dir)
+    if tok.vocab_size != GLM_LARGE["vocab_size"]:
+        raise AssertionError("the GLM tokenizer holds %d ids, want %d"
+                             % (tok.vocab_size, GLM_LARGE["vocab_size"]))
+    words = ["".join(rng.choice(GEN_LETTERS) for _ in range(rng.randint(
+        2, 9))) for _ in range(3000)]
+    glm_tsv = {}
+    for kind, n in (("train", GLM_BATCH * GLM_STEPS), ("dev", GLM_DEV_ROWS)):
+        glm_tsv[kind] = os.path.join(workdir, "glm_%s.tsv" % kind)
+        make_s2s_tsv(glm_tsv[kind], tok.tokenize, words, rng, n,
+                     GLM_SEQ_LEN)
+    for kind, n in (("lm_train", GLM_BATCH * GLM_LM_STEPS),
+                    ("lm_dev", GLM_DEV_ROWS)):
+        glm_tsv[kind] = os.path.join(workdir, "glm_%s.tsv" % kind)
+        with open(glm_tsv[kind], "w", encoding="utf-8") as f, \
+                open(glm_tsv["train"], encoding="utf-8") as g:
+            for i, line in zip(range(n), g):
+                f.write("%d\t%s\n" % (i, line.split("\t")[1]))
+    log("GLM model dir (%d parameters, %d SentencePiece pieces + 8 command "
+        "tokens: gMASK %d, sop %d, eop %d) and tables made from seed %d in "
+        "%.3f s" % (n_params, GLM_SP_PIECES, tok.gmask_token_id,
+                    tok.sop_token_id, tok.eop_token_id, seed,
+                    time.perf_counter() - t0))
+    layers = GLM_LARGE["num_layers"]
+
+    def glm_argv(app, use_kernel, dtype="bfloat16", udp=GLM_UDP,
+                 seq_len=GLM_SEQ_LEN):
+        lm = app == "language_modeling"
+        argv = ["--app_name=" + app, "--device=cuda", "--dtype=" + dtype,
+                "--sequence_length=%d" % seq_len,
+                "--micro_batch_size=%d" % GLM_BATCH,
+                "--input_schema=" + ("id:str:1,text:str:1" if lm else
+                                     "id:str:1,src:str:1,tgt:str:1"),
+                "--first_sequence=" + ("text" if lm else "src"),
+                "--use_flash_attention=%s" % ("auto" if use_kernel
+                                              else "false"),
+                "--user_defined_parameters=" + udp]
+        return argv if lm else argv + ["--second_sequence=tgt"]
+
+    zero = dict.fromkeys(wrappers, 0)
+    glm_ckpt = os.path.join(workdir, "glm_ckpt")
+    runs = {}
+    for use_kernel in (True, False):
+        run = (lambda: run_train(
+            torch, glm_dir, glm_tsv["train"], None,
+            glm_ckpt if use_kernel else None, use_kernel, seed,
+            common=glm_argv("sequence_generation", use_kernel)))
+        runs[use_kernel] = (main_path(
+            "GLM sequence_generation train (bf16)", run, zero,
+            want_any=False) if use_kernel else plain("GLM train", run))
+        _check_train_run("GLM %s" % use_kernel, runs[use_kernel], GLM_STEPS)
+    _s2s_compare_training("glm", runs)
+    for use_kernel in (True, False):
+        argv = ["--mode=evaluate", "--tables=" + glm_tsv["dev"],
+                "--checkpoint_dir=" + glm_ckpt] + glm_argv(
+                    "sequence_generation", use_kernel)
+        run = (lambda: _cli(torch, argv))
+        results, seconds = (main_path("GLM evaluate (bf16)", run)
+                            if use_kernel else plain("GLM evaluate", run))
+        log("GLM evaluate %-6s %d rows (%d new tokens, bf16): %s in %.3f s"
+            % ("kernel" if use_kernel else "plain", GLM_DEV_ROWS, 64,
+               ", ".join("%s %.6f" % kv for kv in results), seconds))
+    glm_out = {}
+    for tag, udp in (("greedy", ""), ("beam4", " num_beams=4"),
+                     ("speculative", " " + SPEC_UDP)):
+        for use_kernel in (True, False):
+            out = os.path.join(workdir, "glm_%s_%d.tsv" % (tag, use_kernel))
+            argv = ["--mode=predict", "--tables=" + glm_tsv["dev"],
+                    "--outputs=" + out, "--checkpoint_dir=" + glm_ckpt,
+                    "--output_schema=predictions,generated_ids",
+                    "--append_cols=id"] + glm_argv(
+                        "sequence_generation", use_kernel, "float32",
+                        GLM_UDP + " max_decoder_length=%d" % GLM_NEW_TOKENS
+                        + udp, GLM_PREDICT_SEQ)
+
+            def run():
+                manager, seconds = _cli(torch, argv)
+                with open(out, encoding="utf-8") as f:
+                    return ([[int(x) for x in line.split("\t")[1].split()]
+                             for line in f], seconds,
+                            list(manager.predictor.batch_seconds))
+            glm_out[tag, use_kernel] = (
+                main_path("GLM %s predict (f32)" % tag, run) if use_kernel
+                else plain("GLM %s predict" % tag, run))
+        a, b = glm_out[tag, True][0], glm_out[tag, False][0]
+        same = sum(x == y for x, y in zip(a, b))
+        log("GLM %s predict, %d rows x %d new tokens, f32: kernel %.3f s "
+            "(batch median %.3f s), plain %.3f s (%.3f s) with load; %d of "
+            "%d rows token for token; %d distinct tokens"
+            % (tag, len(a), GLM_NEW_TOKENS, glm_out[tag, True][1],
+               statistics.median(glm_out[tag, True][2]),
+               glm_out[tag, False][1],
+               statistics.median(glm_out[tag, False][2]), same, len(a),
+               len({t for row in a for t in row})))
+        if same != len(a) or len(a) != GLM_DEV_ROWS:
+            raise AssertionError("GLM %s predict: kernel and plain f32 "
+                                 "generation differ" % tag)
+    if glm_out["speculative", True][0] != glm_out["greedy", True][0]:
+        raise AssertionError("GLM speculative predict differs from greedy")
+    log("GLM speculative predict equals greedy row for row; ms per output "
+        "token (batch time / rows x new tokens) greedy %.3f, speculative "
+        "%.3f" % tuple(1e3 * sum(glm_out[t, True][2])
+                       / (GLM_DEV_ROWS * GLM_NEW_TOKENS)
+                       for t in ("greedy", "speculative")))
+    lm_ckpt = os.path.join(workdir, "glm_lm_ckpt")
+    lm_runs = {}
+    for use_kernel in (True, False):
+        run = (lambda: run_train(
+            torch, glm_dir, glm_tsv["lm_train"], None,
+            lm_ckpt if use_kernel else None, use_kernel, seed,
+            common=glm_argv("language_modeling", use_kernel,
+                            udp="enable_glm=true")))
+        lm_runs[use_kernel] = (main_path(
+            "GLM language_modeling train (bf16)", run, zero,
+            want_any=False) if use_kernel else plain("GLM LM train", run))
+        _check_train_run("GLM LM %s" % use_kernel, lm_runs[use_kernel],
+                         GLM_LM_STEPS)
+    _s2s_compare_training("glm-lm", lm_runs)
+    for use_kernel in (True, False):
+        argv = ["--mode=evaluate", "--tables=" + glm_tsv["lm_dev"],
+                "--checkpoint_dir=" + lm_ckpt] + glm_argv(
+                    "language_modeling", use_kernel, udp="enable_glm=true")
+        run = (lambda: _cli(torch, argv))
+        results, seconds = (main_path("GLM LM evaluate (bf16)", run, zero,
+                                      want_any=False)
+                            if use_kernel else plain("GLM LM evaluate", run))
+        log("GLM LM evaluate %-6s %d rows: %s in %.3f s"
+            % ("kernel" if use_kernel else "plain", GLM_DEV_ROWS, ", ".join(
+                "%s %.6f" % kv for kv in results), seconds))
+        if [m for m, _ in results] != ["accuracy", "perplexity"] or \
+                not np.isfinite([v for _, v in results]).all():
+            raise AssertionError("GLM LM evaluate gave %s" % results)
+    log("GLM training launches no attention kernel a step (B1 0, B3 0: the "
+        "block-infilling bias takes the plain path, in JAX too); its "
+        "decode steps and verify chunks take B1 (%d layers a step)" % layers)
+    log("phase 16 launches of the kernel runs: %s" % total)
+    total["flash_attention_bwd_dkdv"] = total["flash_attention_bwd"]
+    total["flash_attention_bwd_dq"] = total["flash_attention_bwd"]
+    return total
+
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -6620,6 +7211,22 @@ def _dtype_key(key):
         *rest, dtype = key.split("|")
         return tuple(rest) + (getattr(torch, dtype),)
     return "|".join(key[:-1] + (str(key[-1]).split(".")[1],))
+
+
+def _written_gib():
+    """GiB this process has passed to write(2) so far (/proc/self/io's
+    wchar: its files, checkpoints above all, and its pipes and sockets;
+    write_bytes reads 0 on the card's machine), or None where the kernel
+    does not count it. The card's machine caps the disk writes of a run
+    at 45 GiB."""
+    try:
+        with open("/proc/self/io") as f:
+            for line in f:
+                if line.startswith("wchar:"):
+                    return int(line.split()[1]) / 2 ** 30
+    except OSError:
+        pass
+    return None
 
 
 def phase_kernel_in_child(seed):
@@ -6709,8 +7316,14 @@ def main():
         s2s_launches = phase_seq2seq(torch, seed, workdir, cjk)
         seconds["15 T5, mT5, Pegasus, Randeng, GPT-2 evaluate, dialogue"] = \
             time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s11_launches = phase_slice11(torch, seed, workdir)
+        seconds["16 speculative, int8, GLM"] = time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
+    written = _written_gib()
+    log("bytes this process wrote (wchar): %s" % (
+        "not measured" if written is None else "%.2f GiB" % written))
 
     log("kernel build %.3f s" % build_s)
     log("BERT training step, median of runs: %.3f ms with the kernels, %.3f "
@@ -6727,7 +7340,7 @@ def main():
             + apps2_launches.get(wrapper, 0)
             + options_launches.get(wrapper, 0)
             + knowledge_launches.get(wrapper, 0)
-            + s2s_launches[name],
+            + s2s_launches[name] + s11_launches[name],
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

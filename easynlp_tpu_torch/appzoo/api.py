@@ -10,10 +10,12 @@ user_defined_parameters two_tower or siamese), `sequence_labeling`,
 `geep_classify`, train and evaluate for `language_modeling` (MLM
 pretraining on BERT and RoBERTa; with user_defined_parameters
 enable_dkplm, enable_kangaroo or contrast_learning_flag, DKPLM, Kangaroo
-and CKBERT pretraining), predict for `vectorization` and
+and CKBERT pretraining; with enable_glm, GLM block-infilling pretraining),
+predict for `vectorization` and
 `data_augmentation`, for `sequence_generation` train, evaluate and predict
-on BART, T5, mT5, Pegasus and Randeng and evaluate and predict on GPT-2,
-and for `open_domain_dialogue` the same on the dialogue `transformer`. text_classify's variants take the
+on BART, T5, mT5, Pegasus and Randeng and evaluate and predict on GPT-2
+(with enable_glm, GLM blank-infilling train, evaluate and predict), and
+for `open_domain_dialogue` the same on the dialogue `transformer`. text_classify's variants take the
 user_defined_parameters switches enable_distillation (vanilla KD against
 saved teacher logits, with `temperature` and `alpha`), enable_metakd (the
 meta-teacher, trained by MetaTeacherTrainer), enable_fewshot (PET) and,
@@ -83,8 +85,10 @@ DATASET_REGISTRY = _apps(
                               "ClassificationDataset"},
     machine_reading_comprehension={
         "default": "machine_reading_comprehension.data:MRCDataset"},
-    sequence_generation={"default": "sequence_generation.data:"
-                                    "SequenceGenerationDataset"},
+    sequence_generation={
+        "default": "sequence_generation.data:SequenceGenerationDataset",
+        "enable_glm": "sequence_generation.glm:"
+                      "GLMSequenceGenerationDataset"},
     open_domain_dialogue={"default": "sequence_generation.data:"
                                      "SequenceGenerationDataset"},
     language_modeling={
@@ -92,7 +96,8 @@ DATASET_REGISTRY = _apps(
         "enable_kangaroo": "language_modeling.kangaroo_data:"
                            "KangarooPretrainDataset",
         "enable_dkplm": "language_modeling.dkplm_data:"
-                        "DKPLMPretrainDataset"},
+                        "DKPLMPretrainDataset",
+        "enable_glm": "language_modeling.glm_pretrain:GLMPretrainDataset"},
     data_augmentation={"default": "language_modeling.data:"
                                   "LanguageModelingDataset"},
     information_extraction={"default": "information_extraction.data:"
@@ -120,8 +125,9 @@ MODEL_REGISTRY = _apps(
     machine_reading_comprehension={
         "default": "machine_reading_comprehension.model:"
                    "MachineReadingComprehension"},
-    sequence_generation={"default": "sequence_generation.model:"
-                                    "SequenceGeneration"},
+    sequence_generation={
+        "default": "sequence_generation.model:SequenceGeneration",
+        "enable_glm": "sequence_generation.glm:GLMSequenceGeneration"},
     open_domain_dialogue={"default": "open_domain_dialogue.model:"
                                      "OpenDomainDialogue"},
     language_modeling={
@@ -130,7 +136,8 @@ MODEL_REGISTRY = _apps(
                                   "CKBertLanguageModeling",
         "enable_kangaroo": "language_modeling.model:"
                            "KangarooLanguageModeling",
-        "enable_dkplm": "language_modeling.model:DKPLMLanguageModeling"},
+        "enable_dkplm": "language_modeling.model:DKPLMLanguageModeling",
+        "enable_glm": "sequence_generation.glm:GLMSequenceGeneration"},
     data_augmentation={"default": "language_modeling.model:"
                                   "LanguageModeling"},
     information_extraction={"default": "information_extraction.model:"
@@ -152,8 +159,10 @@ EVALUATOR_REGISTRY = _apps(
                                     "SequenceGenerationEvaluator"},
     open_domain_dialogue={"default": "sequence_generation.evaluator:"
                                      "SequenceGenerationEvaluator"},
-    language_modeling={"default": "language_modeling.evaluator:"
-                                  "LanguageModelingEvaluator"},
+    language_modeling={
+        "default": "language_modeling.evaluator:LanguageModelingEvaluator",
+        "enable_glm": "language_modeling.glm_pretrain:"
+                      "GLMPretrainEvaluator"},
     information_extraction={"default": "information_extraction.evaluator:"
                                        "InformationExtractionEvaluator"},
     geep_classify={"default": "sequence_classification.evaluator:"
@@ -196,7 +205,7 @@ _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
                  "enable_vqgan", "contrast_learning_flag")
 # user_defined_parameters switches whose app variant is not ported yet
 _NOT_PORTED_VARIANTS = {
-    "enable_glm": "ROADMAP A19", "enable_vit": "ROADMAP A21",
+    "enable_vit": "ROADMAP A21",
     "enable_vqgan": "ROADMAP A21", "enable_controlnet": "ROADMAP A22",
 }
 
@@ -400,13 +409,9 @@ def _serve_main(args, udp):
     """--mode=serve: HTTP online serving (easynlp_tpu_torch/serving). The
     default route serves the pipeline() view of --checkpoint_dir with
     dynamic micro-batching (udp keys serve_host, serve_port,
-    serve_max_delay_ms, serve_blocking, serve_params_dtype);
+    serve_max_delay_ms, serve_blocking, serve_quantize, serve_params_dtype);
     serve_continuous=true serves GPT-2 generation (_serve_continuous_main).
-    serve_quantize=int8 is not ported yet (ROADMAP A16)."""
-    if str(udp.get("serve_quantize", "")).strip():
-        raise NotImplementedError(
-            "serve_quantize=%s (weight-only int8 serving) is not ported yet "
-            "(ROADMAP A16)" % udp["serve_quantize"])
+    serve_quantize=int8 serves weight-only int8 weights on both routes."""
     if str(udp.get("serve_continuous", "")).lower() in ("1", "true"):
         return _serve_continuous_main(args, udp)
     from easynlp_tpu_torch.serving import serve
@@ -422,6 +427,7 @@ def _serve_main(args, udp):
         sequence_length=args.sequence_length,
         batch_size=args.micro_batch_size,
         dtype=_dtype(args),
+        quantize=udp.get("serve_quantize") or None,
         params_dtype=udp.get("serve_params_dtype") or None,
         device=args.device)
 
@@ -441,7 +447,9 @@ def _serve_continuous_main(args, udp):
     sequence_length//4), serve_max_new_tokens (default 32),
     serve_eos_token_id / serve_pad_token_id (default: the tokenizer's),
     serve_params_dtype (default bfloat16 under --dtype=bfloat16; float32
-    keeps the checkpoint's weights), serve_shared_prefix (system-prompt
+    keeps the checkpoint's weights), serve_quantize=int8 (weight-only
+    int8, dequantized in each forward; the other weights are then cast as
+    serve_params_dtype says), serve_shared_prefix (system-prompt
     text, tokenized once; requests then send only suffixes) or
     serve_shared_prefix_ids (comma-separated token ids). The KV window is
     --sequence_length."""
@@ -461,6 +469,13 @@ def _serve_continuous_main(args, udp):
     app = SequenceGeneration.from_pretrained(ckpt, args=args,
                                              dtype=_dtype(args),
                                              device=args.device)
+    quantize = str(udp.get("serve_quantize", "")).strip()
+    if quantize:
+        if quantize != "int8":
+            raise ValueError("serve_quantize must be int8 (got %r)"
+                             % quantize)
+        from easynlp_tpu_torch.modelzoo.quantization import quantize_params
+        quantize_params(app.module)
     # generation serving streams the weights every step: cast the stored
     # f32 kernels to bf16 by default under bf16, as the JAX package does
     pd = str(udp.get("serve_params_dtype",

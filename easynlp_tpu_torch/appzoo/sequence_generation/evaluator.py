@@ -13,7 +13,11 @@ special ids removed, as in the JAX evaluator. For GPT-2 it is
 SequenceGeneration.generated_tokens: the new tokens up to and including
 the first EOS. The JAX evaluator scores GPT-2's whole buffer, the prompt
 and the pad id 0 ("!") slots after EOS included, against the labels
-(ROADMAP reference fault 23).
+(ROADMAP reference fault 23). GLM's rows (appzoo/sequence_generation/
+glm.py) carry the target after the prefix: as in the JAX evaluator, each
+generates from its source alone (the slots before prefix_lengths - 1,
+gMASK dropped, which GLM's generate appends again) with the tokenizer's
+control-token ids, and its hypothesis is the generated part.
 """
 
 import math
@@ -71,20 +75,30 @@ class SequenceGenerationEvaluator(Evaluator):
         self.num_beams = num_beams
 
     def evaluate(self, app):
+        from easynlp_tpu_torch.appzoo.sequence_generation.predictor import (
+            glm_special_ids)
         bleu_sum = rouge_sum = n = 0
         specials = set(self.tokenizer.all_special_ids)
+        kw = glm_special_ids(self.tokenizer)
         with eval_mode(app.module):
             for batch in self.valid_loader:
                 valid = batch.pop("_valid").astype(bool)
+                src_mask = batch["attention_mask"]
+                if "prefix_lengths" in batch:
+                    t = batch["input_ids"].shape[1]
+                    src_mask = (np.arange(t)[None, :]
+                                < batch["prefix_lengths"][:, None] - 1
+                                ).astype(np.int32)
                 seqs = app.generate(
                     torch.from_numpy(batch["input_ids"]).to(app.device),
-                    torch.from_numpy(batch["attention_mask"]).to(app.device),
+                    torch.from_numpy(src_mask).to(app.device),
                     max_length=self.max_decode_length,
-                    num_beams=self.num_beams)
+                    num_beams=self.num_beams, **kw)
                 seqs = seqs.cpu().numpy()[valid]
                 labels = batch["labels"][valid]
                 for hyp, ref in zip(seqs, labels):
-                    if not app.config.is_encoder_decoder:
+                    if hasattr(app, "generated_tokens") \
+                            and not app.config.is_encoder_decoder:
                         hyp = app.generated_tokens(hyp,
                                                    self.max_decode_length)
                     h = [int(t) for t in hyp if int(t) not in specials]

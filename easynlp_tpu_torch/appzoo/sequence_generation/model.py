@@ -147,7 +147,9 @@ class SequenceGeneration(Application):
         the decoder start token. copy_constrained bans every token absent
         from the row's source (EOS, pad and decoder-start ids stay
         allowed). kwargs go to generation_utils.generate (eos/pad ids
-        default to the config's)."""
+        default to the config's): speculative='prompt_lookup' with
+        num_draft_tokens and ngram_size, and for GPT-2 kv_cache='int8' (the
+        encoder-decoders drop it, as the JAX app does)."""
         src_np = np.asarray(torch.as_tensor(src_ids).cpu())
         mask_np = np.asarray(torch.as_tensor(src_mask).cpu())
         if self.config.is_encoder_decoder:
@@ -173,7 +175,8 @@ class SequenceGeneration(Application):
             kwargs["bad_words_mask"] = torch.from_numpy(~allowed).to(
                 self.device)
         if self.config.is_encoder_decoder:
-            kwargs.pop("kv_cache", None)  # int8 KV is decoder-only (A16)
+            # the int8 KV cache is GPT-2's only: dropped here, as in JAX
+            kwargs.pop("kv_cache", None)
             with torch.inference_mode():
                 return encoder_decoder_generate(
                     self.module,
@@ -184,8 +187,11 @@ class SequenceGeneration(Application):
                     do_sample=do_sample, **kwargs)
         kwargs.setdefault("eos_token_id", self.config.eos_token_id)
         kwargs.setdefault("pad_token_id", pad_id)
+        slack = (kwargs.get("num_draft_tokens", 8) + 1
+                 if kwargs.get("speculative") else 0)
         prefill, decode = make_gpt2_generation_fns(
-            self.module, max_length, kv_cache=kwargs.pop("kv_cache", None))
+            self.module, max_length, cache_slack=slack,
+            kv_cache=kwargs.pop("kv_cache", None))
         with torch.inference_mode():
             return generation_utils.generate(
                 prefill, decode,

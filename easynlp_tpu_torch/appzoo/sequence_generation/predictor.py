@@ -19,7 +19,13 @@ cut never looks at the start column). skip_special_tokens drops EOS where the
 tokenizer knows it as special. The JAX predictor decodes the whole buffer,
 so each pad and each slot after EOS (GPT-2's pad id 0 is "!") and BART's
 start token come out as text. `generated_ids` stays as JAX writes it.
-speculative_decoding and kv_cache_dtype are ROADMAP A16.
+
+The JAX predictor's decoding extras: speculative_decoding=prompt_lookup
+(with num_draft_tokens, default 8, and lookup_ngram_size, default 2),
+token-exact prompt-lookup speculative decoding, used when num_beams is 1;
+kv_cache_dtype=int8, GPT-2's int8 KV cache (the encoder-decoders ignore
+it, as in JAX). The GLM app's control-token ids go to its generate from
+the tokenizer (glm_special_ids).
 """
 
 import time
@@ -30,15 +36,23 @@ from easynlp_tpu_torch.core.predictor import Predictor
 from easynlp_tpu_torch.modelzoo.models.auto import tokenizer_for
 
 
+def glm_special_ids(tokenizer):
+    """GLM's control-token ids from its tokenizer (gmask/sop/eop/pad, never
+    the 1/2/3/0 literal defaults), {} for other tokenizers (the JAX
+    predictor's glm_special_ids)."""
+    if getattr(tokenizer, "gmask_token_id", None) is None:
+        return {}
+    return {"gmask_id": int(tokenizer.gmask_token_id),
+            "sop_id": int(tokenizer.sop_token_id),
+            "eop_id": int(tokenizer.eop_token_id),
+            "pad_id": int(getattr(tokenizer, "pad_token_id", 0) or 0)}
+
+
 class SequenceGenerationPredictor(Predictor):
     def __init__(self, model_dir, app, first_sequence=None,
                  sequence_length=128, batch_size=8, max_decode_length=None,
                  num_beams=None, user_defined_parameters=None, **_):
         udp = user_defined_parameters or {}
-        for key in ("speculative_decoding", "kv_cache_dtype"):
-            if udp.get(key):
-                raise NotImplementedError(
-                    "%s=%s is not ported yet (ROADMAP A16)" % (key, udp[key]))
         self.tokenizer = tokenizer_for(model_dir)
         self.first_sequence = first_sequence
         self.sequence_length = int(udp.get("max_encoder_length",
@@ -56,6 +70,10 @@ class SequenceGenerationPredictor(Predictor):
         self.diversity_penalty = None if dp is None else float(dp)
         self.num_return_sequences = min(
             int(udp.get("num_return_sequences", 1)), max(self.num_beams, 1))
+        self.speculative = udp.get("speculative_decoding") or None
+        self.num_draft_tokens = int(udp.get("num_draft_tokens", 8))
+        self.lookup_ngram_size = int(udp.get("lookup_ngram_size", 2))
+        self.kv_cache = udp.get("kv_cache_dtype") or None  # 'int8'
         self.app = app
         self.batch_size = batch_size
         self.batch_seconds = []
@@ -73,6 +91,13 @@ class SequenceGenerationPredictor(Predictor):
                                        else self.diversity_penalty)
         if self.num_return_sequences > 1 and self.num_beams > 1:
             kw["num_return_sequences"] = self.num_return_sequences
+        if self.speculative:
+            kw["speculative"] = self.speculative
+            kw["num_draft_tokens"] = self.num_draft_tokens
+            kw["ngram_size"] = self.lookup_ngram_size
+        if self.kv_cache:
+            kw["kv_cache"] = self.kv_cache
+        kw.update(glm_special_ids(self.tokenizer))
         return kw
 
     def preprocess(self, in_data):

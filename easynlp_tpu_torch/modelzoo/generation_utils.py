@@ -19,7 +19,8 @@ its stream differs from `jax.random`'s, so sampled tokens are not
 comparable across the packages. The serving paths' per-row sampling
 (`rowwise_warp_and_sample`) draws from a counter-based stream instead, a
 pure function of (seed, position) as JAX's per-request stream is.
-Speculative decoding is not ported yet (ROADMAP A16).
+`generate(speculative='prompt_lookup')` dispatches to
+modelzoo/speculative.py as the JAX generate does.
 
 Model protocol: `prefill(input_ids, attention_mask)` and
 `decode(token [B,1], cache)` both -> (f32 logits [B,V] for the last
@@ -467,13 +468,51 @@ _BEAM_KEYS = ("num_beam_groups", "diversity_penalty", "length_penalty",
 
 
 def generate(prefill, decode, input_ids, attention_mask, max_length=64,
-             num_beams=1, do_sample=False, speculative=None, **kwargs):
+             num_beams=1, do_sample=False, speculative=None,
+             num_draft_tokens=8, ngram_size=2, **kwargs):
     """Greedy / sample / beam / beam-sample / group-beam, as the JAX
     generate; returns sequences [B, max_length] (or [B, N, max_length] for
-    beams with num_return_sequences N > 1)."""
-    if speculative:
-        raise NotImplementedError(
-            "speculative=%r is not ported yet (ROADMAP A16)" % speculative)
+    beams with num_return_sequences N > 1).
+
+    speculative='prompt_lookup': prompt-lookup speculative decoding
+    (modelzoo/speculative.py), token-exact vs plain greedy; greedy takes
+    per-row acceptance where the adapter has `decode.chunk_rowwise`.
+    Falls back silently to the plain loops under beams, a repetition
+    penalty or no-repeat-ngram, or an adapter without `decode.chunk`, as
+    the JAX generate does; raises ValueError where the adapter's
+    cache_slack is under num_draft_tokens + 1."""
+    if (speculative == "prompt_lookup" and num_beams == 1
+            and hasattr(decode, "chunk")
+            and not kwargs.get("repetition_penalty")
+            and not kwargs.get("no_repeat_ngram_size")):
+        from easynlp_tpu_torch.modelzoo import speculative as spec
+        # verify chunks write K+1 entries past the committed length before
+        # the rollback: without the slack they would run off the cache
+        slack = getattr(decode, "cache_slack", 0)
+        if slack < num_draft_tokens + 1:
+            raise ValueError(
+                "speculative decoding needs cache_slack >= num_draft_tokens"
+                " + 1 (= %d) KV slots past max_length, but the adapter was"
+                " built with cache_slack=%d; pass cache_slack=%d to the"
+                " generation-fns constructor"
+                % (num_draft_tokens + 1, slack, num_draft_tokens + 1))
+        for key in _BEAM_KEYS + ("repetition_penalty",
+                                 "no_repeat_ngram_size"):
+            kwargs.pop(key, None)
+        if not do_sample:
+            for key in _SAMPLING_KEYS:
+                kwargs.pop(key, None)
+        if not do_sample and hasattr(decode, "chunk_rowwise"):
+            seqs, _, _ = spec.speculative_greedy_rowwise(
+                prefill, decode.chunk_rowwise, input_ids, attention_mask,
+                max_length, num_draft_tokens=num_draft_tokens,
+                ngram_size=ngram_size, **kwargs)
+            return seqs
+        seqs, _, _ = spec.speculative_greedy(
+            prefill, decode.chunk, decode.rollback, input_ids,
+            attention_mask, max_length, num_draft_tokens=num_draft_tokens,
+            ngram_size=ngram_size, do_sample=do_sample, **kwargs)
+        return seqs
     if num_beams > 1:
         if not do_sample:
             for key in _SAMPLING_KEYS:

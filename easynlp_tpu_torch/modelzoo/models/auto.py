@@ -5,7 +5,7 @@ Counterpart of easynlp_tpu/modelzoo/models/auto/auto_factory.py and
 easynlp_tpu/appzoo/api.py::_tokenizer_for, reduced to the ported
 families: `bert`, `roberta`, `gpt2`, `bart`, `t5`, `mt5`, `pegasus`,
 `randeng`, `transformer`, `megatron_bert` (also HF's spelling
-`megatron-bert`), `kbert`, `dkplm`, `kangaroo` and `ckbert`.
+`megatron-bert`), `kbert`, `dkplm`, `kangaroo`, `ckbert` and `glm`.
 AutoConfig, AutoModel and AutoTokenizer raise NotImplementedError naming
 the ROADMAP item of every other model_type. AutoModel.from_pretrained
 returns the port's module with its weights loaded, from a
@@ -25,8 +25,9 @@ SentencePiece for `t5`, `mt5` (T5Tokenizer) and `pegasus`
 (PegasusTokenizer); Randeng's WordPiece (RandengTokenizer) for `randeng`;
 subword-nmt BPE (TransformerTokenizer) for `transformer`; WordPiece
 otherwise (as the JAX route falls back to BertTokenizer for an unknown
-model_type or a directory with no config.json). GLM's SentencePiece
-tokenizer is not ported: `glm` raises (ROADMAP A19). `bert_config_for` gives RobertaConfig to a `roberta`
+model_type or a directory with no config.json); GLMTokenizer (the
+SentencePiece engine with GLM's command tokens) for `glm`.
+`bert_config_for` gives RobertaConfig to a `roberta`
 checkpoint and BertConfig to the others, as the JAX AutoConfig maps them.
 """
 
@@ -59,6 +60,7 @@ _TOKENIZERS = {
     "pegasus": ("pegasus", "PegasusTokenizer"),
     "randeng": ("randeng", "RandengTokenizer"),
     "transformer": ("transformer", "TransformerTokenizer"),
+    "glm": ("glm", "GLMTokenizer"),
 }
 
 
@@ -90,10 +92,6 @@ def tokenizer_for(model_dir):
         module, name = _TOKENIZERS[model_type]
         cls = getattr(importlib.import_module(_M + module), name)
         return cls.from_pretrained(model_dir)
-    if model_type == "glm":
-        raise NotImplementedError(
-            "the glm tokenizer (SentencePiece with GLM's command tokens) is "
-            "not ported yet (ROADMAP A19)")
     from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
     return BertTokenizer.from_pretrained(model_dir)
 
@@ -119,10 +117,11 @@ PORTED = {
     "dkplm": ("dkplm", "DKPLMConfig", "DKPLMModel"),
     "kangaroo": ("kangaroo", "KangarooConfig", "KangarooModel"),
     "ckbert": ("ckbert", "CKBertConfig", "CKBertForPreTraining"),
+    "glm": ("glm", "GLMConfig", "GLMForConditionalGeneration"),
 }
 _ALIASES = {"megatron-bert": "megatron_bert"}  # HF config.json's spelling
 # the JAX AutoConfig's other families and the ROADMAP item of each
-NOT_PORTED = {"glm": "A19", "bloom": "A19", "clip": "A20", "cnn": "A21"}
+NOT_PORTED = {"bloom": "A26", "clip": "A20", "cnn": "A21"}
 # the families whose checkpoints the sequence_generation app reads
 _GENERATION = ("gpt2", "bart", "t5", "mt5", "pegasus", "randeng",
                "transformer")
@@ -194,6 +193,10 @@ def _load_pytorch(model_type, module, state_dict):
         from easynlp_tpu_torch.modelzoo.models.bert.conversion import (
             load_mlm_state_dict)
         load_mlm_state_dict(module, state_dict)
+    elif model_type == "glm":
+        from easynlp_tpu_torch.modelzoo.models.glm.conversion import (
+            normalize_keys)
+        module.load_state_dict(normalize_keys(state_dict), strict=True)
     else:
         state = _strip(state_dict, ("bert.", "roberta.", "kangaroo."))
         own = module.state_dict()
@@ -216,6 +219,7 @@ def _from_jax(model_type, params, config):
             import model_state_dict_from_jax
         return model_state_dict_from_jax(params, config)
     name = {"bert": "bert.conversion", "roberta": "bert.conversion",
+            "glm": "glm.conversion",
             "megatron_bert": "megatron_bert",
             "kbert": "kbert.modeling_kbert",
             "dkplm": "dkplm.modeling_dkplm"}[model_type]

@@ -33,8 +33,11 @@ It keeps one module per layer with HF names
 decode cache is a `Seq2SeqCache`: one [B,T,H,D] self-attention K and V per
 decoder layer, written in place at the write index, and the cross-attention
 K/V of each layer computed once from the encoder output. It replaces the
-JAX model's stacked [L,B,T,H,D] scan carry. Decode chunks of more than one
-token (speculative decoding, ROADMAP A16) are not ported.
+JAX model's stacked [L,B,T,H,D] scan carry. A decode step (one token)
+attends over all T slots under the mask of the slots below index + 1; a
+chunk of s > 1 tokens (a speculative verify round) attends causally over
+the first index + s slots, q_offset = index, which keeps it on the
+kernels where JAX adds a bias.
 """
 
 import math
@@ -115,10 +118,14 @@ class BartAttention(nn.Module):
         q = dense(self.q_proj, hidden, self.dtype).view(b, s, h, e // h)
         k, v = static_kv if static_kv is not None else self.kv(kv_hidden)
         if cache is not None:
+            end = cache.index + s
             k_full, v_full = cache.k[layer_idx], cache.v[layer_idx]
-            k_full[:, cache.index:cache.index + s] = k
-            v_full[:, cache.index:cache.index + s] = v
+            k_full[:, cache.index:end] = k
+            v_full[:, cache.index:end] = v
             k, v = k_full, v_full
+            if s > 1:  # a chunk: causal over the first index + s slots
+                k, v, kv_mask = k[:, :end], v[:, :end], kv_mask[:, :end]
+            causal = s > 1
         ctx = attention(q, k, v, kv_mask=kv_mask, causal=causal)
         return self.dropout(dense(self.out_proj, ctx.reshape(b, s, e),
                                   self.dtype))
@@ -176,12 +183,12 @@ class BartLayer(nn.Module):
                 return hidden + sublayer(layer_norm(ln, hidden, dt))
             return layer_norm(ln, hidden + sublayer(hidden), dt)
 
-        # with a cache, the self mask covers the cache's slots and no causal
-        # mask is needed (one token per step)
+        # with a cache, the self mask covers the cache's slots below
+        # index + s (BartAttention adds causality within a chunk)
         hidden = residual(
             self.self_attn_layer_norm,
             lambda x: self.self_attn(x, x, self_mask,
-                                     causal=self.is_decoder and cache is None,
+                                     causal=self.is_decoder,
                                      cache=cache, layer_idx=layer_idx),
             hidden)
         if self.is_decoder:
@@ -309,8 +316,8 @@ class BartForConditionalGeneration(nn.Module):
                decoder_mask=None, cache=None):
         """(logits [B,S,V] in the compute dtype, cache). Without a cache
         the decoder attends causally under decoder_mask (teacher forcing);
-        with one, the S = 1 new token is written at cache.index, sees the
-        slots up to it, and the index advances."""
+        with one, the S new tokens are written at cache.index.., each sees
+        the slots up to its own, and the index advances by S."""
         b, s = decoder_input_ids.shape
         device = decoder_input_ids.device
         if cache is None:
@@ -319,12 +326,9 @@ class BartForConditionalGeneration(nn.Module):
                          else torch.ones((b, s), dtype=torch.int32,
                                          device=device)).to(torch.int32)
         else:
-            if s != 1:
-                raise NotImplementedError(
-                    "a decode chunk of %d tokens (speculative decoding) is "
-                    "not ported yet (ROADMAP A16)" % s)
             t = cache.k[0].shape[1]
-            positions = torch.full((1,), cache.index, device=device)
+            positions = torch.arange(cache.index, cache.index + s,
+                                     device=device)
             self_mask = (torch.arange(t, device=device) < cache.index + s) \
                 .to(torch.int32)[None].expand(b, t)
         dec = self.model.decoder(decoder_input_ids, self_mask, positions,

@@ -34,11 +34,20 @@ cache paths, as the JAX model's:
 - a single-token decode step (s == 1) attends over all T slots under the
   cache mask, as the JAX model does, so the kernel choice depends on T
   alone;
-- a per-slot index ([B] LongTensor, continuous batching) scatters the one
-  new token of each row at its own index; visibility stays the mask.
+- a per-slot index ([B] LongTensor, continuous batching) scatters each
+  row's s new tokens at its own index..index+s-1. A decode step (s == 1)
+  sees what the mask shows; a chunk of s > 1 tokens (a speculative verify
+  round, each row at its own offset) adds the JAX model's per-row causal
+  bias [B,1,S,T] and so takes the plain path: B1 takes one query offset
+  for the whole batch.
 
-Not ported: Switch-MoE layers (ROADMAP A24), an int8 cache (A16) and a
-per-slot chunk of s > 1 tokens (speculative verify, A16).
+The int8 cache (`init_cache(..., quantize=True)`) holds int8 K and V with
+f32 per-(token, head) scales, symmetric (scale = max(max|x| / 127, 1e-8)
+over the head dim, computed in the compute dtype as the JAX model does);
+reads dequantize the layer's slots in the compute dtype and then take the
+same kernels. It takes a shared write index only, as in JAX.
+
+Not ported: Switch-MoE layers (ROADMAP A24).
 """
 
 import torch
@@ -69,19 +78,34 @@ class Conv1D(nn.Module):
 
 
 class KVCache:
-    """Per-layer decode cache: k[i], v[i] [B,T,H,D] in the compute dtype,
-    mask [B,T] int32 (1 where a slot holds a real token) and the write
-    index: an int shared by every row, or a [B] LongTensor of per-row
-    indices (decode steps only). Updated in place by GPT2Model.forward."""
+    """Per-layer decode cache: k[i], v[i] [B,T,H,D] in the compute dtype
+    (int8 where k_scale/v_scale, per layer [B,T,H] f32, are given), mask
+    [B,T] int32 (1 where a slot holds a real token) and the write index:
+    an int shared by every row, or a [B] LongTensor of per-row indices.
+    Updated in place by GPT2Model.forward."""
 
-    def __init__(self, k, v, mask, index=0):
+    def __init__(self, k, v, mask, index=0, k_scale=None, v_scale=None):
         self.k, self.v, self.mask, self.index = k, v, mask, index
+        self.k_scale, self.v_scale = k_scale, v_scale
 
     def reindex(self, rows):
         """A cache of the given batch rows (beam search's gather)."""
-        return KVCache([t.index_select(0, rows) for t in self.k],
-                       [t.index_select(0, rows) for t in self.v],
-                       self.mask.index_select(0, rows), self.index)
+        pick = (lambda ts: None if ts is None
+                else [t.index_select(0, rows) for t in ts])
+        return KVCache(pick(self.k), pick(self.v),
+                       self.mask.index_select(0, rows), self.index,
+                       pick(self.k_scale), pick(self.v_scale))
+
+
+def quantize_kv(x):
+    """(int8 x, f32 scale [..., H]) of x [..., H, D], per (token, head), in
+    x's dtype as the JAX model computes it."""
+    absmax = x.abs().amax(dim=-1)
+    # a tensor divisor (CUDA divides by a Python scalar through its
+    # reciprocal, which rounds otherwise than JAX's division)
+    scale = (absmax / torch.full_like(absmax, 127.0)).clamp(min=1e-8)
+    q = torch.round(x / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.float()
 
 
 class GPT2Attention(nn.Module):
@@ -101,32 +125,62 @@ class GPT2Attention(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is None:
             ctx = attention(q, k, v, kv_mask=kv_mask, causal=True)
+        elif torch.is_tensor(cache.index):
+            ctx = self._per_slot(q, k, v, kv_mask, cache, layer_idx)
         else:
             index = cache.index
+            # a decode step reads all T slots (the kernel choice then
+            # depends on T alone), a chunk the first index + s
+            end = index + s
+            seen = cache.k[layer_idx].shape[1] if s == 1 \
+                else end
             k_full, v_full = cache.k[layer_idx], cache.v[layer_idx]
-            if torch.is_tensor(index):
-                if s > 1:
-                    raise NotImplementedError(
-                        "a per-slot cache index with a chunk of %d tokens "
-                        "(speculative verify) is not ported yet (ROADMAP "
-                        "A16)" % s)
-                rows = torch.arange(b, device=index.device)
-                k_full[rows, index] = k[:, 0].to(k_full.dtype)
-                v_full[rows, index] = v[:, 0].to(v_full.dtype)
+            if cache.k_scale is None:
+                k_full[:, index:end] = k
+                v_full[:, index:end] = v
+                k_read, v_read = k_full[:, :seen], v_full[:, :seen]
             else:
-                k_full[:, index:index + s] = k
-                v_full[:, index:index + s] = v
+                ks_full = cache.k_scale[layer_idx]
+                vs_full = cache.v_scale[layer_idx]
+                k_full[:, index:end], ks_full[:, index:end] = quantize_kv(k)
+                v_full[:, index:end], vs_full[:, index:end] = quantize_kv(v)
+                dt = self.dtype
+                k_read = k_full[:, :seen].to(dt) \
+                    * ks_full[:, :seen, :, None].to(dt)
+                v_read = v_full[:, :seen].to(dt) \
+                    * vs_full[:, :seen, :, None].to(dt)
             if s == 1:
                 # single-token decode: every filled cache slot is visible
-                ctx = attention(q, k_full, v_full, kv_mask=kv_mask)
+                ctx = attention(q, k_read, v_read, kv_mask=kv_mask)
             else:
                 # a chunk at `index`: causal over the first index + s slots,
                 # so q_offset = index (the JAX model's bias k_pos <= q_pos)
-                end = index + s
-                ctx = attention(q, k_full[:, :end], v_full[:, :end],
-                                kv_mask=kv_mask[:, :end], causal=True)
+                ctx = attention(q, k_read, v_read, kv_mask=kv_mask[:, :end],
+                                causal=True)
         out = self.c_proj(ctx.reshape(b, s, e), self.dtype)
         return self.resid_dropout(out)
+
+    def _per_slot(self, q, k, v, kv_mask, cache, layer_idx):
+        """Each row's s tokens written at its own index..index+s-1; a
+        decode step sees the mask, a chunk adds the per-row causal bias
+        (keys at or before the query's slot)."""
+        if cache.k_scale is not None:
+            raise ValueError("the int8 KV cache takes a shared write index "
+                             "(as in the JAX model), not a per-slot one")
+        b, s = q.shape[:2]
+        k_full, v_full = cache.k[layer_idx], cache.v[layer_idx]
+        rows = torch.arange(b, device=q.device)[:, None]
+        pos = cache.index[:, None] + torch.arange(s, device=q.device)
+        k_full[rows, pos] = k.to(k_full.dtype)
+        v_full[rows, pos] = v.to(v_full.dtype)
+        if s == 1:
+            return attention(q, k_full, v_full, kv_mask=kv_mask)
+        t = k_full.shape[1]
+        seen = torch.arange(t, device=q.device) <= pos[:, :, None]
+        bias = torch.zeros(seen.shape, dtype=torch.float32,
+                           device=q.device).masked_fill_(~seen, -1e30)
+        return attention(q, k_full, v_full, kv_mask=kv_mask,
+                         bias=bias[:, None])
 
 
 class GPT2MLP(nn.Module):
@@ -231,20 +285,27 @@ class GPT2LMHeadModel(nn.Module):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
 
-    def init_cache(self, batch_size, max_length, dtype=None):
+    def init_cache(self, batch_size, max_length, dtype=None,
+                   quantize=False):
         """An empty KVCache of max_length slots (dtype: the compute dtype
-        unless given)."""
+        unless given); quantize=True: int8 K/V with f32 per-(token, head)
+        scales."""
         c = self.config
         device = self.transformer.wte.weight.device
         shape = (batch_size, max_length, c.n_head, c.n_embd // c.n_head)
-        dtype = dtype or self.dtype
-        return KVCache(
-            [torch.zeros(shape, dtype=dtype, device=device)
-             for _ in range(c.n_layer)],
-            [torch.zeros(shape, dtype=dtype, device=device)
-             for _ in range(c.n_layer)],
-            torch.zeros((batch_size, max_length), dtype=torch.int32,
-                        device=device))
+        dtype = torch.int8 if quantize else dtype or self.dtype
+
+        def per_layer(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=device)
+                    for _ in range(c.n_layer)]
+
+        scales = ((per_layer(shape[:-1], torch.float32),
+                   per_layer(shape[:-1], torch.float32)) if quantize
+                  else (None, None))
+        return KVCache(per_layer(shape, dtype), per_layer(shape, dtype),
+                       torch.zeros((batch_size, max_length),
+                                   dtype=torch.int32, device=device),
+                       0, *scales)
 
     def logits(self, hidden):
         """The tied head: hidden [..., E] @ wte^T in the compute dtype."""

@@ -298,9 +298,12 @@ class T5Stack(nn.Module):
         skv = s if cache is None else cache.k[0].shape[1]
         table = self.block[0].layer[0].SelfAttention.relative_attention_bias
         bias = table.bias(q_start, s, skv)
-        if self.is_decoder and cache is None:
-            causal = torch.ones((s, s), dtype=torch.bool,
-                                device=hidden.device).tril()
+        if self.is_decoder and (cache is None or s > 1):
+            # teacher forcing, or a cached chunk (a speculative verify
+            # round): query q_start + i sees the keys up to its position
+            causal = (torch.arange(skv, device=hidden.device)[None, :]
+                      <= torch.arange(q_start, q_start + s,
+                                      device=hidden.device)[:, None])
             bias = bias.masked_fill(~causal, NEG_BIAS)
         for i, block in enumerate(self.block):
             hidden = block(hidden, self_mask, bias, enc_hidden, enc_mask,
@@ -359,7 +362,8 @@ class T5ForConditionalGeneration(nn.Module):
                decoder_mask=None, cache=None):
         """(logits [B,S,V], cache), as BartForConditionalGeneration.decode:
         teacher forcing (causal, under decoder_mask) without a cache; with
-        one, the S = 1 new token at cache.index over the slots up to it."""
+        one, the S new tokens at cache.index.., each over the slots up to
+        its own."""
         b, s = decoder_input_ids.shape
         device = decoder_input_ids.device
         if cache is None:
@@ -368,10 +372,6 @@ class T5ForConditionalGeneration(nn.Module):
                          else torch.ones((b, s), dtype=torch.int32,
                                          device=device)).to(torch.int32)
         else:
-            if s != 1:
-                raise NotImplementedError(
-                    "a decode chunk of %d tokens (speculative decoding) is "
-                    "not ported yet (ROADMAP A16)" % s)
             t = cache.k[0].shape[1]
             q_start = cache.index
             self_mask = (torch.arange(t, device=device) < cache.index + s) \

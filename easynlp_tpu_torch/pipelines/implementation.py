@@ -9,15 +9,18 @@ import torch
 
 from easynlp_tpu_torch.utils.global_vars import parse_user_defined_parameters
 from easynlp_tpu_torch.utils.io_utils import io
+from easynlp_tpu_torch.utils.logger import logger
 
 
 class Pipeline:
     """task: a key of SUPPORTED_TASKS that the port runs; model_path: a
     model directory (config.json, weights, vocabulary, and for the
     classifiers label_mapping.json). The app runs on `device` ("cuda"
-    unless the caller asks for "cpu") in `dtype`; params_dtype (e.g.
-    "bfloat16") casts the weights for serving (modelzoo/quantization.py).
-    quantize="int8" is not ported yet (ROADMAP A16)."""
+    unless the caller asks for "cpu") in `dtype`; quantize="int8" turns the
+    app's weights into weight-only int8 (the tensors the JAX package
+    quantizes, dequantized in each forward), and params_dtype (e.g.
+    "bfloat16") then casts the rest for serving
+    (modelzoo/quantization.py)."""
 
     def __init__(self, task, model_path, first_sequence="first_sequence",
                  second_sequence=None, sequence_length=128, batch_size=32,
@@ -34,10 +37,9 @@ class Pipeline:
             raise NotImplementedError(
                 "pipeline task %r is not ported yet (%s)"
                 % (task, spec["not_ported"]))
-        if quantize:
-            raise NotImplementedError(
-                "quantize=%r (weight-only int8 serving) is not ported yet "
-                "(ROADMAP A16)" % (quantize,))
+        if quantize and quantize != "int8":
+            raise ValueError("quantize must be 'int8' (got %r)"
+                             % (quantize,))
         # choose the app variant from the saved train_config when present
         udp = {}
         tc = os.path.join(model_path, "train_config.json")
@@ -55,6 +57,13 @@ class Pipeline:
                 num_labels = max(len(json.load(f)), 2)
         app = app_cls.from_pretrained(model_path, dtype=dtype, device=device,
                                       num_labels=num_labels)
+        if quantize:
+            from easynlp_tpu_torch.modelzoo.quantization import (
+                quantization_report, quantize_params)
+            quantize_params(app.module)
+            qb, ob, n = quantization_report(app.module)
+            logger.info("int8 weight quantization: %d kernels, params "
+                        "%.1f MB -> %.1f MB", n, ob / 1e6, qb / 1e6)
         if params_dtype:
             from easynlp_tpu_torch.modelzoo.quantization import cast_params
             cast_params(getattr(app.module, "backbone", app.module),

@@ -23,8 +23,9 @@ thread batcher keeps `pipeline_depth` dispatches in flight: each chunk's
 tokens come back through a non-blocking copy into pinned memory and a CUDA
 event, so chunk k + 1 is enqueued before chunk k is read.
 DeviceContinuousDecoder drives the same admit and chunk functions
-synchronously (PyTorch has no while_loop to compile). Its speculative
-variant is not ported (ROADMAP A16).
+synchronously (PyTorch has no while_loop to compile); its speculative
+variant runs verify rounds of [SLOTS, K+1] tokens over the per-slot chunk
+path (modeling_gpt2.py), drafts from each slot's own token history.
 """
 
 import queue
@@ -41,6 +42,9 @@ from easynlp_tpu_torch.modelzoo.generation_utils import (
     rowwise_warp_and_sample,
 )
 from easynlp_tpu_torch.modelzoo.models.gpt2.modeling_gpt2 import KVCache
+from easynlp_tpu_torch.modelzoo.speculative import (
+    prompt_lookup_drafts_rowwise,
+)
 from easynlp_tpu_torch.utils.logger import logger
 
 # end-of-stream sentinel for _Pending.stream_q (distinct from any token id
@@ -644,16 +648,25 @@ class DeviceContinuousDecoder:
     the thread batcher's for the same (prompt, seed). As the JAX device
     decoder, it lets a request fill the window's last slot, which the
     thread batcher does only with fill_window=True (ROADMAP C14).
+
+    speculative=(ngram_size, num_draft_tokens): prompt-lookup speculative
+    decoding for greedy calls, as the JAX decoder's: each round drafts K
+    tokens per slot from the slot's own committed history (an [SLOTS, T]
+    id buffer on the device, the shared prefix included), verifies
+    [last, d_1..d_K] in ONE [SLOTS, K+1] forward (per-slot chunk writes
+    and the per-row causal bias) and commits the longest draft prefix the
+    model's greedy choices agree with, plus one token: token-exact vs the
+    plain decoder. A slot retires when fewer than K+1 cache entries
+    remain past its index; calls with a sampled request take the plain
+    decoder. Each round reads back once (the slots' active flags, which
+    decide admission and the loop's end). `last_spec_stats` holds the
+    last speculative call's verify_rounds, tokens_committed_in_rounds and
+    read_backs.
     """
 
     def __init__(self, model, max_slots=8, max_length=128,
                  prompt_bucket=32, eos_token_id=None, pad_token_id=0,
                  chunk_size=16, speculative=None, shared_prefix=None):
-        if speculative is not None:
-            raise NotImplementedError(
-                "speculative=%r (prompt-lookup speculative decoding in the "
-                "device decoder) is not ported yet (ROADMAP A16)"
-                % (speculative,))
         self.prefix = [int(x) for x in (shared_prefix or [])]
         self._p0 = len(self.prefix)
         if self._p0 + prompt_bucket >= max_length:
@@ -662,6 +675,19 @@ class DeviceContinuousDecoder:
         self.slots = int(max_slots)
         self.max_length = int(max_length)
         self.bucket = int(prompt_bucket)
+        self.eos, self.pad = eos_token_id, pad_token_id
+        self.spec = None
+        if speculative is not None:
+            ngram, k = (int(x) for x in speculative)
+            if k < 1 or ngram < 1:
+                raise ValueError("speculative=(ngram_size, num_draft_tokens)"
+                                 " needs both >= 1, got %r" % (speculative,))
+            if self._p0 + self.bucket + k + 1 >= self.max_length:
+                raise ValueError(
+                    "speculative verify needs K+1 free cache entries past "
+                    "the (shared prefix +) prompt bucket")
+            self.spec = (ngram, k)
+        self.last_spec_stats = None
         self._engine = ContinuousBatcher(
             model, max_slots=max_slots, max_length=max_length,
             prompt_buckets=(self.bucket,), eos_token_id=eos_token_id,
@@ -699,7 +725,14 @@ class DeviceContinuousDecoder:
                     "with shared_prefix each request still needs >= 1 "
                     "suffix token (the admit forward reads its first-token "
                     "logits from the last suffix position)")
-        g = min(max(max(budgets), 1), self.max_length - 1)
+        spec = self.spec is not None and not any(ds)
+        # a verify round writes K+1 entries, so a slot retires K early
+        g = min(max(max(budgets), 1),
+                self.max_length - 1 - (self.spec[1] if spec else 0))
+        if spec:
+            return self._speculative(prompts, [min(b, g) for b in budgets],
+                                     g)
+        self.last_spec_stats = None
         reqs = [_Pending([int(x) for x in ids], min(b, g), do_sample=d,
                          temperature=te, top_k=k, top_p=p, seed=s)
                 for ids, b, d, te, k, p, s
@@ -717,3 +750,142 @@ class DeviceContinuousDecoder:
                     raise RuntimeError("the decoder stalled with requests "
                                        "unresolved")
         return [list(req.tokens) for req in reqs]
+
+    def _speculative(self, prompts, budgets, g):
+        """The speculative loop (the JAX decoder's _build_spec): admit the
+        next requests into the free slots, run one verify round over every
+        slot, read the active flags back; until no request waits and no
+        slot is active."""
+        engine, st = self._engine, self._engine._state
+        dev, s_n, t = engine.device, self.slots, self.max_length
+        ngram, kd = self.spec
+        eos, pad = self.eos, self.pad
+        p0, pb = self._p0, self._p0 + self.bucket
+        n = len(prompts)
+        sink = n  # scatter-sink row of out
+        bidx = torch.arange(s_n, device=dev)
+        cidx = torch.arange(kd + 1, device=dev)
+        ids_buf = torch.full((s_n, t), pad, dtype=torch.long, device=dev)
+        if p0:
+            ids_buf[:, :p0] = torch.tensor(self.prefix, device=dev)
+        st.index = torch.zeros_like(st.index)
+        st.mask.zero_()
+        out = torch.full((n + 1, g), pad, dtype=torch.long, device=dev)
+        written = torch.zeros((n + 1,), dtype=torch.long, device=dev)
+        active = torch.zeros((s_n,), dtype=torch.bool, device=dev)
+        remaining = torch.zeros((s_n,), dtype=torch.long, device=dev)
+        produced = torch.zeros_like(remaining)
+        slot_req = torch.full((s_n,), sink, dtype=torch.long, device=dev)
+        rounds = torch.zeros((), dtype=torch.long, device=dev)
+        committed = torch.zeros_like(rounds)
+        budget_t = _to_device(budgets + [0], torch.long, dev)
+        active_host, next_req, read_backs = [False] * s_n, 0, 0
+        with torch.inference_mode():
+            while next_req < n or any(active_host):
+                free = [i for i in range(s_n) if not active_host[i]]
+                if free and next_req < n:
+                    taken = free[:n - next_req]
+                    reqi = list(range(next_req, next_req + len(taken)))
+                    next_req += len(taken)
+                    spare = [i for i in range(s_n) if i not in taken]
+                    sidx = taken + spare[:s_n - len(taken)]
+                    rows = [list(prompts[r]) for r in reqi]
+                    rows += [rows[0]] * (s_n - len(rows))
+                    ids, mask = left_pad(rows, pad_token_id=pad,
+                                         length=self.bucket)
+                    ids = _to_device(ids, torch.long, dev)
+                    first = engine._admit_rows(
+                        self.bucket, ids, _to_device(mask, torch.int32, dev),
+                        _to_device(sidx, torch.long, dev),
+                        _to_device([True] * len(taken)
+                                   + [False] * (s_n - len(taken)),
+                                   torch.bool, dev))
+                    sl = _to_device(taken, torch.long, dev)
+                    rq = _to_device(reqi, torch.long, dev)
+                    first = first[:len(taken)]
+                    budget = budget_t[rq]
+                    has_tok = budget >= 1
+                    out[torch.where(has_tok, rq, sink), 0] = torch.where(
+                        has_tok, first, pad)
+                    written[rq] = budget.clamp(max=1)
+                    still = has_tok & (budget > 1) & (pb + kd + 1 <= t)
+                    if eos is not None:
+                        still = still & (first != eos)
+                    ids_buf[sl, p0:pb] = ids[:len(taken)]
+                    active[sl] = still
+                    remaining[sl] = budget - 1
+                    produced[sl] = budget.clamp(max=1)
+                    slot_req[sl] = rq
+                self._spec_round(st, ids_buf, active, remaining, produced,
+                                 slot_req, out, written, rounds, committed,
+                                 bidx, cidx, sink, g)
+                active_host = active.tolist()  # the round's one read-back
+                read_backs += 1
+        self.last_spec_stats = {
+            "verify_rounds": int(rounds),
+            "tokens_committed_in_rounds": int(committed),
+            "read_backs": read_backs}
+        out, written = out[:n].cpu().numpy(), written[:n].cpu().numpy()
+        return [out[i, :written[i]].tolist() for i in range(n)]
+
+    def _spec_round(self, st, ids_buf, active, remaining, produced,
+                    slot_req, out, written, rounds, committed, bidx, cidx,
+                    sink, g):
+        """One verify round over every slot, in place: drafts, the
+        [SLOTS, K+1] forward, acceptance, the commits into the slot state,
+        the id buffer and `out`. Retired and empty slots ride along with
+        nothing committed (their writes land in slots an admit
+        overwrites)."""
+        model, t = self._engine.model, self.max_length
+        ngram, kd = self.spec
+        eos, pad = self.eos, self.pad
+        index = torch.where(active, st.index, 0)
+        last = st.last
+        seq_m = ids_buf.clone()
+        seq_m[bidx, index] = last
+        val_m = st.mask.clone()
+        val_m[bidx, index] = 1
+        drafts = prompt_lookup_drafts_rowwise(seq_m, val_m, index + 1, kd,
+                                              ngram, pad).long()
+        chunk_toks = torch.cat([last[:, None], drafts], dim=1)   # [S, K+1]
+        positions = torch.where(
+            active[:, None], st.mask.sum(dim=-1, keepdim=True), 0) \
+            + cidx[None, :]
+        pos = index[:, None] + cidx[None, :]
+        mk = st.mask.clone()
+        mk[bidx[:, None], pos] = active[:, None].to(torch.int32)
+        o = model.transformer(chunk_toks, position_ids=positions,
+                              cache=KVCache(st.k, st.v, mk, index))
+        gt = torch.argmax(model.logits(o["last_hidden_state"]).float(),
+                          dim=-1)                                 # [S, K+1]
+        # the longest draft prefix agreeing with the greedy stream
+        match = (drafts == gt[:, :kd]).to(torch.int32)
+        acc = torch.cumprod(match, dim=1).sum(dim=1)
+        n_new = torch.minimum(acc + 1, remaining)
+        if eos is not None:
+            # stop at the first committed EOS, inclusive
+            is_eos = gt == eos
+            first_eos = torch.argmax(is_eos.to(torch.int32), dim=1)
+            n_new = torch.where(is_eos.any(dim=1) & (first_eos + 1 <= n_new),
+                                first_eos + 1, n_new)
+        n_new = torch.where(active, n_new, 0)
+        commit = cidx[None, :] < n_new[:, None]                  # [S, K+1]
+        st.mask.scatter_(1, pos, commit.to(torch.int32))
+        ids_buf.scatter_(1, pos, torch.where(
+            commit, chunk_toks, torch.gather(ids_buf, 1, pos)))
+        st.index = torch.where(active, index + n_new, st.index)
+        st.last = torch.where(active, torch.gather(
+            gt, 1, (n_new - 1).clamp(min=0)[:, None])[:, 0], last)
+        remaining -= n_new
+        still = active & (remaining > 0) & (index + n_new + kd + 1 <= t)
+        if eos is not None:
+            still = still & (st.last != eos)
+        rows = torch.where(commit, slot_req[:, None], sink)
+        cols = (produced[:, None] + cidx[None, :]).clamp(0, g - 1)
+        out[rows, cols] = torch.where(commit, gt, pad)
+        produced += n_new
+        written[slot_req] = produced
+        rounds += active.any().to(torch.long)
+        committed += n_new.sum()
+        active.copy_(still)
+

@@ -218,12 +218,43 @@ def test_offset_chunk_matches_jax(monkeypatch, models):
 
 
 def test_per_slot_chunk_keeps_raising(models):
-    """A per-slot index with s > 1 is speculative verify (ROADMAP A16)."""
-    model = models[2]
-    cache = model.init_cache(2, 16)
-    cache.index = torch.tensor([3, 5])
-    with pytest.raises(NotImplementedError, match="A16"), torch.no_grad():
-        model(torch.ones((2, 3), dtype=torch.long), cache=cache)
+    """A per-slot index with a chunk of s = 4 tokens (a speculative verify
+    round, which raised until slice 11 ported it): each row's tokens land
+    at its own index under JAX's per-row causal bias; logits and written
+    cache rows within 1e-5 of the JAX model's scatter path. The int8 cache
+    takes a shared index only and raises here, as JAX's cannot take one."""
+    jax_model, params, model = models
+    rng = np.random.RandomState(2)
+    b, t, s = 3, WINDOW, 4
+    index = np.array([5, 17, 26], np.int32)
+    k, v, mask = _random_cache(rng, b, t, [5, 9, 26], index)
+    positions = (mask.sum(-1, keepdims=True) + np.arange(s)).astype(np.int32)
+    mask[np.arange(b)[:, None], index[:, None] + np.arange(s)] = 1
+    tokens = rng.randint(1, 97, (b, s)).astype(np.int32)
+    out = jax_model.apply(
+        {"params": params}, input_ids=jnp.asarray(tokens),
+        position_ids=jnp.asarray(positions),
+        cache={"k": jnp.asarray(k), "v": jnp.asarray(v),
+               "mask": jnp.asarray(mask), "index": jnp.asarray(index)},
+        deterministic=True)
+    cache = KVCache([torch.from_numpy(x.copy()) for x in k],
+                    [torch.from_numpy(x.copy()) for x in v],
+                    torch.from_numpy(mask), torch.from_numpy(index).long())
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens).long(),
+                    position_ids=torch.from_numpy(positions).long(),
+                    cache=cache)
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               np.asarray(out["logits"]), atol=LOGITS_ATOL)
+    want_k = np.asarray(out["cache"]["k"])
+    for layer in range(len(k)):
+        np.testing.assert_allclose(cache.k[layer].numpy(), want_k[layer],
+                                   atol=LOGITS_ATOL)
+    int8 = model.init_cache(2, 16, quantize=True)
+    int8.index = torch.tensor([3, 5])
+    with pytest.raises(ValueError, match="shared write index"), \
+            torch.no_grad():
+        model(torch.ones((2, 3), dtype=torch.long), cache=int8)
 
 
 def test_batcher_greedy_matches_jax_and_standalone(models, eos, jax_greedy):
@@ -529,7 +560,31 @@ def test_many_client_threads_with_cancels(models):
         assert out == (want[:len(out)] if cancelled else want)
 
 
-def test_speculative_decoder_raises(models):
-    with pytest.raises(NotImplementedError, match="A16"):
-        C.DeviceContinuousDecoder(models[2], max_slots=2, max_length=WINDOW,
-                                  prompt_bucket=8, speculative=(2, 3))
+def test_speculative_decoder_raises(models, eos):
+    """DeviceContinuousDecoder(speculative=(2, 3)), which raised until
+    slice 11 ported it: PROMPTS through 2 slots give JAX's speculative
+    device decoder's outputs, and the plain device decoder's up to where
+    either retires at its window end; a bucket that
+    leaves no room for the K+1 verify entries is refused."""
+    jax_model, params, model = models
+    dec = C.DeviceContinuousDecoder(model, max_slots=2, max_length=WINDOW,
+                                    prompt_bucket=BUCKET, eos_token_id=eos,
+                                    speculative=(2, 3))
+    got = dec(PROMPTS, max_new_tokens=BUDGETS)
+    want = jax_continuous.DeviceContinuousDecoder(
+        jax_model, params, max_slots=2, max_length=WINDOW,
+        prompt_bucket=BUCKET, eos_token_id=eos, speculative=(2, 3))(
+        PROMPTS, max_new_tokens=BUDGETS)
+    assert got == want
+    plain = C.DeviceContinuousDecoder(model, max_slots=2, max_length=WINDOW,
+                                      prompt_bucket=BUCKET, eos_token_id=eos,
+                                      chunk_size=3)(PROMPTS,
+                                                    max_new_tokens=BUDGETS)
+    for g, w in zip(got, plain):  # the two retire at different window ends
+        n = min(len(g), len(w))
+        assert n >= 1 and g[:n] == w[:n]
+    assert dec.last_spec_stats["verify_rounds"] >= 1
+    with pytest.raises(ValueError, match="K\\+1"):
+        C.DeviceContinuousDecoder(model, max_slots=2, max_length=WINDOW,
+                                  prompt_bucket=WINDOW - 4,
+                                  speculative=(2, 3))

@@ -257,15 +257,28 @@ def test_beam_sample_is_deterministic_under_one_generator(tiny):
 
 
 def test_unported_generation_options_raise(tiny):
-    _, _, model = tiny
-    with pytest.raises(NotImplementedError, match="A16"):
-        make_gpt2_generation_fns(model, 16, kv_cache="int8")
+    """kv_cache='int8' and speculative decoding, which raised until slice
+    11 ported them: both give JAX's tokens (f32), an unknown kv_cache and
+    speculation without cache slack raise ValueError, as in JAX."""
+    jax_model, params, model = tiny
+    ids, mask = _prompts(6, [3, 5], 5)
+    for kw in ({"kv_cache": "int8"}, {"cache_slack": 9}):
+        prefill, decode = make_gpt2_generation_fns(model, 16, **kw)
+        jp, jd = jax_generation_fns(jax_model, 16, **kw)
+        spec = ({"speculative": "prompt_lookup"} if "cache_slack" in kw
+                else {})
+        with torch.inference_mode():
+            got = G.generate(prefill, decode, torch.from_numpy(ids).long(),
+                             torch.from_numpy(mask), max_length=16,
+                             **spec).numpy()
+        want = np.asarray(J.generate(jp, jd, params, jnp.asarray(ids),
+                                     jnp.asarray(mask), max_length=16,
+                                     **spec))
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="kv_cache"):
+        make_gpt2_generation_fns(model, 16, kv_cache="fp8")
     prefill, decode = make_gpt2_generation_fns(model, 16)
-    ids, mask = _prompts(6, [3], 3)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="cache_slack"):
         G.generate(prefill, decode, torch.from_numpy(ids).long(),
                    torch.from_numpy(mask), max_length=16,
                    speculative="prompt_lookup")
-    for fn in (decode.chunk, decode.rollback):
-        with pytest.raises(NotImplementedError, match="A16"):
-            fn(None, None)

@@ -309,3 +309,38 @@ def test_concurrent_clients(servers):
     for t in threads:
         t.join(timeout=120)
     assert got == alone
+
+
+def test_int8_serving_matches_jax(servers):
+    """serve_quantize=int8 on the continuous route, both CLIs, f32: the
+    port's batcher holds int8 weights (the tensors JAX quantizes) and its
+    greedy /generate equals the JAX server's, batch and text."""
+    from easynlp_tpu.appzoo.api import default_main_fn as jax_main
+    from easynlp_tpu.testing import make_args
+    from easynlp_tpu.utils import global_vars
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.modelzoo.quantization import quantization_report
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    model_dir = servers[2]
+    udp = UDP + " serve_quantize=int8"
+    saved = global_vars._GLOBAL_ARGS
+    jax_srv = jax_main(make_args(
+        mode="serve", checkpoint_dir=model_dir, sequence_length=48,
+        dtype="float32", user_defined_parameters_dict=dict(
+            kv.split("=") for kv in udp.split())))
+    global_vars._GLOBAL_ARGS = saved
+    srv = default_main_fn(initialize_easynlp(args_list=_port_argv(model_dir,
+                                                                  udp)))
+    try:
+        assert quantization_report(srv.batcher.model)[2] == 6
+        for payload in ({"prompts": [[40, 71], [3, 80, 81, 82, 83, 84, 85],
+                                     [5]], "max_new_tokens": [4, 11, 7]},
+                        {"texts": TEXTS, "max_new_tokens": 10}):
+            (status, body), (jax_status, jax_body) = (
+                _post(srv.port, payload, path="/generate"),
+                _post(jax_srv.port, payload, path="/generate"))
+            assert status == jax_status == 200, (body, jax_body)
+            assert body == jax_body
+    finally:
+        srv.stop()
+        jax_srv.stop()

@@ -248,17 +248,40 @@ def test_tokenizer_gives_the_jax_ids(tmp_path):
 
 
 def test_unported_model_features_raise():
-    """Switch-MoE layers (A24) and a per-slot cache index with a chunk of
-    s > 1 tokens (speculative verify, A16) raise. A per-slot decode step
-    and a chunk past index 0 are ported: the two tests below hold them to
-    JAX."""
+    """Switch-MoE layers (A24) raise. A per-slot cache index with a chunk
+    of s > 1 tokens (speculative verify), which raised until slice 11
+    ported it, gives each row what its own decode steps give (logits
+    within 1e-5; test_torch_continuous.py holds it to JAX). A per-slot
+    decode step and a chunk past index 0 are ported too: the two tests
+    below hold them to JAX."""
     with pytest.raises(NotImplementedError, match="A24"):
         GPT2LMHeadModel(GPT2Config(**dict(TINY, num_experts=4)))
     model = GPT2LMHeadModel(GPT2Config(**TINY)).eval()
-    cache = model.init_cache(2, 16)
-    cache.index = torch.tensor([3, 5])
-    with pytest.raises(NotImplementedError, match="A16"), torch.no_grad():
-        model(torch.ones((2, 3), dtype=torch.long), cache=cache)
+    model.init_weights(torch.Generator().manual_seed(0))
+    tokens = torch.randint(1, 50, (2, 3), generator=torch.Generator()
+                           .manual_seed(1))
+    outs = []
+    for chunked in (True, False):
+        cache = model.init_cache(2, 16)
+        cache.mask[0, :3] = 1
+        cache.mask[1, :5] = 1
+        cache.index = torch.tensor([3, 5])
+        with torch.no_grad():
+            if chunked:
+                cache.mask[0, 3:6] = 1
+                cache.mask[1, 5:8] = 1
+                outs.append(model(tokens, cache=cache,
+                                  position_ids=torch.tensor(
+                                      [[3, 4, 5], [5, 6, 7]]))["logits"])
+                continue
+            steps = []
+            for j in range(3):
+                cache.mask[torch.arange(2), cache.index] = 1
+                steps.append(model(tokens[:, j:j + 1], cache=cache,
+                                   position_ids=cache.index[:, None])[
+                                       "logits"][:, 0])
+            outs.append(torch.stack(steps, 1))
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=0)
 
 
 def _cache_pair(rng, b, t, filled):

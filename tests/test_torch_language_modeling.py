@@ -695,29 +695,27 @@ def test_cli_imports_no_jax(fixture_dir, trajectories):
 @pytest.mark.parametrize("flag", ["enable_dkplm", "enable_kangaroo",
                                   "contrast_learning_flag", "enable_glm"])
 def test_unported_variants_raise(fixture_dir, flag):
-    """GLM (A19) still raises; the A13 switches, which raised here until
-    they were ported, now select their app, dataset and evaluator, as in
-    the JAX package (test_torch_knowledge_cli.py trains each)."""
+    """The A13 switches and enable_glm (A19), which raised here until they
+    were ported, select their app, dataset and evaluator, as in the JAX
+    package (test_torch_knowledge_cli.py trains the A13 variants,
+    test_torch_glm.py the GLM one)."""
     from easynlp_tpu_torch.appzoo import api
     udp = {flag: "True"}
-    if flag == "enable_glm":
-        with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-            run_port(train_argv(fixture_dir,
-                                os.path.join(fixture_dir, "refused"),
-                                "model", "--user_defined_parameters=%s=True"
-                                % flag))
-        return
     want = {"enable_dkplm": ("DKPLMLanguageModeling",
                              "DKPLMPretrainDataset"),
             "enable_kangaroo": ("KangarooLanguageModeling",
                                 "KangarooPretrainDataset"),
             "contrast_learning_flag": ("CKBertLanguageModeling",
-                                       "LanguageModelingDataset")}[flag]
+                                       "LanguageModelingDataset"),
+            "enable_glm": ("GLMSequenceGeneration",
+                           "GLMPretrainDataset")}[flag]
     got = tuple(api._resolve(registry, "language_modeling", udp).__name__
                 for registry in (api.MODEL_REGISTRY, api.DATASET_REGISTRY))
     assert got == want
+    evaluator = ("GLMPretrainEvaluator" if flag == "enable_glm"
+                 else "LanguageModelingEvaluator")
     assert api._resolve(api.EVALUATOR_REGISTRY, "language_modeling",
-                        udp).__name__ == "LanguageModelingEvaluator"
+                        udp).__name__ == evaluator
 
 
 # --------------------------------------------------------------------------

@@ -266,13 +266,38 @@ def test_checkpoint_keys_load_strictly(fixture_dir):
     (["--mode=train"], "does not train GPT-2"),
     (["--mode=export"], "A26"),
     (["--mode=predict",
-      "--user_defined_parameters=speculative_decoding=prompt_lookup"], "A16"),
+      "--user_defined_parameters=speculative_decoding=prompt_lookup"], None),
     (["--mode=predict", "--user_defined_parameters=kv_cache_dtype=int8"],
-     "A16"),
+     None),
 ])
 def test_unported_generation_modes_raise(fixture_dir, argv, match):
+    """GPT-2 train and --mode=export raise. speculative_decoding and
+    kv_cache_dtype=int8, which raised until slice 11 ported them, predict:
+    speculative decoding gives the plain predict's generated_ids, the int8
+    cache the JAX CLI's under the same parameters (f32, token for
+    token)."""
     from easynlp_tpu_torch.appzoo.api import default_main_fn
     from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    if match is None:
+        from easynlp_tpu import cli as jax_cli
+        from easynlp_tpu_torch import cli as torch_cli
+        udp = "max_decoder_length=8 num_draft_tokens=3 " \
+            + argv[1].split("=", 1)[1]
+        tag = udp.split()[-1].split("=")[0]
+        outs = {}
+        for side, extra in (("torch", udp), ("ref", "max_decoder_length=8")):
+            outs[side] = os.path.join(fixture_dir, "%s_%s.tsv" % (side, tag))
+            _fresh_args()
+            if side == "ref" and "kv_cache" in tag:
+                assert jax_cli.main(predict_argv(fixture_dir, outs[side],
+                                                 udp)) == 0
+                continue
+            assert torch_cli.main(predict_argv(fixture_dir, outs[side],
+                                               extra, "--device=cpu")) == 0
+        got, want = read_rows(outs["torch"]), read_rows(outs["ref"])
+        assert len(got) == 10
+        assert [r[2] for r in got] == [r[2] for r in want]
+        return
     _fresh_args()
     args = initialize_easynlp(args_list=argv + [
         "--device=cpu", "--app_name=sequence_generation",
@@ -291,7 +316,9 @@ def test_encoder_decoder_backbones_raise(tmp_path, model_type, match):
     """sequence_generation on a checkpoint of a family it has no backbone
     for raises, from load_config and from the CLI (BART, T5, mT5, Pegasus,
     Randeng, the dialogue transformer and GPT-2 are held to JAX in their own
-    test files)."""
+    test files). A glm checkpoint, which raised with enable_glm too until
+    slice 11, is read by the enable_glm variant (GLMSequenceGeneration, as
+    in JAX; test_torch_glm.py holds it to JAX) and by AutoConfig."""
     from easynlp_tpu_torch.appzoo.api import default_main_fn
     from easynlp_tpu_torch.appzoo.sequence_generation.model import (
         SequenceGeneration)
@@ -305,6 +332,14 @@ def test_encoder_decoder_backbones_raise(tmp_path, model_type, match):
         "--checkpoint_dir=%s" % tmp_path, "--tables=unused.tsv"])
     with pytest.raises(NotImplementedError, match=match):
         default_main_fn(args)
+    if model_type == "glm":
+        from easynlp_tpu_torch.appzoo import api
+        from easynlp_tpu_torch.modelzoo.models.auto import AutoConfig
+        app_cls = api._resolve(api.MODEL_REGISTRY, "sequence_generation",
+                               {"enable_glm": "true"})
+        assert app_cls.__name__ == "GLMSequenceGeneration"
+        assert app_cls.load_config(str(tmp_path)).model_type == "glm"
+        assert AutoConfig.from_pretrained(str(tmp_path)).num_layers == 24
 
 
 def test_chip_smoke_gpt2_inputs(tmp_path):

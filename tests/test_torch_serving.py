@@ -129,7 +129,7 @@ def test_pipeline_by_task_name_and_params_dtype(ckpt, port_pipe):
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
         "bert-base-sst-registered-name"), "A26"),
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
-        p, quantize="int8", device="cpu"), "A16"),
+        p, quantize="int4", device="cpu"), "quantize must be 'int8'"),
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
         "text2image_generation", model_path=p), "A21"),
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
@@ -137,8 +137,37 @@ def test_pipeline_by_task_name_and_params_dtype(ckpt, port_pipe):
 ], ids=["default-model", "registered-name", "int8", "multimodal",
         "diffusion"])
 def test_unported_pipeline_routes_raise(ckpt, call, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """The routes still to be ported raise naming their ROADMAP item; a
+    quantize other than "int8" raises ValueError, as in JAX (int8 itself,
+    which raised until slice 11, is held to JAX below)."""
+    error = ValueError if "quantize" in match else NotImplementedError
+    with pytest.raises(error, match=match):
         call(ckpt[0])
+
+
+def test_int8_pipeline_matches_jax(ckpt):
+    """pipeline(quantize="int8") in f32: some weights quantized (fewer
+    bytes), and the same labels as JAX's int8 pipeline with logits within
+    1e-4."""
+    import jax.numpy as jnp
+
+    from easynlp_tpu.pipelines import pipeline as jax_pipeline
+    from easynlp_tpu.utils import global_vars
+    from easynlp_tpu_torch.modelzoo.quantization import (dequantize_for,
+                                                         quantization_report)
+    from easynlp_tpu_torch.pipelines import pipeline
+    saved = global_vars._GLOBAL_ARGS
+    try:
+        want = jax_pipeline(ckpt[0], dtype=jnp.float32, quantize="int8",
+                            **KW)(ckpt[1])
+    finally:
+        global_vars._GLOBAL_ARGS = saved
+    pipe = pipeline(ckpt[0], dtype=torch.float32, quantize="int8",
+                    device="cpu", **KW)
+    assert dequantize_for(pipe.app.module)
+    qbytes, obytes, _ = quantization_report(pipe.app.module)
+    assert qbytes < obytes
+    assert_rows_match(pipe(ckpt[1]), want)
 
 
 def _fire(port, batches):
@@ -227,8 +256,8 @@ def test_batching_coalesces_and_errors_keep_serving():
 def test_cli_serve_default_route_imports_no_jax(ckpt, port_pipe):
     """`--mode=serve` without serve_continuous, in a fresh process: the
     pipeline server answers /predict with pipeline()'s rows, and no jax,
-    flax or easynlp_tpu module is loaded. serve_quantize=int8 raises
-    naming A16."""
+    flax or easynlp_tpu module is loaded. serve_quantize=int8 (which
+    raised until slice 11) serves pipeline(quantize="int8")'s rows."""
     argv = ["--mode=serve", "--checkpoint_dir=" + ckpt[0],
             "--first_sequence=sent", "--sequence_length=16",
             "--micro_batch_size=8", "--dtype=float32", "--device=cpu",
@@ -243,18 +272,18 @@ def test_cli_serve_default_route_imports_no_jax(ckpt, port_pipe):
         "with urllib.request.urlopen(req, timeout=60) as r:\n"
         "    print('ROWS ' + json.dumps(json.loads(r.read())['outputs']))\n"
         "srv.stop()\n"
-        "try:\n"
-        "    default_main_fn(initialize_easynlp(args_list=%r))\n"
-        "except NotImplementedError as e:\n"
-        "    assert 'A16' in str(e), e\n"
-        "else:\n"
-        "    raise AssertionError('serve_quantize=int8 did not raise')\n"
+        "srv = default_main_fn(initialize_easynlp(args_list=%r))\n"
+        "req = urllib.request.Request('http://127.0.0.1:%%d/predict' %% "
+        "srv.port, data=json.dumps({'inputs': %r}).encode())\n"
+        "with urllib.request.urlopen(req, timeout=60) as r:\n"
+        "    print('INT8 ' + json.dumps(json.loads(r.read())['outputs']))\n"
+        "srv.stop()\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'easynlp_tpu')"
         " or m.startswith('easynlp_tpu.')]\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n" % (
             argv, ckpt[1][:5],
-            argv[:-1] + [argv[-1] + " serve_quantize=int8"]))
+            argv[:-1] + [argv[-1] + " serve_quantize=int8"], ckpt[1][:5]))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=REPO))
@@ -263,3 +292,8 @@ def test_cli_serve_default_route_imports_no_jax(ckpt, port_pipe):
     assert lines[-1] == "NO_JAX_OK"
     rows = [line[5:] for line in lines if line.startswith("ROWS ")]
     assert json.loads(rows[0]) == port_pipe(ckpt[1][:5])
+    from easynlp_tpu_torch.pipelines import pipeline
+    int8 = [line[5:] for line in lines if line.startswith("INT8 ")]
+    assert json.loads(int8[0]) == pipeline(
+        ckpt[0], dtype=torch.float32, quantize="int8", device="cpu",
+        **KW)(ckpt[1][:5])
