@@ -102,10 +102,28 @@ enable_glm=true` 8 bf16 AdamW steps of 8 x 512 with 64-token targets,
 speculative; `--app_name=language_modeling enable_glm=true` 4 steps of 8
 x 512 and `--mode=evaluate`. Phase 2 adds their attention shapes: a
 verify chunk of 9 queries at offset 247, GLM's decode step and verify
-chunk over 512 keys at 16 heads. Every phase raises on failure, so any
-failure exits non-zero. The last line is {"ok": true, "device": {...}};
+chunk over 512 keys at 16 heads. Then phase 17, slice 12's paths at
+Chinese-CLIP ViT-B/16 widths (224 px in 16 x 16 patches: 197 keys, a
+12-layer 768-wide quick_gelu ViT; the text tower at bert-base-chinese
+widths; projection 512), weights the port's init from --seed, images
+smooth random PNGs from the seed decoded through PIL: `--app_name=clip`
+4 bf16 AdamW steps of 32 x (224 x 224, 32 tokens) with and without the
+kernels (every step's loss and grad norm held to the plain run's), f32
+`--mode=evaluate` (recall@1/5/10) and `--mode=predict` (embeddings held
+to plain's); `wukong_clip` predict from those weights under the
+Wukong/OpenAI names (clip's rows, equal); `text2video_retrieval` f32
+evaluate and predict on 8 videos of 8-12 frames; `image2text_generation`
+(that ViT with GPT-2 small's widths over the same 21128-token
+vocabulary) 4 bf16 steps of 16 x (197 + 32) and f32 predict greedy and
+with 4 beams, token for token with plain, and pipeline() on its
+checkpoint; `video2text_generation` f32 predict on 3 frames. Phase 2
+adds their shapes: ViT-B/16's 32 x 197 and ViT-B/32's 32 x 50, the
+captioner's causal 16 x 229, CLIP4Clip's 96 x 197. Phases 14 and 15
+also train Kangaroo and T5-base a second time with the kernels and hold
+the two runs to each other bit for bit (ROADMAP C28, C29). Every phase
+raises on failure, so any failure exits non-zero. The last line is {"ok": true, "device": {...}};
 the line before it lists the kernels with their launches in the BART
-training run and phase 11's to 16's runs, errors, times (kernel, plain
+training run and phase 11's to 17's runs, errors, times (kernel, plain
 twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
 the JAX package.
 """
@@ -541,10 +559,22 @@ def phase_kernel(torch, seed):
          False),
         ("megatron-512", 8, 512, 512, 16, 64,
          np.r_[512, kg_rng.randint(256, 513, size=7)], False)]
+    # phase 17's shapes, from a stream of their own: the ViT-B/16 tower's
+    # 32 x 197 patches and CLS (unmasked; B2's route 2) and ViT-B/32's 32 x
+    # 50 (B2's one-block route), the captioner's GPT-2 over its visual
+    # prefix, 16 x (197 + 32), causal, rows of 200-229 (caption padding),
+    # and CLIP4Clip's 8 videos x 12 frames through the ViT, 96 x 197
+    mm_rng = np.random.RandomState(seed + 8)
+    mm_cases = [
+        ("vit-b16", 32, 197, 197, 12, 64, np.full(32, 197), False),
+        ("vit-b32", 32, 50, 50, 12, 64, np.full(32, 50), False),
+        ("i2t-prefix", 16, 229, 229, 12, 64,
+         np.r_[229, mm_rng.randint(200, 230, size=15)], True),
+        ("clip4clip", 96, 197, 197, 12, 64, np.full(96, 197), False)]
     worst = {}
     for case_rng, group in ((rng, cases), (skip_rng, skip_cases),
                             (mlm_rng, mlm_cases), (ie_rng, ie_cases),
-                            (kg_rng, kg_cases)):
+                            (kg_rng, kg_cases), (mm_rng, mm_cases)):
         for name, b, sq, skv, h, d, lens, causal in group:
             q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
             for dtype in (torch.float32, torch.bfloat16):
@@ -558,12 +588,15 @@ def phase_kernel(torch, seed):
     for case_rng, (name, b, sq, skv, h, d, lens, causal) in (
             [(rng, c) for c in cases[:5]] + [(mlm_rng, c) for c in mlm_cases]
             + [(ie_rng, c) for c in ie_cases]
-            + [(kg_rng, c) for c in kg_cases]):
+            + [(kg_rng, c) for c in kg_cases]
+            + [(mm_rng, c) for c in mm_cases]):
         q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
-        # phase 14's shapes in bf16 only, the dtype phase 14 runs: the
-        # process's profiler sessions are few (phase_kernel_in_child)
-        for dtype in ((torch.bfloat16,) if name in ("kangaroo-samples",
-                                                    "megatron-512")
+        # phase 14's and 17's shapes in bf16 only, the dtype their training
+        # runs: the process's profiler sessions are few
+        # (phase_kernel_in_child)
+        for dtype in ((torch.bfloat16,) if name in (
+                "kangaroo-samples", "megatron-512") + tuple(
+                    c[0] for c in mm_cases)
                       else (torch.bfloat16, torch.float32)):
             tq, tk, tv = (t.to(dtype) for t in (q, k, v))
             ms = _time_ms(torch, lambda: A.short_attention_fwd(
@@ -4141,6 +4174,44 @@ def _check_train_run(tag, run, steps):
         raise AssertionError("%s run: non-finite loss or grad norm" % tag)
 
 
+def depth_cut(torch, src, dst, layers, key):
+    """dst: model directory src cut to its first `layers` layers at full
+    width: every file but the weights and optimizer state copied,
+    config.json's `key` set to `layers`, and pytorch_model.bin without the
+    parameters of layer `layers` on (`.layers.{i}.`)."""
+    import re
+    import shutil
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(src):
+        if name not in ("pytorch_model.bin", "optimizer.pt") and \
+                os.path.isfile(os.path.join(src, name)):
+            shutil.copy(os.path.join(src, name), dst)
+    with open(os.path.join(src, "config.json")) as f:
+        config = json.load(f)
+    config[key] = layers
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    state = torch.load(os.path.join(src, "pytorch_model.bin"),
+                       weights_only=True)
+    deep = re.compile(r"\.layers\.(\d+)\.")
+    torch.save({k: v for k, v in state.items()
+                if not deep.search(k) or int(deep.search(k).group(1))
+                < layers}, os.path.join(dst, "pytorch_model.bin"))
+
+
+def check_repeat(tag, first, again):
+    """Two kernel runs of one training give the same loss and gradient norm
+    at every step, bit for bit (ROADMAP C28, C29: T5's and Kangaroo's did
+    not before their one-hot row lookups)."""
+    a = [(r["loss"], r["grad_norm"]) for r in first["records"]]
+    b = [(r["loss"], r["grad_norm"]) for r in again["records"]]
+    log("%s training repeated with the kernels: %d steps, every loss and "
+        "grad norm %s" % (tag, len(a), "bit-identical" if a == b else
+                          "DIFFERENT: %s against %s" % (b, a)))
+    if a != b:
+        raise AssertionError("%s: two runs of one training differ" % tag)
+
+
 def _profiled_share(torch, run, prof, want):
     """(device busy share, busy ms per step, top kernels) of `run(prof)`
     (a training run writing a trace of steps 3-6 into prof), run again
@@ -5644,6 +5715,10 @@ MEGATRON_345M = {  # HF MegatronBertConfig defaults: megatron-bert-cased-345m
     "pad_token_id": 0,
 }
 MEGATRON_DIR = "megatron-bert-345m-random"
+# its first 8 of 24 layers at full width (all 24 until slice 12): the pass
+# checks the pre-LN layout and B2's route 2 at 16 heads, which a layer
+# shows as well as 24
+MEGATRON_LAYERS = 8
 MEGATRON_BATCH, MEGATRON_SEQ = 8, 512
 # kernel pass against plain pass, bf16 through 24 pre-LN layers: the loss's
 # relative |d| and the last hidden state's relative rms (readings 6.9e-3
@@ -5792,7 +5867,7 @@ def _megatron_dir(torch, workdir, seed):
     import numpy as np
     path = os.path.join(workdir, MEGATRON_DIR)
     os.makedirs(path)
-    c = MEGATRON_345M
+    c = dict(MEGATRON_345M, num_hidden_layers=MEGATRON_LAYERS)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(c, f, indent=2)
     rng = np.random.default_rng(seed + 16)
@@ -5918,14 +5993,15 @@ def phase_knowledge(torch, seed, workdir, cjk):
         t0 = time.perf_counter()
         train_tsv = os.path.join(workdir, "%s_train.tsv" % tables)
         dev_tsv = os.path.join(workdir, "%s_dev.tsv" % tables)
-        runs, ckpts = {}, {}
+        # only the kernel run writes a checkpoint, which both evaluates
+        # read (each run wrote its own until slice 12)
+        runs, ckpt = {}, os.path.join(workdir, "%s_ckpt" % name)
         for use_kernel in (True, False):
             tag = "kernel" if use_kernel else "plain"
-            ckpts[tag] = os.path.join(workdir, "%s_ckpt_%s" % (name, tag))
 
             def train(k=use_kernel):
                 return run_train(torch, model_dir, train_tsv, dev_tsv,
-                                 ckpts[tag], k, seed,
+                                 ckpt if k else None, k, seed,
                                  common=_knowledge_argv(k, udp),
                                  logging_steps=1)
             runs[tag] = (main_path(
@@ -5939,7 +6015,7 @@ def phase_knowledge(torch, seed, workdir, cjk):
         results = {}
         for tag, use_kernel in (("kernel", True), ("plain", False)):
             argv = ["--mode=evaluate", "--tables=" + dev_tsv,
-                    "--checkpoint_dir=" + ckpts[tag]] + _knowledge_argv(
+                    "--checkpoint_dir=" + ckpt] + _knowledge_argv(
                         use_kernel, udp)
             run = (lambda a=argv: dict(_cli(torch, a)[0]))
             results[tag] = (main_path(
@@ -5948,7 +6024,7 @@ def phase_knowledge(torch, seed, workdir, cjk):
                     "short_attention_bwd": 0})
                 if use_kernel else no_launch(name + " evaluate", run))
         final = [r for r in map(json.loads, open(os.path.join(
-            ckpts["kernel"], "events.jsonl"))) if r["kind"] == "eval"][-1]
+            ckpt, "events.jsonl"))) if r["kind"] == "eval"][-1]
         k, p = results["kernel"], results["plain"]
         # every step's loss and gradient norm, kernel run against plain
         # run: the later steps carry each earlier step's gradients
@@ -5988,9 +6064,15 @@ def phase_knowledge(torch, seed, workdir, cjk):
         summary[name] = (med["kernel"], med["plain"],
                          runs["kernel"]["peak_gib"])
         if name == "Kangaroo":
-            _kangaroo_masked_samples(torch, ckpts["kernel"], dev_tsv, udp)
-        for ckpt in ckpts.values():
-            shutil.rmtree(ckpt)
+            check_repeat(name, runs["kernel"], main_path(
+                "%s training again (%d steps)" % (name, steps),
+                lambda: run_train(torch, model_dir, train_tsv, None, None,
+                                  True, seed, common=_knowledge_argv(True,
+                                                                     udp)),
+                {"short_attention_fwd": per_step * steps,
+                 "short_attention_bwd": per_step * steps}))
+            _kangaroo_masked_samples(torch, ckpt, dev_tsv, udp)
+        shutil.rmtree(ckpt)
 
     # MegatronBERT-345M through AutoModel: a bf16 forward and backward
     t0 = time.perf_counter()
@@ -6010,7 +6092,7 @@ def phase_knowledge(torch, seed, workdir, cjk):
     inputs = {"input_ids": torch.from_numpy(ids).cuda(),
               "attention_mask": torch.from_numpy(mask).cuda()}
     w = torch.linspace(-1, 1, MEGATRON_345M["hidden_size"], device="cuda")
-    n_layers = MEGATRON_345M["num_hidden_layers"]
+    n_layers = MEGATRON_LAYERS
     # the kernels (--use_flash_attention=auto); the plain runs above left
     # the override set
     A.set_kernel_override(None)
@@ -6203,9 +6285,14 @@ PEGASUS_SP_PIECES = 96000  # pegasus-large's; + the 103 offset ids
 # family: (--sequence_length, --micro_batch_size, training steps, dev or
 # predict rows); every target is the dataset's 64 tokens (63 + EOS: the
 # CLI's SequenceGenerationDataset fixes max_target_length at 64, as JAX's)
-S2S_RUNS = {"t5": (512, 8, 8, 16), "mt5": (512, 8, 0, 8),
-            "pegasus": (1024, 4, 4, 8), "randeng": (512, 8, 0, 8),
+S2S_RUNS = {"t5": (512, 8, 8, 8), "mt5": (512, 8, 0, 8),
+            "pegasus": (1024, 4, 4, 4), "randeng": (512, 8, 0, 8),
             "dialogue": (128, 16, 8, 16)}
+# Pegasus-large and mT5-base run their first 4 encoder and 4 decoder
+# layers at full width (16 + 16 and 12 + 12 until slice 12): T5-base's and
+# GLM-large's steps measure full depth, and these paths differ from them
+# in widths and vocabularies, not in depth
+S2S_CUT_LAYERS = 4
 S2S_TARGET_TOKENS = 64
 S2S_LR = 5e-5
 # Training, kernel run against the --use_flash_attention=false run, per
@@ -6454,9 +6541,13 @@ def phase_seq2seq(torch, seed, workdir, cjk):
     dirs = {}
     for name, config, files in (
             ("t5", T5_BASE, {"spiece.model": t5_sp}),
-            ("mt5", MT5_BASE, {"spiece.model": t5_sp}),
-            ("pegasus", PEGASUS_LARGE, {"spiece.model": sp_model_bytes(
-                t5_sp_pieces(rng, PEGASUS_SP_PIECES))})):
+            ("mt5", dict(MT5_BASE, num_layers=S2S_CUT_LAYERS,
+                         num_decoder_layers=S2S_CUT_LAYERS),
+             {"spiece.model": t5_sp}),
+            ("pegasus", dict(PEGASUS_LARGE, encoder_layers=S2S_CUT_LAYERS,
+                             decoder_layers=S2S_CUT_LAYERS),
+             {"spiece.model": sp_model_bytes(
+                 t5_sp_pieces(rng, PEGASUS_SP_PIECES))})):
         dirs[name] = os.path.join(workdir, name + "-random")
         n = make_s2s_model_dir(torch, dirs[name], config, seed, files)
         log("%s model dir: %d parameters, %d-piece spiece.model"
@@ -6557,7 +6648,7 @@ def phase_seq2seq(torch, seed, workdir, cjk):
             raise AssertionError("%s %s predict: kernel and plain f32 "
                                  "generation differ" % (name, tag))
 
-    def training(name, want_per_step, save=True):
+    def training(name, want_per_step, save=True, repeat=False):
         seq_len, batch, steps, _ = S2S_RUNS[name]
         app = "open_domain_dialogue" if name == "dialogue" else \
             "sequence_generation"
@@ -6572,6 +6663,12 @@ def phase_seq2seq(torch, seed, workdir, cjk):
         for use_kernel, run in runs.items():
             _check_train_run("%s %s" % (name, use_kernel), run, steps)
         _s2s_compare_training(name, runs)
+        if repeat:
+            check_repeat(name, runs[True], main_path(
+                "%s train again (bf16)" % name, lambda: run_train(
+                    torch, dirs[name], tsvs[name, "train"], None, None, True,
+                    seed, common=_s2s_argv(app, seq_len, batch, True)),
+                want))
         return app, ckpt
 
     # T5-base: train, evaluate, predict (greedy and 4 beams)
@@ -6579,7 +6676,7 @@ def phase_seq2seq(torch, seed, workdir, cjk):
     app, ckpt = training("t5", {"short_attention_fwd": layers,
                                 "short_attention_bwd": layers,
                                 "flash_attention_fwd": 0,
-                                "flash_attention_bwd": 0})
+                                "flash_attention_bwd": 0}, repeat=True)
     seq_len, batch, _, rows = S2S_RUNS["t5"]
     for use_kernel in (True, False):
         run = (lambda: _s2s_evaluate(torch, app, ckpt, tsvs["t5", "dev"],
@@ -6597,8 +6694,9 @@ def phase_seq2seq(torch, seed, workdir, cjk):
     # mT5-base: predict on its random init (gated FFN, untied f32 head)
     generation("greedy", "sequence_generation", dirs["mt5"], "mt5",
                eos_banned, ("short_attention_fwd",))
-    # Pegasus-large: train at 4 x 1024, predict with 4 beams
-    layers = PEGASUS_LARGE["encoder_layers"]
+    # Pegasus-large (S2S_CUT_LAYERS + S2S_CUT_LAYERS layers): train at 4 x
+    # 1024, predict with 4 beams
+    layers = S2S_CUT_LAYERS
     # (no checkpoint: its 6.8 GB of weights and AdamW state would take a
     # sixth of the disk writes the card's machine allows the script; the
     # 4-beam predict reads the model directory's init instead)
@@ -6655,6 +6753,7 @@ SPEC_UDP = ("speculative_decoding=prompt_lookup num_draft_tokens=%d "
             "lookup_ngram_size=%d" % (SPEC_DRAFTS, SPEC_NGRAM))
 SPEC_DECODER = (SPEC_NGRAM, SPEC_DRAFTS)   # DeviceContinuousDecoder's
 SPEC_REQUESTS = 16
+P16_ROWS = GEN_BATCH   # GPT-2 f32 predicts: phase 5's first 8 prompts
 BART_SPEC_ROWS = 8
 GLM_LARGE = {  # JAX GLMConfig's defaults: glm-large-chinese's widths at
     # 512 positions, dropout set to 0
@@ -6668,6 +6767,11 @@ GLM_SEQ_LEN, GLM_TARGET, GLM_BATCH, GLM_STEPS = 512, 64, 8, 8
 GLM_SRC_LEN = GLM_SEQ_LEN - GLM_TARGET - 3     # src, gMASK, sop, tgt, eop
 GLM_UDP = "enable_glm=true src_len=%d tgt_len=%d" % (GLM_SRC_LEN, GLM_TARGET)
 GLM_LM_STEPS, GLM_DEV_ROWS = 4, 16
+# GLM's evaluate, predict and block-infilling pretraining run the first 6
+# of the 24 layers at full width (the trained checkpoint cut by
+# depth_cut): the 8-step fine-tuning above measures the full depth, and
+# these paths differ from it in their inputs, not in their layers
+GLM_CUT_LAYERS = 6
 GLM_NEW_TOKENS = 32
 # predict's --sequence_length: the prompt, gMASK and sop, the new tokens
 # and a verify chunk's K+1 slots fill the 512 keys B1 takes
@@ -6762,6 +6866,8 @@ def phase_slice11(torch, seed, workdir):
     widths) blank-infilling train, evaluate and predict (greedy, 4 beams,
     speculative) and block-infilling pretraining. Returns the kernel runs'
     launches by wrapper."""
+    import shutil
+
     import numpy as np
     from easynlp_tpu_torch.appzoo.sequence_generation.model import (
         SequenceGeneration)
@@ -6781,7 +6887,11 @@ def phase_slice11(torch, seed, workdir):
     main_path, plain, total = _launch_counter(A, wrappers)
     eos = GPT2_SMALL["eos_token_id"]
     gpt2_dir = os.path.join(workdir, GPT2_MODEL_DIR)   # phase 5's
-    tsv = os.path.join(workdir, "prompts.tsv")
+    # phase 5's first 8 prompts: one batch a predict (16 until slice 12)
+    tsv = os.path.join(workdir, "prompts16.tsv")
+    with open(os.path.join(workdir, "prompts.tsv"), encoding="utf-8") as f, \
+            open(tsv, "w", encoding="utf-8") as g:
+        g.writelines(f.readlines()[:P16_ROWS])
     app32 = SequenceGeneration.from_pretrained(gpt2_dir, dtype=torch.float32,
                                                device="cuda")
     width = GEN_PROMPT_WIDTH
@@ -6842,12 +6952,12 @@ def phase_slice11(torch, seed, workdir):
         "%.3f a row a forward; %d accepted drafts; one read-back a round "
         "plus one a call: %d); ms per output token (batch time / generated "
         "tokens, host clock) greedy %.3f, speculative %.3f (%.2fx)"
-        % (GEN_ROWS, GEN_NEW_TOKENS, SPEC_DRAFTS, SPEC_NGRAM, same, ties,
+        % (P16_ROWS, GEN_NEW_TOKENS, SPEC_DRAFTS, SPEC_NGRAM, same, ties,
            same_p, rounds, GEN_BATCH, committed, committed / max(rounds, 1),
            committed / max(rounds * GEN_BATCH, 1), accepted,
            sum(s["read_backs"] for s in spec_stats), ms_tok["greedy"],
            ms_tok["speculative"], ms_tok["greedy"] / ms_tok["speculative"]))
-    if same_p != GEN_ROWS:
+    if same_p != P16_ROWS:
         raise AssertionError("speculative predict: kernel and plain differ")
 
     # the int8 KV cache: kernel and plain token for token; token match and
@@ -6878,9 +6988,9 @@ def phase_slice11(torch, seed, workdir):
         "of each f32 output before the first divergence); mean KL(f32 || "
         "int8 KV) %.6e nats over %d positions (max %.6e), teacher-forced "
         "along the f32 run's tokens, batch 0"
-        % (kv_same, GEN_ROWS, float(np.mean(match)), kls.mean().item(),
+        % (kv_same, P16_ROWS, float(np.mean(match)), kls.mean().item(),
            kls.numel(), kls.max().item()))
-    if kv_same != GEN_ROWS:
+    if kv_same != P16_ROWS:
         raise AssertionError("int8 KV predict: kernel and plain differ")
     del logits, kls
 
@@ -7115,6 +7225,14 @@ def phase_slice11(torch, seed, workdir):
             want_any=False) if use_kernel else plain("GLM train", run))
         _check_train_run("GLM %s" % use_kernel, runs[use_kernel], GLM_STEPS)
     _s2s_compare_training("glm", runs)
+    # evaluate, predict and pretraining at GLM_CUT_LAYERS layers
+    cut_ckpt = os.path.join(workdir, "glm_ckpt_cut")
+    depth_cut(torch, glm_ckpt, cut_ckpt, GLM_CUT_LAYERS, "num_layers")
+    shutil.rmtree(glm_ckpt)
+    glm_ckpt = cut_ckpt
+    cut_dir = os.path.join(workdir, "glm-large-cut")
+    depth_cut(torch, glm_dir, cut_dir, GLM_CUT_LAYERS, "num_layers")
+    layers = GLM_CUT_LAYERS
     for use_kernel in (True, False):
         argv = ["--mode=evaluate", "--tables=" + glm_tsv["dev"],
                 "--checkpoint_dir=" + glm_ckpt] + glm_argv(
@@ -7171,7 +7289,7 @@ def phase_slice11(torch, seed, workdir):
     lm_runs = {}
     for use_kernel in (True, False):
         run = (lambda: run_train(
-            torch, glm_dir, glm_tsv["lm_train"], None,
+            torch, cut_dir, glm_tsv["lm_train"], None,
             lm_ckpt if use_kernel else None, use_kernel, seed,
             common=glm_argv("language_modeling", use_kernel,
                             udp="enable_glm=true")))
@@ -7202,6 +7320,510 @@ def phase_slice11(torch, seed, workdir):
     total["flash_attention_bwd_dkdv"] = total["flash_attention_bwd"]
     total["flash_attention_bwd_dq"] = total["flash_attention_bwd"]
     return total
+
+
+# --------------------------------------------------------------------------
+# phase 17: CLIP retrieval and ViT captioning
+# --------------------------------------------------------------------------
+
+CLIP_VISION = {  # OFA-Sys/chinese-clip-vit-base-patch16 config.json's
+    "image_size": 224, "patch_size": 16, "hidden_size": 768,
+    "num_hidden_layers": 12, "num_attention_heads": 12,
+    "intermediate_size": 3072, "hidden_act": "quick_gelu",
+    "layer_norm_eps": 1e-5, "initializer_range": 0.02,
+}
+CHINESE_CLIP_B16 = {  # its text tower (RoBERTa-wwm-base as BERT), dropout 0
+    "model_type": "clip", "projection_dim": 512,
+    "logit_scale_init_value": 2.6592, "vision_config": CLIP_VISION,
+    "text_config": dict(BERT_BASE_CHINESE, num_hidden_layers=12,
+                        hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0),
+}
+I2T_B16 = {  # the captioner: that ViT and GPT-2 small's widths over the
+    # same 21128-token BERT vocabulary, dropout 0
+    "model_type": "clip_gpt_i2t", "vision_config": CLIP_VISION,
+    "gpt_config": dict(GPT2_SMALL, vocab_size=21128, resid_pdrop=0.0,
+                       embd_pdrop=0.0, attn_pdrop=0.0),
+}
+CLIP_DIR, I2T_DIR, WUKONG_DIR = ("chinese-clip-b16-random",
+                                 "clip-gpt-i2t-b16-random",
+                                 "wukong-b16-random")
+CLIP_TEXT_LEN = 32          # --sequence_length of the captions
+CLIP_BATCH, CLIP_STEPS, CLIP_DEV_ROWS = 32, 4, 64
+VIDEOS, VIDEO_FRAMES = 8, 12
+I2T_BATCH, I2T_STEPS, I2T_PRED_ROWS, I2T_TEXT_LEN = 16, 4, 16, 32
+V2T_FRAMES = 3
+# bf16 training, kernel run against plain run, every step: the losses of
+# phase 15's seq2seq runs (S2S_LOSS_ATOL; bf16 rounding through 12 + 12
+# layers) and the same relative grad-norm bound
+CLIP_LOSS_ATOL = S2S_LOSS_ATOL
+CLIP_GNORM_RTOL = S2S_GNORM_RTOL
+# f32 embeddings, kernel against plain: the CUDA-core kernels hold each
+# attention to 2e-5; 12 layers of that on unit-normalised 512-wide
+# embeddings stay well inside 1e-4
+CLIP_EMBED_F32_ATOL = 1e-4
+
+
+def _png_b64(rng, size, urlsafe=False):
+    """A smooth random RGB image (an 8 x 8 colour grid upsampled, with
+    noise) of `size` (w, h) as base64 PNG."""
+    import base64
+    import io as _io
+
+    import numpy as np
+    from PIL import Image
+    w, h = size
+    grid = rng.randint(0, 256, (8, 8, 3)).astype(np.float32)
+    img = np.repeat(np.repeat(grid, -(-h // 8), 0), -(-w // 8), 1)[:h, :w]
+    img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255)
+    buf = _io.BytesIO()
+    Image.fromarray(img.astype(np.uint8)).save(buf, format="PNG")
+    enc = base64.urlsafe_b64encode if urlsafe else base64.b64encode
+    return enc(buf.getvalue()).decode()
+
+
+def make_clip_rows(workdir, cjk, seed):
+    """The phase's tables from the seed: CLIP rows (caption, base64 PNG)
+    for training and evaluation, videos (caption, a JSON list of 12
+    url-safe PNG frames), captioning rows (url-safe PNG, caption) and
+    3-frame lists. Images are 224-320 pixels a side, so the resize and the
+    centre crop both act."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 17)
+    common = cjk[:3000]
+
+    def caption():
+        return "".join(rng.choice(common, rng.randint(8, 40)))
+
+    def size():
+        return int(rng.randint(224, 321)), int(rng.randint(224, 321))
+    paths = {}
+    for name, n in (("clip_train", CLIP_BATCH * CLIP_STEPS),
+                    ("clip_dev", CLIP_DEV_ROWS)):
+        paths[name] = os.path.join(workdir, name + ".tsv")
+        with open(paths[name], "w", encoding="utf-8") as f:
+            for _ in range(n):
+                f.write("%s\t%s\n" % (caption(), _png_b64(rng, size())))
+    frames = [_png_b64(rng, size(), urlsafe=True)
+              for _ in range(VIDEO_FRAMES * 3)]
+    paths["video"] = os.path.join(workdir, "video.tsv")
+    with open(paths["video"], "w", encoding="utf-8") as f:
+        for i in range(VIDEOS):
+            n = VIDEO_FRAMES - 4 * (i % 2)  # half the videos 8 frames
+            start = rng.randint(0, len(frames) - n)
+            f.write("%s\t%s\n" % (caption(),
+                                  json.dumps(frames[start:start + n])))
+    for name, n in (("i2t_train", I2T_BATCH * I2T_STEPS),
+                    ("i2t_dev", I2T_PRED_ROWS)):
+        paths[name] = os.path.join(workdir, name + ".tsv")
+        with open(paths[name], "w", encoding="utf-8") as f:
+            for _ in range(n):
+                f.write("%s\t%s\n" % (_png_b64(rng, size(), urlsafe=True),
+                                      caption()))
+    paths["v2t"] = os.path.join(workdir, "v2t.tsv")
+    with open(paths["v2t"], "w", encoding="utf-8") as f:
+        for i in range(I2T_PRED_ROWS // 2):
+            start = rng.randint(0, len(frames) - V2T_FRAMES)
+            f.write("%s\t%s\n" % (json.dumps(
+                frames[start:start + V2T_FRAMES - i % 2]), caption()))
+    return paths
+
+
+def make_multimodal_dir(torch, path, config, vocab_path, seed):
+    """config.json, vocab.txt and the port's init of the config's module
+    from `seed` on the card, under its HF names, as pytorch_model.bin.
+    Returns the parameter count."""
+    import shutil
+    from easynlp_tpu_torch.appzoo.image2text_generation.model import (
+        CLIPGPTImageTextModule, I2TConfig)
+    from easynlp_tpu_torch.modelzoo.models.clip import CLIPConfig, CLIPModel
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    shutil.copy(vocab_path, os.path.join(path, "vocab.txt"))
+    if config["model_type"] == "clip":
+        module = CLIPModel(CLIPConfig.from_pretrained(path), device="cuda")
+    else:
+        module = CLIPGPTImageTextModule(I2TConfig.from_pretrained(path),
+                                        device="cuda")
+    module.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    torch.save(module.state_dict(), os.path.join(path, "pytorch_model.bin"))
+    n = sum(p.numel() for p in module.parameters())
+    del module
+    torch.cuda.empty_cache()
+    return n
+
+
+def wukong_state_dict(state, layers):
+    """A CLIPModel state dict (HF names) under the Wukong/OpenAI names:
+    `visual.*` (conv1, class_embedding, positional_embedding, ln_pre, the
+    resblocks with fused in_proj, ln_post, proj applied as x @ proj),
+    `bert.*`, `text_projection` applied as x @ W and `logit_scale`: the
+    inverse of modelzoo/models/clip/conversion.py::from_wukong."""
+    import torch
+    vm = "vision_model."
+    out = {"visual.conv1.weight": state[vm + "embeddings.patch_embedding"
+                                        ".weight"],
+           "visual.class_embedding": state[vm + "embeddings.class_embedding"],
+           "visual.positional_embedding":
+               state[vm + "embeddings.position_embedding.weight"],
+           "visual.proj": state["visual_projection.weight"].t().contiguous(),
+           "text_projection": state["text_projection.weight"].t()
+           .contiguous(),
+           "logit_scale": state["logit_scale"]}
+    for ours, theirs in (("pre_layrnorm", "ln_pre"),
+                         ("post_layernorm", "ln_post")):
+        for p in ("weight", "bias"):
+            out["visual.%s.%s" % (theirs, p)] = state[vm + "%s.%s"
+                                                      % (ours, p)]
+    for i in range(layers):
+        b = vm + "encoder.layers.%d." % i
+        rb = "visual.transformer.resblocks.%d." % i
+        for p in ("weight", "bias"):
+            out[rb + "attn.in_proj_" + p] = torch.cat(
+                [state[b + "self_attn.%s_proj.%s" % (n, p)] for n in "qkv"])
+            for ours, theirs in (("self_attn.out_proj", "attn.out_proj"),
+                                 ("layer_norm1", "ln_1"),
+                                 ("layer_norm2", "ln_2"),
+                                 ("mlp.fc1", "mlp.c_fc"),
+                                 ("mlp.fc2", "mlp.c_proj")):
+                out[rb + theirs + "." + p] = state[b + ours + "." + p]
+    out.update({"bert." + k[len("text_model."):]: v for k, v in state.items()
+                if k.startswith("text_model.")})
+    return out
+
+
+def _clip_argv(app, use_kernel, dtype="bfloat16", second="image",
+               udp="", batch=CLIP_BATCH):
+    return ["--app_name=" + app, "--device=cuda", "--dtype=" + dtype,
+            "--sequence_length=%d" % CLIP_TEXT_LEN,
+            "--micro_batch_size=%d" % batch,
+            "--input_schema=text:str:1,%s:str:1" % second,
+            "--first_sequence=text", "--second_sequence=" + second,
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false"),
+            "--user_defined_parameters=image_size=%d %s"
+            % (CLIP_VISION["image_size"], udp)]
+
+
+def _i2t_argv(app, use_kernel, dtype="bfloat16", udp="", batch=I2T_BATCH):
+    return ["--app_name=" + app, "--device=cuda", "--dtype=" + dtype,
+            "--sequence_length=%d" % I2T_TEXT_LEN,
+            "--micro_batch_size=%d" % batch,
+            "--input_schema=image:str:1,text:str:1",
+            "--first_sequence=image", "--second_sequence=text",
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false"),
+            "--user_defined_parameters=img_size=%d frame_num=%d %s"
+            % (CLIP_VISION["image_size"], V2T_FRAMES, udp)]
+
+
+def _read_embeddings(path, cols):
+    """{column: [N, P] float64} from a predict TSV whose first len(cols)
+    columns are "%.8f" rows."""
+    import numpy as np
+    with open(path, encoding="utf-8") as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    return {c: np.array([[float(x) for x in r[i].split()] for r in rows])
+            for i, c in enumerate(cols)}
+
+
+def _recalls_decided(sim, err):
+    """Whether every rank the recalls count is decided by more than 2 x
+    err of similarity (so kernel and plain must give the same recalls)."""
+    import numpy as np
+    gap = np.abs(sim - np.diag(sim)[:, None])
+    np.fill_diagonal(gap, np.inf)
+    return float(gap.min()) > 2 * err
+
+
+def phase_multimodal(torch, seed, workdir, cjk):
+    """Phase 17: CLIP retrieval and ViT captioning at Chinese-CLIP
+    ViT-B/16 widths, each path with the kernels (launches counted from 0)
+    and with --use_flash_attention=false. clip: 4 bf16 AdamW steps of 32 x
+    (224 x 224, 32 tokens) (every step's loss and grad norm held to the
+    plain run's), f32 evaluate (recall@1/5/10) and predict (embeddings);
+    wukong_clip predict from the trained weights under the Wukong names
+    (equal to clip's); text2video_retrieval f32 evaluate and predict on 8
+    videos of 8-12 frames; image2text_generation 4 bf16 steps of 16 x (197
+    + 32), f32 predict greedy and 4 beams (token for token) and
+    pipeline(); video2text_generation f32 predict on 3 frames. Returns
+    the kernel runs' launches by wrapper."""
+    import shutil
+
+    import numpy as np
+    from easynlp_tpu_torch.ops import attention as A
+    from easynlp_tpu_torch.pipelines import pipeline
+    log("== phase 17: CLIP retrieval (clip, wukong_clip, "
+        "text2video_retrieval) and ViT captioning (image2text_generation, "
+        "video2text_generation), Chinese-CLIP ViT-B/16 widths")
+    t_phase = time.perf_counter()
+    import PIL
+    log("image decoding: PIL %s" % PIL.__version__)
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+    main_path, plain, total = _launch_counter(A, wrappers)
+    vit_layers = CLIP_VISION["num_hidden_layers"]
+    text_layers = CHINESE_CLIP_B16["text_config"]["num_hidden_layers"]
+    gpt_layers = I2T_B16["gpt_config"]["n_layer"]
+    t0 = time.perf_counter()
+    paths = make_clip_rows(workdir, cjk, seed)
+    vocab = os.path.join(workdir, MODEL_DIR, "vocab.txt")  # phase 3's
+    clip_dir = os.path.join(workdir, CLIP_DIR)
+    i2t_dir = os.path.join(workdir, I2T_DIR)
+    n_clip = make_multimodal_dir(torch, clip_dir, CHINESE_CLIP_B16, vocab,
+                                 seed)
+    n_i2t = make_multimodal_dir(torch, i2t_dir, I2T_B16, vocab, seed)
+    log("CLIP (%d parameters) and captioner (%d) directories, %d + %d CLIP "
+        "rows, %d videos, %d + %d captioning rows made from seed %d in "
+        "%.3f s" % (n_clip, n_i2t, CLIP_BATCH * CLIP_STEPS, CLIP_DEV_ROWS,
+                    VIDEOS, I2T_BATCH * I2T_STEPS, I2T_PRED_ROWS, seed,
+                    time.perf_counter() - t0))
+
+    def training(tag, model_dir, table, ckpt, argv, steps, per_step):
+        runs = {True: main_path(tag + " train (bf16)", lambda: run_train(
+            torch, model_dir, table, None, ckpt, True, seed,
+            common=argv(True)), {"short_attention_fwd": per_step * steps,
+                                 "short_attention_bwd": per_step * steps,
+                                 "flash_attention_fwd": 0,
+                                 "flash_attention_bwd": 0})}
+        runs[False] = plain(tag + " train", lambda: run_train(
+            torch, model_dir, table, None, None, False, seed,
+            common=argv(False)))
+        for use_kernel, run in runs.items():
+            _check_train_run("%s %s" % (tag, use_kernel), run, steps)
+        rec_k, rec_p = runs[True]["records"], runs[False]["records"]
+        d_loss = max(abs(a["loss"] - b["loss"]) for a, b in zip(rec_k,
+                                                                rec_p))
+        d_gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                      for a, b in zip(rec_k, rec_p))
+        for use_kernel, run in runs.items():
+            ms = [1e3 * r["seconds"] for r in run["records"]]
+            log("%s train %-6s %d steps: step ms median %.3f (steps 2-%d; "
+                "first %.3f), peak device memory %.3f GiB above the run's "
+                "start, run %.3f s with load and save; losses %s; grad "
+                "norms %s; launches a step: B1 %d, B2 %d"
+                % (tag, "kernel" if use_kernel else "plain", len(ms),
+                   statistics.median(ms[1:]), len(ms), ms[0],
+                   run["peak_gib"], run["total_s"],
+                   " ".join("%.5f" % r["loss"] for r in run["records"]),
+                   " ".join("%.4f" % r["grad_norm"] for r in run["records"]),
+                   per_step if use_kernel else 0,
+                   per_step if use_kernel else 0))
+        log("%s kernel vs plain training: max |d loss| per step %.3e "
+            "(bound %.1e), max relative grad-norm gap %.3e (bound %.1e)"
+            % (tag, d_loss, CLIP_LOSS_ATOL, d_gnorm, CLIP_GNORM_RTOL))
+        if d_loss > CLIP_LOSS_ATOL or d_gnorm > CLIP_GNORM_RTOL:
+            raise AssertionError("%s: kernel and plain training disagree "
+                                 "(loss %.3e, grad norm %.3e)"
+                                 % (tag, d_loss, d_gnorm))
+        return runs
+
+    def cli(tag, argv, use_kernel, want=None):
+        run = (lambda: _cli(torch, argv))
+        if use_kernel:
+            return main_path(tag, run, want)
+        return plain(tag, run)
+
+    # -- clip: train, evaluate, predict; wukong_clip predict ---------------
+    seconds = {}
+    t0 = time.perf_counter()
+    clip_ckpt = os.path.join(workdir, "clip_ckpt")
+    training("clip", clip_dir, paths["clip_train"], clip_ckpt,
+             lambda k: _clip_argv("clip", k), CLIP_STEPS,
+             vit_layers + text_layers)
+    embeds = {}
+    for use_kernel in (True, False):
+        tag = "kernel" if use_kernel else "plain"
+        out = os.path.join(workdir, "clip_pred_%s.tsv" % tag)
+        argv = ["--mode=predict", "--tables=" + paths["clip_dev"],
+                "--outputs=" + out, "--checkpoint_dir=" + clip_ckpt,
+                "--output_schema=text_embeds,image_embeds",
+                "--append_cols=text"] + _clip_argv("clip", use_kernel,
+                                                   "float32")
+        manager, sec = cli("clip predict (f32)", argv, use_kernel,
+                           {"short_attention_fwd": 2 * (vit_layers
+                                                        + text_layers),
+                            "short_attention_bwd": 0,
+                            "flash_attention_fwd": 0,
+                            "flash_attention_bwd": 0})
+        embeds[use_kernel] = _read_embeddings(out, ("text", "image"))
+        log("clip predict %-6s %d rows (f32): %.3f s with load; batch "
+            "latency median %.3f ms" % (
+                tag, manager.n_rows, sec,
+                1e3 * statistics.median(manager.predictor.model_predictor
+                                        .batch_seconds)))
+    d_emb = max(float(np.abs(embeds[True][c] - embeds[False][c]).max())
+                for c in ("text", "image"))
+    norms = np.linalg.norm(embeds[True]["image"], axis=1)
+    log("clip f32 embeddings, kernel vs plain: max |d| %.3e (bound %.1e); "
+        "image embedding norms %.6f-%.6f" % (d_emb, CLIP_EMBED_F32_ATOL,
+                                             norms.min(), norms.max()))
+    if d_emb > CLIP_EMBED_F32_ATOL or abs(norms - 1).max() > 1e-5:
+        raise AssertionError("clip f32 embeddings: kernel and plain differ "
+                             "by %.3e" % d_emb)
+    recalls = {}
+    for use_kernel in (True, False):
+        argv = ["--mode=evaluate", "--tables=" + paths["clip_dev"],
+                "--checkpoint_dir=" + clip_ckpt] + _clip_argv(
+                    "clip", use_kernel, "float32")
+        recalls[use_kernel], sec = cli("clip evaluate (f32)", argv,
+                                       use_kernel)
+        log("clip evaluate %-6s %d rows: %s in %.3f s" % (
+            "kernel" if use_kernel else "plain", CLIP_DEV_ROWS,
+            ", ".join("%s %.6f" % kv for kv in recalls[use_kernel]), sec))
+    sim = embeds[False]["text"] @ embeds[False]["image"].T
+    decided = _recalls_decided(sim, d_emb)
+    if recalls[True] != recalls[False] and decided:
+        raise AssertionError("clip evaluate: kernel recalls %s, plain %s, "
+                             "though every rank is decided"
+                             % (recalls[True], recalls[False]))
+    log("clip recalls kernel %s plain (every rank decided by > 2 x the "
+        "embedding error: %s)" % ("==" if recalls[True] == recalls[False]
+                                  else "!=", decided))
+    # wukong_clip: the trained weights under the Wukong/OpenAI names
+    wukong_dir = os.path.join(workdir, WUKONG_DIR)
+    os.makedirs(wukong_dir)
+    for name in ("config.json", "vocab.txt"):
+        shutil.copy(os.path.join(clip_ckpt, name), wukong_dir)
+    state = torch.load(os.path.join(clip_ckpt, "pytorch_model.bin"),
+                       weights_only=True)
+    torch.save(wukong_state_dict(state, vit_layers),
+               os.path.join(wukong_dir, "pytorch_model.bin"))
+    del state
+    out = os.path.join(workdir, "wukong_pred.tsv")
+    cli("wukong_clip predict (f32)", [
+        "--mode=predict", "--tables=" + paths["clip_dev"], "--outputs=" + out,
+        "--checkpoint_dir=" + wukong_dir,
+        "--output_schema=text_embeds,image_embeds", "--append_cols=text"]
+        + _clip_argv("wukong_clip", True, "float32"), True)
+    with open(out, encoding="utf-8") as f, open(os.path.join(
+            workdir, "clip_pred_kernel.tsv"), encoding="utf-8") as g:
+        same = f.read() == g.read()
+    log("wukong_clip predict from the Wukong-named weights: %s clip's "
+        "%d rows" % ("equal to" if same else "DIFFERENT from",
+                     CLIP_DEV_ROWS))
+    if not same:
+        raise AssertionError("wukong_clip's embeddings differ from clip's")
+    seconds["clip"] = time.perf_counter() - t0
+
+    # -- text2video_retrieval: evaluate and predict ------------------------
+    t0 = time.perf_counter()
+    video = {}
+    for use_kernel in (True, False):
+        tag = "kernel" if use_kernel else "plain"
+        udp = "max_frames=%d" % VIDEO_FRAMES
+        argv = ["--mode=evaluate", "--tables=" + paths["video"],
+                "--checkpoint_dir=" + clip_ckpt] + _clip_argv(
+                    "text2video_retrieval", use_kernel, "float32", "video",
+                    udp, VIDEOS)
+        results, sec = cli("text2video evaluate (f32)", argv, use_kernel, {
+            "short_attention_fwd": vit_layers + text_layers,
+            "short_attention_bwd": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0})
+        out = os.path.join(workdir, "video_pred_%s.tsv" % tag)
+        argv = ["--mode=predict", "--tables=" + paths["video"],
+                "--outputs=" + out, "--checkpoint_dir=" + clip_ckpt,
+                "--output_schema=text_embeds,video_embeds",
+                "--append_cols=text"] + _clip_argv(
+                    "text2video_retrieval", use_kernel, "float32", "video",
+                    udp, VIDEOS)
+        _, psec = cli("text2video predict (f32)", argv, use_kernel)
+        video[use_kernel] = (results, _read_embeddings(out, ("text",
+                                                             "video")))
+        log("text2video %-6s %d videos of 8-%d frames: evaluate %s in %.3f "
+            "s, predict %.3f s" % (tag, VIDEOS, VIDEO_FRAMES, ", ".join(
+                "%s %.4f" % kv for kv in results), sec, psec))
+    d_vid = max(float(np.abs(video[True][1][c] - video[False][1][c]).max())
+                for c in ("text", "video"))
+    vsim = video[False][1]["text"] @ video[False][1]["video"].T
+    log("text2video f32 embeddings, kernel vs plain: max |d| %.3e (bound "
+        "%.1e); recalls %s (decided %s)" % (
+            d_vid, CLIP_EMBED_F32_ATOL,
+            "equal" if video[True][0] == video[False][0] else "differ",
+            _recalls_decided(vsim, d_vid)))
+    if d_vid > CLIP_EMBED_F32_ATOL or (video[True][0] != video[False][0]
+                                       and _recalls_decided(vsim, d_vid)):
+        raise AssertionError("text2video: kernel and plain disagree")
+    seconds["text2video"] = time.perf_counter() - t0
+
+    # -- image2text_generation: train, predict, pipeline() -----------------
+    t0 = time.perf_counter()
+    i2t_ckpt = os.path.join(workdir, "i2t_ckpt")
+    training("image2text", i2t_dir, paths["i2t_train"], i2t_ckpt,
+             lambda k: _i2t_argv("image2text_generation", k), I2T_STEPS,
+             vit_layers + gpt_layers)
+    ids = {}
+    for beams in (1, 4):
+        for use_kernel in (True, False):
+            tag = "kernel" if use_kernel else "plain"
+            out = os.path.join(workdir, "i2t_%d_%s.tsv" % (beams, tag))
+            argv = ["--mode=predict", "--tables=" + paths["i2t_dev"],
+                    "--outputs=" + out, "--checkpoint_dir=" + i2t_ckpt,
+                    "--output_schema=gen_text,generated_ids",
+                    "--append_cols=text"] + _i2t_argv(
+                        "image2text_generation", use_kernel, "float32",
+                        "num_beams=%d" % beams)
+            manager, sec = cli("image2text predict (f32, %d beams)" % beams,
+                               argv, use_kernel)
+            with open(out, encoding="utf-8") as f:
+                rows = [line.rstrip("\n").split("\t") for line in f]
+            ids[beams, use_kernel] = [r[1].split() for r in rows]
+            n_tok = sum(len(r) - 1 for r in ids[beams, use_kernel])
+            batch_s = manager.predictor.batch_seconds
+            log("image2text predict %-6s %d beams, %d rows, f32: %.3f s "
+                "with load; %d caption tokens, %.3f ms per output token "
+                "(batch time over the rows' generated slots)"
+                % (tag, beams, len(rows), sec, n_tok,
+                   1e3 * sum(batch_s) / max(n_tok, 1)))
+        same = ids[beams, True] == ids[beams, False]
+        log("image2text %d beams: kernel and plain %s token for token; %d "
+            "distinct tokens" % (beams, "agree" if same else "DIFFER",
+                                 len({t for r in ids[beams, True]
+                                      for t in r[1:]})))
+        if not same:
+            raise AssertionError("image2text f32 captions: kernel and plain "
+                                 "differ (%d beams)" % beams)
+    with open(paths["i2t_dev"], encoding="utf-8") as f:
+        images = [line.split("\t")[0] for line in f]
+    A.set_kernel_override(None)  # the last CLI run was plain
+    pipe = main_path("pipeline(image2text_generation) (f32)", lambda: pipeline(
+        "image2text_generation", model_path=i2t_ckpt, dtype=torch.float32,
+        sequence_length=I2T_TEXT_LEN, batch_size=I2T_BATCH,
+        first_sequence="image")(images))
+    if [r["generated_ids"].split() for r in pipe] != ids[1, True]:
+        raise AssertionError("pipeline(image2text_generation) differs from "
+                             "--mode=predict")
+    log("pipeline(\"image2text_generation\") on the checkpoint: the CLI's "
+        "%d greedy captions, id for id" % len(pipe))
+    seconds["image2text"] = time.perf_counter() - t0
+
+    # -- video2text_generation: predict on 3 frames ------------------------
+    t0 = time.perf_counter()
+    vids = {}
+    for use_kernel in (True, False):
+        out = os.path.join(workdir, "v2t_%s.tsv" % use_kernel)
+        argv = ["--mode=predict", "--tables=" + paths["v2t"],
+                "--outputs=" + out, "--checkpoint_dir=" + i2t_ckpt,
+                "--output_schema=gen_text,generated_ids",
+                "--append_cols=text"] + _i2t_argv(
+                    "video2text_generation", use_kernel, "float32")
+        _, sec = cli("video2text predict (f32)", argv, use_kernel)
+        with open(out, encoding="utf-8") as f:
+            vids[use_kernel] = [line.split("\t")[1] for line in f]
+        log("video2text predict %-6s %d videos of 2-%d frames, f32: %.3f s "
+            "with load" % ("kernel" if use_kernel else "plain",
+                           len(vids[use_kernel]), V2T_FRAMES, sec))
+    if vids[True] != vids[False]:
+        raise AssertionError("video2text f32 captions: kernel and plain "
+                             "differ")
+    seconds["video2text"] = time.perf_counter() - t0
+    log("phase 17 seconds by part: %s; total %.1f" % (", ".join(
+        "%s %.1f" % kv for kv in seconds.items()),
+        time.perf_counter() - t_phase))
+    log("phase 17 launches of the kernel runs: %s" % total)
+    total["flash_attention_bwd_dkdv"] = total["flash_attention_bwd"]
+    total["flash_attention_bwd_dq"] = total["flash_attention_bwd"]
+    return total
+
 
 
 def _dtype_key(key):
@@ -7319,6 +7941,9 @@ def main():
         t0 = time.perf_counter()
         s11_launches = phase_slice11(torch, seed, workdir)
         seconds["16 speculative, int8, GLM"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mm_launches = phase_multimodal(torch, seed, workdir, cjk)
+        seconds["17 CLIP, captioning"] = time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
     written = _written_gib()
@@ -7340,7 +7965,8 @@ def main():
             + apps2_launches.get(wrapper, 0)
             + options_launches.get(wrapper, 0)
             + knowledge_launches.get(wrapper, 0)
-            + s2s_launches[name] + s11_launches[name],
+            + s2s_launches[name] + s11_launches[name]
+            + mm_launches[name],
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

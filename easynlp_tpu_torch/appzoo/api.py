@@ -15,7 +15,11 @@ predict for `vectorization` and
 `data_augmentation`, for `sequence_generation` train, evaluate and predict
 on BART, T5, mT5, Pegasus and Randeng and evaluate and predict on GPT-2
 (with enable_glm, GLM blank-infilling train, evaluate and predict), and
-for `open_domain_dialogue` the same on the dialogue `transformer`. text_classify's variants take the
+for `open_domain_dialogue` the same on the dialogue `transformer`, and
+train, evaluate and predict for the multimodal apps `clip`,
+`wukong_clip`, `text2video_retrieval`, `image2text_generation` (its ViT
+variant, the default and enable_vit) and `video2text_generation`.
+text_classify's variants take the
 user_defined_parameters switches enable_distillation (vanilla KD against
 saved teacher logits, with `temperature` and `alpha`), enable_metakd (the
 meta-teacher, trained by MetaTeacherTrainer), enable_fewshot (PET) and,
@@ -104,6 +108,14 @@ DATASET_REGISTRY = _apps(
                                        "InformationExtractionDataset"},
     geep_classify={"default": "sequence_classification.data:"
                               "ClassificationDataset"},
+    clip={"default": "clip.data:CLIPDataset"},
+    wukong_clip={"default": "wukong_clip.data:WukongCLIPDataset"},
+    text2video_retrieval={"default": "text2video_retrieval.data:"
+                                     "Text2VideoRetrievalDataset"},
+    image2text_generation={
+        "default": "image2text_generation.data:ImageTextDataset",
+        "enable_vit": "image2text_generation.data:ImageTextDataset"},
+    video2text_generation={"default": "video2text_generation.data:FrameTextDataset"},
 )
 MODEL_REGISTRY = _apps(
     text_classify={
@@ -144,6 +156,14 @@ MODEL_REGISTRY = _apps(
                                        "InformationExtractionModel"},
     geep_classify={"default": "geep_classification.model:"
                               "GEEPClassification"},
+    clip={"default": "clip.model:CLIPApp"},
+    wukong_clip={"default": "wukong_clip.model:WukongCLIP"},
+    text2video_retrieval={"default": "text2video_retrieval.model:"
+                                     "Text2VideoRetrieval"},
+    image2text_generation={
+        "default": "image2text_generation.model:CLIPGPTImageTextGeneration",
+        "enable_vit": "image2text_generation.model:CLIPGPTImageTextGeneration"},
+    video2text_generation={"default": "video2text_generation.model:CLIPGPTFrameTextGeneration"},
 )
 EVALUATOR_REGISTRY = _apps(
     text_classify={"default": "sequence_classification.evaluator:"
@@ -167,6 +187,14 @@ EVALUATOR_REGISTRY = _apps(
                                        "InformationExtractionEvaluator"},
     geep_classify={"default": "sequence_classification.evaluator:"
                               "SequenceClassificationEvaluator"},
+    clip={"default": "clip.evaluator:CLIPEvaluator"},
+    wukong_clip={"default": "wukong_clip.evaluator:WukongCLIPEvaluator"},
+    text2video_retrieval={"default": "text2video_retrieval.evaluator:"
+                                     "Text2VideoRetrievalEvaluator"},
+    image2text_generation={
+        "default": "image2text_generation.evaluator:ImageTextGenerationEvaluator",
+        "enable_vit": "image2text_generation.evaluator:ImageTextGenerationEvaluator"},
+    video2text_generation={"default": "video2text_generation.evaluator:FrameTextGenerationEvaluator"},
 )
 PREDICTOR_REGISTRY = _apps(
     text_classify={
@@ -192,6 +220,14 @@ PREDICTOR_REGISTRY = _apps(
                                        "InformationExtractionPredictor"},
     geep_classify={"default": "sequence_classification.predictor:"
                               "SequenceClassificationPredictor"},
+    clip={"default": "clip.predictor:CLIPPredictor"},
+    wukong_clip={"default": "wukong_clip.predictor:WukongCLIPPredictor"},
+    text2video_retrieval={"default": "text2video_retrieval.predictor:"
+                                     "Text2VideoRetrievalPredictor"},
+    image2text_generation={
+        "default": "image2text_generation.predictor:ImageTextGenerationPredictor",
+        "enable_vit": "image2text_generation.predictor:ImageTextGenerationPredictor"},
+    video2text_generation={"default": "video2text_generation.predictor:FrameTextGenerationPredictor"},
 )
 
 _NOT_PORTED_MODES = {
@@ -205,9 +241,11 @@ _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
                  "enable_vqgan", "contrast_learning_flag")
 # user_defined_parameters switches whose app variant is not ported yet
 _NOT_PORTED_VARIANTS = {
-    "enable_vit": "ROADMAP A21",
     "enable_vqgan": "ROADMAP A21", "enable_controlnet": "ROADMAP A22",
 }
+# the JAX package's apps that the port does not run yet
+_NOT_PORTED_APPS = {"text2image_generation": "ROADMAP A21",
+                    "latent_diffusion": "ROADMAP A22"}
 
 
 def _variant_key(registry_entry, udp):
@@ -220,11 +258,16 @@ def _variant_key(registry_entry, udp):
 
 
 def _resolve(registry, app_name, udp):
+    if app_name in _NOT_PORTED_APPS:
+        raise NotImplementedError("app %r is not ported yet (%s)"
+                                  % (app_name, _NOT_PORTED_APPS[app_name]))
     if app_name not in registry:
         raise NotImplementedError(
-            "app %r is not ported yet (ROADMAP A9-A22), or has no entry in "
-            "this registry (as in the JAX package); here the PyTorch port "
-            "has: %s" % (app_name, sorted(registry)))
+            "app %r has no entry in this registry, as in the JAX package "
+            "(not ported yet: %s); here the PyTorch port has: %s"
+            % (app_name, ", ".join("%s (%s)" % kv for kv in
+                                   _NOT_PORTED_APPS.items()),
+               sorted(registry)))
     for key, item in _NOT_PORTED_VARIANTS.items():
         if udp.get(key):
             raise NotImplementedError("%s=%s is not ported yet (%s)"
@@ -272,15 +315,27 @@ def _dtype(args):
     return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
 
 
+# the apps whose datasets read images: they also take the JAX api's
+# image_size, image_cache and image_cache_items
+_IMAGE_APPS = ("clip", "wukong_clip", "text2video_retrieval",
+               "image2text_generation", "video2text_generation")
+
+
 def _dataset_kwargs(args, tokenizer):
-    return dict(tokenizer=tokenizer, max_seq_length=args.sequence_length,
-                input_schema=args.input_schema,
-                first_sequence=args.first_sequence,
-                second_sequence=args.second_sequence,
-                label_name=args.label_name,
-                label_enumerate_values=args.label_enumerate_values,
-                multi_label=_multi_label(args),
-                user_defined_parameters=args.user_defined_parameters_dict)
+    udp = args.user_defined_parameters_dict
+    kwargs = dict(tokenizer=tokenizer, max_seq_length=args.sequence_length,
+                  input_schema=args.input_schema,
+                  first_sequence=args.first_sequence,
+                  second_sequence=args.second_sequence,
+                  label_name=args.label_name,
+                  label_enumerate_values=args.label_enumerate_values,
+                  multi_label=_multi_label(args),
+                  user_defined_parameters=udp)
+    if args.app_name in _IMAGE_APPS:
+        kwargs.update(image_size=int(udp.get("image_size", 224)),
+                      image_cache=udp.get("image_cache"),
+                      image_cache_items=udp.get("image_cache_items"))
+    return kwargs
 
 
 def _multi_label(args):

@@ -66,11 +66,19 @@ class NativeTSVReader:
         return self._lib.tsv_num_rows(self._handle)
 
     def __getitem__(self, idx):
-        buf = self._buf
-        n = self._lib.tsv_row(self._handle, int(idx), buf, self._max)
-        if n < 0:
-            raise IndexError(idx)
-        return buf.raw[:n].decode("utf-8", errors="replace")
+        while True:
+            buf = self._buf
+            n = self._lib.tsv_row(self._handle, int(idx), buf, len(buf))
+            if n < 0:
+                raise IndexError(idx)
+            if n < len(buf):
+                return buf.raw[:n].decode("utf-8", errors="replace")
+            # the native call copies at most the buffer's size: a row that
+            # fills it may be longer (a video row of base64 frames), so read
+            # it again into a buffer twice as large, kept for this thread.
+            # (The JAX package's reader cuts such a row at 1 MiB: ROADMAP
+            # reference fault 28.)
+            self._tls.buf = ctypes.create_string_buffer(2 * len(buf))
 
     def nonblank_indices(self):
         """Indices of rows with any non-whitespace byte (the Python

@@ -26,6 +26,20 @@ def truncated_normal_(tensor, std, generator):
     return tensor.mul_(std)
 
 
+def one_hot_rows(ids, table):
+    """table[ids] as a one-hot contraction: ids [..., S] over a table
+    [..., N, E] (batch dims broadcast) -> [..., S, E]. The values are the
+    lookup's bit for bit (each sum holds one 1.0 * x term and exact
+    zeros), and the backward is a matmul, which sums in a fixed order.
+    The CUDA backwards of F.embedding over rows that many positions share
+    and of torch.gather with repeated indices add in an order that changes
+    from run to run, so two runs of one training step would not give the
+    same bits (ROADMAP C28, C29)."""
+    import torch.nn.functional as F
+    return torch.matmul(F.one_hot(ids.long(), table.shape[-2])
+                        .to(table.dtype), table)
+
+
 def load_pytorch_state_dict(model_dir_or_file):
     """Read a reference/HF `pytorch_model.bin` into {name: CPU tensor}."""
     path = model_dir_or_file

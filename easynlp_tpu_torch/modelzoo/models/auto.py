@@ -5,7 +5,8 @@ Counterpart of easynlp_tpu/modelzoo/models/auto/auto_factory.py and
 easynlp_tpu/appzoo/api.py::_tokenizer_for, reduced to the ported
 families: `bert`, `roberta`, `gpt2`, `bart`, `t5`, `mt5`, `pegasus`,
 `randeng`, `transformer`, `megatron_bert` (also HF's spelling
-`megatron-bert`), `kbert`, `dkplm`, `kangaroo`, `ckbert` and `glm`.
+`megatron-bert`), `kbert`, `dkplm`, `kangaroo`, `ckbert`, `glm` and
+`clip` (the Chinese-CLIP dual tower; HF's `chinese_clip` spelling too).
 AutoConfig, AutoModel and AutoTokenizer raise NotImplementedError naming
 the ROADMAP item of every other model_type. AutoModel.from_pretrained
 returns the port's module with its weights loaded, from a
@@ -118,10 +119,12 @@ PORTED = {
     "kangaroo": ("kangaroo", "KangarooConfig", "KangarooModel"),
     "ckbert": ("ckbert", "CKBertConfig", "CKBertForPreTraining"),
     "glm": ("glm", "GLMConfig", "GLMForConditionalGeneration"),
+    "clip": ("clip", "CLIPConfig", "CLIPModel"),
 }
-_ALIASES = {"megatron-bert": "megatron_bert"}  # HF config.json's spelling
+# HF config.json's spellings
+_ALIASES = {"megatron-bert": "megatron_bert", "chinese_clip": "clip"}
 # the JAX AutoConfig's other families and the ROADMAP item of each
-NOT_PORTED = {"bloom": "A26", "clip": "A20", "cnn": "A21"}
+NOT_PORTED = {"bloom": "A26", "cnn": "A21"}
 # the families whose checkpoints the sequence_generation app reads
 _GENERATION = ("gpt2", "bart", "t5", "mt5", "pegasus", "randeng",
                "transformer")
@@ -197,6 +200,10 @@ def _load_pytorch(model_type, module, state_dict):
         from easynlp_tpu_torch.modelzoo.models.glm.conversion import (
             normalize_keys)
         module.load_state_dict(normalize_keys(state_dict), strict=True)
+    elif model_type == "clip":
+        from easynlp_tpu_torch.modelzoo.models.clip import conversion
+        conversion.load_clip_state_dict(
+            module, conversion.normalize_keys(state_dict))
     else:
         state = _strip(state_dict, ("bert.", "roberta.", "kangaroo."))
         own = module.state_dict()
@@ -219,7 +226,7 @@ def _from_jax(model_type, params, config):
             import model_state_dict_from_jax
         return model_state_dict_from_jax(params, config)
     name = {"bert": "bert.conversion", "roberta": "bert.conversion",
-            "glm": "glm.conversion",
+            "glm": "glm.conversion", "clip": "clip.conversion",
             "megatron_bert": "megatron_bert",
             "kbert": "kbert.modeling_kbert",
             "dkplm": "dkplm.modeling_dkplm"}[model_type]

@@ -41,7 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from easynlp_tpu_torch.modelzoo.modeling_utils import truncated_normal_
+from easynlp_tpu_torch.modelzoo.modeling_utils import (
+    one_hot_rows,
+    truncated_normal_,
+)
 from easynlp_tpu_torch.ops.attention import attention
 
 ACT2FN = {
@@ -88,9 +91,16 @@ class BertEmbeddings(nn.Module):
                           if use_layer_norm else None)
         self.dropout = nn.Dropout(c.hidden_dropout_prob)
 
-    def forward(self, input_ids, token_type_ids, position_ids):
-        emb = self.word_embeddings(input_ids) \
-            + self.position_embeddings(position_ids)
+    def forward(self, input_ids, token_type_ids, position_ids,
+                one_hot_positions=False):
+        """one_hot_positions: the position rows by one-hot contraction
+        (modeling_utils.one_hot_rows: the same values, a fixed-order
+        backward), for position ids that repeat thousands of times."""
+        positions = (one_hot_rows(position_ids,
+                                  self.position_embeddings.weight)
+                     if one_hot_positions
+                     else self.position_embeddings(position_ids))
+        emb = self.word_embeddings(input_ids) + positions
         if self.token_type_embeddings is not None:
             emb = emb + self.token_types(token_type_ids)
         if self.LayerNorm is not None:

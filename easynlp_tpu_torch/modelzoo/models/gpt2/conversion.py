@@ -40,7 +40,8 @@ def state_dict_from_jax(params, config):
     def put(key, arr):
         state[key] = torch.tensor(np.asarray(arr, dtype=np.float32))
 
-    put("wte.weight", p["wte"]["embedding"])
+    if "wte" in p:  # the captioning apps' GPT owns no token table
+        put("wte.weight", p["wte"]["embedding"])
     put("wpe.weight", p["wpe"]["embedding"])
     for i in range(config.n_layer):
         base = "h.%d." % i

@@ -108,6 +108,20 @@ def quantize_kv(x):
     return q, scale.float()
 
 
+@torch.no_grad()
+def init_gpt2_weights(module, std, generator):
+    """Truncated-normal(std) projections and embeddings, zero biases, unit
+    LayerNorm scales, drawn from `generator` in module order."""
+    for m in module.modules():
+        if isinstance(m, (Conv1D, nn.Embedding)):
+            truncated_normal_(m.weight, std, generator)
+        if isinstance(m, Conv1D):
+            m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
 class GPT2Attention(nn.Module):
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
@@ -218,7 +232,10 @@ class GPT2Block(nn.Module):
 
 class GPT2Model(nn.Module):
     """Returns {'last_hidden_state': [B,S,E] in `dtype`}, and 'cache' (the
-    same KVCache, advanced by S) when a cache is given."""
+    same KVCache, advanced by S) when a cache is given. `inputs_embeds`
+    [B,S,E] takes the place of wte(input_ids), as in the JAX model (the
+    captioning apps feed a visual prefix; their model sets `wte` to None
+    and owns the token table)."""
 
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
@@ -238,15 +255,18 @@ class GPT2Model(nn.Module):
         self.ln_f = nn.LayerNorm(config.n_embd, eps=config.layer_norm_epsilon,
                                  device=device)
 
-    def forward(self, input_ids, attention_mask=None, position_ids=None,
-                cache=None):
-        b, s = input_ids.shape
+    def forward(self, input_ids=None, attention_mask=None, position_ids=None,
+                cache=None, inputs_embeds=None):
+        tokens = input_ids if inputs_embeds is None else inputs_embeds
+        b, s = tokens.shape[:2]
         if attention_mask is None:
             attention_mask = torch.ones((b, s), dtype=torch.int32,
-                                        device=input_ids.device)
+                                        device=tokens.device)
         if position_ids is None:
             position_ids = (attention_mask.long().cumsum(-1) - 1).clamp(min=0)
-        hidden = self.wte(input_ids) + self.wpe(position_ids)
+        if inputs_embeds is None:
+            inputs_embeds = self.wte(input_ids)
+        hidden = inputs_embeds + self.wpe(position_ids)
         hidden = self.drop(hidden).to(self.dtype)
         kv_mask = (attention_mask if cache is None else cache.mask)
         kv_mask = kv_mask.to(torch.int32)
@@ -272,18 +292,7 @@ class GPT2LMHeadModel(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator):
-        """Truncated-normal(initializer_range) projections and embeddings,
-        zero biases, unit LayerNorm scales, drawn from `generator` in module
-        order."""
-        std = self.config.initializer_range
-        for module in self.modules():
-            if isinstance(module, (Conv1D, nn.Embedding)):
-                truncated_normal_(module.weight, std, generator)
-            if isinstance(module, Conv1D):
-                module.bias.zero_()
-            elif isinstance(module, nn.LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
+        init_gpt2_weights(self, self.config.initializer_range, generator)
 
     def init_cache(self, batch_size, max_length, dtype=None,
                    quantize=False):

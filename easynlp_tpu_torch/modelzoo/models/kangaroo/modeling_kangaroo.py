@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from easynlp_tpu_torch.modelzoo.configuration_utils import PretrainedConfig
+from easynlp_tpu_torch.modelzoo.modeling_utils import one_hot_rows
 from easynlp_tpu_torch.modelzoo.models.bert.conversion import (
     MLM_NAMES,
     mlm_head_from_jax,
@@ -219,7 +220,10 @@ class KangarooModel(nn.Module):
                torch.arange(ss, device=ids.device)[None].expand(ids.shape))
         mask = (sample_mask.reshape(-1, ss) if sample_mask is not None
                 else (ids != c.pad_token_id))
-        emb = self.embeddings(ids, torch.zeros_like(ids), pos)
+        # a few position ids repeat thousands of times here: their rows by
+        # one-hot contraction, for a fixed-order backward (ROADMAP C29)
+        emb = self.embeddings(ids, torch.zeros_like(ids), pos,
+                              one_hot_positions=True)
         kv = mask.to(torch.int32).contiguous()
         for layer in self.encoder.layer[:self.encoder.sample_layers]:
             emb, _ = layer(emb, kv)
@@ -258,16 +262,18 @@ class KangarooModel(nn.Module):
             # row 0 is "no entity": entities_position 0 gathers zeros
             table = torch.cat([pos_emb.new_zeros((b, 1, c.ent_size)),
                                pos_emb], dim=1)
+            # the gathers as one-hot contractions: a fixed-order backward
+            # (torch.gather's CUDA backward adds repeated indices in a
+            # varying order; ROADMAP C29)
             index = entities_position.long()
-            hidden_ent = torch.gather(
-                table, 1, index[..., None].expand(b, s, c.ent_size)).to(dt)
+            hidden_ent = one_hot_rows(index, table).to(dt)
             positive = hidden_ent
             if c.sample_num > 1:
                 neg = enc.linear(cls[:, :, 1:])
                 neg = torch.cat([neg.new_zeros((b, 1) + neg.shape[2:]), neg],
                                 dim=1)
-                negative = torch.gather(neg, 1, index[..., None, None].expand(
-                    b, s, c.sample_num - 1, c.ent_size))
+                negative = one_hot_rows(index, neg.flatten(2)).view(
+                    b, s, c.sample_num - 1, c.ent_size)
         for layer in enc.layer:
             hidden, hidden_ent = layer(hidden, kv_mask, hidden_ent,
                                        ent_kv_mask, ent_mask)

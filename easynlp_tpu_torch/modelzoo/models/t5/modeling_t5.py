@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from easynlp_tpu_torch.modelzoo.modeling_utils import one_hot_rows
 from easynlp_tpu_torch.modelzoo.models.bart.modeling_bart import Seq2SeqCache
 from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
     ACT2FN,
@@ -132,7 +133,9 @@ class T5RelativeBias(nn.Embedding):
         rel = (torch.arange(skv, device=device)[None, :]
                - torch.arange(q_start, q_start + sq, device=device)[:, None])
         buckets = lut[rel + (n - 1)]
-        return F.embedding(buckets, self.weight).permute(2, 0, 1)[None]
+        # the lookup as a one-hot contraction: its backward sums each of
+        # the 32 rows' ~Sq * Skv / 32 terms in a fixed order (C28)
+        return one_hot_rows(buckets, self.weight).permute(2, 0, 1)[None]
 
 
 class T5Attention(nn.Module):

@@ -2,8 +2,8 @@
 
 Counterpart of easynlp_tpu/pipelines/__init__.py, reduced to the tasks the
 port runs: text_classify, text_match, sequence_labeling, vectorization,
-machine_reading_comprehension, sequence_generation and
-open_domain_dialogue. pipeline(model_dir)
+data_augmentation, machine_reading_comprehension, image2text_generation,
+sequence_generation and open_domain_dialogue. pipeline(model_dir)
 infers the task from the directory's train_config.json, and
 pipeline(task, model_path=dir) names it. A task name without model_path
 (its default model) and a registered model name resolve through the model
@@ -27,12 +27,10 @@ SUPPORTED_TASKS = {
         "app": "machine_reading_comprehension"},
     "sequence_generation": {"app": "sequence_generation"},
     "open_domain_dialogue": {"app": "open_domain_dialogue"},
+    "data_augmentation": {"app": "data_augmentation"},
+    "image2text_generation": {"app": "image2text_generation"},
     # the JAX package's other tasks, each with the item that ports it
-    "data_augmentation": {"app": "data_augmentation",
-                          "not_ported": "ROADMAP A9, A11"},
     "text2image_generation": {"app": "text2image_generation",
-                              "not_ported": "ROADMAP A21"},
-    "image2text_generation": {"app": "image2text_generation",
                               "not_ported": "ROADMAP A21"},
 }
 # the PAI-Diffusion family: prompt -> image (ROADMAP A22)

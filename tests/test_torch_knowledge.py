@@ -630,9 +630,28 @@ def test_auto_model_round_trip(tmp_path, model_type, cls_name):
 
 @pytest.mark.parametrize("model_type", ["glm", "bloom", "clip", "cnn"])
 def test_auto_refuses_unported_families(tmp_path, model_type):
-    """bloom, clip and cnn raise naming their ROADMAP item. glm, which
-    raised until slice 11, gives its config, model and tokenizer."""
+    """bloom and cnn raise naming their ROADMAP item. glm and clip, which
+    raised until slices 11 and 12, give their config, model and
+    tokenizer."""
     from easynlp_tpu_torch.modelzoo.models import auto
+    if model_type == "clip":
+        config = _model_dir(tmp_path, model_type)
+        config.update(text_config=dict(TINY, vocab_size=config["vocab_size"]),
+                      vision_config=dict(image_size=16, patch_size=8,
+                                         hidden_size=16, num_hidden_layers=1,
+                                         num_attention_heads=2,
+                                         intermediate_size=32),
+                      projection_dim=8)
+        with open(tmp_path / "config.json", "w") as f:
+            json.dump(config, f)
+        config = auto.AutoConfig.from_pretrained(str(tmp_path))
+        module = auto.AutoModel.from_config(config, device="cpu")
+        assert type(module).__name__ == "CLIPModel"
+        assert module.text_model.config.hidden_size == TINY["hidden_size"]
+        from easynlp_tpu_torch.modelzoo.models.bert import BertTokenizer
+        tok = auto.AutoTokenizer.from_pretrained(str(tmp_path))
+        assert isinstance(tok, BertTokenizer)
+        return
     _model_dir(tmp_path, model_type)
     if model_type == "glm":
         from test_torch_glm import write_glm_sp_model

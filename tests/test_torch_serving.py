@@ -145,6 +145,36 @@ def test_unported_pipeline_routes_raise(ckpt, call, match):
         call(ckpt[0])
 
 
+def test_data_augmentation_pipeline_matches_jax(tmp_path):
+    """pipeline("data_augmentation", model_path=...) (ROADMAP C27, which
+    raised until slice 12): the augmented rows of a tiny masked LM equal
+    JAX's pipeline's, row for row, in f32 (the masks come from each
+    predictor's RandomState(0), the refills from the MLM head's argmax)."""
+    import jax.numpy as jnp
+
+    from easynlp_tpu.pipelines import pipeline as jax_pipeline
+    from easynlp_tpu.utils import global_vars
+    from easynlp_tpu_torch.pipelines import pipeline
+    from tests.test_torch_language_modeling import make_mlm_dir
+    model_dir = str(tmp_path / "mlm")
+    make_mlm_dir(model_dir)
+    rows = make_tsv(str(tmp_path / "aug.tsv"), 12, seed=9)
+    with open(rows) as f:
+        texts = [line.split("\t")[1] for line in f]
+    saved = global_vars._GLOBAL_ARGS
+    try:
+        want = jax_pipeline("data_augmentation", model_path=model_dir,
+                            dtype=jnp.float32, **KW)(texts)
+    finally:
+        global_vars._GLOBAL_ARGS = saved
+    got = pipeline("data_augmentation", model_path=model_dir,
+                   dtype=torch.float32, device="cpu", **KW)(texts)
+    assert len(got) == len(texts) and sorted(got[0]) == sorted(want[0])
+    assert [r["augmented"] for r in got] == [r["augmented"] for r in want]
+    assert [r["predictions"] for r in got] == \
+        [r["predictions"] for r in want]
+
+
 def test_int8_pipeline_matches_jax(ckpt):
     """pipeline(quantize="int8") in f32: some weights quantized (fewer
     bytes), and the same labels as JAX's int8 pipeline with logits within
