@@ -118,12 +118,29 @@ vocabulary) 4 bf16 steps of 16 x (197 + 32) and f32 predict greedy and
 with 4 beams, token for token with plain, and pipeline() on its
 checkpoint; `video2text_generation` f32 predict on 3 frames. Phase 2
 adds their shapes: ViT-B/16's 32 x 197 and ViT-B/32's 32 x 50, the
-captioner's causal 16 x 229, CLIP4Clip's 96 x 197. Phases 14 and 15
+captioner's causal 16 x 229, CLIP4Clip's 96 x 197. Then phase 18,
+latent diffusion at Stable Diffusion v1's widths (CompVis's
+v1-inference.yaml: a 320-channel UNet over 4 levels with attention at 3
+and 8 heads, so head dims 40, 80 and 160; the 128-channel KL VAE;
+PAI-Diffusion's bert-base-chinese text tower; 1.04 B parameters, the
+port's init from --seed written once as a 4.2 GB f32 checkpoint): f32
+`--mode=predict --app_name=latent_diffusion` of 2 prompts, 20 DDIM steps
+at guidance 7.5 with and without the kernels (the PNGs, and through the
+app the final latents of DDIM, PLMS and DPM-Solver++, held to plain), the
+B1 launches at head dim 160 counted; pipeline("chinese-ldm-general")
+byte for byte with the CLI; f32 `--mode=evaluate`; 3 bf16 AdamW steps of
+2 x 512² (every loss and grad norm held to plain's, no checkpoint); then
+at 256²: ESRGAN 4x of a 128² image, a fresh ControlNet's sampler (the
+base's images bit for bit) and 2 ControlNet training steps (the base bit
+for bit), an OLSS fit and sample, edit and a 2-frame stylize_video. Phase
+2 adds the UNet's shapes: level 0's 2 x 4096 self-attention at head dim
+40 and its 4096 x 32 cross-attention, level 1's 2 x 1024 at 80, level
+2's 2 x 256 and the middle block's 2 x 64 at 160. Phases 14 and 15
 also train Kangaroo and T5-base a second time with the kernels and hold
 the two runs to each other bit for bit (ROADMAP C28, C29). Every phase
 raises on failure, so any failure exits non-zero. The last line is {"ok": true, "device": {...}};
 the line before it lists the kernels with their launches in the BART
-training run and phase 11's to 17's runs, errors, times (kernel, plain
+training run and phase 11's to 18's runs, errors, times (kernel, plain
 twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
 the JAX package.
 """
@@ -312,12 +329,17 @@ N_CJK_PIECES = 1000
 MODEL_DIR = "bert-base-chinese-random"
 
 
+_T_START = time.perf_counter()
+
+
 def log(msg):
     if msg.startswith("== phase"):
-        # each phase's header: what this process has written so far
+        # each phase's header: what this process has written so far, and
+        # its seconds since it started
         written = _written_gib()
-        if written is not None:
-            msg += " [written so far %.2f GiB]" % written
+        msg += " [%s%.1f s in]" % (
+            "" if written is None else "written so far %.2f GiB, " % written,
+            time.perf_counter() - _T_START)
     print(msg, flush=True)
 
 
@@ -675,6 +697,8 @@ def phase_kernel(torch, seed):
     # phase 15's shapes: T5's unscaled cross-attention, head dim 32,
     # Pegasus-large's 16 heads
     _check_seq2seq_cases(torch, A, seed, out, timings)
+    # phase 18's: the SD v1 UNet's head dims 40, 80 and 160
+    _check_diffusion_cases(torch, A, seed, out, timings)
     return out, timings
 
 
@@ -783,6 +807,78 @@ def slice11_cases(rng):
         ("glm-verify", "short", 16, 9, 512, 16, 64, np.full(16, 512), True,
          None, False),
     ]
+
+
+def diffusion_cases(rng):
+    """Phase 18's attention shapes (as seq2seq_cases), at Stable Diffusion
+    v1's UNet on 512-pixel images (64 x 64 latents) over 8 heads, batch 2,
+    unmasked: level 0's self-attention, 4096 x 4096 at head dim 40 (B3,
+    B4/B5), and its cross-attention to a 32-token prompt (B1, B2's route
+    2); level 1's self-attention, 1024 x 1024 at head dim 80 (B3, B4/B5);
+    level 2's, 256 x 256 at head dim 160 (B1, B2's route 2); the middle
+    block's, 64 x 64 at head dim 160 (B1, B2's one-block route)."""
+    import numpy as np
+    full = np.full(2, 4096)
+    return [
+        ("sd-l0-self", "flash", 2, 4096, 4096, 8, 40, full, False, None,
+         True),
+        ("sd-l1-self", "flash", 2, 1024, 1024, 8, 80, full // 4, False, None,
+         True),
+        ("sd-l0-cross", "short", 2, 4096, 32, 8, 40, np.full(2, 32), False,
+         None, True),
+        ("sd-l2-self", "short", 2, 256, 256, 8, 160, np.full(2, 256), False,
+         None, True),
+        ("sd-mid", "short", 2, 64, 64, 8, 160, np.full(2, 64), False, None,
+         True),
+    ]
+
+
+def _check_diffusion_cases(torch, A, seed, worst, timings):
+    """diffusion_cases through _check_attention_cases (checks, bf16 times by
+    CUDA events, bounds, SDPA), then one profiler session per shape for the
+    bf16 kernels' device time: the route's tensor-core kernels, forward and
+    backward, and no CUDA-core walk."""
+    import numpy as np
+    case_rng = np.random.RandomState(seed + 9)
+    cases = diffusion_cases(case_rng)
+    _check_attention_cases(torch, A, case_rng, cases, worst, timings, "sd")
+    for name, path, b, sq, skv, h, d, lens, causal, _, _ in cases:
+        q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
+        tq, tk, tv = (t.to(torch.bfloat16) for t in (q, k, v))
+        do = torch.randn_like(tq)
+        if path == "short":
+            o = A.short_attention_fwd(tq, tk, tv, mask, causal)
+            names = ((("fwd", SHORT_FWD_MMA_NAME),)
+                     + _short_bwd_names(torch, A, torch.bfloat16, sq, skv))
+
+            def both():
+                A.short_attention_fwd(tq, tk, tv, mask, causal)
+                A.short_attention_bwd(tq, tk, tv, mask, o, do, causal)
+            refused = (SHORT_FWD_CUDA_CORE_NAME,) + SHORT_BWD_CUDA_CORE_NAMES
+            kernels = ("short_attention_fwd", "short_attention_bwd")
+        else:
+            o, lse = A.flash_attention_fwd(tq, tk, tv, mask, causal)
+            names = (("fwd", FLASH_FWD_MMA_NAME),) + FLASH_BWD_KERNEL_NAMES
+
+            def both():
+                A.flash_attention_fwd(tq, tk, tv, mask, causal)
+                A.flash_attention_bwd(tq, tk, tv, mask, o, lse, do, causal)
+            refused = (FLASH_FWD_CUDA_CORE_NAME,) + CUDA_CORE_BWD_NAMES
+            kernels = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                       "flash_attention_bwd_dq")
+        times = _device_ms(torch, both, want=tuple(n for _, n in names))
+        split = _routed("bf16 %s at %s" % (path, name), times, names,
+                        refused)
+        bwd_dev = sum(ms for part, ms in split.items() if part != "fwd")
+        log("profile sd %-12s bf16 %s: forward %.4f ms, backward %.4f ms "
+            "(%s) per call (device time; no CUDA-core walk in the trace)"
+            % (name, path, split["fwd"], bwd_dev, ", ".join(
+                "%s %.4f" % kv for kv in split.items() if kv[0] != "fwd")))
+        timings[(kernels[0], name, torch.bfloat16)]["dev_ms"] = split["fwd"]
+        for kernel in kernels[1:]:
+            timings[(kernel, name, torch.bfloat16)]["dev_ms"] = bwd_dev
+        del q, k, v, tq, tk, tv, do, o
+        torch.cuda.empty_cache()
 
 
 def _check_seq2seq_cases(torch, A, seed, worst, timings):
@@ -1974,7 +2070,6 @@ def phase_train(torch, seed, workdir, cjk):
     steps = N_ROWS // BATCH
     eval_batches = -(-N_DEV_ROWS // BATCH)
     ckpt_k = os.path.join(workdir, "ckpt_kernel")
-    ckpt_p = os.path.join(workdir, "ckpt_plain")
 
     A.short_attention_fwd.launches = 0
     A.short_attention_bwd.launches = 0
@@ -1991,12 +2086,13 @@ def phase_train(torch, seed, workdir, cjk):
                              "times, want %d / %d"
                              % (fwd, bwd, want_fwd, N_LAYERS * steps))
     runs = {"kernel": [kernel_run], "plain": []}
-    # the rest in turns on the same card: K P P K, the first K above
+    # the rest in turns on the same card: K P P K, the first K above; they
+    # write no checkpoint (the card's machine caps a run's disk writes)
     for use_kernel in (False, False, True):
         before = (A.short_attention_fwd.launches,
                   A.short_attention_bwd.launches)
-        run = run_train(torch, model_dir, train_tsv, dev_tsv,
-                        ckpt_k if use_kernel else ckpt_p, use_kernel, seed)
+        run = run_train(torch, model_dir, train_tsv, dev_tsv, None,
+                        use_kernel, seed)
         runs["kernel" if use_kernel else "plain"].append(run)
         if not use_kernel and (A.short_attention_fwd.launches,
                                A.short_attention_bwd.launches) != before:
@@ -4178,7 +4274,7 @@ def depth_cut(torch, src, dst, layers, key):
     """dst: model directory src cut to its first `layers` layers at full
     width: every file but the weights and optimizer state copied,
     config.json's `key` set to `layers`, and pytorch_model.bin without the
-    parameters of layer `layers` on (`.layers.{i}.`)."""
+    parameters of layer `layers` on (`.layers.{i}.`, BERT's `.layer.{i}.`)."""
     import re
     import shutil
     os.makedirs(dst, exist_ok=True)
@@ -4193,7 +4289,7 @@ def depth_cut(torch, src, dst, layers, key):
         json.dump(config, f, indent=2)
     state = torch.load(os.path.join(src, "pytorch_model.bin"),
                        weights_only=True)
-    deep = re.compile(r"\.layers\.(\d+)\.")
+    deep = re.compile(r"\.layers?\.(\d+)\.")
     torch.save({k: v for k, v in state.items()
                 if not deep.search(k) or int(deep.search(k).group(1))
                 < layers}, os.path.join(dst, "pytorch_model.bin"))
@@ -5139,10 +5235,12 @@ def phase_encoder_apps2(torch, seed, workdir, cjk):
 
 REMAT = ("none", "full", "selective", "names")
 EMA_DECAY = 0.999
-# a save every 4 of the 8 steps, so 3 saves a run: each writes 1.6 GB
-# (weights, EMA, AdamW state), and the card's machine allows 45 GiB of
-# disk writes to the whole script
+# a save every 4 of the 8 steps, so 3 saves a run, of the first
+# EMA_LAYERS layers of bert-base-chinese: each writes 0.5 GB (weights, EMA,
+# AdamW state; 1.6 GB at 12 layers until slice 13), and the card's machine
+# allows 45 GiB of disk writes to the whole script
 EMA_SAVE_STEPS = 4
+EMA_LAYERS = 2
 KD_UDP = "enable_distillation=true temperature=2 alpha=0.5"
 PET_PATTERN = {"pattern": "{sent1},{mask}", "label_desc": "bad,good"}
 METAKD_DOMAINS = ("books", "dvd", "electronics", "kitchen")
@@ -5292,11 +5390,13 @@ def phase_trainer_options(torch, seed, workdir, bart_run):
                              "and backward's peak memory: %s" % peaks)
     part_s["remat"] = time.perf_counter() - t0
 
-    # 2. --ema_decay with --async_save against synchronous saves; no
-    # evaluation, so that every save is made (one after every
-    # EMA_SAVE_STEPS steps, and the final one)
+    # 2. --ema_decay with --async_save against synchronous saves, on the
+    # first EMA_LAYERS layers; no evaluation, so that every save is made
+    # (one after every EMA_SAVE_STEPS steps, and the final one)
     t0 = time.perf_counter()
     saves = steps // EMA_SAVE_STEPS + 1
+    ema_dir = os.path.join(workdir, "bert-ema-cut")
+    depth_cut(torch, model_dir, ema_dir, EMA_LAYERS, "num_hidden_layers")
     ema = {}
     for mode in ("sync", "async"):
         ckpt = os.path.join(workdir, "ckpt_ema_" + mode)
@@ -5307,10 +5407,10 @@ def phase_trainer_options(torch, seed, workdir, bart_run):
             "text_classify --ema_decay --save_checkpoint_steps=%d %s "
             "(%d steps, %d saves)" % (EMA_SAVE_STEPS, mode, steps, saves),
             lambda c=ckpt, e=extra: run_train(
-                torch, model_dir, train_tsv, None, c, True, seed,
+                torch, ema_dir, train_tsv, None, c, True, seed,
                 common=_common_argv(True) + e),
-            {"short_attention_fwd": N_LAYERS * steps,
-             "short_attention_bwd": N_LAYERS * steps})
+            {"short_attention_fwd": EMA_LAYERS * steps,
+             "short_attention_bwd": EMA_LAYERS * steps})
         _check_train_run("ema " + mode, ema[mode], steps)
         with open(os.path.join(ckpt, "meta.json")) as f:
             meta = json.load(f)
@@ -6767,10 +6867,11 @@ GLM_SEQ_LEN, GLM_TARGET, GLM_BATCH, GLM_STEPS = 512, 64, 8, 8
 GLM_SRC_LEN = GLM_SEQ_LEN - GLM_TARGET - 3     # src, gMASK, sop, tgt, eop
 GLM_UDP = "enable_glm=true src_len=%d tgt_len=%d" % (GLM_SRC_LEN, GLM_TARGET)
 GLM_LM_STEPS, GLM_DEV_ROWS = 4, 16
-# GLM's evaluate, predict and block-infilling pretraining run the first 6
-# of the 24 layers at full width (the trained checkpoint cut by
-# depth_cut): the 8-step fine-tuning above measures the full depth, and
-# these paths differ from it in their inputs, not in their layers
+# GLM runs the first 6 of glm-large's 24 layers at full width: its paths
+# differ from the other decoders' in their attention masks and inputs, not
+# in their depth (fine-tuning ran all 24 layers until slice 13, whose
+# latent diffusion phase needed the time and the disk writes: 131.6 ms a
+# step at 18.4 GiB, PERF.md)
 GLM_CUT_LAYERS = 6
 GLM_NEW_TOKENS = 32
 # predict's --sequence_length: the prompt, gMASK and sop, the new tokens
@@ -6863,11 +6964,10 @@ def phase_slice11(torch, seed, workdir):
     speculative device decoder, `/generate` with serve_quantize=int8,
     pipeline(quantize="int8") on phase 4's text_classify checkpoint, BART
     speculative predict on phase 6's checkpoint, and GLM (glm-large
-    widths) blank-infilling train, evaluate and predict (greedy, 4 beams,
-    speculative) and block-infilling pretraining. Returns the kernel runs'
-    launches by wrapper."""
-    import shutil
-
+    widths, the first GLM_CUT_LAYERS layers) blank-infilling train,
+    evaluate and predict (greedy, 4 beams, speculative) and
+    block-infilling pretraining. Returns the kernel runs' launches by
+    wrapper."""
     import numpy as np
     from easynlp_tpu_torch.appzoo.sequence_generation.model import (
         SequenceGeneration)
@@ -7171,8 +7271,9 @@ def phase_slice11(torch, seed, workdir):
     rng = random.Random(seed + 16)
     t0 = time.perf_counter()
     glm_dir = os.path.join(workdir, "glm-large-random")
-    n_params = make_s2s_model_dir(torch, glm_dir, GLM_LARGE, seed, {
-        "spiece.model": sp_model_bytes(t5_sp_pieces(rng, GLM_SP_PIECES))})
+    n_params = make_s2s_model_dir(
+        torch, glm_dir, dict(GLM_LARGE, num_layers=GLM_CUT_LAYERS), seed,
+        {"spiece.model": sp_model_bytes(t5_sp_pieces(rng, GLM_SP_PIECES))})
     tok = GLMTokenizer.from_pretrained(glm_dir)
     if tok.vocab_size != GLM_LARGE["vocab_size"]:
         raise AssertionError("the GLM tokenizer holds %d ids, want %d"
@@ -7196,7 +7297,7 @@ def phase_slice11(torch, seed, workdir):
         "%.3f s" % (n_params, GLM_SP_PIECES, tok.gmask_token_id,
                     tok.sop_token_id, tok.eop_token_id, seed,
                     time.perf_counter() - t0))
-    layers = GLM_LARGE["num_layers"]
+    layers = GLM_CUT_LAYERS
 
     def glm_argv(app, use_kernel, dtype="bfloat16", udp=GLM_UDP,
                  seq_len=GLM_SEQ_LEN):
@@ -7225,14 +7326,6 @@ def phase_slice11(torch, seed, workdir):
             want_any=False) if use_kernel else plain("GLM train", run))
         _check_train_run("GLM %s" % use_kernel, runs[use_kernel], GLM_STEPS)
     _s2s_compare_training("glm", runs)
-    # evaluate, predict and pretraining at GLM_CUT_LAYERS layers
-    cut_ckpt = os.path.join(workdir, "glm_ckpt_cut")
-    depth_cut(torch, glm_ckpt, cut_ckpt, GLM_CUT_LAYERS, "num_layers")
-    shutil.rmtree(glm_ckpt)
-    glm_ckpt = cut_ckpt
-    cut_dir = os.path.join(workdir, "glm-large-cut")
-    depth_cut(torch, glm_dir, cut_dir, GLM_CUT_LAYERS, "num_layers")
-    layers = GLM_CUT_LAYERS
     for use_kernel in (True, False):
         argv = ["--mode=evaluate", "--tables=" + glm_tsv["dev"],
                 "--checkpoint_dir=" + glm_ckpt] + glm_argv(
@@ -7289,7 +7382,7 @@ def phase_slice11(torch, seed, workdir):
     lm_runs = {}
     for use_kernel in (True, False):
         run = (lambda: run_train(
-            torch, cut_dir, glm_tsv["lm_train"], None,
+            torch, glm_dir, glm_tsv["lm_train"], None,
             lm_ckpt if use_kernel else None, use_kernel, seed,
             common=glm_argv("language_modeling", use_kernel,
                             udp="enable_glm=true")))
@@ -7826,6 +7919,509 @@ def phase_multimodal(torch, seed, workdir, cjk):
 
 
 
+SD_V1 = {  # CompVis configs/stable-diffusion/v1-inference.yaml as an
+    # LDMConfig (attention_resolutions [4, 2, 1]: levels 0-2), with
+    # PAI-Diffusion's text tower: bert-base-chinese's widths, dropout 0
+    "model_type": "latent_diffusion", "image_size": 512,
+    "latent_channels": 4, "model_channels": 320,
+    "channel_mult": [1, 2, 4, 4], "num_res_blocks": 2,
+    "attention_levels": [0, 1, 2], "num_heads": 8, "context_dim": 768,
+    "vae_channels": 128, "vae_channel_mult": [1, 2, 4, 4],
+    "vae_num_res_blocks": 2, "num_train_timesteps": 1000,
+    "scale_factor": 0.18215, "loss_type": "l2",
+    "text_config": dict(BERT_BASE_CHINESE, num_hidden_layers=12,
+                        hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0),
+}
+SD_DIR = "sd-v1-random"
+SD_TEXT_LEN = 32              # --sequence_length: the prompts' tokens
+SD_PROMPTS, SD_STEPS, SD_GUIDANCE = 2, 20, 7.5
+SD_FAST_STEPS = 10            # PLMS, DPM-Solver++ and the extras
+SD_TRAIN_BATCH, SD_TRAIN_STEPS, SD_DEV_ROWS = 2, 3, 4
+SD_EXTRA_SIZE = 256           # the extras' images: 32 x 32 latents
+SD_ESRGAN_INPUT = 128         # ESRGAN 4x: 128² -> 512²
+# f32, kernel run against plain run: each f32 attention kernel is within
+# 2e-5 of its twin and the UNet call within 1e-5 of the output's scale
+# (TF32 off); 20 guided steps of DDIM, each dividing by sqrt(acp) >= 0.068
+# at the first step, may grow that to ~1e-4. Bound 1e-3 of the largest
+# |latent|; the PNGs (uint8) within 2 levels.
+SD_LATENT_RTOL = 1e-3
+SD_PNG_LEVELS = 2
+# f32 evaluate, kernel against plain: the mean of per-row eps losses of
+# ~1, each within ~1e-5 relative: bound 1e-4 relative
+SD_EVAL_RTOL = 1e-4
+# bf16 training, kernel against plain, every step: phase 17's bounds
+SD_LOSS_ATOL = 1e-2
+SD_GNORM_RTOL = 1.5e-2
+
+
+def make_sd_dir(torch, path, vocab_path, seed):
+    """config.json (SD_V1), vocab.txt and the port's init of LDMModule from
+    `seed` on the card, under CompVis's names, as pytorch_model.bin.
+    Returns (parameter count, seconds to write the file, its bytes)."""
+    import shutil
+    from easynlp_tpu_torch.appzoo.latent_diffusion.model import (
+        LDMConfig, LDMModule)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(SD_V1, f, indent=2)
+    shutil.copy(vocab_path, os.path.join(path, "vocab.txt"))
+    module = LDMModule(LDMConfig.from_pretrained(path), device="cuda")
+    module.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    n = sum(p.numel() for p in module.parameters())
+    t0 = time.perf_counter()
+    weights = os.path.join(path, "pytorch_model.bin")
+    torch.save(module.state_dict(), weights)
+    seconds = time.perf_counter() - t0
+    del module
+    torch.cuda.empty_cache()
+    return n, seconds, os.path.getsize(weights)
+
+
+def make_sd_rows(workdir, cjk, seed):
+    """The phase's tables from the seed: training rows (a caption and a
+    base64 PNG of 512-640 pixels a side), evaluation rows and prompts."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 18)
+    common = cjk[:3000]
+
+    def caption():
+        return "".join(rng.choice(common, rng.randint(8, 24)))
+    paths = {}
+    for name, n in (("sd_train", SD_TRAIN_BATCH * SD_TRAIN_STEPS),
+                    ("sd_dev", SD_DEV_ROWS)):
+        paths[name] = os.path.join(workdir, name + ".tsv")
+        with open(paths[name], "w", encoding="utf-8") as f:
+            for _ in range(n):
+                size = (int(rng.randint(512, 641)), int(rng.randint(512, 641)))
+                f.write("%s\t%s\n" % (caption(), _png_b64(rng, size)))
+    # ControlNet's 2 training rows: the first two training rows
+    paths["sd_cn"] = os.path.join(workdir, "sd_cn.tsv")
+    with open(paths["sd_train"], encoding="utf-8") as f, \
+            open(paths["sd_cn"], "w", encoding="utf-8") as g:
+        g.writelines(f.readlines()[:2])
+    paths["sd_prompts"] = os.path.join(workdir, "sd_prompts.tsv")
+    with open(paths["sd_prompts"], "w", encoding="utf-8") as f:
+        for _ in range(SD_PROMPTS):
+            f.write("%s\n" % caption())
+    return paths
+
+
+def _sd_argv(use_kernel, dtype="float32", udp="", batch=SD_PROMPTS,
+             schema="text:str:1,image:str:1", image_size=None):
+    image_size = image_size or SD_V1["image_size"]
+    return ["--app_name=latent_diffusion", "--device=cuda",
+            "--dtype=" + dtype, "--sequence_length=%d" % SD_TEXT_LEN,
+            "--micro_batch_size=%d" % batch, "--input_schema=" + schema,
+            "--first_sequence=text", "--second_sequence=image",
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false"),
+            "--user_defined_parameters=image_size=%d %s" % (image_size, udp)]
+
+
+class _HeadDimTally:
+    """While entered, counts the short forward's kernel launches by head
+    dim: a shim in place of A.short_attention_fwd adds each call's change of
+    the wrapper's own count to the tally and to its `launches` (which the
+    launch counter reads and zeroes meanwhile); the wrapper itself is
+    restored on exit."""
+
+    def __init__(self, A):
+        import collections
+        self.A, self.by_dim = A, collections.Counter()
+
+    def __enter__(self):
+        orig = self.orig = self.A.short_attention_fwd
+        by_dim = self.by_dim
+
+        def shim(q, *args, **kw):
+            # the wrapper adds to the count of whatever its module's name
+            # holds (this shim); a stand-in counting itself adds to its own
+            s0, o0 = shim.launches, orig.launches
+            out = orig(q, *args, **kw)
+            shim.launches += orig.launches - o0
+            by_dim[q.shape[-1]] += shim.launches - s0
+            return out
+        shim.launches = orig.launches
+        self.A.short_attention_fwd = shim
+        return self.by_dim
+
+    def __exit__(self, *exc):
+        self.A.short_attention_fwd = self.orig
+
+
+def _png_array(b64):
+    import base64
+    import io as _io
+
+    import numpy as np
+    from PIL import Image
+    return np.asarray(Image.open(_io.BytesIO(base64.b64decode(b64))),
+                      np.int16)
+
+
+def phase_diffusion(torch, seed, workdir, cjk):
+    """Phase 18: latent diffusion at Stable Diffusion v1 widths (1.04 B
+    parameters: the 860 M UNet, the 84 M KL VAE, PAI-Diffusion's 102 M
+    bert-base-chinese text tower), the port's init from --seed written
+    once as a 4.2 GB f32 pytorch_model.bin: f32 --mode=predict of 2
+    prompts, 20 DDIM steps at guidance 7.5 (the PNGs, and the final latents
+    through the app, kernels against plain), PLMS and DPM-Solver++ at 10
+    steps, pipeline("chinese-ldm-general") against the CLI's PNGs, f32
+    --mode=evaluate, 3 bf16 AdamW steps of 2 x 512² (no checkpoint),
+    kernels against plain each; then at 256² (32 x 32 latents, which still
+    run every kernel): ESRGAN 4x of a 128² image (RRDBNet, 23 blocks), a
+    fresh ControlNet's sampler (the base's images bit for bit) and 2
+    ControlNet training steps through the CLI (the base bit for bit), an
+    OLSS fit and sample, edit and a 2-frame stylize_video. Returns the
+    kernel runs' launches by wrapper."""
+    import copy
+
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.latent_diffusion.controlnet_app import (
+        ControlNetApplication)
+    from easynlp_tpu_torch.appzoo.latent_diffusion.model import (
+        LatentDiffusion, upscale)
+    from easynlp_tpu_torch.data.image_utils import (decode_base64_image,
+                                                    preprocess_image_pm1)
+    from easynlp_tpu_torch.modelzoo.models.latent_diffusion import olss
+    from easynlp_tpu_torch.modelzoo.models.latent_diffusion.controlnet import (
+        edge_hint)
+    from easynlp_tpu_torch.modelzoo.models.latent_diffusion.esrgan import (
+        RRDBNet)
+    from easynlp_tpu_torch.modelzoo.models.auto import tokenizer_for
+    from easynlp_tpu_torch.ops import attention as A
+    from easynlp_tpu_torch.pipelines import pipeline
+    log("== phase 18: latent diffusion at Stable Diffusion v1 widths")
+    t_phase = time.perf_counter()
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+    main_path, plain, total = _launch_counter(A, wrappers)
+    seconds = {}
+    t0 = time.perf_counter()
+    sd_dir = os.path.join(workdir, SD_DIR)
+    written0 = _written_gib()
+    n_params, save_s, nbytes = make_sd_dir(
+        torch, sd_dir, os.path.join(workdir, MODEL_DIR, "vocab.txt"), seed)
+    paths = make_sd_rows(workdir, cjk, seed)
+    written1 = _written_gib()
+    log("SD v1 directory: %d parameters, pytorch_model.bin %.3f GB written "
+        "in %.3f s (%s more passed to write(2)); %d training, %d evaluation "
+        "rows and %d prompts made from seed %d; %.3f s"
+        % (n_params, nbytes / 1e9, save_s, "not measured" if written0 is None
+           else "%.2f GiB" % (written1 - written0),
+           SD_TRAIN_BATCH * SD_TRAIN_STEPS, SD_DEV_ROWS, SD_PROMPTS, seed,
+           time.perf_counter() - t0))
+    seconds["directory"] = time.perf_counter() - t0
+    # launches a UNet call: 16 cross-attentions (32 keys) and the
+    # self-attentions of level 2 (5, 256 keys) and the middle block (64
+    # keys) on B1; the self-attentions of levels 0 and 1 (4096 and 1024
+    # keys) on B3; the text tower's 12 layers on B1
+    unet_b1, unet_b1_top, unet_b3 = 22, 12, 10
+    text_b1 = SD_V1["text_config"]["num_hidden_layers"]
+    # level 2's and the middle block's head dim: 1280 / 8 = 160
+    d_top = SD_V1["model_channels"] * SD_V1["channel_mult"][2] \
+        // SD_V1["num_heads"]
+
+    def cli(tag, argv, use_kernel, want=None):
+        run = (lambda: _cli(torch, argv))
+        if use_kernel:
+            return main_path(tag, run, want)
+        A.set_kernel_override(False)
+        try:
+            return plain(tag, run)
+        finally:
+            A.set_kernel_override(None)
+
+    # -- --mode=predict, f32, with the kernels --------------------------
+    t0 = time.perf_counter()
+    out = os.path.join(workdir, "sd_pred.tsv")
+    argv = ["--mode=predict", "--tables=" + paths["sd_prompts"],
+            "--outputs=" + out, "--checkpoint_dir=" + sd_dir,
+            "--output_schema=gen_imgbase64", "--append_cols=text"] + \
+        _sd_argv(True, schema="text:str:1",
+                 udp="num_steps=%d guidance_scale=%g seed=0"
+                 % (SD_STEPS, SD_GUIDANCE))
+    calls = 2 * SD_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    with _HeadDimTally(A) as by_dim:
+        _, sec = cli("sd predict (f32)", argv, True, {
+            "short_attention_fwd": calls * unet_b1 + 2 * text_b1,
+            "short_attention_bwd": 0,
+            "flash_attention_fwd": calls * unet_b3,
+            "flash_attention_bwd": 0})
+    with open(out, encoding="utf-8") as f:
+        pngs = [line.rstrip("\n").split("\t")[0] for line in f]
+    shapes = {_png_array(b).shape for b in pngs}
+    log("sd predict %d prompts, %d DDIM steps, guidance %g, f32: %.3f s "
+        "with load; PNGs %s; peak device memory %.3f GiB; B1 launches by "
+        "head dim %s" % (SD_PROMPTS, SD_STEPS, SD_GUIDANCE, sec,
+                         sorted(shapes),
+                         torch.cuda.max_memory_allocated() / 2 ** 30,
+                         dict(sorted(by_dim.items()))))
+    if shapes != {(SD_V1["image_size"], SD_V1["image_size"], 3)} \
+            or len(pngs) != SD_PROMPTS:
+        raise AssertionError("sd predict: PNGs %s" % sorted(shapes))
+    if by_dim[d_top] != calls * unet_b1_top:
+        raise AssertionError("sd predict: %d B1 launches at head dim %d, "
+                             "want %d" % (by_dim[d_top], d_top,
+                                          calls * unet_b1_top))
+    seconds["predict"] = time.perf_counter() - t0
+
+    # -- the final latents through the app, kernels against plain (the
+    # switch --use_flash_attention=false sets): DDIM as the CLI ran it (its
+    # kernel latents decode to the CLI's PNGs byte for byte), PLMS and
+    # DPM-Solver++
+    t0 = time.perf_counter()
+    app = LatentDiffusion.from_pretrained(sd_dir, device="cuda")
+    tok = tokenizer_for(sd_dir)
+    with open(paths["sd_prompts"], encoding="utf-8") as f:
+        prompts = [line.rstrip("\n") for line in f]
+    enc = tok(prompts, max_length=SD_TEXT_LEN)
+    neg = tok([""] * len(prompts), max_length=SD_TEXT_LEN)["input_ids"]
+    for method, steps in (("ddim", SD_STEPS), ("plms", SD_FAST_STEPS),
+                          ("dpm++", SD_FAST_STEPS)):
+        latents, ms = {}, {}
+        for use_kernel in (True, False):
+            A.set_kernel_override(None if use_kernel else False)
+            gen = torch.Generator().manual_seed(0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run = (lambda: app.sample(
+                enc["input_ids"], enc["attention_mask"], num_steps=steps,
+                guidance_scale=SD_GUIDANCE, generator=gen,
+                negative_input_ids=neg, method=method, decode=False))
+            latents[use_kernel] = (main_path("sd %s latents" % method, run)
+                                   if use_kernel else plain(method, run))
+            torch.cuda.synchronize()
+            ms[use_kernel] = 1e3 * (time.perf_counter() - t1)
+        A.set_kernel_override(None)
+        scale = latents[False].abs().max().item()
+        d = (latents[True] - latents[False]).abs().max().item()
+        calls = 2 * (steps + (method == "plms"))  # PLMS's first step: 2
+        log("sd %-5s %d steps, f32 final latents [%s]: kernel %.1f ms, "
+            "plain %.1f ms (%.1f / %.1f ms a guided UNet call); max |d| "
+            "%.3e of max |latent| %.3f (bound %.0e relative); finite %s"
+            % (method, steps, ", ".join(map(str, latents[True].shape)),
+               ms[True], ms[False], ms[True] / calls, ms[False] / calls, d,
+               scale, SD_LATENT_RTOL,
+               bool(torch.isfinite(latents[True]).all())))
+        if not torch.isfinite(latents[True]).all() \
+                or d > SD_LATENT_RTOL * scale:
+            raise AssertionError("sd %s: kernel and plain latents differ by "
+                                 "%.3e" % (method, d))
+        if method == "ddim":
+            from easynlp_tpu_torch.data.image_utils import (
+                encode_image_base64_png)
+            decoded = {k: [encode_image_base64_png(x) for x in
+                           app.decode(v).float().cpu().numpy()]
+                       for k, v in latents.items()}
+            d_png = max(int(np.abs(_png_array(a) - _png_array(b)).max())
+                        for a, b in zip(decoded[True], decoded[False]))
+            log("sd ddim decoded: the kernel run's PNGs %s the CLI's; plain "
+                "PNGs within %d of 255 of them (bound %d)"
+                % ("are" if decoded[True] == pngs else "DIFFER from", d_png,
+                   SD_PNG_LEVELS))
+            if decoded[True] != pngs or d_png > SD_PNG_LEVELS:
+                raise AssertionError("sd ddim: the app's PNGs differ from "
+                                     "the CLI's or plain's")
+    seconds["latents"] = time.perf_counter() - t0
+
+    # -- pipeline(): the CLI's PNGs, byte for byte -------------------------
+    t0 = time.perf_counter()
+    pipe = main_path("pipeline(chinese-ldm-general) (f32)", lambda: pipeline(
+        "chinese-ldm-general", model_path=sd_dir, dtype=torch.float32,
+        sequence_length=SD_TEXT_LEN), want_any=False)
+    pipe._diffusion.num_steps = SD_STEPS
+    rows = main_path("pipeline(chinese-ldm-general) call", lambda: pipe(
+        prompts))
+    same = [r["image_base64"] for r in rows] == pngs
+    log("pipeline(\"chinese-ldm-general\") on the directory, %d steps, seed "
+        "0: %s the CLI's %d PNGs" % (SD_STEPS, "byte for byte" if same
+                                     else "DIFFERENT from", len(rows)))
+    if not same:
+        raise AssertionError("pipeline(chinese-ldm-general) differs from "
+                             "--mode=predict")
+    del pipe, rows
+    torch.cuda.empty_cache()
+    seconds["pipeline"] = time.perf_counter() - t0
+
+    # -- --mode=evaluate, f32 ----------------------------------------------
+    t0 = time.perf_counter()
+    evals = {}
+    for use_kernel in (True, False):
+        argv = ["--mode=evaluate", "--tables=" + paths["sd_dev"],
+                "--checkpoint_dir=" + sd_dir] + _sd_argv(use_kernel)
+        batches = SD_DEV_ROWS // SD_PROMPTS
+        evals[use_kernel], sec = cli("sd evaluate (f32)", argv, use_kernel, {
+            "short_attention_fwd": batches * (unet_b1 + text_b1),
+            "short_attention_bwd": 0,
+            "flash_attention_fwd": batches * unet_b3,
+            "flash_attention_bwd": 0})
+        log("sd evaluate %-6s %d rows (f32): %s in %.3f s with load" % (
+            "kernel" if use_kernel else "plain", SD_DEV_ROWS, ", ".join(
+                "%s %.6f" % kv for kv in evals[use_kernel]), sec))
+    ek, ep = evals[True][0][1], evals[False][0][1]
+    log("sd evaluate kernel vs plain: |d eval_loss| %.3e (bound %.0e "
+        "relative)" % (abs(ek - ep), SD_EVAL_RTOL))
+    if not np.isfinite(ek) or abs(ek - ep) > SD_EVAL_RTOL * abs(ep):
+        raise AssertionError("sd evaluate: kernel %.6f, plain %.6f"
+                             % (ek, ep))
+    seconds["evaluate"] = time.perf_counter() - t0
+
+    # -- --mode=train, bf16 AdamW ------------------------------------------
+    t0 = time.perf_counter()
+    per_step = {"short_attention_fwd": unet_b1 + text_b1,
+                "short_attention_bwd": unet_b1 + text_b1,
+                "flash_attention_fwd": unet_b3,
+                "flash_attention_bwd": unet_b3}
+    runs = {True: main_path("sd train (bf16)", lambda: run_train(
+        torch, sd_dir, paths["sd_train"], None, None, True, seed,
+        common=_sd_argv(True, "bfloat16", batch=SD_TRAIN_BATCH)),
+        {w: n * SD_TRAIN_STEPS for w, n in per_step.items()})}
+    A.set_kernel_override(False)
+    runs[False] = plain("sd train", lambda: run_train(
+        torch, sd_dir, paths["sd_train"], None, None, False, seed,
+        common=_sd_argv(False, "bfloat16", batch=SD_TRAIN_BATCH)))
+    A.set_kernel_override(None)
+    for use_kernel, run in runs.items():
+        _check_train_run("sd %s" % use_kernel, run, SD_TRAIN_STEPS)
+        ms = [1e3 * r["seconds"] for r in run["records"]]
+        log("sd train %-6s %d steps of %d x %d²: step ms %s (CUDA events), "
+            "peak device memory %.3f GiB above the run's start, run %.3f s "
+            "with load; losses %s; grad norms %s; launches a step: %s"
+            % ("kernel" if use_kernel else "plain", SD_TRAIN_STEPS,
+               SD_TRAIN_BATCH, SD_V1["image_size"],
+               " ".join("%.3f" % m for m in ms), run["peak_gib"],
+               run["total_s"],
+               " ".join("%.5f" % r["loss"] for r in run["records"]),
+               " ".join("%.4f" % r["grad_norm"] for r in run["records"]),
+               per_step if use_kernel else 0))
+    rec_k, rec_p = runs[True]["records"], runs[False]["records"]
+    d_loss = max(abs(a["loss"] - b["loss"]) for a, b in zip(rec_k, rec_p))
+    d_gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                  for a, b in zip(rec_k, rec_p))
+    log("sd kernel vs plain training: max |d loss| per step %.3e (bound "
+        "%.1e), max relative grad-norm gap %.3e (bound %.1e)"
+        % (d_loss, SD_LOSS_ATOL, d_gnorm, SD_GNORM_RTOL))
+    if d_loss > SD_LOSS_ATOL or d_gnorm > SD_GNORM_RTOL:
+        raise AssertionError("sd: kernel and plain training disagree "
+                             "(loss %.3e, grad norm %.3e)" % (d_loss,
+                                                              d_gnorm))
+    seconds["train"] = time.perf_counter() - t0
+
+    # -- the extras at 256² ------------------------------------------------
+    t0 = time.perf_counter()
+    small = copy.copy(app.config)
+    small.image_size = SD_EXTRA_SIZE
+    app.config = small
+    gen = torch.Generator().manual_seed(1)
+    # ESRGAN 4x (RRDBNet, 23 blocks, random weights) on a 128² image
+    net = RRDBNet(device="cuda")
+    net.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    image = torch.rand((1, SD_ESRGAN_INPUT, SD_ESRGAN_INPUT, 3),
+                       generator=gen).cuda() * 2 - 1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    big = upscale(net.eval(), image)
+    torch.cuda.synchronize()
+    log("ESRGAN 4x (RRDBNet nb 23, f32) %s -> %s in %.3f s, finite %s"
+        % (list(image.shape), list(big.shape), time.perf_counter() - t1,
+           bool(torch.isfinite(big).all())))
+    if big.shape != (1, 4 * SD_ESRGAN_INPUT, 4 * SD_ESRGAN_INPUT, 3) \
+            or not torch.isfinite(big).all():
+        raise AssertionError("ESRGAN: %s" % list(big.shape))
+    del net, big
+    # a fresh ControlNet: its sampler gives the base's images bit for bit
+    hint_img = np.stack([preprocess_image_pm1(decode_base64_image(
+        line.split("\t")[1]), SD_EXTRA_SIZE) for line in open(
+            paths["sd_dev"], encoding="utf-8").read().splitlines()[:2]])
+    control = ControlNetApplication(app, seed=seed)
+    x_t = torch.randn(app.latent_shape(2), generator=gen).cuda()
+    base_images = main_path(
+        "sd base sample %d² (f32)" % SD_EXTRA_SIZE, lambda: app.sample(
+            enc["input_ids"], enc["attention_mask"], num_steps=SD_FAST_STEPS,
+            guidance_scale=SD_GUIDANCE, negative_input_ids=neg, x_init=x_t))
+    hint = (edge_hint(torch.from_numpy(hint_img)) + 0.0).cuda()
+    cn_images = main_path(
+        "sd ControlNet sample %d² (f32)" % SD_EXTRA_SIZE,
+        lambda: control.sample(enc["input_ids"], enc["attention_mask"], neg,
+                               hint, num_steps=SD_FAST_STEPS,
+                               guidance_scale=SD_GUIDANCE, x_init=x_t))
+    same = torch.equal(base_images, cn_images)
+    log("ControlNet (%d parameters, fresh: zero convs) sampler, %d steps at "
+        "%d²: the base's images %s" % (
+            sum(p.numel() for p in control.controlnet.parameters()),
+            SD_FAST_STEPS, SD_EXTRA_SIZE,
+            "bit for bit" if same else "DIFFERENT"))
+    if not same:
+        raise AssertionError("a fresh ControlNet changed the base's images")
+    del control, cn_images
+    # an OLSS fit (a 20-step DDIM teacher, 5 student steps) and its sampler
+    t1 = time.perf_counter()
+    fitted = main_path("sd OLSS fit (f32)", lambda: app.fit_olss(
+        enc["input_ids"], enc["attention_mask"], neg, teacher_steps=SD_STEPS,
+        student_steps=5, guidance_scale=SD_GUIDANCE, generator=gen))
+    olss.save_olss(os.path.join(workdir, "olss.npz"), *fitted)
+    fitted = olss.load_olss(os.path.join(workdir, "olss.npz"))
+    olss_images = main_path("sd OLSS sample (f32)", lambda:
+                            app.make_olss_sampler(fitted, SD_GUIDANCE)(
+                                enc["input_ids"], enc["attention_mask"],
+                                neg, gen))
+    log("OLSS: timesteps %s, wx %s; student images %s finite %s; %.3f s"
+        % (list(fitted[0]), np.round(fitted[1], 4).tolist(),
+           list(olss_images.shape), bool(torch.isfinite(olss_images).all()),
+           time.perf_counter() - t1))
+    # FreePromptEditing and a 2-frame cross-frame stylization
+    t1 = time.perf_counter()
+    edited = main_path("sd edit (f32)", lambda: app.edit(
+        enc["input_ids"][:1], enc["input_ids"][1:], num_steps=SD_FAST_STEPS,
+        guidance_scale=SD_GUIDANCE, generator=gen))
+    frames = torch.from_numpy(hint_img)
+    styled = main_path("sd stylize_video (f32)", lambda: app.stylize_video(
+        frames, enc["input_ids"][:1], num_steps=SD_FAST_STEPS,
+        strength=0.7, guidance_scale=SD_GUIDANCE, generator=gen))
+    log("edit: %s, stylize_video (2 frames, strength 0.7): %s, finite %s; "
+        "%.3f s" % (list(edited.shape), list(styled.shape), bool(
+            torch.isfinite(edited).all() and torch.isfinite(styled).all()),
+            time.perf_counter() - t1))
+    for name, images in (("OLSS", olss_images), ("edit", edited),
+                         ("stylize_video", styled)):
+        if not torch.isfinite(images).all() or images.shape[1:] != (
+                SD_EXTRA_SIZE, SD_EXTRA_SIZE, 3):
+            raise AssertionError("%s: images %s" % (name,
+                                                    list(images.shape)))
+    # 2 ControlNet training steps through the CLI, base frozen
+    base_state = {k: v for k, v in app.module.state_dict().items()}
+    trainer, sec = main_path("sd ControlNet train (bf16)", lambda: _cli(
+        torch, ["--mode=train", "--tables=" + paths["sd_cn"],
+                "--pretrained_model_name_or_path=" + sd_dir,
+                "--epoch_num=1", "--learning_rate=%g" % LEARNING_RATE,
+                "--logging_steps=1", "--random_seed=%d" % seed]
+        + _sd_argv(True, "bfloat16", "enable_controlnet=true", batch=1,
+                   image_size=SD_EXTRA_SIZE)))
+    frozen = all(torch.equal(base_state[k], v.to(base_state[k].device))
+                 for k, v in trainer.app.inner.module.state_dict().items())
+    moved = trainer.global_step
+    log("ControlNet training through the CLI: %d bf16 steps of 1 x %d² in "
+        "%.3f s with load; losses %s; the base %s" % (
+            moved, SD_EXTRA_SIZE, sec, " ".join(
+                "%.5f" % r["loss"] for r in trainer.step_records),
+            "bit for bit" if frozen else "CHANGED"))
+    if not frozen or moved != 2:
+        raise AssertionError("ControlNet training: %d steps, base frozen %s"
+                             % (moved, frozen))
+    del trainer, app, base_state
+    torch.cuda.empty_cache()
+    seconds["extras"] = time.perf_counter() - t0
+    log("phase 18 seconds by part: %s; total %.1f" % (", ".join(
+        "%s %.1f" % kv for kv in seconds.items()),
+        time.perf_counter() - t_phase))
+    log("phase 18 launches of the kernel runs: %s" % total)
+    total["flash_attention_bwd_dkdv"] = total["flash_attention_bwd"]
+    total["flash_attention_bwd_dq"] = total["flash_attention_bwd"]
+    return total
+
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -7944,6 +8540,9 @@ def main():
         t0 = time.perf_counter()
         mm_launches = phase_multimodal(torch, seed, workdir, cjk)
         seconds["17 CLIP, captioning"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sd_launches = phase_diffusion(torch, seed, workdir, cjk)
+        seconds["18 latent diffusion"] = time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
     written = _written_gib()
@@ -7966,7 +8565,7 @@ def main():
             + options_launches.get(wrapper, 0)
             + knowledge_launches.get(wrapper, 0)
             + s2s_launches[name] + s11_launches[name]
-            + mm_launches[name],
+            + mm_launches[name] + sd_launches[name],
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

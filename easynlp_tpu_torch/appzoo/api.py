@@ -18,7 +18,10 @@ on BART, T5, mT5, Pegasus and Randeng and evaluate and predict on GPT-2
 for `open_domain_dialogue` the same on the dialogue `transformer`, and
 train, evaluate and predict for the multimodal apps `clip`,
 `wukong_clip`, `text2video_retrieval`, `image2text_generation` (its ViT
-variant, the default and enable_vit) and `video2text_generation`.
+variant, the default and enable_vit) and `video2text_generation`, and
+train, evaluate and predict for `latent_diffusion` (with
+user_defined_parameters enable_controlnet, a ControlNet trained on the
+frozen base; controlnet_hint names its hint, `edge`).
 text_classify's variants take the
 user_defined_parameters switches enable_distillation (vanilla KD against
 saved teacher logits, with `temperature` and `alpha`), enable_metakd (the
@@ -116,6 +119,7 @@ DATASET_REGISTRY = _apps(
         "default": "image2text_generation.data:ImageTextDataset",
         "enable_vit": "image2text_generation.data:ImageTextDataset"},
     video2text_generation={"default": "video2text_generation.data:FrameTextDataset"},
+    latent_diffusion={"default": "latent_diffusion.data:LDMDataset"},
 )
 MODEL_REGISTRY = _apps(
     text_classify={
@@ -164,6 +168,7 @@ MODEL_REGISTRY = _apps(
         "default": "image2text_generation.model:CLIPGPTImageTextGeneration",
         "enable_vit": "image2text_generation.model:CLIPGPTImageTextGeneration"},
     video2text_generation={"default": "video2text_generation.model:CLIPGPTFrameTextGeneration"},
+    latent_diffusion={"default": "latent_diffusion.model:LatentDiffusion"},
 )
 EVALUATOR_REGISTRY = _apps(
     text_classify={"default": "sequence_classification.evaluator:"
@@ -195,6 +200,7 @@ EVALUATOR_REGISTRY = _apps(
         "default": "image2text_generation.evaluator:ImageTextGenerationEvaluator",
         "enable_vit": "image2text_generation.evaluator:ImageTextGenerationEvaluator"},
     video2text_generation={"default": "video2text_generation.evaluator:FrameTextGenerationEvaluator"},
+    latent_diffusion={"default": "latent_diffusion.evaluator:LDMEvaluator"},
 )
 PREDICTOR_REGISTRY = _apps(
     text_classify={
@@ -228,6 +234,7 @@ PREDICTOR_REGISTRY = _apps(
         "default": "image2text_generation.predictor:ImageTextGenerationPredictor",
         "enable_vit": "image2text_generation.predictor:ImageTextGenerationPredictor"},
     video2text_generation={"default": "video2text_generation.predictor:FrameTextGenerationPredictor"},
+    latent_diffusion={"default": "latent_diffusion.predictor:LDMPredictor"},
 )
 
 _NOT_PORTED_MODES = {
@@ -240,12 +247,9 @@ _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
                  "multi_label", "two_tower", "siamese", "enable_vit",
                  "enable_vqgan", "contrast_learning_flag")
 # user_defined_parameters switches whose app variant is not ported yet
-_NOT_PORTED_VARIANTS = {
-    "enable_vqgan": "ROADMAP A21", "enable_controlnet": "ROADMAP A22",
-}
+_NOT_PORTED_VARIANTS = {"enable_vqgan": "ROADMAP A21"}
 # the JAX package's apps that the port does not run yet
-_NOT_PORTED_APPS = {"text2image_generation": "ROADMAP A21",
-                    "latent_diffusion": "ROADMAP A22"}
+_NOT_PORTED_APPS = {"text2image_generation": "ROADMAP A21"}
 
 
 def _variant_key(registry_entry, udp):
@@ -318,7 +322,8 @@ def _dtype(args):
 # the apps whose datasets read images: they also take the JAX api's
 # image_size, image_cache and image_cache_items
 _IMAGE_APPS = ("clip", "wukong_clip", "text2video_retrieval",
-               "image2text_generation", "video2text_generation")
+               "image2text_generation", "video2text_generation",
+               "latent_diffusion")
 
 
 def _dataset_kwargs(args, tokenizer):
@@ -386,7 +391,13 @@ def _train_main(args, udp):
         # KD's temperature and alpha (the JAX api never calls its
         # configure: ROADMAP reference fault 20)
         app.configure(udp)
-    if udp.get("enable_lora"):
+    if udp.get("enable_controlnet"):
+        # train a ControlNet on the frozen base (the JAX api's wrapper)
+        from easynlp_tpu_torch.appzoo.latent_diffusion.controlnet_app import (
+            ControlNetApplication)
+        app = ControlNetApplication(
+            app, hint_type=udp.get("controlnet_hint", "edge"))
+    elif udp.get("enable_lora"):
         from easynlp_tpu_torch.core.lora_app import LoRAApplication
         from easynlp_tpu_torch.modelzoo.lora import parse_targets
         app = LoRAApplication(

@@ -34,9 +34,14 @@ Counterpart of easynlp_tpu/core/trainer.py on one device:
   thread (a finished snapshot: the optimizers update the parameters in
   place) and written by a background thread, at most one write in
   flight; a failed write raises at the next save or at the end;
-- only the parameters that require a gradient are trained (LoRA freezes
-  its base), and an app may hook the checkpoint as the JAX package's
-  LoRA does: `extra_save_artifacts()`, `restore_params(dir)`.
+- only the parameters that require a gradient are trained (LoRA and
+  ControlNet freeze their base), and an app may hook the checkpoint as the
+  JAX package's LoRA does: `extra_save_artifacts()`, `restore_params(dir)`;
+- an app whose loss draws its own randomness (latent diffusion: timesteps,
+  noise, a posterior sample) gives `make_train_loss()`, the JAX Trainer's
+  hook: loss_fn(batch, generator) -> {"loss": ...}, the generator a CPU
+  torch.Generator seeded with --random_seed; an app may name another to
+  evaluate (`eval_target`: ControlNet evaluates itself, not its base).
 
 Losses, gradient norms and skips stay on the device until a logging step,
 which reads every step since the last one back in one copy. Then
@@ -152,6 +157,9 @@ class Trainer:
             b1=args.adam_beta1, b2=args.adam_beta2, eps=args.adam_epsilon)
         self.max_grad_norm = float(args.max_grad_norm or 0.0)
         self.params = self.optimizer.params
+        self.custom_loss = (self.app.make_train_loss()
+                            if hasattr(self.app, "make_train_loss") else None)
+        self.generator = torch.Generator().manual_seed(args.random_seed)
         self.prefetch_depth = int(getattr(args, "num_host_prefetch", 2))
         self.clock = StepClock(self.app.device)
         self._pending = []  # steps not yet read back
@@ -189,7 +197,10 @@ class Trainer:
         sums = {}
         for j in range(self.accum):
             mb = {k: v[j * micro:(j + 1) * micro] for k, v in inputs.items()}
-            loss_dict = self.app.loss_fn(self.app.forward(mb), mb)
+            if self.custom_loss is not None:
+                loss_dict = self.custom_loss(mb, self.generator)
+            else:
+                loss_dict = self.app.loss_fn(self.app.forward(mb), mb)
             loss_dict["loss"].float().backward()
             for k, v in loss_dict.items():
                 if v.dim() == 0:
@@ -326,7 +337,8 @@ class Trainer:
         args = self.args
         score = None
         if self.evaluator is not None:
-            results = self.evaluator.evaluate(self.app)
+            results = self.evaluator.evaluate(
+                getattr(self.app, "eval_target", self.app))
             self.stats.log_eval(self.global_step, results)
             score = results[0][1]
         if not args.checkpoint_dir:

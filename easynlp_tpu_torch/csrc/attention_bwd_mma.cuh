@@ -43,7 +43,8 @@
 //  - S, dP, delta, LSE and all accumulators stay f32; P and dS are rounded
 //    to bf16 once, as A operands. The dK/dV pass works through each query
 //    tile 16 queries at a time, so that S^T and dP^T take few registers
-//    beside the dK and dV accumulators; at D = 128 it walks 32-query tiles.
+//    beside the dK and dV accumulators; at D = 128 and 160 it walks
+//    32-query tiles.
 //  - What remains: every warp reads the streamed tile through ldmatrix for
 //    its own 16 rows, about one ldmatrix.x4 (512 bytes, four cycles of an
 //    SM's shared-memory port) per one or two MMAs of one cycle each, so
@@ -242,15 +243,16 @@ flash_attention_bwd_dkdv_mma_kernel(const Params p) {
   cp_async_wait<0>();
 
   // Each fully masked row adds dO / Skv to the dv of every real key,
-  // causally hidden ones included (its P is 1/Skv everywhere).
-  if (tid < kDPad) {
+  // causally hidden ones included (its P is 1/Skv everywhere). Past
+  // D = 128 a thread sums two columns.
+  for (int col = tid; col < kDPad; col += kMmaThreads) {
     float sum = 0.f;
-    if (tid < D) {
+    if (col < D) {
       const float* part =
-          p.masked_dout_sum + (static_cast<int64_t>(b) * p.H + h) * p.n_chunks * D + tid;
+          p.masked_dout_sum + (static_cast<int64_t>(b) * p.H + h) * p.n_chunks * D + col;
       for (int c = 0; c < p.n_chunks; ++c) sum += part[c * D];
     }
-    masked_dv[tid] = sum / p.Skv;
+    masked_dv[col] = sum / p.Skv;
   }
   __syncthreads();
 

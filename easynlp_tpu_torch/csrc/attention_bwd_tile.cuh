@@ -92,7 +92,7 @@ struct Params {
 inline bool set_shapes(Params* p, int B, int H, int Sq, int Skv, int D,
                        const int64_t s[24], int64_t m_sb, int causal,
                        float scale) {
-  if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || D < 8 || D > 128 || D % 8 != 0 ||
+  if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || D < 8 || D > kMaxHeadDim || D % 8 != 0 ||
       B > 65535 || H > 65535) {
     return false;
   }
@@ -448,6 +448,7 @@ cudaError_t launch_grads(const Params& p, cudaStream_t stream) {
 }
 
 constexpr int kPreRows = 128;  // query rows per pre-pass block
+constexpr int kPreCols = (kMaxHeadDim + 31) / 32;  // columns per lane
 
 // The flash backward's pre-pass (flash_attention_bwd.cu, and the bf16
 // short backward past 128 keys): delta of each row of one (b, h, 128-row
@@ -457,7 +458,7 @@ constexpr int kPreRows = 128;  // query rows per pre-pass block
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_bwd_pre_kernel(const Params p) {
-  __shared__ float part[kThreads / 32][128];
+  __shared__ float part[kThreads / 32][32 * kPreCols];
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -470,13 +471,15 @@ flash_attention_bwd_pre_kernel(const Params p) {
   const int64_t stat0 = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
 
   // lane owns columns lane + 32 j of every row its warp visits
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[kPreCols];
+#pragma unroll
+  for (int j = 0; j < kPreCols; ++j) acc[j] = 0.f;
   for (int i = warp; i < kPreRows; i += kThreads / 32) {
     const int row = r0 + i;
     if (row >= p.Sq) break;  // warp-uniform
-    float dov[4], delta = 0.f;
+    float dov[kPreCols], delta = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kPreCols; ++j) {
       const int d = lane + 32 * j;
       dov[j] = 0.f;
       if (d < D) {
@@ -489,11 +492,11 @@ flash_attention_bwd_pre_kernel(const Params p) {
     if (lane == 0) p.row_delta[stat0 + row] = delta;
     if (p.lse[stat0 + row] < kMaskedRowLse) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] += dov[j];
+      for (int j = 0; j < kPreCols; ++j) acc[j] += dov[j];
     }
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) part[warp][lane + 32 * j] = acc[j];
+  for (int j = 0; j < kPreCols; ++j) part[warp][lane + 32 * j] = acc[j];
   __syncthreads();
   if (tid < D) {
     float sum = 0.f;

@@ -339,7 +339,8 @@ cudaError_t launch_fwd_mma_for_head_dim(const Params& p, cudaStream_t stream) {
   if (p.D <= 16) return launch_fwd_mma<16, kWithOut>(p, stream);
   if (p.D <= 32) return launch_fwd_mma<32, kWithOut>(p, stream);
   if (p.D <= 64) return launch_fwd_mma<64, kWithOut>(p, stream);
-  return launch_fwd_mma<128, kWithOut>(p, stream);
+  if (p.D <= 128) return launch_fwd_mma<128, kWithOut>(p, stream);
+  return launch_fwd_mma<160, kWithOut>(p, stream);
 }
 
 }  // namespace fwd

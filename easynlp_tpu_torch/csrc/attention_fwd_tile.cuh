@@ -60,7 +60,7 @@ inline bool make_params(Params* p, const void* q, const void* k,
                         float* lse, int B, int H, int Sq, int Skv, int D,
                         const int64_t* strides, int64_t m_sb, int causal,
                         float scale) {
-  if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || D < 8 || D > 128 ||
+  if (B < 1 || H < 1 || Sq < 1 || Skv < 1 || D < 8 || D > kMaxHeadDim ||
       D % 8 != 0 || B > 65535 || H > 65535) {
     return false;
   }

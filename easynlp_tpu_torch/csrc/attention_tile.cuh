@@ -12,6 +12,9 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // easynlp_tpu/ops/attention.py NEG_INF
+// The widest head dim every kernel takes (ops/attention.py MAX_HEAD_DIM):
+// Stable Diffusion v1's UNet runs 1280 channels over 8 heads.
+constexpr int kMaxHeadDim = 160;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

@@ -85,14 +85,16 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
 cudaError_t launch_for_head_dim_f32(const Params& p, cudaStream_t stream) {
   if (p.D <= 32) return launch_f32<32>(p, stream);
   if (p.D <= 64) return launch_f32<64>(p, stream);
-  return launch_f32<128>(p, stream);
+  if (p.D <= 128) return launch_f32<128>(p, stream);
+  return launch_f32<160>(p, stream);
 }
 
 cudaError_t launch_for_head_dim_bf16(const Params& p, cudaStream_t stream) {
   if (p.D <= 16) return launch_bf16<16>(p, stream);
   if (p.D <= 32) return launch_bf16<32>(p, stream);
   if (p.D <= 64) return launch_bf16<64>(p, stream);
-  return launch_bf16<128>(p, stream);
+  if (p.D <= 128) return launch_bf16<128>(p, stream);
+  return launch_bf16<160>(p, stream);
 }
 
 }  // namespace

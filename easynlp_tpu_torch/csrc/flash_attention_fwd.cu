@@ -99,7 +99,8 @@ flash_attention_fwd_kernel(const fwd::Params p) {
 cudaError_t launch_f32(const fwd::Params& p, cudaStream_t stream) {
   if (p.D <= 32) return fwd::launch<32>(flash_attention_fwd_kernel<float, 32>, p, stream);
   if (p.D <= 64) return fwd::launch<64>(flash_attention_fwd_kernel<float, 64>, p, stream);
-  return fwd::launch<128>(flash_attention_fwd_kernel<float, 128>, p, stream);
+  if (p.D <= 128) return fwd::launch<128>(flash_attention_fwd_kernel<float, 128>, p, stream);
+  return fwd::launch<160>(flash_attention_fwd_kernel<float, 160>, p, stream);
 }
 
 }  // namespace

@@ -29,7 +29,9 @@
 //      one block of 8 warps per (b, h). Q, K, V and dO sit whole in shared
 //      memory as bf16 tiles padded to D + 8 (cp.async, rows past Sq/Skv and
 //      columns past D zero-filled), and delta is summed while they load,
-//      two threads per row.
+//      two threads per row. At D = 160 (Stable Diffusion's 1280-wide UNet
+//      level over 8 heads) the four tiles and dS^T take 204 KiB of the
+//      227 KiB a block may opt into, one block per SM.
 //      Each warp owns 16 keys: S^T = K Q^T on mma.sync m16n8k16 stays in its
 //      accumulators; each query's max and sum over all keys come from the
 //      warps' partial max and sum, exchanged through shared memory. Then,
@@ -516,12 +518,14 @@ cudaError_t launch_for_head_dim(const Params& p, const fwd::Params& lse_pass, in
   if (route == 0) {
     if (p.D <= 32) return launch_f32<32>(p, stream);
     if (p.D <= 64) return launch_f32<64>(p, stream);
-    return launch_f32<128>(p, stream);
+    if (p.D <= 128) return launch_f32<128>(p, stream);
+    return launch_f32<160>(p, stream);
   }
   if (p.D <= 16) return launch_bf16<16>(p, lse_pass, route, stream);
   if (p.D <= 32) return launch_bf16<32>(p, lse_pass, route, stream);
   if (p.D <= 64) return launch_bf16<64>(p, lse_pass, route, stream);
-  return launch_bf16<128>(p, lse_pass, route, stream);
+  if (p.D <= 128) return launch_bf16<128>(p, lse_pass, route, stream);
+  return launch_bf16<160>(p, lse_pass, route, stream);
 }
 
 }  // namespace

@@ -5,8 +5,9 @@ The port's own copy of easynlp_tpu/data/image_utils.py, through PIL as
 there: base64 decode, a BICUBIC resize of the short side to image_size, a
 centre crop, then (x / 255 - mean) / std with the CLIP constants in
 float32, HWC. A string that fails to decode raises; it never becomes a
-blank image. The text2image helpers (`preprocess_image_pm1`,
-`encode_image_base64_png`) come with their apps (ROADMAP A21).
+blank image. The diffusion apps' helpers scale pixels to [-1, 1]
+(`preprocess_image_pm1`) and write [-1, 1] images as base64 PNG
+(`encode_image_base64_png`), as the JAX package's do.
 """
 
 import base64
@@ -79,6 +80,38 @@ def preprocess_base64_batch(b64_list, image_size=224, mean=None, std=None):
     return np.stack([preprocess_image(decode_base64_image(b), image_size,
                                       mean, std)
                      for b in b64_list])
+
+
+def preprocess_image_pm1(img, image_size=256, random_crop=False, rng=None):
+    """PIL image -> HWC float32 in [-1, 1]: the short side resized to
+    image_size (BICUBIC), a centre crop (or, with random_crop, a crop at a
+    position drawn from `rng`, a numpy RandomState), then / 127.5 - 1."""
+    from PIL import Image
+    w, h = img.size
+    scale = image_size / min(w, h)
+    img = img.resize((max(1, round(w * scale)), max(1, round(h * scale))),
+                     Image.BICUBIC)
+    w, h = img.size
+    if random_crop and (w > image_size or h > image_size):
+        rng = rng or np.random
+        left = rng.randint(0, w - image_size + 1)
+        top = rng.randint(0, h - image_size + 1)
+    else:
+        left = (w - image_size) // 2
+        top = (h - image_size) // 2
+    img = img.crop((left, top, left + image_size, top + image_size))
+    return np.asarray(img, np.float32) / 127.5 - 1.0
+
+
+def encode_image_base64_png(pixels_pm1):
+    """HWC float array in [-1, 1] -> a base64 PNG string (uint8 after
+    (x + 1) * 127.5, clipped)."""
+    from PIL import Image
+    arr = (np.asarray(pixels_pm1, np.float32) + 1.0) * 127.5
+    arr = arr.clip(0, 255).astype(np.uint8)
+    buf = _io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode("utf-8")
 
 
 def decode_frame_list(value, max_frames, decode_fn=None):

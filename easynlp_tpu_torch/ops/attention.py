@@ -52,7 +52,9 @@ NEG_INF = -1e30
 # a row whose LSE is below this saw no visible key (its LSE is -1e30)
 MASKED_ROW_LSE = 0.5 * NEG_INF
 SHORT_MAX_KV_LEN = 512
-MAX_HEAD_DIM = 128
+# the widest head dim the kernels take (csrc/attention_tile.cuh
+# kMaxHeadDim): Stable Diffusion v1's 1280-wide UNet level over 8 heads
+MAX_HEAD_DIM = 160
 # bf16 short backward calls with Sq and Skv at most this take the one-block
 # tensor-core kernel (code 1 of csrc/short_attention_bwd.cu); larger ones
 # the flash backward's tensor-core passes (code 2).

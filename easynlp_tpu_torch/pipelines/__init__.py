@@ -3,7 +3,9 @@
 Counterpart of easynlp_tpu/pipelines/__init__.py, reduced to the tasks the
 port runs: text_classify, text_match, sequence_labeling, vectorization,
 data_augmentation, machine_reading_comprehension, image2text_generation,
-sequence_generation and open_domain_dialogue. pipeline(model_dir)
+sequence_generation, open_domain_dialogue and the PAI-Diffusion family
+(latent_diffusion, chinese-ldm-*, stable-diffusion-general: prompts to
+images through StableDiffusionPipeline). pipeline(model_dir)
 infers the task from the directory's train_config.json, and
 pipeline(task, model_path=dir) names it. A task name without model_path
 (its default model) and a registered model name resolve through the model
@@ -33,13 +35,13 @@ SUPPORTED_TASKS = {
     "text2image_generation": {"app": "text2image_generation",
                               "not_ported": "ROADMAP A21"},
 }
-# the PAI-Diffusion family: prompt -> image (ROADMAP A22)
+# the PAI-Diffusion family: prompt -> image
 for _ldm_task in ("latent_diffusion", "chinese-ldm-general",
                   "chinese-ldm-fashion", "chinese-ldm-art",
                   "chinese-ldm-poem", "chinese-ldm-anime", "chinese-ldm-pet",
                   "chinese-ldm-food", "stable-diffusion-general"):
     SUPPORTED_TASKS[_ldm_task] = {"app": "latent_diffusion",
-                                  "not_ported": "ROADMAP A22"}
+                                  "diffusion": True}
 
 _REGISTRY = "ROADMAP A26, utils/zoo_registry.py"
 

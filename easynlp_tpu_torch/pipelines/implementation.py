@@ -20,7 +20,9 @@ class Pipeline:
     app's weights into weight-only int8 (the tensors the JAX package
     quantizes, dequantized in each forward), and params_dtype (e.g.
     "bfloat16") then casts the rest for serving
-    (modelzoo/quantization.py)."""
+    (modelzoo/quantization.py). A diffusion task runs
+    appzoo/latent_diffusion's StableDiffusionPipeline (prompts of at most
+    77 tokens), as the JAX Pipeline does."""
 
     def __init__(self, task, model_path, first_sequence="first_sequence",
                  second_sequence=None, sequence_length=128, batch_size=32,
@@ -37,6 +39,16 @@ class Pipeline:
             raise NotImplementedError(
                 "pipeline task %r is not ported yet (%s)"
                 % (task, spec["not_ported"]))
+        self._diffusion = None
+        if spec.get("diffusion"):
+            from easynlp_tpu_torch.appzoo.latent_diffusion.model import (
+                StableDiffusionPipeline)
+            self._diffusion = StableDiffusionPipeline(
+                model_path, dtype=dtype, device=device)
+            self.app = self._diffusion.app
+            self.device = self.app.device
+            self.sequence_length = sequence_length
+            return
         if quantize and quantize != "int8":
             raise ValueError("quantize must be 'int8' (got %r)"
                              % (quantize,))
@@ -82,6 +94,10 @@ class Pipeline:
         single = isinstance(inputs, str)
         if single:
             inputs = [inputs]
+        if self._diffusion is not None:
+            rows = self._diffusion(
+                list(inputs), sequence_length=min(self.sequence_length, 77))
+            return rows[0] if single else rows
         if inputs and isinstance(inputs[0], (tuple, list)):
             # resolve the pair column the predictor will actually read: an
             # explicit second_sequence, the predictor's own default (e.g.

@@ -132,8 +132,10 @@ def test_pipeline_by_task_name_and_params_dtype(ckpt, port_pipe):
         p, quantize="int4", device="cpu"), "quantize must be 'int8'"),
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
         "text2image_generation", model_path=p), "A21"),
+    # the diffusion tasks are ported (slice 13): without model_path they
+    # too resolve a default model through the unported registry
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
-        "chinese-ldm-general", model_path=p), "A22"),
+        "chinese-ldm-general"), "A26"),
 ], ids=["default-model", "registered-name", "int8", "multimodal",
         "diffusion"])
 def test_unported_pipeline_routes_raise(ckpt, call, match):

@@ -181,6 +181,14 @@ def test_port_sources_import_nothing_of_the_jax_package():
                                           "*.py"), recursive=True))
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 40
+    # slice 13's latent diffusion modules are among them
+    for rel in ("appzoo/latent_diffusion/model.py",
+                "appzoo/latent_diffusion/controlnet_app.py",
+                "modelzoo/models/latent_diffusion/unet.py",
+                "modelzoo/models/latent_diffusion/autoencoder.py",
+                "modelzoo/models/latent_diffusion/conversion.py",
+                "modelzoo/models/latent_diffusion/esrgan.py"):
+        assert os.path.join(REPO, "easynlp_tpu_torch", rel) in files
     found = []
     for path in files:
         with open(path, encoding="utf-8") as f:
