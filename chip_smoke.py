@@ -12,12 +12,12 @@ random truncated-normal weights from --seed): `--mode=predict
 epoch of 8 steps followed by `--mode=evaluate` and `--mode=predict` on the
 checkpoint it wrote. On a GPT-2 small model (HF `gpt2` widths and depth,
 random weights from --seed, a synthetic 50257-token byte-level BPE vocab):
-`--mode=predict --app_name=sequence_generation` over 16 prompts of 600-768
+`--mode=predict --app_name=sequence_generation` over 8 prompts of 600-768
 tokens, greedy for 128 new tokens, and one beam-search batch. On a BART-base
 model (HF `facebook/bart-base` widths and depth, dropout 0, random weights
 from --seed, a synthetic 50265-token byte-level BPE vocab):
 `--mode=train --app_name=sequence_generation` for 8 AdamW steps of 8
-articles of 1024 tokens with 64-token targets, then `--mode=evaluate` on 16
+articles of 1024 tokens with 64-token targets, then `--mode=evaluate` on 8
 rows with greedy decoding. Then `--mode=serve`: GPT-2 small behind
 `/generate` (serve_continuous=true, 8 slots, a 1024-slot window) to 36
 requests from 16 client threads, and phase 4's checkpoint behind
@@ -62,7 +62,8 @@ entity_gap 5, concept_size 100) pretraining through `--mode=train
 bert-base-chinese widths, then `--mode=evaluate`, with and without the
 kernels (every step's loss and gradient norm held to the plain run's),
 all tables and rows written from --seed; MegatronBERT at HF's default
-widths (megatron-bert-cased-345m: 24 layers, 1024 wide, 16 heads) loaded
+widths (megatron-bert-cased-345m: 1024 wide, 16 heads; its first 4 of 24
+layers) loaded
 through AutoModel.from_pretrained from an HF-named pytorch_model.bin, a
 bf16 forward and backward at 8 x 512 with and without the kernels (the
 loss, the pooler output, the last hidden state and every gradient held
@@ -72,13 +73,13 @@ plain path). Then phase 15, slice 10's paths, each with the kernels and
 with --use_flash_attention=false, all weights the port's own init from
 --seed and every tokenizer synthetic (SentencePiece models written by
 sp_model_bytes, the CJK WordPiece vocab, ParlAI BPE codecs): T5-base (HF
-`t5-base` widths, dropout 0) 8 bf16 AdamW steps of 8 x 512 sources with
+`t5-base` widths, dropout 0) 4 bf16 AdamW steps of 8 x 512 sources with
 64-token targets, `--mode=evaluate` and f32 `--mode=predict` of 16 rows
 greedy and with 4 beams; mT5-base f32 predict of 8 rows; Pegasus-large 4
 steps of 4 x 1024 and f32 predict of 8 rows with 4 beams; Randeng (its
 238M widths) f32 predict of 8 CJK rows; GPT-2 small `--mode=evaluate` in
 f32 on phase 4's dev table; open_domain_dialogue on the `transformer`
-family's default widths, 8 steps of 16 x 128 and f32 predict. Training
+family's default widths, 4 steps of 16 x 128 and f32 predict. Training
 holds every step's loss and gradient norm to the plain run's, f32
 generation token for token, and each path's launches are counted from 0;
 it also times the SentencePiece encoder native against Python. Phase 2
@@ -124,7 +125,7 @@ v1-inference.yaml: a 320-channel UNet over 4 levels with attention at 3
 and 8 heads, so head dims 40, 80 and 160; the 128-channel KL VAE;
 PAI-Diffusion's bert-base-chinese text tower; 1.04 B parameters, the
 port's init from --seed written once as a 4.2 GB f32 checkpoint): f32
-`--mode=predict --app_name=latent_diffusion` of 2 prompts, 20 DDIM steps
+`--mode=predict --app_name=latent_diffusion` of 2 prompts, 10 DDIM steps
 at guidance 7.5 with and without the kernels (the PNGs, and through the
 app the final latents of DDIM, PLMS and DPM-Solver++, held to plain), the
 B1 launches at head dim 160 counted; pipeline("chinese-ldm-general")
@@ -135,12 +136,26 @@ base's images bit for bit) and 2 ControlNet training steps (the base bit
 for bit), an OLSS fit and sample, edit and a 2-frame stylize_video. Phase
 2 adds the UNet's shapes: level 0's 2 x 4096 self-attention at head dim
 40 and its 4096 x 32 cross-attention, level 1's 2 x 1024 at 80, level
-2's 2 x 256 and the middle block's 2 x 64 at 160. Phases 14 and 15
-also train Kangaroo and T5-base a second time with the kernels and hold
-the two runs to each other bit for bit (ROADMAP C28, C29). Every phase
-raises on failure, so any failure exits non-zero. The last line is {"ok": true, "device": {...}};
-the line before it lists the kernels with their launches in the BART
-training run and phase 11's to 18's runs, errors, times (kernel, plain
+2's 2 x 256 and the middle block's 2 x 64 at 160. Then phase 19,
+ARTIST-base (GPT-2 small's widths over bert-base-chinese's 21128 ids and
+16384 image codes, taming-transformers' f16/16384 VQGAN; 184.4 M
+parameters, the port's init from --seed written once) on 256² PNG rows:
+`--app_name=text2image_generation` 4 bf16 AdamW steps of 8 x (32 + 256)
+with and without the kernels (the kernel run writes the phase's one
+checkpoint), f32 `--mode=evaluate`, f32 greedy image codes through the
+app on the random init held code for code to plain's, top-k sampled PNGs
+through the CLI and pipeline() byte for byte; `image2text_generation`
+with enable_vqgan 3 bf16 steps and f32 greedy captions, kernel against
+plain; TextCNN at its default widths and bloom-560m from AutoModel, the
+card's f32 forward against the CPU's. Phase 2 adds ARTIST's shapes: the 8 x 288 training
+sequence with padding inside its text, a decode step over 288 slots and
+the 8 x 257 VQGAN prefill. Phases 14 and 15 also train Kangaroo and
+T5-base a second time with the kernels and hold the two runs to each
+other bit for bit (ROADMAP C28, C29). Every phase raises on failure, so
+any failure exits non-zero. `--only 2` or `--only 19` runs the build and
+that phase alone. The last line is {"ok": true, "device": {...}}; the
+line before it lists the kernels with their launches in the BART
+training run and phase 11's to 19's runs, errors, times (kernel, plain
 twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
 the JAX package.
 """
@@ -288,7 +303,7 @@ GPT2_MODEL_DIR = "gpt2-small-random"
 GEN_PROMPT_WIDTH = 768          # --sequence_length
 GEN_NEW_TOKENS = 128            # max_decoder_length
 GEN_BATCH = 8
-GEN_ROWS = 16
+GEN_ROWS = 8                    # 16 until slice 14
 GEN_BEAMS, GEN_BEAM_NEW_TOKENS = 4, 32
 GEN_LETTERS = "etaoinshrdlucmfwypvbgkqjxz"
 # phase 9: --mode=serve with serve_continuous=true on GPT-2 small
@@ -395,13 +410,17 @@ def phase_build():
 # --------------------------------------------------------------------------
 
 def _inputs(torch, rng, b, sq, skv, h, d, lengths):
+    """q, k, v [B, S, H, D] f32 normals and the int32 key mask: each row's
+    first lengths[i] keys, or `lengths` itself where it is a [B, Skv]
+    mask."""
     import numpy as np
     dev = torch.device("cuda")
     q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
         np.float32)).to(dev) for s in (sq, skv, skv))
-    mask = torch.from_numpy(
-        (np.arange(skv)[None, :] < np.asarray(lengths)[:, None]).astype(
-            np.int32)).to(dev)
+    lengths = np.asarray(lengths)
+    keep = lengths.astype(bool) if lengths.ndim == 2 else (
+        np.arange(skv)[None, :] < lengths[:, None])
+    mask = torch.from_numpy(keep.astype(np.int32)).to(dev)
     return q, k, v, mask
 
 
@@ -594,6 +613,8 @@ def phase_kernel(torch, seed):
          np.r_[229, mm_rng.randint(200, 230, size=15)], True),
         ("clip4clip", 96, 197, 197, 12, 64, np.full(96, 197), False)]
     worst = {}
+    seconds = {}
+    t0 = time.perf_counter()
     for case_rng, group in ((rng, cases), (skip_rng, skip_cases),
                             (mlm_rng, mlm_cases), (ie_rng, ie_cases),
                             (kg_rng, kg_cases), (mm_rng, mm_cases)):
@@ -605,7 +626,9 @@ def phase_kernel(torch, seed):
                     mask, causal)
             _check_bwd(torch, A, case_rng, name, q, k, v, mask, causal,
                        worst_bwd)
+    seconds["short checks"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     timings = {}
     for case_rng, (name, b, sq, skv, h, d, lens, causal) in (
             [(rng, c) for c in cases[:5]] + [(mlm_rng, c) for c in mlm_cases]
@@ -613,13 +636,11 @@ def phase_kernel(torch, seed):
             + [(kg_rng, c) for c in kg_cases]
             + [(mm_rng, c) for c in mm_cases]):
         q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
-        # phase 14's and 17's shapes in bf16 only, the dtype their training
-        # runs: the process's profiler sessions are few
+        # in bf16 only, the dtype the training runs take (the f32 walks are
+        # checked above; the first five shapes were timed in f32 too until
+        # slice 14): the process's profiler sessions are few
         # (phase_kernel_in_child)
-        for dtype in ((torch.bfloat16,) if name in (
-                "kangaroo-samples", "megatron-512") + tuple(
-                    c[0] for c in mm_cases)
-                      else (torch.bfloat16, torch.float32)):
+        for dtype in (torch.bfloat16,):
             tq, tk, tv = (t.to(dtype) for t in (q, k, v))
             ms = _time_ms(torch, lambda: A.short_attention_fwd(
                 tq, tk, tv, mask, causal))
@@ -684,21 +705,35 @@ def phase_kernel(torch, seed):
             timings[("short_attention_bwd", name, dtype)] = _time_bwd(
                 torch, A, name, tq, tk, tv, mask, causal, o, do, lib_bwd,
                 times)
+    seconds["short times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     worst_flash = _check_flash(torch, A, rng, timings)
+    seconds["flash forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     worst_flash_bwd = _check_flash_bwd(torch, A, rng, timings)
+    seconds["flash backward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     # the serving shapes, from a stream of their own
     _check_serving_shapes(torch, A, np.random.RandomState(seed + 2), worst,
                           worst_flash, timings)
+    seconds["serving"] = time.perf_counter() - t0
     out = {"short_attention_fwd": worst,
            "short_attention_bwd": worst_bwd,
            "flash_attention_fwd": worst_flash,
            "flash_attention_bwd_dkdv": worst_flash_bwd,
            "flash_attention_bwd_dq": dict(worst_flash_bwd)}
+    t0 = time.perf_counter()
     # phase 15's shapes: T5's unscaled cross-attention, head dim 32,
     # Pegasus-large's 16 heads
     _check_seq2seq_cases(torch, A, seed, out, timings)
-    # phase 18's: the SD v1 UNet's head dims 40, 80 and 160
+    seconds["seq2seq, slice 11"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # phase 18's: the SD v1 UNet's head dims 40, 80 and 160; phase 19's:
+    # ARTIST-base's training sequence, decode step and VQGAN prefill
     _check_diffusion_cases(torch, A, seed, out, timings)
+    seconds["diffusion, ARTIST"] = time.perf_counter() - t0
+    log("phase 2 seconds by part: %s" % ", ".join(
+        "%s %.1f" % kv for kv in seconds.items()))
     return out, timings
 
 
@@ -833,29 +868,71 @@ def diffusion_cases(rng):
     ]
 
 
-def _check_diffusion_cases(torch, A, seed, worst, timings):
-    """diffusion_cases through _check_attention_cases (checks, bf16 times by
-    CUDA events, bounds, SDPA), then one profiler session per shape for the
-    bf16 kernels' device time: the route's tensor-core kernels, forward and
-    backward, and no CUDA-core walk."""
+def artist_mask(rng, b, text=None, codes=None):
+    """[B, text + codes] bool: each row's 8-32 real text tokens (a caption
+    right-padded to ARTIST's 32), its padding, then every image code."""
     import numpy as np
-    case_rng = np.random.RandomState(seed + 9)
-    cases = diffusion_cases(case_rng)
-    _check_attention_cases(torch, A, case_rng, cases, worst, timings, "sd")
-    for name, path, b, sq, skv, h, d, lens, causal, _, _ in cases:
+    text = ARTIST_TEXT_LEN if text is None else text
+    codes = ARTIST_BASE["image_token_length"] if codes is None else codes
+    mask = np.ones((b, text + codes), bool)
+    for i, n in enumerate(rng.randint(8, text + 1, b)):
+        mask[i, n:text] = False
+    return mask
+
+
+def artist_cases(rng):
+    """Phase 19's attention shapes (as seq2seq_cases) at ARTIST-base's GPT
+    (GPT-2 small: 12 heads of 64), batch 8: the training sequence, 32 text
+    slots (8-32 real tokens, padding inside) and 256 codes, 288 x 288
+    causal (B1; B2's route 2); a decode step, 1 query over the 288-slot
+    cache with those holes (B1); enable_vqgan's prefill, 256 codes and BOS,
+    257 x 257 causal (B1)."""
+    import numpy as np
+    s = ARTIST_TEXT_LEN + ARTIST_BASE["image_token_length"]
+    holes = artist_mask(rng, 8)
+    return [
+        ("artist-train", "short", 8, s, s, 12, 64, holes, True, None, True),
+        ("artist-decode", "short", 8, 1, s, 12, 64, holes, False, None,
+         False),
+        ("i2t-vqgan-prefill", "short", 8, s - ARTIST_TEXT_LEN + 1,
+         s - ARTIST_TEXT_LEN + 1, 12, 64, np.full(8, s - ARTIST_TEXT_LEN + 1),
+         True, None, False),
+    ]
+
+
+def _check_diffusion_cases(torch, A, seed, worst, timings):
+    """diffusion_cases (stream seed + 9) and artist_cases (seed + 10)
+    through _check_profiled_cases."""
+    import numpy as np
+    for offset, cases_of, tag in ((9, diffusion_cases, "sd"),
+                                  (10, artist_cases, "artist")):
+        case_rng = np.random.RandomState(seed + offset)
+        _check_profiled_cases(torch, A, case_rng, cases_of(case_rng), worst,
+                              timings, tag)
+
+
+def _check_profiled_cases(torch, A, case_rng, cases, worst, timings, tag):
+    """`cases` through _check_attention_cases (checks, bf16 times by CUDA
+    events, bounds, SDPA), then one profiler session per shape for the
+    bf16 kernels' device time: the route's tensor-core kernels, forward
+    and, where the case has one, backward, and no CUDA-core walk."""
+    _check_attention_cases(torch, A, case_rng, cases, worst, timings, tag)
+    for name, path, b, sq, skv, h, d, lens, causal, _, backward in cases:
         q, k, v, mask = _inputs(torch, case_rng, b, sq, skv, h, d, lens)
         tq, tk, tv = (t.to(torch.bfloat16) for t in (q, k, v))
         do = torch.randn_like(tq)
         if path == "short":
             o = A.short_attention_fwd(tq, tk, tv, mask, causal)
-            names = ((("fwd", SHORT_FWD_MMA_NAME),)
-                     + _short_bwd_names(torch, A, torch.bfloat16, sq, skv))
+            names = (("fwd", SHORT_FWD_MMA_NAME),) + (_short_bwd_names(
+                torch, A, torch.bfloat16, sq, skv) if backward else ())
 
             def both():
                 A.short_attention_fwd(tq, tk, tv, mask, causal)
-                A.short_attention_bwd(tq, tk, tv, mask, o, do, causal)
+                if backward:
+                    A.short_attention_bwd(tq, tk, tv, mask, o, do, causal)
             refused = (SHORT_FWD_CUDA_CORE_NAME,) + SHORT_BWD_CUDA_CORE_NAMES
-            kernels = ("short_attention_fwd", "short_attention_bwd")
+            kernels = ("short_attention_fwd",) + (
+                ("short_attention_bwd",) if backward else ())
         else:
             o, lse = A.flash_attention_fwd(tq, tk, tv, mask, causal)
             names = (("fwd", FLASH_FWD_MMA_NAME),) + FLASH_BWD_KERNEL_NAMES
@@ -870,9 +947,9 @@ def _check_diffusion_cases(torch, A, seed, worst, timings):
         split = _routed("bf16 %s at %s" % (path, name), times, names,
                         refused)
         bwd_dev = sum(ms for part, ms in split.items() if part != "fwd")
-        log("profile sd %-12s bf16 %s: forward %.4f ms, backward %.4f ms "
+        log("profile %s %-12s bf16 %s: forward %.4f ms, backward %.4f ms "
             "(%s) per call (device time; no CUDA-core walk in the trace)"
-            % (name, path, split["fwd"], bwd_dev, ", ".join(
+            % (tag, name, path, split["fwd"], bwd_dev, ", ".join(
                 "%s %.4f" % kv for kv in split.items() if kv[0] != "fwd")))
         timings[(kernels[0], name, torch.bfloat16)]["dev_ms"] = split["fwd"]
         for kernel in kernels[1:]:
@@ -1924,8 +2001,9 @@ def phase_slice(torch, seed, workdir):
         raise AssertionError("the main path launched the kernel %d times, "
                              "want %d" % (launches, want))
     runs["plain"] = []
-    # the rest in turns on the same card: K P P K K P P K, the first K above
-    for use_kernel in (False, False, True, True, False, False, True):
+    # the rest in turns on the same card: K P P K, the first K above (K P P
+    # K K P P K until slice 14)
+    for use_kernel in (False, False, True):
         before = A.short_attention_fwd.launches
         r = run_predict(torch, model_dir, tsv, out_k if use_kernel else out_p,
                         use_kernel)
@@ -2086,9 +2164,9 @@ def phase_train(torch, seed, workdir, cjk):
                              "times, want %d / %d"
                              % (fwd, bwd, want_fwd, N_LAYERS * steps))
     runs = {"kernel": [kernel_run], "plain": []}
-    # the rest in turns on the same card: K P P K, the first K above; they
-    # write no checkpoint (the card's machine caps a run's disk writes)
-    for use_kernel in (False, False, True):
+    # then a plain run (K P P K until slice 14), the K above; it writes no
+    # checkpoint (the card's machine caps a run's disk writes)
+    for use_kernel in (False,):
         before = (A.short_attention_fwd.launches,
                   A.short_attention_bwd.launches)
         run = run_train(torch, model_dir, train_tsv, dev_tsv, None,
@@ -2421,8 +2499,8 @@ def phase_generation(torch, seed, workdir):
         raise AssertionError("the generation path launched the flash kernel "
                              "%d times, want %d" % (launches, want))
     runs["plain"] = []
-    # the rest in turns on the same card: K P P K, the first K above
-    for use_kernel in (False, False, True):
+    # then a plain run (K P P K until slice 14), the K above
+    for use_kernel in (False,):
         before = A.flash_attention_fwd.launches
         r = run_generate(torch, model_dir, tsv, out_k if use_kernel
                          else out_p, use_kernel, udp)
@@ -2517,7 +2595,7 @@ def phase_generation(torch, seed, workdir):
     ids0 = torch.from_numpy(prompt_ids[:GEN_BATCH]).cuda()
     mask0 = torch.from_numpy(mask_all[:GEN_BATCH]).cuda()
     steps = {}
-    for use_kernel in (True, False, False, True):
+    for use_kernel in (True, False):  # K P P K until slice 14
         A.set_kernel_override(None if use_kernel else False)
         pre, dec = _step_times(torch, prefill, decode, ids0, mask0, 32)
         steps.setdefault(use_kernel, ([], []))
@@ -2600,7 +2678,7 @@ BART_SEQ_LEN = 1024        # --sequence_length: sources are truncated here
 BART_TARGET_TOKENS = 64    # the dataset's max_target_length (JAX default)
 BART_BATCH = 8
 BART_STEPS = 8
-BART_DEV_ROWS = 16
+BART_DEV_ROWS = 8               # 16 until slice 14
 BART_LR = 5e-5
 # Training, kernel run against the --use_flash_attention=false run, per-step
 # loss: both are bf16 end to end and differ only in attention's rounding
@@ -2805,8 +2883,8 @@ def phase_bart(torch, seed, workdir):
         raise AssertionError("the BART training path launched %s, want %s"
                              % (launches, want))
     runs["plain"] = []
-    # the rest in turns on the same card: K P P K, the first K above
-    for use_kernel in (False, False, True):
+    # then a plain run (K P P K until slice 14), the K above
+    for use_kernel in (False,):
         before = counts()
         runs["kernel" if use_kernel else "plain"].append(run_bart_train(
             torch, model_dir, train_tsv, None, use_kernel, seed))
@@ -3149,7 +3227,7 @@ def phase_bart_predict(torch, seed, workdir):
         app.module, BART_TARGET_TOKENS, src[:BART_BATCH],
         src_mask[:BART_BATCH])
     steps = {}
-    for use_kernel in (True, False, False, True):
+    for use_kernel in (True, False):  # K P P K until slice 14
         A.set_kernel_override(None if use_kernel else False)
         pre, dec = _step_times(torch, prefill, decode, start, start_mask,
                                BART_TARGET_TOKENS - 2)
@@ -5235,11 +5313,12 @@ def phase_encoder_apps2(torch, seed, workdir, cjk):
 
 REMAT = ("none", "full", "selective", "names")
 EMA_DECAY = 0.999
-# a save every 4 of the 8 steps, so 3 saves a run, of the first
-# EMA_LAYERS layers of bert-base-chinese: each writes 0.5 GB (weights, EMA,
-# AdamW state; 1.6 GB at 12 layers until slice 13), and the card's machine
-# allows 45 GiB of disk writes to the whole script
-EMA_SAVE_STEPS = 4
+# a save after the 8th of the 8 steps and the final one, so 2 saves a run
+# (3 until slice 14, a save every 4 steps), of the first EMA_LAYERS layers
+# of bert-base-chinese: each writes 0.5 GB (weights, EMA, AdamW state; 1.6
+# GB at 12 layers until slice 13), and the card's machine allows 45 GiB
+# of disk writes to the whole script
+EMA_SAVE_STEPS = 8
 EMA_LAYERS = 2
 KD_UDP = "enable_distillation=true temperature=2 alpha=0.5"
 PET_PATTERN = {"pattern": "{sent1},{mask}", "label_desc": "bad,good"}
@@ -5815,10 +5894,10 @@ MEGATRON_345M = {  # HF MegatronBertConfig defaults: megatron-bert-cased-345m
     "pad_token_id": 0,
 }
 MEGATRON_DIR = "megatron-bert-345m-random"
-# its first 8 of 24 layers at full width (all 24 until slice 12): the pass
-# checks the pre-LN layout and B2's route 2 at 16 heads, which a layer
-# shows as well as 24
-MEGATRON_LAYERS = 8
+# its first 4 of 24 layers at full width (all 24 until slice 12, 8 until
+# slice 14): the pass checks the pre-LN layout and B2's route 2 at 16
+# heads, which a layer shows as well as 24
+MEGATRON_LAYERS = 4
 MEGATRON_BATCH, MEGATRON_SEQ = 8, 512
 # kernel pass against plain pass, bf16 through 24 pre-LN layers: the loss's
 # relative |d| and the last hidden state's relative rms (readings 6.9e-3
@@ -6385,9 +6464,11 @@ PEGASUS_SP_PIECES = 96000  # pegasus-large's; + the 103 offset ids
 # family: (--sequence_length, --micro_batch_size, training steps, dev or
 # predict rows); every target is the dataset's 64 tokens (63 + EOS: the
 # CLI's SequenceGenerationDataset fixes max_target_length at 64, as JAX's)
-S2S_RUNS = {"t5": (512, 8, 8, 8), "mt5": (512, 8, 0, 8),
+# (sequence length, batch, training steps, rows): T5's and the dialogue's
+# 8 steps until slice 14
+S2S_RUNS = {"t5": (512, 8, 4, 8), "mt5": (512, 8, 0, 8),
             "pegasus": (1024, 4, 4, 4), "randeng": (512, 8, 0, 8),
-            "dialogue": (128, 16, 8, 16)}
+            "dialogue": (128, 16, 4, 16)}
 # Pegasus-large and mT5-base run their first 4 encoder and 4 decoder
 # layers at full width (16 + 16 and 12 + 12 until slice 12): T5-base's and
 # GLM-large's steps measure full depth, and these paths differ from them
@@ -7315,17 +7396,14 @@ def phase_slice11(torch, seed, workdir):
 
     zero = dict.fromkeys(wrappers, 0)
     glm_ckpt = os.path.join(workdir, "glm_ckpt")
-    runs = {}
-    for use_kernel in (True, False):
-        run = (lambda: run_train(
-            torch, glm_dir, glm_tsv["train"], None,
-            glm_ckpt if use_kernel else None, use_kernel, seed,
-            common=glm_argv("sequence_generation", use_kernel)))
-        runs[use_kernel] = (main_path(
-            "GLM sequence_generation train (bf16)", run, zero,
-            want_any=False) if use_kernel else plain("GLM train", run))
-        _check_train_run("GLM %s" % use_kernel, runs[use_kernel], GLM_STEPS)
-    _s2s_compare_training("glm", runs)
+    # GLM's training (and its LM evaluate) launch no kernel: the
+    # block-infilling bias takes the plain path, so each runs once (a
+    # --use_flash_attention=false twin until slice 14 gave the same bits)
+    run = main_path("GLM sequence_generation train (bf16)", lambda: run_train(
+        torch, glm_dir, glm_tsv["train"], None, glm_ckpt, True, seed,
+        common=glm_argv("sequence_generation", True)), zero, want_any=False)
+    _check_train_run("GLM", run, GLM_STEPS)
+    describe_train("GLM", run, GLM_BATCH)
     for use_kernel in (True, False):
         argv = ["--mode=evaluate", "--tables=" + glm_tsv["dev"],
                 "--checkpoint_dir=" + glm_ckpt] + glm_argv(
@@ -7379,33 +7457,22 @@ def phase_slice11(torch, seed, workdir):
                        / (GLM_DEV_ROWS * GLM_NEW_TOKENS)
                        for t in ("greedy", "speculative")))
     lm_ckpt = os.path.join(workdir, "glm_lm_ckpt")
-    lm_runs = {}
-    for use_kernel in (True, False):
-        run = (lambda: run_train(
-            torch, glm_dir, glm_tsv["lm_train"], None,
-            lm_ckpt if use_kernel else None, use_kernel, seed,
-            common=glm_argv("language_modeling", use_kernel,
-                            udp="enable_glm=true")))
-        lm_runs[use_kernel] = (main_path(
-            "GLM language_modeling train (bf16)", run, zero,
-            want_any=False) if use_kernel else plain("GLM LM train", run))
-        _check_train_run("GLM LM %s" % use_kernel, lm_runs[use_kernel],
-                         GLM_LM_STEPS)
-    _s2s_compare_training("glm-lm", lm_runs)
-    for use_kernel in (True, False):
-        argv = ["--mode=evaluate", "--tables=" + glm_tsv["lm_dev"],
+    run = main_path("GLM language_modeling train (bf16)", lambda: run_train(
+        torch, glm_dir, glm_tsv["lm_train"], None, lm_ckpt, True, seed,
+        common=glm_argv("language_modeling", True, udp="enable_glm=true")),
+        zero, want_any=False)
+    _check_train_run("GLM LM", run, GLM_LM_STEPS)
+    describe_train("GLM LM", run, GLM_BATCH)
+    results, seconds = main_path("GLM LM evaluate (bf16)", lambda: _cli(
+        torch, ["--mode=evaluate", "--tables=" + glm_tsv["lm_dev"],
                 "--checkpoint_dir=" + lm_ckpt] + glm_argv(
-                    "language_modeling", use_kernel, udp="enable_glm=true")
-        run = (lambda: _cli(torch, argv))
-        results, seconds = (main_path("GLM LM evaluate (bf16)", run, zero,
-                                      want_any=False)
-                            if use_kernel else plain("GLM LM evaluate", run))
-        log("GLM LM evaluate %-6s %d rows: %s in %.3f s"
-            % ("kernel" if use_kernel else "plain", GLM_DEV_ROWS, ", ".join(
-                "%s %.6f" % kv for kv in results), seconds))
-        if [m for m, _ in results] != ["accuracy", "perplexity"] or \
-                not np.isfinite([v for _, v in results]).all():
-            raise AssertionError("GLM LM evaluate gave %s" % results)
+                    "language_modeling", True, udp="enable_glm=true")),
+        zero, want_any=False)
+    log("GLM LM evaluate %d rows: %s in %.3f s" % (
+        GLM_DEV_ROWS, ", ".join("%s %.6f" % kv for kv in results), seconds))
+    if [m for m, _ in results] != ["accuracy", "perplexity"] or \
+            not np.isfinite([v for _, v in results]).all():
+        raise AssertionError("GLM LM evaluate gave %s" % results)
     log("GLM training launches no attention kernel a step (B1 0, B3 0: the "
         "block-infilling bias takes the plain path, in JAX too); its "
         "decode steps and verify chunks take B1 (%d layers a step)" % layers)
@@ -7637,8 +7704,9 @@ def phase_multimodal(torch, seed, workdir, cjk):
     wukong_clip predict from the trained weights under the Wukong names
     (equal to clip's); text2video_retrieval f32 evaluate and predict on 8
     videos of 8-12 frames; image2text_generation 4 bf16 steps of 16 x (197
-    + 32), f32 predict greedy and 4 beams (token for token) and
-    pipeline(); video2text_generation f32 predict on 3 frames. Returns
+    + 32) (no checkpoint), f32 predict greedy and 4 beams (token for
+    token) and pipeline() on the captioner's directory;
+    video2text_generation f32 predict on 3 frames. Returns
     the kernel runs' launches by wrapper."""
     import shutil
 
@@ -7840,8 +7908,11 @@ def phase_multimodal(torch, seed, workdir, cjk):
 
     # -- image2text_generation: train, predict, pipeline() -----------------
     t0 = time.perf_counter()
-    i2t_ckpt = os.path.join(workdir, "i2t_ckpt")
-    training("image2text", i2t_dir, paths["i2t_train"], i2t_ckpt,
+    # the training writes no checkpoint (2.2 GB with AdamW's state): the
+    # predicts read the captioner's directory, the port's init (they read
+    # the trained checkpoint until slice 14)
+    i2t_ckpt = i2t_dir
+    training("image2text", i2t_dir, paths["i2t_train"], None,
              lambda k: _i2t_argv("image2text_generation", k), I2T_STEPS,
              vit_layers + gpt_layers)
     ids = {}
@@ -7935,8 +8006,9 @@ SD_V1 = {  # CompVis configs/stable-diffusion/v1-inference.yaml as an
 }
 SD_DIR = "sd-v1-random"
 SD_TEXT_LEN = 32              # --sequence_length: the prompts' tokens
-SD_PROMPTS, SD_STEPS, SD_GUIDANCE = 2, 20, 7.5
-SD_FAST_STEPS = 10            # PLMS, DPM-Solver++ and the extras
+SD_PROMPTS, SD_STEPS, SD_GUIDANCE = 2, 10, 7.5   # 20 steps until slice 14
+SD_FAST_STEPS = 5             # PLMS, DPM-Solver++ and the extras (10
+                              # until slice 14)
 SD_TRAIN_BATCH, SD_TRAIN_STEPS, SD_DEV_ROWS = 2, 3, 4
 SD_EXTRA_SIZE = 256           # the extras' images: 32 x 32 latents
 SD_ESRGAN_INPUT = 128         # ESRGAN 4x: 128² -> 512²
@@ -8064,7 +8136,7 @@ def phase_diffusion(torch, seed, workdir, cjk):
     parameters: the 860 M UNet, the 84 M KL VAE, PAI-Diffusion's 102 M
     bert-base-chinese text tower), the port's init from --seed written
     once as a 4.2 GB f32 pytorch_model.bin: f32 --mode=predict of 2
-    prompts, 20 DDIM steps at guidance 7.5 (the PNGs, and the final latents
+    prompts, 10 DDIM steps at guidance 7.5 (the PNGs, and the final latents
     through the app, kernels against plain), PLMS and DPM-Solver++ at 10
     steps, pipeline("chinese-ldm-general") against the CLI's PNGs, f32
     --mode=evaluate, 3 bf16 AdamW steps of 2 x 512² (no checkpoint),
@@ -8422,6 +8494,494 @@ def phase_diffusion(torch, seed, workdir, cjk):
     return total
 
 
+ARTIST_BASE = {  # ARTIST-base: ARTISTConfig's text side (bert-base-chinese's
+    # 21128 tokens, 32 of them, 256 codes), GPT-2 small's widths (vocabulary
+    # 21128 + 16384) and taming-transformers' vqgan_imagenet_f16_16384
+    # VQGAN (ch 128, ch_mult 1/1/2/2/4, 2 res blocks, embed_dim 256,
+    # n_embed 16384; no attention blocks or quant_conv, as in the JAX
+    # VQGAN); dropout 0
+    "model_type": "artist", "text_vocab_size": 21128,
+    "image_vocab_size": 16384, "image_token_length": 256, "text_length": 32,
+    "codebook_dim": 256, "vq_channels": 128,
+    "vq_channel_mult": [1, 1, 2, 2, 4], "vq_num_res_blocks": 2,
+    "commitment_cost": 0.25,
+    "gpt_config": {k: v for k, v in GPT2_SMALL.items()
+                   if k not in ("model_type", "architectures", "vocab_size")
+                   } | {"resid_pdrop": 0.0, "embd_pdrop": 0.0,
+                        "attn_pdrop": 0.0},
+}
+ARTIST_DIR = "artist-base-random"
+ARTIST_TEXT_LEN = 32          # --sequence_length: the captions' tokens
+ARTIST_SIZE = 256             # pixels a side: 16 x 16 codes
+ARTIST_BATCH, ARTIST_STEPS, ARTIST_PROMPTS = 8, 4, 4
+I2T_VQ_STEPS = 3
+# bf16 training, kernel run against plain run, every step: phase 15's
+# bounds (S2S_LOSS_ATOL, S2S_GNORM_RTOL). The VQGAN's losses take no
+# attention and are equal in both runs; the LM loss over 37512 ids moves
+# by bf16 rounding through 12 layers, as phase 15's seq2seq losses do.
+ARTIST_LOSS_ATOL = S2S_LOSS_ATOL
+ARTIST_GNORM_RTOL = S2S_GNORM_RTOL
+# f32 evaluate, kernel against plain: the mean of per-row LM losses of
+# ~10 and VQ losses of ~1, each within ~1e-6 relative: bound 1e-4
+# relative, phase 18's
+ARTIST_EVAL_RTOL = SD_EVAL_RTOL
+# TextCNN (default widths) and bloom-560m, the card's f32 forward (TF32
+# off) against the same module on the CPU: summation orders differ, each
+# op by ~1e-6 relative, through at most 24 pre-LN layers: bound 1e-4 of
+# the output's largest magnitude
+CARD_CPU_RTOL = 1e-4
+BLOOM_TOKENS = (2, 64)
+
+
+def make_artist_rows(workdir, cjk, seed):
+    """The phase's tables from the seed: text2image training rows (a
+    caption of 8-30 characters and a url-safe PNG of 256-320 pixels a
+    side), prompts, and captioning rows (the PNG first) for
+    enable_vqgan."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 19)
+    common = cjk[:3000]
+
+    def caption():
+        return "".join(rng.choice(common, rng.randint(8, 31)))
+
+    def image():
+        return _png_b64(rng, (int(rng.randint(256, 321)),
+                              int(rng.randint(256, 321))), urlsafe=True)
+    paths = {name: os.path.join(workdir, name + ".tsv")
+             for name in ("t2i_train", "t2i_dev", "t2i_prompts",
+                          "i2t_vq_train", "i2t_vq_dev")}
+    with open(paths["t2i_train"], "w", encoding="utf-8") as f:
+        for _ in range(ARTIST_BATCH * ARTIST_STEPS):
+            f.write("%s\t%s\n" % (caption(), image()))
+    with open(paths["t2i_train"], encoding="utf-8") as f, \
+            open(paths["t2i_dev"], "w", encoding="utf-8") as g:
+        g.writelines(f.readlines()[:ARTIST_BATCH])
+    with open(paths["t2i_prompts"], "w", encoding="utf-8") as f:
+        for _ in range(ARTIST_PROMPTS):
+            f.write("%s\n" % caption())
+    with open(paths["i2t_vq_train"], "w", encoding="utf-8") as f:
+        for _ in range(ARTIST_BATCH * I2T_VQ_STEPS):
+            f.write("%s\t%s\n" % (image(), caption()))
+    with open(paths["i2t_vq_train"], encoding="utf-8") as f, \
+            open(paths["i2t_vq_dev"], "w", encoding="utf-8") as g:
+        g.writelines(f.readlines()[:ARTIST_PROMPTS])
+    return paths
+
+
+def make_artist_dir(torch, path, vocab_path, seed):
+    """config.json (ARTIST_BASE), vocab.txt and the port's init of
+    ARTISTModel from `seed` on the card as pytorch_model.bin. Returns
+    (parameters of the GPT with its head, of the VQGAN with its codebook,
+    the file's bytes)."""
+    import shutil
+    from easynlp_tpu_torch.modelzoo.models.artist import (ARTISTConfig,
+                                                          ARTISTModel)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(ARTIST_BASE, f, indent=2)
+    shutil.copy(vocab_path, os.path.join(path, "vocab.txt"))
+    module = ARTISTModel(ARTISTConfig.from_pretrained(path), device="cuda")
+    module.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    n_gpt = sum(p.numel() for m in (module.gpt, module.lm_head)
+                for p in m.parameters())
+    n_vq = sum(p.numel() for p in module.parameters()) - n_gpt
+    weights = os.path.join(path, "pytorch_model.bin")
+    torch.save(module.state_dict(), weights)
+    del module
+    torch.cuda.empty_cache()
+    return n_gpt, n_vq, os.path.getsize(weights)
+
+
+def _artist_argv(app, use_kernel, dtype="bfloat16", udp="",
+                 batch=ARTIST_BATCH):
+    schema = ("image:str:1,text:str:1" if app == "image2text_generation"
+              else "text:str:1,image:str:1")
+    first, second = schema.replace(":str:1", "").split(",")
+    return ["--app_name=" + app, "--device=cuda", "--dtype=" + dtype,
+            "--sequence_length=%d" % ARTIST_TEXT_LEN,
+            "--micro_batch_size=%d" % batch, "--input_schema=" + schema,
+            "--first_sequence=" + first, "--second_sequence=" + second,
+            "--use_flash_attention=%s" % ("auto" if use_kernel else "false"),
+            "--user_defined_parameters=size=%d %s" % (ARTIST_SIZE, udp)]
+
+
+def _top2_margin(torch, module, ids, mask, allowed):
+    """The plain path's f32 top-2 margin of the next-token logits after
+    ids [1, S] (key mask `mask`), over the vocabulary slice `allowed`."""
+    from easynlp_tpu_torch.ops import attention as A
+    A.set_kernel_override(False)
+    try:
+        with torch.inference_mode():
+            logits = module.lm_step(ids, attention_mask=mask)["logits"]
+        top2 = logits[0, -1, allowed].float().topk(2).values
+    finally:
+        A.set_kernel_override(None)
+    return (top2[0] - top2[1]).item()
+
+
+def phase_artist(torch, seed, workdir, cjk):
+    """Phase 19: ARTIST-base (text2image_generation, and
+    image2text_generation with enable_vqgan) at full width, the port's
+    init from --seed written once as pytorch_model.bin, on synthetic 256²
+    PNG rows: text2image 4 bf16 AdamW steps of 8 x (32 + 256) with and
+    without the kernels (every loss and grad norm held to plain's; the
+    kernel run writes the phase's one checkpoint), f32 --mode=evaluate
+    (kernel vs plain), f32 greedy codes for 4 prompts through the app on
+    the directory's init (code for code, or parting only at an f32 tie),
+    top-k 100 sampled PNGs through the CLI and pipeline() on the
+    checkpoint (byte for byte); enable_vqgan 3
+    bf16 steps kernel vs plain (no checkpoint) and f32 greedy captions on
+    the text2image checkpoint (the same tower) kernel vs plain; then
+    TextCNN at its default widths and bloom-560m from AutoModel, an f32
+    forward on the card against the same module on the CPU. Returns the
+    kernel runs' launches by wrapper."""
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.image2text_generation.vqgan_model import (
+        VQGANImageTextDataset)
+    from easynlp_tpu_torch.appzoo.text2image_generation.model import (
+        TextImageGeneration)
+    from easynlp_tpu_torch.modelzoo.models import auto
+    from easynlp_tpu_torch.modelzoo.models.auto import tokenizer_for
+    from easynlp_tpu_torch.ops import attention as A
+    from easynlp_tpu_torch.pipelines import pipeline
+    log("== phase 19: ARTIST-base text2image and enable_vqgan captioning "
+        "(GPT-2 small widths, f16/16384 VQGAN), TextCNN, bloom-560m")
+    t_phase = time.perf_counter()
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+    main_path, plain, total = _launch_counter(A, wrappers)
+    layers = ARTIST_BASE["gpt_config"]["n_layer"]
+    codes_n = ARTIST_BASE["image_token_length"]
+    tv = ARTIST_BASE["text_vocab_size"]
+    seconds = {}
+    t0 = time.perf_counter()
+    paths = make_artist_rows(workdir, cjk, seed)
+    artist_dir = os.path.join(workdir, ARTIST_DIR)
+    written0 = _written_gib()
+    n_gpt, n_vq, nbytes = make_artist_dir(
+        torch, artist_dir, os.path.join(workdir, MODEL_DIR, "vocab.txt"),
+        seed)
+    written1 = _written_gib()
+    log("ARTIST-base directory: %d parameters (GPT and head %d, VQGAN and "
+        "codebook %d), pytorch_model.bin %.3f GB (%s passed to write(2)); "
+        "%d + %d training rows, %d prompts made from seed %d; %.3f s"
+        % (n_gpt + n_vq, n_gpt, n_vq, nbytes / 1e9,
+           "not measured" if written0 is None
+           else "%.2f GiB" % (written1 - written0),
+           ARTIST_BATCH * ARTIST_STEPS, ARTIST_BATCH * I2T_VQ_STEPS,
+           ARTIST_PROMPTS, seed, time.perf_counter() - t0))
+    seconds["directory"] = time.perf_counter() - t0
+
+    def cli(tag, argv, use_kernel, want=None):
+        run = (lambda: _cli(torch, argv))
+        if use_kernel:
+            return main_path(tag, run, want)
+        try:
+            return plain(tag, run)
+        finally:
+            A.set_kernel_override(None)  # the CLI set it from its flag
+
+    def training(tag, app, table, ckpt, steps, udp=""):
+        per_step = {"short_attention_fwd": layers * steps,
+                    "short_attention_bwd": layers * steps,
+                    "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+        runs = {True: main_path(tag + " train (bf16)", lambda: run_train(
+            torch, artist_dir, table, None, ckpt, True, seed,
+            common=_artist_argv(app, True, udp=udp)), per_step)}
+        try:
+            runs[False] = plain(tag + " train", lambda: run_train(
+                torch, artist_dir, table, None, None, False, seed,
+                common=_artist_argv(app, False, udp=udp)))
+        finally:
+            A.set_kernel_override(None)
+        for use_kernel, run in runs.items():
+            _check_train_run("%s %s" % (tag, use_kernel), run, steps)
+        rec_k, rec_p = runs[True]["records"], runs[False]["records"]
+        d_loss = max(abs(a["loss"] - b["loss"]) for a, b in zip(rec_k,
+                                                                rec_p))
+        d_gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                      for a, b in zip(rec_k, rec_p))
+        for use_kernel, run in runs.items():
+            ms = [1e3 * r["seconds"] for r in run["records"]]
+            log("%s train %-6s %d steps of %d x (%d + %d): step ms median "
+                "%.3f (steps 2-%d; first %.3f), peak device memory %.3f GiB "
+                "above the run's start, run %.3f s with load%s; losses %s; "
+                "grad norms %s; launches a step: B1 %d, B2 %d"
+                % (tag, "kernel" if use_kernel else "plain", len(ms),
+                   ARTIST_BATCH, ARTIST_TEXT_LEN, codes_n,
+                   statistics.median(ms[1:]), len(ms), ms[0],
+                   run["peak_gib"], run["total_s"],
+                   " and save" if use_kernel and ckpt else "",
+                   " ".join("%.5f" % r["loss"] for r in run["records"]),
+                   " ".join("%.4f" % r["grad_norm"] for r in run["records"]),
+                   layers if use_kernel else 0, layers if use_kernel else 0))
+        log("%s kernel vs plain training: max |d loss| per step %.3e "
+            "(bound %.1e), max relative grad-norm gap %.3e (bound %.1e)"
+            % (tag, d_loss, ARTIST_LOSS_ATOL, d_gnorm, ARTIST_GNORM_RTOL))
+        if d_loss > ARTIST_LOSS_ATOL or d_gnorm > ARTIST_GNORM_RTOL:
+            raise AssertionError("%s: kernel and plain training disagree "
+                                 "(loss %.3e, grad norm %.3e)"
+                                 % (tag, d_loss, d_gnorm))
+
+    # -- text2image: train, evaluate -------------------------------------
+    t0 = time.perf_counter()
+    ckpt = os.path.join(workdir, "artist_ckpt")
+    training("text2image", "text2image_generation", paths["t2i_train"],
+             ckpt, ARTIST_STEPS)
+    seconds["text2image train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evals = {}
+    for use_kernel in (True, False):
+        argv = ["--mode=evaluate", "--tables=" + paths["t2i_dev"],
+                "--checkpoint_dir=" + ckpt] + _artist_argv(
+                    "text2image_generation", use_kernel, "float32")
+        evals[use_kernel], sec = cli(
+            "text2image evaluate (f32)", argv, use_kernel,
+            {"short_attention_fwd": layers, "short_attention_bwd": 0,
+             "flash_attention_fwd": 0, "flash_attention_bwd": 0})
+        log("text2image evaluate %-6s %d rows (f32): %s in %.3f s with load"
+            % ("kernel" if use_kernel else "plain", ARTIST_BATCH,
+               ", ".join("%s %.6f" % kv for kv in evals[use_kernel]), sec))
+    d_eval = abs(evals[True][0][1] - evals[False][0][1])
+    log("text2image evaluate kernel vs plain: |d eval_loss| %.3e (bound "
+        "%.0e relative)" % (d_eval, ARTIST_EVAL_RTOL))
+    if d_eval > ARTIST_EVAL_RTOL * abs(evals[False][0][1]):
+        raise AssertionError("text2image f32 evaluate: kernel and plain "
+                             "differ by %.3e" % d_eval)
+    seconds["text2image evaluate"] = time.perf_counter() - t0
+
+    # -- text2image: f32 greedy codes, kernel against plain ---------------
+    t0 = time.perf_counter()
+    # on the directory's random init: the trained checkpoint's greedy codes
+    # repeat the one or two codes that the random VQGAN gives every
+    # training image (2 distinct in 1024 on an H100), so few decisions
+    # would be held to plain's
+    app = TextImageGeneration.from_pretrained(artist_dir,
+                                              dtype=torch.float32)
+    with open(paths["t2i_prompts"], encoding="utf-8") as f:
+        prompts = [line.rstrip("\n") for line in f]
+    enc = tokenizer_for(ckpt)(prompts, max_length=ARTIST_TEXT_LEN)
+    ids = np.asarray(enc["input_ids"], np.int32)
+    mask = np.asarray(enc["attention_mask"], np.int32)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    codes, gen_s = {}, {}
+    try:
+        for use_kernel in (True, False):
+            A.set_kernel_override(None if use_kernel else False)
+
+            def greedy():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = app.generate(ids, mask, do_sample=False)
+                torch.cuda.synchronize()
+                gen_s[use_kernel] = time.perf_counter() - t1
+                return out.cpu()
+            try:
+                codes[use_kernel] = (main_path(
+                    "text2image greedy codes (f32)", greedy,
+                    {"short_attention_fwd": layers * codes_n,
+                     "short_attention_bwd": 0, "flash_attention_fwd": 0,
+                     "flash_attention_bwd": 0}) if use_kernel
+                    else plain("text2image greedy codes", greedy))
+            finally:
+                A.set_kernel_override(None)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    for use_kernel in (True, False):
+        log("text2image greedy %-6s %d prompts x %d codes (f32): %.3f s a "
+            "batch, %.3f ms per image code; B1 launches %d (%d a code: the "
+            "prefill's and each decode step's %d layers)"
+            % ("kernel" if use_kernel else "plain", ARTIST_PROMPTS, codes_n,
+               gen_s[use_kernel], 1e3 * gen_s[use_kernel] / codes_n,
+               layers * codes_n if use_kernel else 0,
+               layers if use_kernel else 0, layers))
+
+    def code_margin(i, j):
+        seq = torch.cat([torch.from_numpy(ids[i:i + 1]).long(),
+                         codes[False][i:i + 1, :j] + tv], dim=1).cuda()
+        m = torch.cat([torch.from_numpy(mask[i:i + 1]),
+                       torch.ones((1, j), dtype=torch.int32)], dim=1).cuda()
+        return _top2_margin(torch, app.module, seq, m, slice(tv, None))
+    same, ties = _same_or_tie("text2image greedy codes", codes[True].tolist(),
+                              codes[False].tolist(), code_margin)
+    n_distinct = len(np.unique(codes[True].numpy()))
+    log("text2image f32 greedy codes, kernel vs plain: %d of %d rows code "
+        "for code, %d parting at an f32 tie (top-2 margin <= %.0e); %d "
+        "distinct codes" % (same, ARTIST_PROMPTS, ties, SERVE_F32_TIE,
+                            n_distinct))
+    if codes[True].shape != (ARTIST_PROMPTS, codes_n) or n_distinct < 2:
+        raise AssertionError("text2image greedy codes: %s, %d distinct"
+                             % (list(codes[True].shape), n_distinct))
+    pixels = app.decode_images(codes[True])
+    if pixels.shape != (ARTIST_PROMPTS, ARTIST_SIZE, ARTIST_SIZE, 3) \
+            or not torch.isfinite(pixels).all():
+        raise AssertionError("text2image decode: %s" % list(pixels.shape))
+    del app, pixels
+    torch.cuda.empty_cache()
+    seconds["text2image greedy"] = time.perf_counter() - t0
+
+    # -- text2image: sampled PNGs through the CLI and pipeline() ----------
+    t0 = time.perf_counter()
+    out = os.path.join(workdir, "t2i_pred.tsv")
+    argv = ["--mode=predict", "--tables=" + paths["t2i_prompts"],
+            "--input_schema=text:str:1", "--outputs=" + out,
+            "--checkpoint_dir=" + ckpt, "--output_schema=gen_imgbase64"] + [
+        a for a in _artist_argv("text2image_generation", True, "float32",
+                                "top_k=100 seed=%d" % seed,
+                                batch=ARTIST_PROMPTS)
+        if not a.startswith("--input_schema")]
+    manager, sec = cli("text2image predict (f32, top-k 100)", argv, True,
+                       {"short_attention_fwd": layers * codes_n,
+                        "short_attention_bwd": 0, "flash_attention_fwd": 0,
+                        "flash_attention_bwd": 0})
+    with open(out, encoding="utf-8") as f:
+        pngs = [line.rstrip("\n").split("\t")[0] for line in f]
+    sizes = {_png_array(p).shape for p in pngs}
+    batch_s = manager.predictor.batch_seconds
+    log("text2image predict %d prompts (f32, top-k 100, seed %d): %.3f s "
+        "with load; %.3f s a batch of %d codes (codes and VQGAN decode), "
+        "%.3f ms per image code; PNGs %s, %d distinct"
+        % (len(pngs), seed, sec, statistics.median(batch_s), codes_n,
+           1e3 * statistics.median(batch_s) / codes_n, sorted(sizes),
+           len(set(pngs))))
+    if sizes != {(ARTIST_SIZE, ARTIST_SIZE, 3)} or len(pngs) != \
+            ARTIST_PROMPTS:
+        raise AssertionError("text2image predict: %d PNGs of %s"
+                             % (len(pngs), sorted(sizes)))
+    pipe = pipeline("text2image_generation", model_path=ckpt,
+                    dtype=torch.float32, sequence_length=ARTIST_TEXT_LEN,
+                    batch_size=ARTIST_PROMPTS)
+    pipe.predictor.generator.manual_seed(seed)
+    rows = main_path("pipeline(text2image_generation) (f32)",
+                     lambda: pipe(prompts))
+    if [r["gen_imgbase64"] for r in rows] != pngs:
+        raise AssertionError("pipeline(text2image_generation) differs from "
+                             "--mode=predict")
+    log("pipeline(\"text2image_generation\") on the checkpoint, seed %d: "
+        "the CLI's %d PNGs byte for byte" % (seed, len(rows)))
+    del pipe
+    torch.cuda.empty_cache()
+    seconds["text2image sample"] = time.perf_counter() - t0
+
+    # -- image2text with enable_vqgan: train, greedy captions -------------
+    t0 = time.perf_counter()
+    training("image2text (enable_vqgan)", "image2text_generation",
+             paths["i2t_vq_train"], None, I2T_VQ_STEPS,
+             udp="enable_vqgan=true")
+    caps = {}
+    for use_kernel in (True, False):
+        out = os.path.join(workdir, "i2t_vq_%s.tsv" % use_kernel)
+        argv = ["--mode=predict", "--tables=" + paths["i2t_vq_dev"],
+                "--outputs=" + out, "--checkpoint_dir=" + ckpt,
+                "--output_schema=gen_text,generated_ids",
+                "--append_cols=text"] + _artist_argv(
+                    "image2text_generation", use_kernel, "float32",
+                    "enable_vqgan=true", batch=ARTIST_PROMPTS)
+        _, sec = cli("image2text enable_vqgan predict (f32)", argv,
+                     use_kernel)
+        with open(out, encoding="utf-8") as f:
+            caps[use_kernel] = [[int(t) for t in line.split("\t")[1].split()]
+                                for line in f]
+        log("image2text enable_vqgan predict %-6s %d images (f32, greedy): "
+            "%.3f s with load" % ("kernel" if use_kernel else "plain",
+                                  len(caps[use_kernel]), sec))
+    tower = TextImageGeneration.from_pretrained(ckpt, dtype=torch.float32)
+    vq_codes = {}
+
+    def caption_margin(i, j):
+        if i not in vq_codes:
+            ds = VQGANImageTextDataset(
+                paths["i2t_vq_dev"], tokenizer_for(ckpt),
+                max_seq_length=ARTIST_TEXT_LEN,
+                input_schema="image:str:1,text:str:1",
+                first_sequence="image", second_sequence="text",
+                user_defined_parameters={"size": ARTIST_SIZE})
+            pv = torch.from_numpy(ds[i]["pixel_values"][None]).cuda()
+            with torch.inference_mode():
+                vq_codes[i] = tower.module.tokenize_image(pv)[0].reshape(
+                    1, -1)
+        seq = torch.cat([vq_codes[i] + tv, torch.tensor(
+            [caps[False][i][:j + 1]]).cuda()], dim=1)
+        return _top2_margin(torch, tower.module, seq, torch.ones_like(seq),
+                            slice(0, tv))
+    # the rows hold BOS then the caption: a parting at row position j is
+    # the (j - 1)-th generated token, after BOS and j - 1 tokens
+    same, ties = _same_or_tie("enable_vqgan captions", caps[True],
+                              caps[False], lambda i, j: caption_margin(
+                                  i, j - 1))
+    log("image2text enable_vqgan f32 captions, kernel vs plain: %d of %d "
+        "rows token for token, %d parting at an f32 tie; %d distinct "
+        "tokens" % (same, len(caps[True]), ties,
+                    len({t for r in caps[True] for t in r[1:]})))
+    del tower
+    torch.cuda.empty_cache()
+    seconds["image2text enable_vqgan"] = time.perf_counter() - t0
+
+    # -- TextCNN and bloom-560m: the card against the CPU -----------------
+    t0 = time.perf_counter()
+    from easynlp_tpu_torch.modelzoo.models.bloom import BloomConfig
+    from easynlp_tpu_torch.modelzoo.models.cnn import (TextCNNConfig,
+                                                       TextCNNModel)
+    rng = np.random.RandomState(seed + 20)
+    b, s = BLOOM_TOKENS
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, config, key in (
+                ("TextCNN", TextCNNConfig(), "pooler_output"),
+                ("bloom-560m", BloomConfig(), "logits")):
+            card = auto.AutoModel.from_config(config, device="cuda").eval()
+            cpu = type(card)(config).eval()  # the card's weights, no init
+            cpu.load_state_dict({k: v.cpu() for k, v in
+                                 card.state_dict().items()})
+            ids = rng.randint(0, config.vocab_size, (b, s))
+            mask = np.ones((b, s), np.int64)
+            mask[1, s // 2:] = 0   # a right-padded row
+            n = sum(p.numel() for p in card.parameters())
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got = card(torch.from_numpy(ids).cuda(),
+                           torch.from_numpy(mask).cuda())[key]
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t1
+                t1 = time.perf_counter()
+                want = cpu(torch.from_numpy(ids), torch.from_numpy(mask))[key]
+                cpu_s = time.perf_counter() - t1
+            real = torch.from_numpy(mask).bool() if key == "logits" else \
+                slice(None)
+            err = (got.cpu() - want)[real].abs().max().item()
+            scale = want[real].abs().max().item()
+            log("%s (%d parameters) f32 forward of %d x %d tokens, %s %s: "
+                "card %.3f s, CPU %.3f s; max |d| %.3e of max |x| %.3e "
+                "(bound %.0e relative)" % (
+                    name, n, b, s, key, list(got.shape), card_s, cpu_s, err,
+                    scale, CARD_CPU_RTOL))
+            if not torch.isfinite(got).all() or err > CARD_CPU_RTOL * scale:
+                raise AssertionError("%s: the card's forward differs from "
+                                     "the CPU's by %.3e" % (name, err))
+            del card, cpu, got, want
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    seconds["TextCNN, BLOOM"] = time.perf_counter() - t0
+    log("phase 19 seconds by part: %s; total %.1f" % (", ".join(
+        "%s %.1f" % kv for kv in seconds.items()),
+        time.perf_counter() - t_phase))
+    log("phase 19 launches of the kernel runs: %s" % total)
+    total["flash_attention_bwd_dkdv"] = total["flash_attention_bwd"]
+    total["flash_attention_bwd_dq"] = total["flash_attention_bwd"]
+    return total
+
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -8468,6 +9028,11 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--kernels-json", help=argparse.SUPPRESS)
+    parser.add_argument(
+        "--only", choices=("2", "19"),
+        help="run phase 0, the build and this phase alone (phase 19 on a "
+        "vocabulary of its own), to iterate on it; the full run is the "
+        "smoke test")
     cli = parser.parse_args()
     seed = cli.seed
 
@@ -8489,6 +9054,20 @@ def main():
                                    for k, v in timings.items()}}, f)
         return 0
     build_s = phase_build()
+    if cli.only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            if cli.only == "2":
+                phase_kernel_in_child(seed)
+            else:
+                tokens, cjk = _vocab()
+                os.makedirs(os.path.join(workdir, MODEL_DIR))
+                with open(os.path.join(workdir, MODEL_DIR, "vocab.txt"), "w",
+                          encoding="utf-8") as f:
+                    f.write("\n".join(tokens) + "\n")
+                phase_artist(torch, seed, workdir, cjk)
+        log("chip_smoke --only %s: passed; card: %s" % (cli.only,
+                                                       card_line()))
+        return 0
     worst, timings = phase_kernel_in_child(seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         seconds = {}
@@ -8543,6 +9122,9 @@ def main():
         t0 = time.perf_counter()
         sd_launches = phase_diffusion(torch, seed, workdir, cjk)
         seconds["18 latent diffusion"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        artist_launches = phase_artist(torch, seed, workdir, cjk)
+        seconds["19 ARTIST, TextCNN, BLOOM"] = time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
     written = _written_gib()
@@ -8565,7 +9147,8 @@ def main():
             + options_launches.get(wrapper, 0)
             + knowledge_launches.get(wrapper, 0)
             + s2s_launches[name] + s11_launches[name]
-            + mm_launches[name] + sd_launches[name],
+            + mm_launches[name] + sd_launches[name]
+            + artist_launches[name],
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -18,8 +18,9 @@ on BART, T5, mT5, Pegasus and Randeng and evaluate and predict on GPT-2
 for `open_domain_dialogue` the same on the dialogue `transformer`, and
 train, evaluate and predict for the multimodal apps `clip`,
 `wukong_clip`, `text2video_retrieval`, `image2text_generation` (its ViT
-variant, the default and enable_vit) and `video2text_generation`, and
-train, evaluate and predict for `latent_diffusion` (with
+variant, the default and enable_vit, and the VQGAN variant,
+enable_vqgan), `video2text_generation` and `text2image_generation`
+(ARTIST), and train, evaluate and predict for `latent_diffusion` (with
 user_defined_parameters enable_controlnet, a ControlNet trained on the
 frozen base; controlnet_hint names its hint, `edge`).
 text_classify's variants take the
@@ -28,8 +29,9 @@ saved teacher logits, with `temperature` and `alpha`), enable_metakd (the
 meta-teacher, trained by MetaTeacherTrainer), enable_fewshot (PET) and,
 for any app, enable_lora (adapters only: lora_rank, lora_alpha,
 lora_targets). The registries map each app to its variants, as the JAX
-package's do. Every other mode, app, backbone or app variant raises
-NotImplementedError naming its ROADMAP item. The datasets are the port's
+package's do, and hold every app of the JAX package's. `--mode=export`
+and the backbones still unported raise NotImplementedError naming their
+ROADMAP items. The datasets are the port's
 copies of the JAX package's, so both packages featurise and batch the same
 rows the same way.
 """
@@ -117,8 +119,12 @@ DATASET_REGISTRY = _apps(
                                      "Text2VideoRetrievalDataset"},
     image2text_generation={
         "default": "image2text_generation.data:ImageTextDataset",
-        "enable_vit": "image2text_generation.data:ImageTextDataset"},
+        "enable_vit": "image2text_generation.data:ImageTextDataset",
+        "enable_vqgan": "image2text_generation.vqgan_model:"
+                        "VQGANImageTextDataset"},
     video2text_generation={"default": "video2text_generation.data:FrameTextDataset"},
+    text2image_generation={"default": "text2image_generation.data:"
+                                      "TextImageDataset"},
     latent_diffusion={"default": "latent_diffusion.data:LDMDataset"},
 )
 MODEL_REGISTRY = _apps(
@@ -166,8 +172,12 @@ MODEL_REGISTRY = _apps(
                                      "Text2VideoRetrieval"},
     image2text_generation={
         "default": "image2text_generation.model:CLIPGPTImageTextGeneration",
-        "enable_vit": "image2text_generation.model:CLIPGPTImageTextGeneration"},
+        "enable_vit": "image2text_generation.model:CLIPGPTImageTextGeneration",
+        "enable_vqgan": "image2text_generation.vqgan_model:"
+                        "VQGANGPTImageTextGeneration"},
     video2text_generation={"default": "video2text_generation.model:CLIPGPTFrameTextGeneration"},
+    text2image_generation={"default": "text2image_generation.model:"
+                                      "TextImageGeneration"},
     latent_diffusion={"default": "latent_diffusion.model:LatentDiffusion"},
 )
 EVALUATOR_REGISTRY = _apps(
@@ -200,6 +210,8 @@ EVALUATOR_REGISTRY = _apps(
         "default": "image2text_generation.evaluator:ImageTextGenerationEvaluator",
         "enable_vit": "image2text_generation.evaluator:ImageTextGenerationEvaluator"},
     video2text_generation={"default": "video2text_generation.evaluator:FrameTextGenerationEvaluator"},
+    text2image_generation={"default": "text2image_generation.evaluator:"
+                                      "TextImageGenerationEvaluator"},
     latent_diffusion={"default": "latent_diffusion.evaluator:LDMEvaluator"},
 )
 PREDICTOR_REGISTRY = _apps(
@@ -234,6 +246,8 @@ PREDICTOR_REGISTRY = _apps(
         "default": "image2text_generation.predictor:ImageTextGenerationPredictor",
         "enable_vit": "image2text_generation.predictor:ImageTextGenerationPredictor"},
     video2text_generation={"default": "video2text_generation.predictor:FrameTextGenerationPredictor"},
+    text2image_generation={"default": "text2image_generation.predictor:"
+                                      "TextImageGenerationPredictor"},
     latent_diffusion={"default": "latent_diffusion.predictor:LDMPredictor"},
 )
 
@@ -246,10 +260,6 @@ _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
                  "enable_kangaroo", "enable_dkplm", "enable_glm",
                  "multi_label", "two_tower", "siamese", "enable_vit",
                  "enable_vqgan", "contrast_learning_flag")
-# user_defined_parameters switches whose app variant is not ported yet
-_NOT_PORTED_VARIANTS = {"enable_vqgan": "ROADMAP A21"}
-# the JAX package's apps that the port does not run yet
-_NOT_PORTED_APPS = {"text2image_generation": "ROADMAP A21"}
 
 
 def _variant_key(registry_entry, udp):
@@ -262,20 +272,10 @@ def _variant_key(registry_entry, udp):
 
 
 def _resolve(registry, app_name, udp):
-    if app_name in _NOT_PORTED_APPS:
-        raise NotImplementedError("app %r is not ported yet (%s)"
-                                  % (app_name, _NOT_PORTED_APPS[app_name]))
     if app_name not in registry:
         raise NotImplementedError(
-            "app %r has no entry in this registry, as in the JAX package "
-            "(not ported yet: %s); here the PyTorch port has: %s"
-            % (app_name, ", ".join("%s (%s)" % kv for kv in
-                                   _NOT_PORTED_APPS.items()),
-               sorted(registry)))
-    for key, item in _NOT_PORTED_VARIANTS.items():
-        if udp.get(key):
-            raise NotImplementedError("%s=%s is not ported yet (%s)"
-                                      % (key, udp[key], item))
+            "app %r has no entry in this registry, as in the JAX package; "
+            "the PyTorch port's has: %s" % (app_name, sorted(registry)))
     entry = registry[app_name]
     return entry[_variant_key(entry, udp)]()
 

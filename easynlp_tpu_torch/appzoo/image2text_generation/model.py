@@ -1,10 +1,10 @@
 """Image-to-text generation (captioning) for the PyTorch port.
 
 Counterpart of easynlp_tpu/appzoo/image2text_generation/model.py, its ViT
-variant (the default and `enable_vit`; `enable_vqgan` waits for ROADMAP
-A21): every token of the ViT's normalised sequence, CLS included, goes
-through `visual_proj` into GPT-2's width and sits before the caption as a
-prefix; the app owns the token table `wte` (the GPT's own is None) and
+variant (the default and `enable_vit`; `enable_vqgan` is
+vqgan_model.py's ARTIST tower): every token of the ViT's normalised
+sequence, CLS included, goes through `visual_proj` into GPT-2's width and
+sits before the caption as a prefix; the app owns the token table `wte` (the GPT's own is None) and
 the LM head is that table, tied, plus `lm_bias`. Training is next-token
 cross-entropy over the caption. `caption_prefill` and `caption_decode`
 run the GPT over a KVCache whose slots [0, P) hold the visual prefix;

@@ -8,15 +8,25 @@ vocabulary without [CLS], [SEP] and padding: `gen_text` (also
 `predictions`) and the ids as text (`generated_ids`). udp: img_size (or
 size; default the vision config's), text_len (default
 --sequence_length), frame_num (3), seed (sampling).
+
+A VQGAN app (enable_vqgan: a config with no vision tower) takes [-1, 1]
+pixels, by default at VQGANImageTextDataset's size, 256. The JAX
+predictor defaults to 2 ** (len(vq_channel_mult) - 1) * 4 pixels there
+(64 at the f16 widths, so 16 codes where the model trained on 256), a
+size its dataset never gives (ROADMAP reference fault 37).
 """
 
 import numpy as np
 import torch
 
+from easynlp_tpu_torch.appzoo.image2text_generation.vqgan_model import (
+    VQGAN_IMAGE_SIZE,
+)
 from easynlp_tpu_torch.core.predictor import Predictor
 from easynlp_tpu_torch.data.image_utils import (
     decode_base64_image_urlsafe,
     preprocess_image,
+    preprocess_image_pm1,
 )
 from easynlp_tpu_torch.modelzoo.models.auto import tokenizer_for
 
@@ -31,8 +41,12 @@ class ImageTextGenerationPredictor(Predictor):
         self.tokenizer = tokenizer_for(model_dir)
         self.app = app
         self.image_col = first_sequence or "imgbase64"
-        self.image_size = int(udp.get("img_size", udp.get(
-            "size", app.config.vision_config.image_size)))
+        # VQGAN-variant apps (no vision tower) take [-1, 1] pixels
+        self.pm1 = getattr(app.config, "vision_config", None) is None
+        default_size = VQGAN_IMAGE_SIZE if self.pm1 else \
+            app.config.vision_config.image_size
+        self.image_size = int(udp.get("img_size", udp.get("size",
+                                                          default_size)))
         self.text_len = int(udp.get("text_len", sequence_length or 32))
         self.frame_num = int(udp.get("frame_num", 3))
         self.num_beams = int(udp.get("num_beams", 1))
@@ -51,8 +65,8 @@ class ImageTextGenerationPredictor(Predictor):
             from easynlp_tpu_torch.appzoo.video2text_generation.data import (
                 frame_pixels)
             return frame_pixels(cell, self.frame_num, self.image_size)
-        return preprocess_image(decode_base64_image_urlsafe(cell),
-                                self.image_size)
+        pre = preprocess_image_pm1 if self.pm1 else preprocess_image
+        return pre(decode_base64_image_urlsafe(cell), self.image_size)
 
     def preprocess(self, in_data):
         out = dict(in_data)

@@ -5,10 +5,10 @@ Counterpart of easynlp_tpu/modelzoo/models/auto/auto_factory.py and
 easynlp_tpu/appzoo/api.py::_tokenizer_for, reduced to the ported
 families: `bert`, `roberta`, `gpt2`, `bart`, `t5`, `mt5`, `pegasus`,
 `randeng`, `transformer`, `megatron_bert` (also HF's spelling
-`megatron-bert`), `kbert`, `dkplm`, `kangaroo`, `ckbert`, `glm` and
-`clip` (the Chinese-CLIP dual tower; HF's `chinese_clip` spelling too).
-AutoConfig, AutoModel and AutoTokenizer raise NotImplementedError naming
-the ROADMAP item of every other model_type. AutoModel.from_pretrained
+`megatron-bert`), `kbert`, `dkplm`, `kangaroo`, `ckbert`, `glm`, `clip`
+(the Chinese-CLIP dual tower; HF's `chinese_clip` spelling too), `cnn`
+(TextCNN) and `bloom`: every family of the JAX AutoConfig.
+AutoModel.from_pretrained
 returns the port's module with its weights loaded, from a
 `pytorch_model.bin` under HF/reference names or from the JAX package's
 `flax_params.msgpack` (through the family's state_dict_from_jax); the JAX
@@ -24,9 +24,10 @@ vocabulary holds </s> at the config's EOS id, else the GPT-2 tokenizer,
 which is what the JAX route gives every BART checkpoint (ROADMAP C11);
 SentencePiece for `t5`, `mt5` (T5Tokenizer) and `pegasus`
 (PegasusTokenizer); Randeng's WordPiece (RandengTokenizer) for `randeng`;
-subword-nmt BPE (TransformerTokenizer) for `transformer`; WordPiece
-otherwise (as the JAX route falls back to BertTokenizer for an unknown
-model_type or a directory with no config.json); GLMTokenizer (the
+subword-nmt BPE (TransformerTokenizer) for `transformer`; GPT-2's BPE for
+`bloom` (the JAX TOKENIZER_MAPPING's row); WordPiece otherwise (as the
+JAX route falls back to BertTokenizer for an unknown model_type or a
+directory with no config.json); GLMTokenizer (the
 SentencePiece engine with GLM's command tokens) for `glm`.
 `bert_config_for` gives RobertaConfig to a `roberta`
 checkpoint and BertConfig to the others, as the JAX AutoConfig maps them.
@@ -85,7 +86,7 @@ def tokenizer_for(model_dir):
         from easynlp_tpu_torch.modelzoo.models.bart import BartTokenizer
         if BartTokenizer.fits(model_dir, config.get("eos_token_id", 2)):
             return BartTokenizer.from_pretrained(model_dir)
-    if model_type in ("gpt2", "bart"):
+    if model_type in ("gpt2", "bart", "bloom"):
         from easynlp_tpu_torch.modelzoo.models.gpt2 import GPT2Tokenizer
         return GPT2Tokenizer.from_pretrained(model_dir)
     if model_type in _TOKENIZERS:
@@ -120,25 +121,20 @@ PORTED = {
     "ckbert": ("ckbert", "CKBertConfig", "CKBertForPreTraining"),
     "glm": ("glm", "GLMConfig", "GLMForConditionalGeneration"),
     "clip": ("clip", "CLIPConfig", "CLIPModel"),
+    "cnn": ("cnn", "TextCNNConfig", "TextCNNModel"),
+    "bloom": ("bloom", "BloomConfig", "BloomForCausalLM"),
 }
 # HF config.json's spellings
 _ALIASES = {"megatron-bert": "megatron_bert", "chinese_clip": "clip"}
-# the JAX AutoConfig's other families and the ROADMAP item of each
-NOT_PORTED = {"bloom": "A26", "cnn": "A21"}
 # the families whose checkpoints the sequence_generation app reads
 _GENERATION = ("gpt2", "bart", "t5", "mt5", "pegasus", "randeng",
                "transformer")
 
 
 def _classes(model_type):
-    """(model_type, config class, model class) of a ported family;
-    NotImplementedError naming the ROADMAP item of an unported one."""
+    """(model_type, config class, model class) of a ported family."""
     import importlib
     model_type = _ALIASES.get(model_type, model_type)
-    if model_type in NOT_PORTED:
-        raise NotImplementedError(
-            "model_type %r is not ported yet (ROADMAP %s)"
-            % (model_type, NOT_PORTED[model_type]))
     if model_type not in PORTED:
         raise KeyError("unknown model_type %r (the port has %s)"
                        % (model_type, sorted(PORTED)))
@@ -204,6 +200,10 @@ def _load_pytorch(model_type, module, state_dict):
         from easynlp_tpu_torch.modelzoo.models.clip import conversion
         conversion.load_clip_state_dict(
             module, conversion.normalize_keys(state_dict))
+    elif model_type == "bloom":
+        from easynlp_tpu_torch.modelzoo.models.bloom.modeling_bloom import (
+            normalize_keys)
+        module.load_state_dict(normalize_keys(state_dict), strict=True)
     else:
         state = _strip(state_dict, ("bert.", "roberta.", "kangaroo."))
         own = module.state_dict()
@@ -229,7 +229,8 @@ def _from_jax(model_type, params, config):
             "glm": "glm.conversion", "clip": "clip.conversion",
             "megatron_bert": "megatron_bert",
             "kbert": "kbert.modeling_kbert",
-            "dkplm": "dkplm.modeling_dkplm"}[model_type]
+            "dkplm": "dkplm.modeling_dkplm", "cnn": "cnn.modeling_cnn",
+            "bloom": "bloom.modeling_bloom"}[model_type]
     return importlib.import_module(_M + name).state_dict_from_jax(params,
                                                                   config)
 

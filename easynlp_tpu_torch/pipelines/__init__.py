@@ -3,14 +3,14 @@
 Counterpart of easynlp_tpu/pipelines/__init__.py, reduced to the tasks the
 port runs: text_classify, text_match, sequence_labeling, vectorization,
 data_augmentation, machine_reading_comprehension, image2text_generation,
+text2image_generation (ARTIST: prompts to base64 PNGs),
 sequence_generation, open_domain_dialogue and the PAI-Diffusion family
 (latent_diffusion, chinese-ldm-*, stable-diffusion-general: prompts to
 images through StableDiffusionPipeline). pipeline(model_dir)
 infers the task from the directory's train_config.json, and
 pipeline(task, model_path=dir) names it. A task name without model_path
 (its default model) and a registered model name resolve through the model
-zoo registry, which is not ported (ROADMAP A26); the other JAX tasks raise
-naming their ROADMAP items.
+zoo registry, which is not ported (ROADMAP A26).
 """
 
 import json
@@ -31,9 +31,7 @@ SUPPORTED_TASKS = {
     "open_domain_dialogue": {"app": "open_domain_dialogue"},
     "data_augmentation": {"app": "data_augmentation"},
     "image2text_generation": {"app": "image2text_generation"},
-    # the JAX package's other tasks, each with the item that ports it
-    "text2image_generation": {"app": "text2image_generation",
-                              "not_ported": "ROADMAP A21"},
+    "text2image_generation": {"app": "text2image_generation"},
 }
 # the PAI-Diffusion family: prompt -> image
 for _ldm_task in ("latent_diffusion", "chinese-ldm-general",

@@ -35,10 +35,6 @@ class Pipeline:
         )
         from easynlp_tpu_torch.pipelines import SUPPORTED_TASKS
         spec = SUPPORTED_TASKS[task]
-        if "not_ported" in spec:
-            raise NotImplementedError(
-                "pipeline task %r is not ported yet (%s)"
-                % (task, spec["not_ported"]))
         self._diffusion = None
         if spec.get("diffusion"):
             from easynlp_tpu_torch.appzoo.latent_diffusion.model import (

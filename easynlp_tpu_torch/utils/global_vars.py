@@ -44,6 +44,9 @@ USER_DEFINED_PARAMETERS_TYPES = {
     "controlnet_hint_column": str,
     "serve_quantize": str,
     "serve_params_dtype": str,
+    # not in the JAX registry, which leaves "false" a true string
+    # (ROADMAP reference fault 36)
+    "random_crop": bool,
 }
 
 

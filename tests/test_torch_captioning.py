@@ -13,7 +13,7 @@ eval_loss, where JAX's weights the padded rows of a last partial batch
 (reference fault 27). The CLI test runs image2text_generation (default
 and enable_vit) and video2text_generation train, evaluate and predict in
 one fresh interpreter of the port's, which must load no jax, flax or
-easynlp_tpu module; enable_vqgan still raises, naming ROADMAP A21.
+easynlp_tpu module; enable_vqgan selects the ARTIST captioner.
 """
 
 import base64
@@ -298,12 +298,19 @@ def test_loss_evaluator_reference_fault_27(caption_dir):
 
 
 def test_enable_vqgan_still_raises():
-    from easynlp_tpu_torch.appzoo.api import MODEL_REGISTRY, _resolve
-    with pytest.raises(NotImplementedError, match="ROADMAP A21"):
-        _resolve(MODEL_REGISTRY, "image2text_generation",
-                 {"enable_vqgan": "true"})
-    assert _resolve(MODEL_REGISTRY, "image2text_generation",
-                    {"enable_vit": "true"}) is PM.CLIPGPTImageTextGeneration
+    """enable_vqgan, which raised until slice 14, selects the ARTIST
+    captioner and its dataset (held to JAX in tests/test_torch_artist.py
+    and tests/test_torch_text2image.py); enable_vit the ViT captioner."""
+    from easynlp_tpu_torch.appzoo import api
+    from easynlp_tpu_torch.appzoo.image2text_generation import vqgan_model
+    udp = {"enable_vqgan": True}
+    assert api._resolve(api.MODEL_REGISTRY, "image2text_generation",
+                        udp) is vqgan_model.VQGANGPTImageTextGeneration
+    assert api._resolve(api.DATASET_REGISTRY, "image2text_generation",
+                        udp) is vqgan_model.VQGANImageTextDataset
+    vit = api._resolve(api.MODEL_REGISTRY, "image2text_generation",
+                       {"enable_vit": "true"})
+    assert vit is PM.CLIPGPTImageTextGeneration
 
 
 def write_port_dir(path, vocab_dir, frames=False):

@@ -630,9 +630,10 @@ def test_auto_model_round_trip(tmp_path, model_type, cls_name):
 
 @pytest.mark.parametrize("model_type", ["glm", "bloom", "clip", "cnn"])
 def test_auto_refuses_unported_families(tmp_path, model_type):
-    """bloom and cnn raise naming their ROADMAP item. glm and clip, which
-    raised until slices 11 and 12, give their config, model and
-    tokenizer."""
+    """Every family of the JAX AutoConfig is ported: glm, clip, bloom and
+    cnn, which raised until slices 11, 12 and 14, give their config,
+    model and tokenizer (BLOOM's and TextCNN's outputs are held to JAX in
+    tests/test_torch_cnn_bloom.py)."""
     from easynlp_tpu_torch.modelzoo.models import auto
     if model_type == "clip":
         config = _model_dir(tmp_path, model_type)
@@ -652,20 +653,29 @@ def test_auto_refuses_unported_families(tmp_path, model_type):
         tok = auto.AutoTokenizer.from_pretrained(str(tmp_path))
         assert isinstance(tok, BertTokenizer)
         return
-    _model_dir(tmp_path, model_type)
+    extra = {"bloom": dict(n_layer=2, n_head=4),
+             "cnn": dict(embedding_size=16, num_filters=8)}.get(model_type, {})
+    _model_dir(tmp_path, model_type, **extra)
+    want = {"glm": ("GLMForConditionalGeneration", "GLMTokenizer"),
+            "bloom": ("BloomForCausalLM", "GPT2Tokenizer"),
+            "cnn": ("TextCNNModel", "BertTokenizer")}[model_type]
     if model_type == "glm":
         from test_torch_glm import write_glm_sp_model
         write_glm_sp_model(str(tmp_path / "spiece.model"))
-        config = auto.AutoConfig.from_pretrained(str(tmp_path))
-        module = auto.AutoModel.from_config(config, device="cpu")
-        assert type(module).__name__ == "GLMForConditionalGeneration"
-        tok = auto.AutoTokenizer.from_pretrained(str(tmp_path))
-        assert type(tok).__name__ == "GLMTokenizer"
-        return
-    item = auto.NOT_PORTED[model_type]
-    for cls in (auto.AutoConfig, auto.AutoModel, auto.AutoTokenizer):
-        with pytest.raises(NotImplementedError, match="ROADMAP " + item):
-            cls.from_pretrained(str(tmp_path))
+    if model_type == "bloom":  # the JAX route's GPT-2 BPE files
+        from test_torch_sequence_generation import write_tokenizer
+        write_tokenizer(str(tmp_path))
+    config = auto.AutoConfig.from_pretrained(str(tmp_path))
+    assert config.model_type == model_type
+    module = auto.AutoModel.from_config(config, device="cpu")
+    assert type(module).__name__ == want[0]
+    ids = torch.tensor([[5, 6, 7, 8]])
+    with torch.no_grad():
+        out = module(ids, attention_mask=torch.ones_like(ids))
+    key = "logits" if model_type != "cnn" else "pooler_output"
+    assert torch.isfinite(out[key]).all()
+    tok = auto.AutoTokenizer.from_pretrained(str(tmp_path))
+    assert type(tok).__name__ == want[1]
 
 
 def test_auto_model_reads_a_jax_checkpoint(tmp_path):

@@ -345,8 +345,9 @@ def test_encoder_decoder_backbones_raise(tmp_path, model_type, match):
 def test_chip_smoke_gpt2_inputs(tmp_path):
     """chip_smoke.py's synthetic GPT-2 vocabulary and prompts: 50257
     distinct tokens, "!" at id 0 and EOS at 50256 as in GPT-2, merges the
-    tokenizer applies (words come out in multi-letter pieces), and 16
-    prompts of 600..768 tokens (the first 768) with no unknown token."""
+    tokenizer applies (words come out in multi-letter pieces), and
+    GEN_ROWS prompts (16 until slice 14, now 8) of 600..768 tokens (the
+    first 768) with no unknown token."""
     from easynlp_tpu_torch.modelzoo.models.gpt2 import GPT2Tokenizer
     sys.path.insert(0, REPO)
     import chip_smoke
@@ -364,7 +365,8 @@ def test_chip_smoke_gpt2_inputs(tmp_path):
     chip_smoke.make_gen_tsv(tsv, tok, seed=1234)
     with open(tsv, encoding="utf-8") as f:
         rows = [line.rstrip("\n").split("\t") for line in f]
-    assert [r[0] for r in rows] == [str(i) for i in range(16)]
+    assert [r[0] for r in rows] == [str(i)
+                                    for i in range(chip_smoke.GEN_ROWS)]
     enc = tok([r[1] for r in rows], max_length=chip_smoke.GEN_PROMPT_WIDTH)
     n = enc["attention_mask"].sum(axis=1)
     assert n.min() >= 600 and n[0] == n.max() == 768

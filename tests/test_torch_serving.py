@@ -130,8 +130,10 @@ def test_pipeline_by_task_name_and_params_dtype(ckpt, port_pipe):
         "bert-base-sst-registered-name"), "A26"),
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
         p, quantize="int4", device="cpu"), "quantize must be 'int8'"),
+    # text2image_generation is ported (slice 14): ARTIST's registered
+    # model name resolves through the unported registry
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
-        "text2image_generation", model_path=p), "A21"),
+        "artist-base-zh"), "A26"),
     # the diffusion tasks are ported (slice 13): without model_path they
     # too resolve a default model through the unported registry
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(

@@ -187,7 +187,16 @@ def test_port_sources_import_nothing_of_the_jax_package():
                 "modelzoo/models/latent_diffusion/unet.py",
                 "modelzoo/models/latent_diffusion/autoencoder.py",
                 "modelzoo/models/latent_diffusion/conversion.py",
-                "modelzoo/models/latent_diffusion/esrgan.py"):
+                "modelzoo/models/latent_diffusion/esrgan.py",
+                # and slice 14's ARTIST, TextCNN and BLOOM
+                "modelzoo/models/artist/modeling_artist.py",
+                "modelzoo/models/artist/generation.py",
+                "modelzoo/models/cnn/modeling_cnn.py",
+                "modelzoo/models/bloom/modeling_bloom.py",
+                "appzoo/text2image_generation/model.py",
+                "appzoo/text2image_generation/data.py",
+                "appzoo/text2image_generation/predictor.py",
+                "appzoo/image2text_generation/vqgan_model.py"):
         assert os.path.join(REPO, "easynlp_tpu_torch", rel) in files
     found = []
     for path in files:
@@ -220,12 +229,14 @@ def test_device_cuda_never_falls_back_to_cpu():
 
 @pytest.mark.parametrize("argv,match", [
     (["--mode=export"], "ROADMAP"),  # train is ported: export still raises
-    # clip is ported (slice 12): text2image_generation still raises
-    (["--mode=predict", "--app_name=text2image_generation"], "ROADMAP A21"),
+    # every app is ported (text2image_generation since slice 14:
+    # tests/test_torch_text2image.py); vectorization has no evaluator, in
+    # the port as in the JAX package
+    (["--mode=evaluate", "--app_name=vectorization"], "no entry"),
     # the A12 and A13 switches are ported; language_modeling has no
     # predictor, in the port as in the JAX package
     (["--mode=predict", "--app_name=language_modeling",
-      "--user_defined_parameters=enable_kangaroo=true"], "ROADMAP"),
+      "--user_defined_parameters=enable_kangaroo=true"], "no entry"),
 ])
 def test_unported_modes_and_apps_raise(fixture_dir, argv, match):
     from easynlp_tpu_torch.appzoo.api import default_main_fn
