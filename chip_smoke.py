@@ -13,13 +13,13 @@ epoch of 8 steps followed by `--mode=evaluate` and `--mode=predict` on the
 checkpoint it wrote. On a GPT-2 small model (HF `gpt2` widths and depth,
 random weights from --seed, a synthetic 50257-token byte-level BPE vocab):
 `--mode=predict --app_name=sequence_generation` over 8 prompts of 600-768
-tokens, greedy for 128 new tokens, and one beam-search batch. On a BART-base
+tokens, greedy for 96 new tokens, and one beam-search batch. On a BART-base
 model (HF `facebook/bart-base` widths and depth, dropout 0, random weights
 from --seed, a synthetic 50265-token byte-level BPE vocab):
 `--mode=train --app_name=sequence_generation` for 8 AdamW steps of 8
 articles of 1024 tokens with 64-token targets, then `--mode=evaluate` on 8
 rows with greedy decoding. Then `--mode=serve`: GPT-2 small behind
-`/generate` (serve_continuous=true, 8 slots, a 1024-slot window) to 36
+`/generate` (serve_continuous=true, 8 slots, a 1024-slot window) to 20
 requests from 16 client threads, and phase 4's checkpoint behind
 `/predict` to 256 rows in 64 concurrent requests. Then MLM pretraining
 (`--mode=train --app_name=language_modeling`): BERT-base for 8 AdamW steps
@@ -90,7 +90,7 @@ small and prompts, f32 `--mode=predict` greedy, with
 speculative_decoding=prompt_lookup (token for token with greedy, the
 accepted tokens per verify forward and ms per output token) and with
 kv_cache_dtype=int8 (token match and mean logit KL against the f32
-cache); DeviceContinuousDecoder(speculative=(2, 8)) over 16 requests
+cache); DeviceContinuousDecoder(speculative=(2, 8)) over 12 requests
 against speculative=None and standalone greedy decoding; `/generate` with
 serve_quantize=int8 against f32 and bf16 weights (token match, KL,
 quantization_report's bytes, ms per output token); pipeline(quantize=
@@ -151,11 +151,22 @@ card's f32 forward against the CPU's. Phase 2 adds ARTIST's shapes: the 8 x 288 
 sequence with padding inside its text, a decode step over 288 slots and
 the 8 x 257 VQGAN prefill. Phases 14 and 15 also train Kangaroo and
 T5-base a second time with the kernels and hold the two runs to each
-other bit for bit (ROADMAP C28, C29). Every phase raises on failure, so
-any failure exits non-zero. `--only 2` or `--only 19` runs the build and
-that phase alone. The last line is {"ok": true, "device": {...}}; the
+other bit for bit (ROADMAP C28, C29). Then phase 20, the device-parallel layer
+(torch.distributed): BERT-base text_classify through the CLI with
+`--mesh=dp=1` (an NCCL group of one rank) and without, 3 bf16 steps,
+losses and weights bit for bit; FSDP2's fully_shard over BERT-base at
+world 1 (loss and gradients equal); then two `gloo` ranks on cuda:0
+(gloo's send/recv staged through pinned host memory, the bytes printed):
+BERT-base data=2 3 f32 AdamW steps against one rank with the global batch,
+BERT-base tensor=2 logits, the ring over sequence=2 at 8 x 512 in f32 and
+bf16, forward and backward (B3 and B4/B5 launched once a hop a rank, a
+fully masked row the mean of V), GPT-2-small-width Switch-MoE (8 experts,
+top-1, capacity 1.25, 2 layers) over expert=2 and glm-large at 6 of 24
+layers over tensor=2, each against one rank. Every phase raises on
+failure, so any failure exits non-zero. `--only 2`, `--only 19` or
+`--only 20` runs the build and that phase alone. The last line is {"ok": true, "device": {...}}; the
 line before it lists the kernels with their launches in the BART
-training run and phase 11's to 19's runs, errors, times (kernel, plain
+training run and phase 11's to 20's runs, errors, times (kernel, plain
 twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
 the JAX package.
 """
@@ -301,7 +312,7 @@ GPT2_SMALL = {  # HF gpt2 config.json: GPT-2 small, full width and depth
 }
 GPT2_MODEL_DIR = "gpt2-small-random"
 GEN_PROMPT_WIDTH = 768          # --sequence_length
-GEN_NEW_TOKENS = 128            # max_decoder_length
+GEN_NEW_TOKENS = 96             # max_decoder_length (128 until slice 15)
 GEN_BATCH = 8
 GEN_ROWS = 8                    # 16 until slice 14
 GEN_BEAMS, GEN_BEAM_NEW_TOKENS = 4, 32
@@ -311,7 +322,7 @@ SERVE_SLOTS, SERVE_CHUNK = 8, 16
 SERVE_WINDOW = 1024                  # --sequence_length: the KV window
 SERVE_BUCKET = SERVE_WINDOW // 4     # the default prompt bucket
 SERVE_PREFIX = 64                    # phase 2's shared-prefix admit
-SERVE_REQUESTS, SERVE_STREAMS, SERVE_SAMPLED = 32, 4, 4
+SERVE_REQUESTS, SERVE_STREAMS, SERVE_SAMPLED = 16, 4, 4  # 32 until slice 15
 SERVE_CLIENTS = 16
 # f32 serving against f32 standalone greedy decoding: the same kernels at
 # the same shapes, row by row, so the tokens should agree exactly; a
@@ -726,7 +737,7 @@ def phase_kernel(torch, seed):
     # phase 15's shapes: T5's unscaled cross-attention, head dim 32,
     # Pegasus-large's 16 heads
     _check_seq2seq_cases(torch, A, seed, out, timings)
-    seconds["seq2seq, slice 11"] = time.perf_counter() - t0
+    seconds["seq2seq, slice 11, ring hop"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     # phase 18's: the SD v1 UNet's head dims 40, 80 and 160; phase 19's:
     # ARTIST-base's training sequence, decode step and VQGAN prefill
@@ -844,6 +855,16 @@ def slice11_cases(rng):
     ]
 
 
+def parallel_cases(rng):
+    """Phase 20's ring hop (as seq2seq_cases), forward and backward:
+    BERT-base's 8 x 512 over sequence=2, so each hop is 8 x 256 queries
+    against one 256-key chunk, 12 heads, D 64, non-causal, rows holding
+    1-256 of the chunk's keys (B3, then B4/B5 with the global LSE)."""
+    import numpy as np
+    return [("ring-hop", "flash", 8, 256, 256, 12, 64,
+             np.r_[256, rng.randint(1, 257, size=7)], False, None, True)]
+
+
 def diffusion_cases(rng):
     """Phase 18's attention shapes (as seq2seq_cases), at Stable Diffusion
     v1's UNet on 512-pixel images (64 x 64 latents) over 8 heads, batch 2,
@@ -959,8 +980,9 @@ def _check_profiled_cases(torch, A, case_rng, cases, worst, timings, tag):
 
 
 def _check_seq2seq_cases(torch, A, seed, worst, timings):
-    """Phase 15's shapes (seq2seq_cases) and phase 16's (slice11_cases),
-    each from a stream of its own, through _check_attention_cases."""
+    """Phase 15's shapes (seq2seq_cases), phase 16's (slice11_cases) and
+    phase 20's ring hop (parallel_cases), each from a stream of its own,
+    through _check_attention_cases."""
     import numpy as np
     case_rng = np.random.RandomState(seed + 6)
     _check_attention_cases(torch, A, case_rng, seq2seq_cases(case_rng),
@@ -968,6 +990,9 @@ def _check_seq2seq_cases(torch, A, seed, worst, timings):
     case_rng = np.random.RandomState(seed + 7)
     _check_attention_cases(torch, A, case_rng, slice11_cases(case_rng),
                            worst, timings, "s11")
+    case_rng = np.random.RandomState(seed + 8)
+    _check_attention_cases(torch, A, case_rng, parallel_cases(case_rng),
+                           worst, timings, "p20")
 
 
 def _check_attention_cases(torch, A, case_rng, cases, worst, timings, tag):
@@ -2055,9 +2080,11 @@ def _common_argv(use_kernel):
 
 
 def run_train(torch, model_dir, train_tsv, dev_tsv, ckpt, use_kernel, seed,
-              profile_dir=None, common=None, logging_steps=1):
+              profile_dir=None, common=None, logging_steps=1,
+              keep_trainer=False):
     """One --mode=train run; `common` replaces text_classify's flags
-    (_common_argv)."""
+    (_common_argv); keep_trainer keeps the trainer (its model and
+    optimizer) in the summary."""
     from easynlp_tpu_torch.appzoo.api import default_main_fn
     from easynlp_tpu_torch.utils.initializer import initialize_easynlp
     argv = ["--mode=train", "--tables=%s,%s" % (train_tsv, dev_tsv)
@@ -2080,6 +2107,7 @@ def run_train(torch, model_dir, train_tsv, dev_tsv, ckpt, use_kernel, seed,
     # a summary only: dropping the trainer frees its model and optimizer
     # state before the next run, whose peak memory is then its own
     return {"records": trainer.step_records,
+            "trainer": trainer if keep_trainer else None,
             "save_s": trainer.save_seconds,
             "skips": trainer.nonfinite_skips,
             "total_s": time.perf_counter() - t0,
@@ -6933,7 +6961,7 @@ SPEC_DRAFTS, SPEC_NGRAM = 8, 2       # num_draft_tokens, lookup_ngram_size
 SPEC_UDP = ("speculative_decoding=prompt_lookup num_draft_tokens=%d "
             "lookup_ngram_size=%d" % (SPEC_DRAFTS, SPEC_NGRAM))
 SPEC_DECODER = (SPEC_NGRAM, SPEC_DRAFTS)   # DeviceContinuousDecoder's
-SPEC_REQUESTS = 16
+SPEC_REQUESTS = 12  # 16 until slice 15
 P16_ROWS = GEN_BATCH   # GPT-2 f32 predicts: phase 5's first 8 prompts
 BART_SPEC_ROWS = 8
 GLM_LARGE = {  # JAX GLMConfig's defaults: glm-large-chinese's widths at
@@ -6953,7 +6981,7 @@ GLM_LM_STEPS, GLM_DEV_ROWS = 4, 16
 # in their depth (fine-tuning ran all 24 layers until slice 13, whose
 # latent diffusion phase needed the time and the disk writes: 131.6 ms a
 # step at 18.4 GiB, PERF.md)
-GLM_CUT_LAYERS = 6
+GLM_CUT_LAYERS = 4   # 6 until slice 15
 GLM_NEW_TOKENS = 32
 # predict's --sequence_length: the prompt, gMASK and sop, the new tokens
 # and a verify chunk's K+1 slots fill the 512 keys B1 takes
@@ -7175,7 +7203,7 @@ def phase_slice11(torch, seed, workdir):
         raise AssertionError("int8 KV predict: kernel and plain differ")
     del logits, kls
 
-    # DeviceContinuousDecoder(speculative=(2, 8)) over 16 requests, f32,
+    # DeviceContinuousDecoder(speculative=(2, 8)) over 12 requests, f32,
     # against speculative=None; both held to standalone greedy decoding
     A.set_kernel_override(None)   # the plain CLI run above turned it off
     work = serve_workload(seed)[:SPEC_REQUESTS]
@@ -7239,7 +7267,7 @@ def phase_slice11(torch, seed, workdir):
 
     # /generate with serve_quantize=int8 (bf16 compute, the rest of the
     # weights cast to bf16 as the server does), against f32 and bf16
-    # weights on the same 16 requests
+    # weights on the same 12 requests
     load = [{"prompt_ids": p, "max_new_tokens": n} for p, n in work]
     served, tpot, report = {}, {}, None
     for tag, dtype, extra in (("f32", "float32", ""),
@@ -8007,8 +8035,8 @@ SD_V1 = {  # CompVis configs/stable-diffusion/v1-inference.yaml as an
 SD_DIR = "sd-v1-random"
 SD_TEXT_LEN = 32              # --sequence_length: the prompts' tokens
 SD_PROMPTS, SD_STEPS, SD_GUIDANCE = 2, 10, 7.5   # 20 steps until slice 14
-SD_FAST_STEPS = 5             # PLMS, DPM-Solver++ and the extras (10
-                              # until slice 14)
+SD_FAST_STEPS = 4             # PLMS, DPM-Solver++ and the extras (10
+                              # until slice 14, 5 until slice 15)
 SD_TRAIN_BATCH, SD_TRAIN_STEPS, SD_DEV_ROWS = 2, 3, 4
 SD_EXTRA_SIZE = 256           # the extras' images: 32 x 32 latents
 SD_ESRGAN_INPUT = 128         # ESRGAN 4x: 128² -> 512²
@@ -8137,7 +8165,7 @@ def phase_diffusion(torch, seed, workdir, cjk):
     bert-base-chinese text tower), the port's init from --seed written
     once as a 4.2 GB f32 pytorch_model.bin: f32 --mode=predict of 2
     prompts, 10 DDIM steps at guidance 7.5 (the PNGs, and the final latents
-    through the app, kernels against plain), PLMS and DPM-Solver++ at 10
+    through the app, kernels against plain), PLMS and DPM-Solver++ at SD_FAST_STEPS (4)
     steps, pipeline("chinese-ldm-general") against the CLI's PNGs, f32
     --mode=evaluate, 3 bf16 AdamW steps of 2 x 512² (no checkpoint),
     kernels against plain each; then at 256² (32 x 32 latents, which still
@@ -8982,6 +9010,656 @@ def phase_artist(torch, seed, workdir, cjk):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 20: the device-parallel layer (torch.distributed)
+# --------------------------------------------------------------------------
+
+# the ranks' own checks: BERT-base's widths (N_LAYERS layers), GPT-2
+# small's widths with Switch-MoE layers (Switch-Base-8: 8 experts, top-1,
+# capacity factor 1.25; Fedus et al. 2021) cut to MOE_LAYERS layers, and
+# glm-large's widths cut to PARALLEL_GLM_LAYERS of its 24 layers
+PARALLEL_STEPS = 3
+PARALLEL_BATCH, PARALLEL_SEQ = 16, SEQ_LEN
+# the CLI ranks: text_classify train on BERT-base widths cut to 2 layers (a
+# config-only model dir, so from_pretrained's seeded init; its f32 dp=2
+# checkpoint is 0.37 GB), on each mesh of PARALLEL_CLI_MESHES
+PARALLEL_CLI_LAYERS = 2
+PARALLEL_CLI_DIR = "bert-base-chinese-random-2-layers"
+PARALLEL_CLI_MESHES = ("dp=2", "sp=2", "tp=2")
+RING_BATCH, RING_SEQ = 8, 512           # two 256-token chunks
+MOE_EXPERTS, MOE_CAPACITY, MOE_LAYERS = 8, 1.25, 2
+MOE_BATCH, MOE_SEQ = 4, 128
+PARALLEL_GLM_LAYERS = 6
+PARALLEL_TIMEOUT = 300
+PARALLEL_DEVICE = "cuda"    # both ranks on device 0 of this type
+# Tolerances of the ranks' checks, all f32 but the bf16 ring:
+# - a CLI training run on a mesh against the one-rank CLI run on the same
+#   global batches (AdamW at a constant lr): each step's loss is the mean
+#   of the ranks' means (1e-5, sums in another order), grad norms within
+#   1e-4 relative, and the parameters' displacement from their initial
+#   values, D = p - p0, within PARALLEL_STEP_RTOL of the one-rank run's,
+#   relative over all parameters (L2). A rank that skipped or halved an
+#   update would move D by all or half of one update U; the rank reads U
+#   from a one-rank run stopped a step earlier and fails unless |U| / 2
+#   is above the bound;
+# - logits of a split model (tensor or expert axis) against the whole one:
+#   the same products summed in another order through 12 (6, 2) layers of
+#   f32: 1e-4; the MoE aux loss 1e-6;
+# - the f32 ring against one rank's attention(): the flash kernels per hop
+#   against the short kernels, f32 sums in another order: the f32 kernels'
+#   bounds, 2e-5 forward and 2e-5 + 1e-5 |g| backward;
+# - the bf16 ring against the f32 twins on the same (bf16) inputs: each
+#   hop's kernel meets the one-call bound (FLASH_FWD_RSS_BF16 and
+#   FLASH_BWD_RSS_BF16 beside their derivations), and the ring adds one
+#   bf16 rounding of each hop's result before the f32 merge (at most 2^-8
+#   of it). With the hops' RSS terms summing to at most sqrt(n) R
+#   (Cauchy-Schwarz over n hops) and the hops' results summing in absolute
+#   value to at most T = sum_j |x_j y_j| (sum_k P_k |v_k| forward):
+#   forward 1e-5 + 2^-8 |o| + 2^-8 T + 2.5 x 2^-8 sqrt(n) R; backward
+#   n 1e-5 + 2^-8 T + 2.5 x 2^-8 sqrt(n) R.
+PARALLEL_LOSS_ATOL, PARALLEL_GNORM_RTOL = 1e-5, 1e-4
+PARALLEL_STEP_RTOL = 1e-3
+PARALLEL_LOGITS_ATOL, PARALLEL_AUX_ATOL = 1e-4, 1e-6
+
+
+def _parallel_bert(torch, seed, config, device):
+    """SequenceClassification on BERT-base widths from the seed."""
+    from easynlp_tpu_torch.appzoo.sequence_classification.model import (
+        SequenceClassification, SequenceClassificationModule)
+    from easynlp_tpu_torch.modelzoo.models.bert import BertConfig
+    cfg = BertConfig(**config)
+    module = SequenceClassificationModule(cfg, num_labels=2, device=device)
+    module.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return SequenceClassification(module, cfg, device)
+
+
+def _parallel_cli_data(workdir, seed):
+    """The CLI ranks' files under workdir/parallel: the config-only
+    BERT-base dir at PARALLEL_CLI_LAYERS layers (dropout off, so runs
+    compare step by step), one.tsv (PARALLEL_STEPS global batches of BATCH
+    rows of train.tsv), dp.tsv (the same rows placed so that two data
+    ranks, each reading every second row and shuffling its half, step on
+    one.tsv's global batches in one.tsv's order) and dev.tsv (N_DEV_ROWS
+    further rows). Returns the directory."""
+    import shutil
+    import numpy as np
+    d = os.path.join(workdir, "parallel")
+    cut = os.path.join(d, PARALLEL_CLI_DIR)
+    os.makedirs(cut)
+    with open(os.path.join(cut, "config.json"), "w") as f:
+        json.dump(dict(BERT_BASE_CHINESE,
+                       num_hidden_layers=PARALLEL_CLI_LAYERS,
+                       hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0), f, indent=2)
+    for name in ("vocab.txt", "label_mapping.json"):
+        shutil.copy(os.path.join(workdir, MODEL_DIR, name), cut)
+    with open(os.path.join(workdir, "train.tsv"), encoding="utf-8") as f:
+        lines = f.read().splitlines(True)
+    n, per = PARALLEL_STEPS * BATCH, BATCH // 2
+    rows, dev = lines[:n], lines[n:n + N_DEV_ROWS]
+
+    def order(k):
+        # the Trainer's DataLoader: epoch 0's order of k rows
+        o = np.arange(k)
+        np.random.RandomState(seed).shuffle(o)
+        return o
+    whole, half = order(n), order(n // 2)
+    placed = [None] * n
+    for t in range(PARALLEL_STEPS):
+        for j in range(per):
+            i = half[t * per + j]
+            placed[2 * i] = rows[whole[t * BATCH + j]]
+            placed[2 * i + 1] = rows[whole[t * BATCH + per + j]]
+    for name, part in (("one.tsv", rows), ("dp.tsv", placed),
+                       ("dev.tsv", dev)):
+        with open(os.path.join(d, name), "w", encoding="utf-8") as f:
+            f.writelines(part)
+    return d
+
+
+def _parallel_cli_argv(d, tables, device, seed):
+    """text_classify train flags of the CLI ranks' runs on d's files."""
+    return ["--mode=train", "--app_name=text_classify",
+            "--pretrained_model_name_or_path=" + os.path.join(
+                d, PARALLEL_CLI_DIR),
+            "--tables=" + ",".join(os.path.join(d, t) for t in tables),
+            "--input_schema=id:str:1,sentence:str:1,label:str:1",
+            "--first_sequence=sentence", "--label_name=label",
+            "--sequence_length=%d" % SEQ_LEN,
+            "--micro_batch_size=%d" % BATCH, "--dtype=float32",
+            "--device=" + device, "--use_flash_attention=auto",
+            "--optimizer_type=AdamW", "--learning_rate=%g" % LEARNING_RATE,
+            "--lr_scheduler=constant", "--logging_steps=1",
+            "--random_seed=%d" % seed, "--epoch_num=1"]
+
+
+def _max_abs(torch, a, b):
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def phase_parallel_rank(torch, seed, rank, workdir):
+    """One of phase 20's two `gloo` ranks on cuda:0. (1) The CLI: the
+    one-rank text_classify runs this rank holds the others to, then
+    text_classify train through the CLI's entry points on each mesh of
+    PARALLEL_CLI_MESHES over the two ranks (--num_processes,
+    --process_index, a file:// --coordinator_address,
+    --dist_backend=gloo), each checked against the one-rank run; dp=2
+    writes its checkpoint (the master alone). (2) Op-level checks on the
+    same process group: each builds its mesh over the two ranks, runs the
+    split model, and rank 0 holds it to the whole model on one rank
+    (computed on rank 0 with no mesh). Writes the results and this rank's
+    launches (mesh runs only) as JSON."""
+    import numpy as np
+    import torch.distributed as dist
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.appzoo.sequence_classification.model import (
+        SequenceClassification)
+    from easynlp_tpu_torch.modelzoo.models.glm.modeling_glm import (
+        GLMConfig, GLMForConditionalGeneration)
+    from easynlp_tpu_torch.modelzoo.models.gpt2 import (GPT2Config,
+                                                        GPT2LMHeadModel)
+    from easynlp_tpu_torch.ops import attention as A
+    from easynlp_tpu_torch.parallel import comm, sharding
+    from easynlp_tpu_torch.parallel import mesh as M
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    dev = torch.device(PARALLEL_DEVICE, 0)
+    device_flag = "cuda:0" if dev.type == "cuda" else dev.type
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+    launches = dict.fromkeys(wrappers, 0)
+    out = {"checks": {}, "seconds": {}}
+
+    def count(tag, fn):
+        """fn() with every launch count 0 just before it, read after."""
+        for w in wrappers:
+            getattr(A, w).launches = 0
+        try:
+            return fn()
+        finally:
+            got = {w: getattr(A, w).launches for w in wrappers}
+            for w in wrappers:
+                launches[w] += got[w]
+            out.setdefault("launches_by_check", {})[tag] = got
+
+    def check(name, ok, **values):
+        out["checks"][name] = dict(values, ok=bool(ok))
+
+    # 1. the CLI. This rank's own one-rank runs first (no process group):
+    # the initial weights (from_pretrained's seeded init), PARALLEL_STEPS
+    # steps with the dev set's evaluation, and one step fewer for U
+    t0 = time.perf_counter()
+    def argv(tables):
+        return _parallel_cli_argv(workdir, tables, device_flag, seed)
+
+    def cli(args_list):
+        trainer = default_main_fn(initialize_easynlp(args_list=args_list))
+        sync()
+        return trainer
+
+    def params(module):
+        return {n: p.detach().clone() for n, p in module.named_parameters()}
+    p0 = params(SequenceClassification.from_pretrained(
+        os.path.join(workdir, PARALLEL_CLI_DIR), dtype=torch.float32,
+        device=dev, num_labels=2).module)
+    one = cli(argv(("one.tsv", "dev.tsv")))
+    ref = {"losses": [r["loss"] for r in one.step_records],
+           "grad_norms": [r["grad_norm"] for r in one.step_records],
+           "params": params(one.app.module)}
+    out["one_rank_eval"] = one.evaluator.evaluate(one.app)
+    del one
+    short = cli(argv(("one.tsv",)) + ["--epoch_num=%r" % (
+        (PARALLEL_STEPS - 1) / PARALLEL_STEPS)])
+    before_last = params(short.app.module)
+    del short
+
+    def norm(d):
+        return sum(float(t.double().square().sum()) for t in d.values()) \
+            ** 0.5
+    moved = norm({k: ref["params"][k] - p0[k] for k in p0})
+    half_update = 0.5 * norm({k: ref["params"][k] - before_last[k]
+                              for k in p0}) / moved
+    del before_last
+    out["seconds"]["one-rank CLI runs"] = time.perf_counter() - t0
+    for spec in PARALLEL_CLI_MESHES:
+        t0 = time.perf_counter()
+        tables = ("dp.tsv" if spec.startswith("dp") else "one.tsv",
+                  "dev.tsv")
+        flags = argv(tables) + [
+            "--mesh=" + spec, "--num_processes=2",
+            "--process_index=%d" % rank,
+            "--coordinator_address=file://" + os.path.join(workdir,
+                                                           "rdzv"),
+            "--dist_backend=gloo"]
+        if spec.startswith("dp"):
+            flags.append("--checkpoint_dir=" + os.path.join(workdir,
+                                                            "ckpt_dp"))
+        tr = count("CLI " + spec, lambda: cli(flags))
+        got = sharding.full_state(tr.app.module, M.get_global_mesh())
+        losses = [r["loss"] for r in tr.step_records]
+        gnorms = [r["grad_norm"] for r in tr.step_records]
+        dl = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+        dg = max(abs(a - b) / b for a, b in zip(gnorms, ref["grad_norms"]))
+        rel = norm({k: got[k] - ref["params"][k] for k in p0}) / moved
+        dp_max = max(float((got[k] - ref["params"][k]).abs().max())
+                     for k in p0)
+        check("rank %d CLI text_classify train --mesh=%s, %d f32 steps" % (
+            rank, spec, PARALLEL_STEPS),
+            len(losses) == PARALLEL_STEPS and dl <= PARALLEL_LOSS_ATOL
+            and dg <= PARALLEL_GNORM_RTOL and rel <= PARALLEL_STEP_RTOL
+            and half_update > PARALLEL_STEP_RTOL,
+            losses=losses, one_rank_losses=ref["losses"],
+            max_loss_diff=dl, max_grad_norm_rdiff=dg,
+            displacement_rdiff=rel, bound=PARALLEL_STEP_RTOL,
+            halved_last_update_rdiff=half_update,
+            max_abs_param_diff=dp_max)
+        del tr, got
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        out["seconds"]["CLI " + spec] = time.perf_counter() - t0
+    del ref, p0
+    # the op-level checks below run on the CLI's process group
+    M.set_global_mesh(None)
+
+    def on_mesh(tag, axes, fn):
+        """fn() on a mesh of `axes`; its launches counted from 0."""
+        M.set_global_mesh(M.build_mesh(axes, dev.type))
+        try:
+            return count(tag, fn)
+        finally:
+            M.set_global_mesh(None)
+            sync()
+            dist.barrier()
+
+    def alone(fn):
+        """fn() on rank 0 with no mesh (the reference); rank 1 waits."""
+        M.set_global_mesh(None)
+        res = fn() if rank == 0 else None
+        sync()
+        dist.barrier()
+        return res
+
+    bert = dict(BERT_BASE_CHINESE, hidden_dropout_prob=0.0,
+                attention_probs_dropout_prob=0.0)
+    rng = np.random.RandomState(seed + 30)
+    ids = torch.from_numpy(rng.randint(
+        1000, bert["vocab_size"], (PARALLEL_BATCH, PARALLEL_SEQ))).to(dev)
+    mask = torch.ones_like(ids, dtype=torch.int32)
+    mask[1, PARALLEL_SEQ // 2:] = 0
+    batch = {"input_ids": ids, "attention_mask": mask}
+
+    # 2. BERT-base tensor-parallel logits
+    t0 = time.perf_counter()
+    inputs = {k: batch[k][:8] for k in ("input_ids", "attention_mask")}
+
+    def logits(split):
+        app = _parallel_bert(torch, seed, bert, dev)
+        if split:
+            sharding.parallelize(app.module, M.get_global_mesh())
+        app.module.eval()
+        with torch.no_grad():
+            return app.module(**inputs)["logits"]
+    want = alone(lambda: logits(False))
+    got = on_mesh("BERT tensor=2", {"tensor": 2}, lambda: logits(True))
+    if rank == 0:
+        d = float((got - want).abs().max())
+        check("BERT-base tensor=2 logits", d <= PARALLEL_LOGITS_ATOL,
+              max_abs_diff=d, bound=PARALLEL_LOGITS_ATOL)
+    out["seconds"]["tp logits"] = time.perf_counter() - t0
+
+    # 3. ring attention over sequence=2 at 8 x 512, f32 and bf16
+    t0 = time.perf_counter()
+    h, d_head = bert["num_attention_heads"], \
+        bert["hidden_size"] // bert["num_attention_heads"]
+    g = torch.Generator().manual_seed(seed + 31)
+    full = [torch.randn(RING_BATCH, RING_SEQ, h, d_head, generator=g)
+            for _ in range(4)]
+    kv_mask = torch.ones(RING_BATCH, RING_SEQ, dtype=torch.int32)
+    kv_mask[1, 300:] = 0
+    kv_mask[2, :] = 0       # a fully masked row (ROADMAP C1)
+    chunk = RING_SEQ // 2
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (t.to(dev, dtype) for t in full)
+        part = slice(rank * chunk, (rank + 1) * chunk)
+        mine = [t[:, part].clone().requires_grad_() for t in (q, k, v)]
+
+        def ring():
+            comm.reset_staged_bytes()
+            o = A.attention(*mine, kv_mask=kv_mask[:, part].to(dev),
+                            impl="ring")
+            o.backward(do[:, part].contiguous())
+            group = M.axis_group("sequence")
+            return [comm.all_gather(t, group, 1) for t in
+                    (o.detach(), mine[0].grad, mine[1].grad, mine[2].grad)]
+        got = on_mesh("ring %s" % str(dtype).split(".")[1],
+                      {"sequence": 2}, ring)
+        out.setdefault("staged_bytes", {})[str(dtype)] = dict(
+            comm.STAGED_BYTES)
+        if rank == 0:
+            m = kv_mask.to(dev)
+            q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+            if dtype == torch.float32:
+                qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+                o_ref = A.attention(qq, kk, vv, kv_mask=m)
+                o_ref.backward(do)
+                refs = [o_ref.detach(), qq.grad, kk.grad, vv.grad]
+                bounds = [torch.full_like(refs[0], ATOL_F32)] + [
+                    BWD_ATOL_F32 + BWD_RTOL_F32 * r.abs() for r in refs[1:]]
+            else:
+                o32, lse = A.flash_attention_fwd_reference(q32, k32, v32, m)
+                grads = A.flash_attention_bwd_reference(q32, k32, v32, m,
+                                                        o32, lse, do32)
+                refs = [o32] + list(grads)
+                rss = [A.flash_attention_fwd_rss(q32, k32, v32, m)] + list(
+                    A.flash_attention_bwd_rss(q32, k32, v32, m, o32, lse,
+                                              do32))
+                terms = _ring_abs_terms(torch, A, q32, k32, v32, m, o32,
+                                        lse, do32)
+                sq2 = 2 ** 0.5
+                bounds = [1e-5 + 2 ** -8 * refs[0].abs() + 2 ** -8 * terms[0]
+                          + FLASH_FWD_RSS_BF16 * sq2 * rss[0]]
+                bounds += [2e-5 + 2 ** -8 * t + FLASH_BWD_RSS_BF16 * sq2 * r
+                           for t, r in zip(terms[1:], rss[1:])]
+            ratio = max(float(((a.float() - b.float()).abs() / c).max())
+                        for a, b, c in zip(got, refs, bounds))
+            errs = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, refs)]
+            masked_mean = float((got[0][2].float() - v32[2].mean(0)).abs()
+                                .max())
+            check("ring sequence=2 %d x %d %s" % (
+                RING_BATCH, RING_SEQ, str(dtype).split(".")[1]),
+                ratio <= 1.0 and masked_mean <= 1e-2,
+                max_abs_err_o_dq_dk_dv=errs, worst_err_over_bound=ratio,
+                masked_row_vs_mean_v=masked_mean)
+    out["seconds"]["ring"] = time.perf_counter() - t0
+
+    # 4. GPT-2-small-width Switch-MoE over expert=2
+    t0 = time.perf_counter()
+    moe_cfg = dict(GPT2_SMALL, n_layer=MOE_LAYERS, num_experts=MOE_EXPERTS,
+                   moe_top_k=1, expert_capacity_factor=MOE_CAPACITY,
+                   resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+    moe_ids = torch.from_numpy(rng.randint(
+        0, moe_cfg["vocab_size"], (MOE_BATCH, MOE_SEQ))).to(dev)
+
+    def moe(split):
+        model = GPT2LMHeadModel(GPT2Config(**moe_cfg), device=dev)
+        model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        model.eval()
+        rows = moe_ids
+        if split:
+            sharding.parallelize(model, M.get_global_mesh())
+            a, b = M.batch_sharding(MOE_BATCH)
+            rows = moe_ids[a:b]
+        with torch.no_grad():
+            o = model(rows)
+        lg = o["logits"].float()
+        if split:
+            lg = comm.all_gather(lg, M.axis_group(M.BATCH_AXES))
+        return lg, float(o["moe_aux_loss"])
+    want = alone(lambda: moe(False))
+    got = on_mesh("MoE expert=2", {"expert": 2}, lambda: moe(True))
+    if rank == 0:
+        d = float((got[0] - want[0]).abs().max())
+        da = abs(got[1] - want[1])
+        check("GPT-2-small MoE %d experts top-1 expert=2 logits, aux" %
+              MOE_EXPERTS, d <= PARALLEL_LOGITS_ATOL
+              and da <= PARALLEL_AUX_ATOL, max_abs_diff=d, aux=got[1],
+              one_rank_aux=want[1], aux_diff=da)
+    out["seconds"]["moe"] = time.perf_counter() - t0
+
+    # 5. glm-large widths, PARALLEL_GLM_LAYERS layers, tensor=2 logits
+    t0 = time.perf_counter()
+    glm_cfg = dict(GLM_LARGE, num_layers=PARALLEL_GLM_LAYERS,
+                   embedding_dropout_prob=0.0, attention_dropout_prob=0.0,
+                   output_dropout_prob=0.0)
+    glm_ids = torch.from_numpy(rng.randint(
+        0, glm_cfg["vocab_size"], (2, 128))).to(dev)
+
+    def glm(split):
+        model = GLMForConditionalGeneration(GLMConfig(**glm_cfg),
+                                            device=dev)
+        model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        if split:
+            sharding.parallelize(model, M.get_global_mesh())
+        model.eval()
+        with torch.no_grad():
+            return model(glm_ids, prefix_lengths=torch.tensor(
+                [64, 100], device=dev))["logits"].float()
+    want = alone(lambda: glm(False))
+    got = on_mesh("GLM tensor=2", {"tensor": 2}, lambda: glm(True))
+    if rank == 0:
+        d = float((got - want).abs().max())
+        check("glm-large %d layers tensor=2 logits" % PARALLEL_GLM_LAYERS,
+              d <= PARALLEL_LOGITS_ATOL, max_abs_diff=d)
+    out["seconds"]["glm"] = time.perf_counter() - t0
+    out["launches"] = launches
+    out["written_gib"] = _written_gib()
+    with open(os.path.join(workdir, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    M.destroy()
+
+
+def _ring_abs_terms(torch, A, q, k, v, mask, o, lse, do):
+    """T of the bf16 ring's bound: per element of o, dq, dk, dv the sum of
+    the absolute values of the terms it sums (sum_k P_k |v_k|; dS and P
+    against |k|, |q|, |dO|), f32 from the f32 twins' P and dS."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    p, ds = A._flash_bwd_p_ds(q, k, v, mask, o, lse, do, False, scale)
+    pa, dsa = p.abs(), ds.abs()
+    return (torch.einsum("bhqk,bkhd->bqhd", pa, v.abs()),
+            torch.einsum("bhqk,bkhd->bqhd", dsa, k.abs()),
+            torch.einsum("bhqk,bqhd->bkhd", dsa, q.abs()),
+            torch.einsum("bhqk,bqhd->bkhd", pa, do.abs()))
+
+
+def _fsdp_world_one(torch, seed):
+    """FSDP2 on the card: BERT-base text classification with every layer
+    and the module under fully_shard over the fsdp axis of the running
+    one-rank NCCL group, against the same module unsplit: the f32 loss and
+    every gradient equal (a reduce-scatter over one rank copies)."""
+    from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
+        BertLayer)
+    from easynlp_tpu_torch.parallel import sharding
+    from easynlp_tpu_torch.parallel.mesh import build_mesh
+    import numpy as np
+    dev = torch.device("cuda", 0)
+    bert = dict(BERT_BASE_CHINESE, hidden_dropout_prob=0.0,
+                attention_probs_dropout_prob=0.0)
+    rng = np.random.RandomState(seed + 32)
+    ids = torch.from_numpy(rng.randint(1000, bert["vocab_size"], (
+        PARALLEL_BATCH, PARALLEL_SEQ))).to(dev)
+    labels = torch.from_numpy(rng.randint(0, 2, (PARALLEL_BATCH,))).to(dev)
+    mesh = build_mesh({"fsdp": 1}, "cuda")
+    results = []
+    for split in (False, True):
+        app = _parallel_bert(torch, seed, bert, dev)
+        if split:
+            sharding.apply_fsdp(app.module, mesh, (BertLayer,))
+        loss = app.loss_fn(app.module(input_ids=ids), {
+            "label_ids": labels})["loss"]
+        loss.backward()
+        grads = {n: p.grad.full_tensor() if split else p.grad
+                 for n, p in app.module.named_parameters()}
+        results.append((float(loss), grads))
+        del app
+    (l0, g0), (l1, g1) = results
+    dg = max(float((g0[k] - g1[k]).abs().max()) for k in g0)
+    log("phase 20 (a) FSDP2 fully_shard at world 1 (NCCL), BERT-base f32 "
+        "forward and backward of %d x %d: loss %.6f vs %.6f unsplit, max "
+        "|gradient difference| %.3e" % (PARALLEL_BATCH, PARALLEL_SEQ, l1, l0,
+                                        dg))
+    if l0 != l1 or dg > 0:
+        raise AssertionError("FSDP2 at world 1 changed the loss or the "
+                             "gradients")
+
+
+def _parallel_evaluate(torch, d, device):
+    """--mode=evaluate of the dp=2 run's checkpoint in one process (no
+    process group) on d's dev.tsv: the metrics, and the checkpoint's step
+    count."""
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    ckpt = os.path.join(d, "ckpt_dp")
+    with open(os.path.join(ckpt, "meta.json")) as f:
+        step = json.load(f)["global_step"]
+    results = default_main_fn(initialize_easynlp(args_list=[
+        "--mode=evaluate", "--app_name=text_classify",
+        "--tables=" + os.path.join(d, "dev.tsv"), "--checkpoint_dir=" + ckpt,
+        "--input_schema=id:str:1,sentence:str:1,label:str:1",
+        "--first_sequence=sentence", "--label_name=label",
+        "--sequence_length=%d" % SEQ_LEN, "--micro_batch_size=%d" % BATCH,
+        "--dtype=float32", "--device=" + device,
+        "--use_flash_attention=auto"]))
+    return [list(r) for r in results], step
+
+
+def phase_parallel(torch, seed, workdir):
+    """Phase 20: (a) BERT-base text_classify through the CLI with
+    --mesh=dp=1 (an NCCL group of one rank) and without, 3 bf16 steps
+    each, losses and weights bit for bit, and FSDP2 on BERT-base at world 1
+    (_fsdp_world_one); (b) two `gloo` ranks on cuda:0
+    (phase_parallel_rank): text_classify train through the CLI on
+    --mesh=dp=2, sp=2 and tp=2 at BERT-base widths, each against one
+    rank's run, then a one-process --mode=evaluate of the dp=2 checkpoint
+    against the one-rank run's evaluation; BERT-base tensor=2 logits, the
+    ring over sequence=2 at 8 x 512 in f32 and bf16 forward and backward,
+    GPT-2-small-width Switch-MoE over expert=2 and glm-large at 6 layers
+    over tensor=2, each against one rank. Returns the kernel launches of
+    the mesh runs and the evaluate by kernel."""
+    from easynlp_tpu_torch.ops import attention as A
+    from easynlp_tpu_torch.parallel.mesh import destroy
+    log("== phase 20: multi-GPU (torch.distributed): NCCL at world 1; two "
+        "gloo ranks on cuda:0 through the CLI (dp=2, sp=2, tp=2) and at the "
+        "op level (tp logits, ring sp, MoE ep, GLM tp); FSDP2 at world 1")
+    t_phase = time.perf_counter()
+    wrappers = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+    main_path, _, total = _launch_counter(A, wrappers)
+    model_dir = os.path.join(workdir, MODEL_DIR)
+    train_tsv = os.path.join(workdir, "train.tsv")
+    # (b)'s ranks start first and run beside (a): their times are the
+    # ranks' own, and their start (importing torch, reaching the card)
+    # overlaps (a)
+    d = _parallel_cli_data(workdir, seed)
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--parallel-rank", str(r), "--parallel-dir", d], env=env,
+        stdout=open(os.path.join(d, "rank%d.log" % r), "w"),
+        stderr=subprocess.STDOUT) for r in range(2)]
+    deadline = time.monotonic() + PARALLEL_TIMEOUT
+    try:
+        runs = {}
+        for tag, extra in (("no mesh", []),
+                           ("--mesh=dp=1", ["--mesh=dp=1"])):
+            runs[tag] = main_path("phase 20 train %s" % tag,
+                                  lambda: run_train(
+                torch, model_dir, train_tsv, None, None, True, seed,
+                common=_common_argv(True) + [
+                    "--epoch_num=%g" % (PARALLEL_STEPS * BATCH / N_ROWS)]
+                + extra, keep_trainer=True))
+        _fsdp_world_one(torch, seed)
+        destroy()
+        a, b = runs["no mesh"], runs["--mesh=dp=1"]
+        la = [r["loss"] for r in a["records"]]
+        lb = [r["loss"] for r in b["records"]]
+        pa = dict(a["trainer"].app.module.named_parameters())
+        pb = dict(b["trainer"].app.module.named_parameters())
+        same = la == lb and all(torch.equal(pa[k], pb[k]) for k in pa)
+        log("phase 20 (a) %d bf16 steps with and without --mesh=dp=1 "
+            "(NCCL, world 1): losses %s; weights and losses bit for bit: "
+            "%s" % (len(la), " ".join("%.5f" % x for x in lb), same))
+        if not same:
+            raise AssertionError("--mesh=dp=1 changed the training run")
+        del runs, a, b, pa, pb
+        torch.cuda.empty_cache()
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        with open(os.path.join(d, "rank%d.log" % r)) as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise AssertionError("phase 20 rank %d exited %s:\n%s" % (
+                r, p.returncode, text[-4000:]))
+    results = []
+    for r in range(2):
+        with open(os.path.join(d, "rank%d.json" % r)) as f:
+            results.append(json.load(f))
+    failed = []
+    for res in results:
+        for name, c in res["checks"].items():
+            log("phase 20 (b) %s: %s" % (name, json.dumps(c)))
+            if not c["ok"]:
+                failed.append(name)
+    for r, res in enumerate(results):
+        log("phase 20 (b) rank %d: launches (mesh runs) %s by check %s; "
+            "bytes staged through host memory under gloo (ring_shift, each "
+            "way) %s; seconds %s; wchar (files, pipes and gloo's "
+            "sockets) %s GiB" % (
+                r, res["launches"], res["launches_by_check"],
+                res["staged_bytes"], {k: round(v, 1) for k, v in
+                                      res["seconds"].items()},
+                res["written_gib"]))
+        for w in wrappers:
+            total[w] += res["launches"][w]
+    for res in results:
+        by = res["launches_by_check"]
+        for dtype in ("float32", "bfloat16"):
+            ring = by["ring " + dtype]
+            if ring["flash_attention_fwd"] != 2 \
+                    or ring["flash_attention_bwd"] != 2:
+                failed.append("a rank's %s ring launched %s, want B3 and "
+                              "B4/B5 twice (one a hop)" % (dtype, ring))
+        # dp and tp attend by B1/B2 over whole sequences, sp by the ring's
+        # B3 and B4/B5 over 64-token chunks
+        for spec in PARALLEL_CLI_MESHES:
+            got = by["CLI " + spec]
+            ring = spec.startswith("sp")
+            want = {"short_attention_fwd": not ring,
+                    "short_attention_bwd": not ring,
+                    "flash_attention_fwd": ring,
+                    "flash_attention_bwd": ring}
+            if any(bool(got[w]) != want[w] for w in wrappers):
+                failed.append("a rank's CLI run on --mesh=%s launched %s"
+                              % (spec, got))
+    evaluated, step = main_path(
+        "phase 20 (b) one-process evaluate of the dp=2 checkpoint",
+        lambda: _parallel_evaluate(torch, d, "cuda"))
+    want = results[0]["one_rank_eval"]
+    worst = max(abs(a[1] - b[1]) for a, b in zip(evaluated, want))
+    ckpt = os.path.join(d, "ckpt_dp")
+    log("phase 20 (b) --mode=evaluate of the checkpoint two CLI ranks "
+        "wrote on --mesh=dp=2 (global_step %d, %.3f GB of files), one "
+        "process: %s; the one-rank run's evaluation %s; max difference "
+        "%.3e" % (step, sum(os.path.getsize(os.path.join(ckpt, f))
+                            for f in os.listdir(ckpt)) / 1e9,
+                  evaluated, want, worst))
+    if step != PARALLEL_STEPS or [a[0] for a in evaluated] \
+            != [b[0] for b in want] or worst > 1e-6:
+        failed.append("the dp=2 checkpoint evaluates to %s at step %d, the "
+                      "one-rank run to %s" % (evaluated, step, want))
+    if failed:
+        raise AssertionError("phase 20 failed: %s" % failed)
+    log("phase 20 seconds %.1f; launches of the mesh runs %s" % (
+        time.perf_counter() - t_phase, total))
+    total["flash_attention_bwd_dkdv"] = total["flash_attention_bwd"]
+    total["flash_attention_bwd_dq"] = total["flash_attention_bwd"]
+    return total
+
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -9028,8 +9706,10 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--kernels-json", help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-dir", help=argparse.SUPPRESS)
     parser.add_argument(
-        "--only", choices=("2", "19"),
+        "--only", choices=("2", "19", "20"),
         help="run phase 0, the build and this phase alone (phase 19 on a "
         "vocabulary of its own), to iterate on it; the full run is the "
         "smoke test")
@@ -9043,6 +9723,9 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA card", file=sys.stderr)
         return 2
+    if cli.parallel_rank is not None:  # one of phase 20's ranks
+        phase_parallel_rank(torch, seed, cli.parallel_rank, cli.parallel_dir)
+        return 0
     phase_device(torch)
     if cli.kernels_json:  # phase 2 alone, for phase_kernel_in_child
         worst, timings = phase_kernel(torch, seed)
@@ -9058,6 +9741,12 @@ def main():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             if cli.only == "2":
                 phase_kernel_in_child(seed)
+            elif cli.only == "20":
+                tokens, cjk = _vocab()
+                make_model_dir(torch, os.path.join(workdir, MODEL_DIR),
+                               seed)
+                make_tsv(os.path.join(workdir, "train.tsv"), cjk, seed + 1)
+                phase_parallel(torch, seed, workdir)
             else:
                 tokens, cjk = _vocab()
                 os.makedirs(os.path.join(workdir, MODEL_DIR))
@@ -9125,6 +9814,9 @@ def main():
         t0 = time.perf_counter()
         artist_launches = phase_artist(torch, seed, workdir, cjk)
         seconds["19 ARTIST, TextCNN, BLOOM"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parallel_launches = phase_parallel(torch, seed, workdir)
+        seconds["20 multi-GPU"] = time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
     written = _written_gib()
@@ -9148,7 +9840,7 @@ def main():
             + knowledge_launches.get(wrapper, 0)
             + s2s_launches[name] + s11_launches[name]
             + mm_launches[name] + sd_launches[name]
-            + artist_launches[name],
+            + artist_launches[name] + parallel_launches[name],
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

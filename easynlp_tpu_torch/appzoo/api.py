@@ -42,6 +42,10 @@ import os
 import torch
 
 from easynlp_tpu_torch.modelzoo.models.auto import model_type_of, tokenizer_for
+from easynlp_tpu_torch.parallel.mesh import (
+    data_parallel_rank,
+    data_parallel_size,
+)
 from easynlp_tpu_torch.utils.global_vars import get_args
 from easynlp_tpu_torch.utils.io_utils import io
 from easynlp_tpu_torch.utils.logger import logger
@@ -372,8 +376,11 @@ def _train_main(args, udp):
     tables = (args.tables or "").split(",")
     tokenizer = tokenizer_for(args.pretrained_model_name_or_path)
     kwargs = _dataset_kwargs(args, tokenizer)
+    # each data-parallel rank reads its rows (JAX api.py:594-595); ranks
+    # of one data group (tensor, sequence) read the same ones
     train_dataset = dataset_cls(data_file=tables[0], is_training=True,
-                                **kwargs)
+                                process_index=data_parallel_rank(),
+                                num_processes=data_parallel_size(), **kwargs)
     if args.label_enumerate_values is None and \
             train_dataset.label_enumerate_values:
         kwargs["label_enumerate_values"] = train_dataset.label_enumerate_values

@@ -110,10 +110,16 @@ class SequenceGeneration(Application):
 
     @staticmethod
     def loss_fn(outputs, batch):
-        """Teacher-forced CE over the decoder labels (-100 on pads)."""
-        return {"loss": losses.cross_entropy(outputs["logits"],
-                                             batch["labels"],
-                                             ignore_index=-100)}
+        """Teacher-forced CE over the decoder labels (-100 on pads); a MoE
+        model adds its router load-balancing loss (already scaled by
+        router_aux_loss_coef), as JAX model.py:56-59."""
+        loss = losses.cross_entropy(outputs["logits"], batch["labels"],
+                                    ignore_index=-100)
+        out = {"loss": loss}
+        if "moe_aux_loss" in outputs:
+            out["moe_aux_loss"] = outputs["moe_aux_loss"]
+            out["loss"] = loss + outputs["moe_aux_loss"]
+        return out
 
     def generated_tokens(self, row, max_length):
         """The generated part of one row of generate(max_length=...): after

@@ -1,6 +1,7 @@
 """Training loop for the PyTorch port.
 
-Counterpart of easynlp_tpu/core/trainer.py on one device:
+Counterpart of easynlp_tpu/core/trainer.py, on one device or on the
+process mesh (parallel/mesh.py):
 
 - the shuffled, drop-last DataLoader (the port's copy of the JAX package's:
   the same batches in the same order for the same seed), global batch = micro batch x
@@ -23,6 +24,25 @@ Counterpart of easynlp_tpu/core/trainer.py on one device:
 - logging through Statistics (events.jsonl), evaluation on every save
   with the best score kept, checkpoints as `pytorch_model.bin` (HF names)
   plus the JAX package's other artifacts, and resume with the mid-epoch skip;
+- on a mesh of more than one process: the module split over the tensor,
+  expert and fsdp axes (parallel/sharding.parallelize, JAX _place_state
+  :141-167), the global batch (micro x accum) split over the batch axes
+  (each rank's dataset holds its rows: the api slices them), so each rank
+  steps on micro / dp rows a micro-batch; the gradients
+  averaged over the ranks that hold other tokens (FSDP2 reduces over data
+  and fsdp itself, the rest is one all_reduce of the flattened
+  gradients), the loss metrics averaged likewise, the global gradient norm
+  summed over the split parameters' groups, so every rank takes the same
+  skip and clip; evaluation on every rank with rank 0's score broadcast
+  before the save decision (JAX :382-387: the gathers below would
+  deadlock if ranks decided apart); the save gathers the full weights and
+  optimizer state on every rank and the master alone writes them, so a
+  checkpoint trained on a mesh loads into one process under the usual
+  file names (JAX :408-428, :501-507); resume loads the full weights
+  (and the EMA weights) before the split and splits the optimizer state
+  and the EMA shadow as their parameters.
+  Adafactor's factored state, LoRA/ControlNet and remat are not split:
+  the Trainer raises for them on a mesh;
 - `--remat` (modeling_bert.set_remat: activation checkpointing of each
   BERT and BART layer under the JAX package's policies);
 - `--ema_decay`: an f32 EMA of the trained parameters on the device
@@ -77,6 +97,8 @@ from easynlp_tpu_torch.modelzoo.models.latent_diffusion.ema import (
     ema_init,
     ema_update,
 )
+from easynlp_tpu_torch.parallel import comm, sharding
+from easynlp_tpu_torch.parallel.mesh import BATCH_AXES, get_global_mesh
 from easynlp_tpu_torch.utils.global_vars import get_args
 from easynlp_tpu_torch.utils.io_utils import io
 from easynlp_tpu_torch.utils.logger import logger
@@ -85,16 +107,6 @@ from easynlp_tpu_torch.utils.statistics import Statistics
 META_NAME = "meta.json"
 OPT_STATE_NAME = "optimizer.pt"
 EMA_WEIGHTS_NAME = "pytorch_model_ema.bin"
-
-
-def refuse_unported_options(args):
-    """Raise on the JAX Trainer's options that the port does not have yet,
-    rather than ignore them."""
-    if (getattr(args, "num_processes", 1) or 1) > 1 or getattr(args, "mesh",
-                                                               None):
-        raise NotImplementedError("multi-process and multi-device training "
-                                  "(--num_processes, --mesh) is not ported "
-                                  "yet (ROADMAP A23)")
 
 
 class StepClock:
@@ -125,24 +137,38 @@ class Trainer:
         """model: an Application (module on its device, config,
         label_mapping). train_dataset: a BaseDataset."""
         self.args = args = args or get_args()
-        refuse_unported_options(args)
         self.app = model
         self.evaluator = evaluator
         self.tokenizer = tokenizer
+        mesh = get_global_mesh()
+        self.mesh = mesh if mesh is not None and mesh.world_size > 1 \
+            else None
+        self.dp = mesh.size(BATCH_AXES) if self.mesh else 1
         self.accum = max(1, args.gradient_accumulation_steps)
         global_batch = args.micro_batch_size * self.accum
+        if args.micro_batch_size % self.dp:
+            raise ValueError("--micro_batch_size=%d does not split over %d "
+                             "data-parallel ranks"
+                             % (args.micro_batch_size, self.dp))
+        self.micro = args.micro_batch_size // self.dp
         self.train_loader = DataLoader(
-            train_dataset, batch_size=global_batch, shuffle=True,
+            train_dataset, batch_size=global_batch // self.dp, shuffle=True,
             seed=args.random_seed,
             num_workers=getattr(args, "data_workers", 0))
         self.steps_per_epoch = max(1, len(self.train_loader))
         self.remat = getattr(args, "remat", "none") or "none"
         set_remat(self.app.module, self.remat)
+        if self.mesh is not None:
+            self._place_state(args)
         # frozen parameters (LoRA's base) get no optimizer state and no
         # update, as the JAX Trainer's trainable_mask
         trained = [(n, p) for n, p in self.app.module.named_parameters()
                    if p.requires_grad]
         self.param_names = [n for n, _ in trained]
+        # the module's own parameters (DTensors under FSDP2); the optimizer
+        # and self.params hold their local parts
+        self.module_params = [p for _, p in trained]
+        trained = [(n, sharding.local(p)) for n, p in trained]
         self.optimizer, self.schedule_fn, self.t_total = get_optimizer(
             trained,
             optimizer_type=args.optimizer_type,
@@ -183,17 +209,94 @@ class Trainer:
         self.stats = Statistics(args)
         logger.info(
             "Trainer: %d params | %d steps/epoch x %s epochs (t_total %d) | "
-            "global batch %d (micro %d x accum %d) | device %s",
+            "global batch %d (micro %d x accum %d) | device %s | mesh %s",
             sum(p.numel() for p in self.params), self.steps_per_epoch,
             args.epoch_num, self.t_total, global_batch,
-            args.micro_batch_size, self.accum, self.app.device)
+            args.micro_batch_size, self.accum, self.app.device, self.mesh)
+
+    # ----------------------------------------------------------------- mesh
+    def _place_state(self, args):
+        """Split the module over the mesh (JAX _place_state): the full
+        weights to resume from go in first, then parallelize."""
+        if getattr(self.app, "restore_params", None) is not None \
+                or getattr(self.app, "make_train_loss", None) is not None \
+                or self.remat != "none" or args.optimizer_type == "Adafactor":
+            raise NotImplementedError(
+                "on a mesh the Trainer splits plain modules under AdamW, "
+                "BertAdam, Adam, SGD or Lion without --remat")
+        ckpt = args.resume_from_checkpoint
+        self._ema_resume = None
+        if ckpt and io.exists(os.path.join(ckpt, META_NAME)):
+            ema_path = os.path.join(ckpt, EMA_WEIGHTS_NAME)
+            if float(getattr(args, "ema_decay", 0.0) or 0.0) > 0 \
+                    and io.exists(ema_path):
+                # the EMA weights go in through the module too (the file
+                # has the export's names) and are kept whole until
+                # resume_from_ckpt splits them as their parameters
+                self.app.load_state_dict(self.app.module,
+                                         load_pytorch_state_dict(ema_path))
+                self._ema_resume = {
+                    n: p.detach().clone()
+                    for n, p in self.app.module.named_parameters()}
+            self.app.load_state_dict(self.app.module,
+                                     load_pytorch_state_dict(ckpt))
+        sharding.parallelize(self.app.module, self.mesh)
+
+    def _reduce_gradients(self, grads):
+        """Average the gradients over the ranks that hold other tokens:
+        every such rank's loss is the mean over its own rows. FSDP2 has
+        averaged over data and fsdp; expert parameters are averaged over
+        the data axes and divided by the expert count (each owner summed
+        its expert group's contributions through all_to_all)."""
+        mesh = self.mesh
+        fsdp = mesh.size("fsdp") > 1
+        dense_axes = ("expert", "sequence") if fsdp \
+            else BATCH_AXES + ("sequence",)
+        expert_axes = ("sequence",) if fsdp \
+            else ("data", "fsdp", "sequence")
+        expert = [getattr(p, "expert_parallel", False)
+                  for p in self.module_params]
+        for axes, pick, extra in (
+                (dense_axes, False, 1),
+                (expert_axes, True, mesh.size("expert"))):
+            chosen = [g for g, e in zip(grads, expert) if e == pick]
+            n = mesh.size(axes) * extra
+            if not chosen or n == 1:
+                continue
+            flat = torch._utils._flatten_dense_tensors(chosen)
+            comm.all_reduce(flat, mesh.group(axes))
+            flat /= n
+            for g, v in zip(chosen, torch._utils._unflatten_dense_tensors(
+                    flat, chosen)):
+                g.copy_(v)
+
+    def _global_norm(self, grads):
+        """The norm of the whole gradient, the same on every rank: sums of
+        squares of the tensor- and expert-split parameters summed over
+        their groups, and everything summed over fsdp."""
+        mesh = self.mesh
+        specs = getattr(self.app.module, "parallel_specs", {})
+        parts = {"tensor": [], "expert": [], "": []}
+        for name, p, g in zip(self.param_names, self.module_params, grads):
+            key = ("tensor" if name in specs else "expert"
+                   if getattr(p, "expert_parallel", False) else "")
+            parts[key].append(g)
+        total = None
+        for axes, gs in parts.items():
+            if not gs:
+                continue
+            sq = torch.stack(torch._foreach_norm(gs)).square().sum()
+            if axes:
+                comm.all_reduce(sq, mesh.group(axes))
+            total = sq if total is None else total + sq
+        return comm.all_reduce(total, mesh.group("fsdp")).sqrt()
 
     # ------------------------------------------------------------------ step
     def _train_step(self, inputs):
         """One optimizer step on a batch of device tensors. Returns (metric
         names, a 1-D f32 device tensor of their values): loss, grad_norm,
         nonfinite_skip and the loss function's other scalars."""
-        micro = self.args.micro_batch_size
+        micro = self.micro
         sums = {}
         for j in range(self.accum):
             mb = {k: v[j * micro:(j + 1) * micro] for k, v in inputs.items()}
@@ -206,18 +309,27 @@ class Trainer:
                 if v.dim() == 0:
                     v = v.detach().float()
                     sums[k] = v if k not in sums else sums[k] + v
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+        grads = [sharding.local(p.grad) if p.grad is not None
+                 else torch.zeros_like(q)
+                 for p, q in zip(self.module_params, self.params)]
         if self.accum > 1:
             torch._foreach_div_(grads, float(self.accum))
             sums = {k: v / self.accum for k, v in sums.items()}
-        gnorm = global_norm(grads)
+        if self.mesh is None:
+            gnorm = global_norm(grads)
+        else:
+            self._reduce_gradients(grads)
+            gnorm = self._global_norm(grads)
+            names = sorted(sums)
+            means = torch.stack([sums[k] for k in names])
+            comm.all_reduce(means, self.mesh.group(BATCH_AXES))
+            sums = dict(zip(names, means / self.dp))
         finite = torch.isfinite(sums["loss"]) & torch.isfinite(gnorm)
         if self.max_grad_norm > 0:
             torch._foreach_mul_(grads, self.max_grad_norm / torch.clamp(
                 gnorm, min=self.max_grad_norm))
         self.optimizer.step(grads, apply=finite)
-        for p in self.params:
+        for p in self.module_params:
             p.grad = None
         if self.ema_state is not None:  # skipped steps too, as in JAX
             ema_update(self.ema_state, self.params, decay=self.ema_decay)
@@ -343,6 +455,12 @@ class Trainer:
             score = results[0][1]
         if not args.checkpoint_dir:
             return
+        if self.mesh is not None and score is not None:
+            # every rank takes rank 0's decision: the saves gather
+            score = torch.tensor([score], dtype=torch.float64,
+                                 device=self.app.device)
+            torch.distributed.broadcast(score, 0)
+            score = float(score)
         if score is None or score >= self.best_score:
             if score is not None:
                 self.best_score = score
@@ -365,19 +483,37 @@ class Trainer:
         out = args.checkpoint_dir
         if subdir:
             out = os.path.join(out, subdir)
-        files = {PYTORCH_WEIGHTS_NAME: self.app.export_state_dict()}
-        extra = getattr(self.app, "extra_save_artifacts", None)
-        if extra is not None:
-            files.update(extra())
+        ema = None
+        if self.ema_state is not None:
+            ema = dict(zip(self.param_names, self.ema_state["shadow"]))
+        opt_state = self.optimizer.state_dict()
+        if self.mesh is not None:
+            # collective: every rank gathers, the master alone writes
+            module = self.app.module
+            if ema is not None:
+                ema = sharding.full_state(module, self.mesh, ema)
+            for key in self.optimizer.state_keys:
+                opt_state[key] = sharding.full_state(module, self.mesh,
+                                                     opt_state[key])
+            exportable = sharding.full_parameters(module, self.mesh)
+        else:
+            exportable = contextlib.nullcontext()
+        with exportable:
+            files = {PYTORCH_WEIGHTS_NAME: self.app.export_state_dict()}
+            extra = getattr(self.app, "extra_save_artifacts", None)
+            if extra is not None:
+                files.update(extra())
+            if ema is not None:
+                with substituted(self.app.module, ema):
+                    files[EMA_WEIGHTS_NAME] = self.app.export_state_dict()
         meta = {"global_step": self.global_step,
                 "epoch": self.global_step // self.steps_per_epoch,
                 "best_score": self.best_score}
-        if self.ema_state is not None:
-            with substituted(self.app.module, dict(zip(
-                    self.param_names, self.ema_state["shadow"]))):
-                files[EMA_WEIGHTS_NAME] = self.app.export_state_dict()
+        if ema is not None:
             meta["ema_num_updates"] = int(self.ema_state["num_updates"])
-        files[OPT_STATE_NAME] = self.optimizer.state_dict()
+        files[OPT_STATE_NAME] = opt_state
+        if self.mesh is not None and not args.is_master_node:
+            return
         files = host_copy(files)
         cfg = {k: v for k, v in vars(args).items()
                if isinstance(v, (str, int, float, bool, type(None)))}
@@ -448,6 +584,21 @@ class Trainer:
         restore = getattr(self.app, "restore_params", None)
         ema_path = os.path.join(ckpt_dir, EMA_WEIGHTS_NAME)
         ema_restored = False
+        if self.mesh is not None:
+            # the weights and the EMA weights went in before the split
+            # (_place_state); the shadow takes this rank's part of these
+            restore = lambda _: None  # noqa: E731
+            ema_path = None
+            if self.ema_state is not None and self._ema_resume is not None:
+                specs = getattr(self.app.module, "parallel_specs", {})
+                for name, p, shadow in zip(self.param_names,
+                                           self.module_params,
+                                           self.ema_state["shadow"]):
+                    shadow.copy_(sharding.shard_like(
+                        p, self._ema_resume[name], specs.get(name),
+                        self.mesh))
+                ema_restored = True
+            self._ema_resume = None
         if self.ema_state is not None and restore is None \
                 and io.exists(ema_path):
             # the EMA weights go in through the module (the file has the
@@ -472,6 +623,15 @@ class Trainer:
         opt_path = os.path.join(ckpt_dir, OPT_STATE_NAME)
         if io.exists(opt_path):
             with io.open(opt_path, "rb") as f:
-                self.optimizer.load_state_dict(torch.load(
-                    f, map_location=self.app.device, weights_only=True))
+                state = torch.load(f, map_location=self.app.device,
+                                   weights_only=True)
+            if self.mesh is not None:
+                specs = getattr(self.app.module, "parallel_specs", {})
+                params = dict(zip(self.param_names, self.module_params))
+                for key in self.optimizer.state_keys:
+                    state[key] = {
+                        name: sharding.shard_like(params[name], full,
+                                                  specs.get(name), self.mesh)
+                        for name, full in state[key].items()}
+            self.optimizer.load_state_dict(state)
         logger.info("resumed from %s at step %d", ckpt_dir, self.global_step)

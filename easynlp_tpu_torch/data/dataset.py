@@ -4,7 +4,9 @@ batch order.
 
 - a dataset reads the non-blank rows of a local TSV (through the native
   reader where it builds, else line by line) and featurises them once into
-  fixed-shape numpy arrays;
+  fixed-shape numpy arrays; with num_processes > 1 it keeps rows
+  process_index::num_processes, as JAX dataset.py:32-56 (the api passes a
+  rank's data-parallel index and count, appzoo/api.py);
 - DataLoader: train mode shuffles per epoch with a seed, drop-last;
   eval/predict mode keeps the order and pads the final batch by repeating
   row 0, flagged `_valid` = 0. `set_epoch` passes the epoch on to a
@@ -21,12 +23,17 @@ class BaseDataset:
     """The non-blank rows of a local TSV, parsed by input_schema.
     Subclasses featurise them (__getitem__ returns one example's arrays)."""
 
-    def __init__(self, data_file, input_schema=None, **kwargs):
+    def __init__(self, data_file, input_schema=None, process_index=0,
+                 num_processes=1, **kwargs):
         self.data_file = data_file
         self.input_schema = input_schema
         self.schema = parse_schema(input_schema) if input_schema else None
+        self.process_index = process_index or 0
+        self.num_processes = num_processes or 1
         self.kwargs = kwargs
         self.rows = self.read_rows(data_file)
+        if self.num_processes > 1:
+            self.rows = self.rows[self.process_index::self.num_processes]
 
     def read_rows(self, data_file):
         if "://" not in str(data_file):

@@ -13,6 +13,7 @@ machines that have neither nvcc nor a card.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -56,7 +57,11 @@ def compile_library(source, build_dir, compiler, flags, digest_paths):
     the library and an edited one rebuilds. `compiler` is called for the
     compiler's path only when a build is needed. The library is written
     under a temporary name and renamed into place, so a concurrent build
-    sees all of it or none. Returns (path, {'seconds', 'cached', 'log'})."""
+    sees all of it or none, and the check-and-build holds an exclusive
+    lock on `build_dir/<stem>.lock` (fcntl.flock, released when the process
+    ends), so ranks that build the same library at once compile it once:
+    the first builds, the others wait and find it built. Returns (path,
+    {'seconds', 'cached', 'log'})."""
     source = Path(source)
     if not source.exists():
         raise FileNotFoundError("no source %s" % source)
@@ -68,6 +73,15 @@ def compile_library(source, build_dir, compiler, flags, digest_paths):
     build_dir = Path(build_dir)
     build_dir.mkdir(parents=True, exist_ok=True)
     lib_path = build_dir / ("%s-%s.so" % (source.stem, h.hexdigest()[:16]))
+    with open(build_dir / (source.stem + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _compile_locked(source, lib_path, compiler, flags)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile_locked(source, lib_path, compiler, flags):
     log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
         log = log_path.read_text() if log_path.exists() else ""

@@ -46,6 +46,11 @@ from easynlp_tpu_torch.modelzoo.modeling_utils import (
     truncated_normal_,
 )
 from easynlp_tpu_torch.ops.attention import attention
+from easynlp_tpu_torch.parallel.sequence import (
+    gather_tokens,
+    local_tokens,
+    sequence_group,
+)
 
 ACT2FN = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
@@ -60,7 +65,12 @@ ACT2FN = {
 
 def dense(layer, x, dtype):
     """`layer` (an f32 nn.Linear) applied in `dtype`, as flax Dense with
-    dtype=`dtype` and f32 params does."""
+    dtype=`dtype` and f32 params does; a layer split over the tensor axis
+    (parallel/sharding.py) adds its collective."""
+    if getattr(layer, "tensor_parallel", None) is not None:
+        from easynlp_tpu_torch.parallel.sharding import (
+            tensor_parallel_linear)
+        return tensor_parallel_linear(layer, x, dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype),
                     layer.bias.to(dtype))
 
@@ -135,10 +145,9 @@ class BertSelfAttention(nn.Module):
 
     def heads(self, hidden, num_heads, dtype):
         """q, k, v [B,S,H,W/H] in dtype of hidden [B,S,W]."""
-        b, s, w = hidden.shape
+        b, s, _ = hidden.shape
         with checkpoint_name("qkv_out"):
-            return tuple(dense(p, hidden, dtype).view(b, s, num_heads,
-                                                      w // num_heads)
+            return tuple(dense(p, hidden, dtype).view(b, s, num_heads, -1)
                          for p in (self.query, self.key, self.value))
 
 
@@ -235,13 +244,18 @@ def set_remat(module, policy):
 
 class BertAttention(nn.Module):
     """q/k/v, the attention and the output projection; under pre-LN also
-    `ln`, the LayerNorm of its input (HF MegatronBERT's `attention.ln`)."""
+    `ln`, the LayerNorm of its input (HF MegatronBERT's `attention.ln`).
+    Over a tensor axis it holds num_heads / tp heads; over a sequence axis
+    parallelize makes its attention the ring (impl='ring')."""
+
+    tensor_parallel_heads = True
 
     def __init__(self, config, dtype=torch.float32, device=None,
                  pre_layer_norm=False):
         super().__init__()
         self.dtype = dtype
         self.num_heads = config.num_attention_heads
+        self.impl = "auto"
         if pre_layer_norm:
             self.ln = nn.LayerNorm(config.hidden_size,
                                    eps=config.layer_norm_eps, device=device)
@@ -255,24 +269,24 @@ class BertAttention(nn.Module):
         masked pre-softmax scores [B,H,S,S] in f32. An additive f32 `bias`
         [B,1|H,S,S] (K-BERT's visible matrix) takes attention's plain
         path, as in the JAX package: no kernel takes a bias."""
-        b, s, e = hidden.shape
+        b, s, _ = hidden.shape
         h, dt = self.num_heads, self.dtype
         q, k, v = self.self.heads(hidden, h, dt)
         if not output_scores:
-            return attention(q, k, v, kv_mask=kv_mask,
-                             bias=bias).reshape(b, s, e)
+            return attention(q, k, v, kv_mask=kv_mask, bias=bias,
+                             impl=self.impl).reshape(b, s, -1)
         # The JAX module's explicit-scores path (modeling_bert.py:116-128),
         # which never calls attention(): the scores of attention-transfer
         # distillation (MetaKD), -1e4 on masked keys as the reference's
         # extended attention mask, so MetaKD's "zero out <= -1e2" applies.
         # It runs only when the caller asks for the scores.
-        scale = 1.0 / math.sqrt(e // h)
+        scale = 1.0 / math.sqrt(q.shape[-1])
         raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
         scores = raw + torch.where(kv_mask[:, None, None, :] != 0, 0.0,
                                    -1e4)
         probs = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), v)
-        return ctx.reshape(b, s, e), scores
+        return ctx.reshape(b, s, -1), scores
 
     def project(self, hidden, ctx):
         """hidden + the output projection of ctx, in dtype; post-LN then
@@ -460,6 +474,14 @@ class BertModel(nn.Module):
     def init_weights(self, generator):
         init_bert_weights(self, self.config.initializer_range, generator)
 
+    def _position_ids(self, input_ids):
+        b, s = input_ids.shape
+        if getattr(self.config, "position_ids_from_padding_idx", False):
+            pad = self.config.pad_token_id
+            not_pad = (input_ids != pad).to(torch.int64)
+            return torch.cumsum(not_pad, dim=1) * not_pad + pad
+        return torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
+
     def embed(self, input_ids, attention_mask=None, token_type_ids=None,
               position_ids=None):
         """(embedded tokens [B,S,E] in dtype, the int32 kv_mask [B,S]): the
@@ -473,13 +495,7 @@ class BertModel(nn.Module):
             token_type_ids = torch.zeros((b, s), dtype=torch.int32,
                                          device=device)
         if position_ids is None:
-            if getattr(self.config, "position_ids_from_padding_idx", False):
-                pad = self.config.pad_token_id
-                not_pad = (input_ids != pad).to(torch.int64)
-                position_ids = torch.cumsum(not_pad, dim=1) * not_pad + pad
-            else:
-                position_ids = torch.arange(s, device=device)[None, :] \
-                    .expand(b, s)
+            position_ids = self._position_ids(input_ids)
         # int32 once here, so no layer converts the mask again
         kv_mask = attention_mask.to(torch.int32).contiguous()
         return (self.embeddings(input_ids, token_type_ids, position_ids),
@@ -487,11 +503,47 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 position_ids=None):
+        group = sequence_group(self.encoder.layer[0].attention)
+        if group is not None:
+            return self._sequence_parallel_forward(
+                group, input_ids, attention_mask, token_type_ids,
+                position_ids)
         hidden, kv_mask = self.embed(input_ids, attention_mask,
                                      token_type_ids, position_ids)
         hidden, all_hidden, all_scores = self.encoder(
             hidden, kv_mask, self.output_hidden_states,
             self.output_attentions)
+        return self._outputs(hidden, all_hidden, all_scores)
+
+    def _sequence_parallel_forward(self, group, input_ids, attention_mask,
+                                   token_type_ids, position_ids):
+        """Sequence parallelism (parallel/sequence.py): this rank embeds and
+        encodes its S/n tokens, the layers attend over the ring, and the
+        outputs are gathered whole, so the pooler reads token 0 as on one
+        device."""
+        if self.output_attentions:
+            raise NotImplementedError("output_attentions under sequence "
+                                      "parallelism")
+        b, s = input_ids.shape
+        device = input_ids.device
+        if attention_mask is None:
+            attention_mask = torch.ones((b, s), dtype=torch.int32,
+                                        device=device)
+        if token_type_ids is None:
+            token_type_ids = torch.zeros((b, s), dtype=torch.int32,
+                                         device=device)
+        if position_ids is None:
+            position_ids = self._position_ids(input_ids)
+        hidden, kv_mask = self.embed(*local_tokens(
+            group, input_ids, attention_mask, token_type_ids, position_ids))
+        hidden, all_hidden, _ = self.encoder(
+            hidden, kv_mask, self.output_hidden_states, False)
+        hidden = gather_tokens(hidden, group)
+        if all_hidden is not None:
+            all_hidden = gather_tokens(all_hidden, group, 2)
+        return self._outputs(hidden, all_hidden, None)
+
+    def _outputs(self, hidden, all_hidden, all_scores):
         out = {"last_hidden_state": hidden}
         if all_hidden is not None:
             out["hidden_states"] = all_hidden

@@ -45,6 +45,7 @@ from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
     remat_call,
 )
 from easynlp_tpu_torch.ops.attention import attention
+from easynlp_tpu_torch.parallel.sharding import tied_logits
 
 NEG_BIAS = -1e30
 
@@ -112,6 +113,12 @@ def _bias(visible):
 
 
 class GLMAttention(nn.Module):
+    """The fused [q|k|v] projection and the output projection; over a
+    tensor axis it holds num_heads / tp heads (parallel/sharding.py splits
+    query_key_value by head inside each section)."""
+
+    tensor_parallel_heads = True
+
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         e = config.hidden_size
@@ -121,10 +128,9 @@ class GLMAttention(nn.Module):
         self.dense = nn.Linear(e, e, device=device)
 
     def qkv(self, x):
-        b, s, e = x.shape
-        h = self.num_heads
-        qkv = dense(self.query_key_value, x, self.dtype).view(b, s, 3, h,
-                                                             e // h)
+        b, s, _ = x.shape
+        qkv = dense(self.query_key_value, x, self.dtype).view(
+            b, s, 3, self.num_heads, -1)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -184,7 +190,7 @@ class GLMLayer(nn.Module):
                 ctx = attention(q, k, v, bias=bias)
             else:
                 ctx = self._cached(q, k, v, bias, cache, layer_idx)
-        out = self.dropout(dense(attn.dense, ctx.reshape(b, s, e), dt))
+        out = self.dropout(dense(attn.dense, ctx.reshape(b, s, -1), dt))
         hidden = hidden + out
         mlp = self.mlp(layer_norm(self.post_attention_layernorm, hidden, dt))
         return hidden + self.dropout(mlp)
@@ -360,9 +366,9 @@ class GLMForConditionalGeneration(nn.Module):
         return self.glm.init_mems(batch_size, mem_length, dtype)
 
     def logits(self, hidden):
-        """The tied head in the compute dtype."""
-        wte = self.glm.word_embeddings.weight.to(self.dtype)
-        return torch.matmul(hidden, wte.t())
+        """The tied head in the compute dtype (gathered over the tensor
+        axis when the table is vocab-parallel)."""
+        return tied_logits(self.glm.word_embeddings, hidden, self.dtype)
 
     def forward(self, input_ids, position_ids=None, block_position_ids=None,
                 prefix_lengths=None, attention_mask=None, cache=None,

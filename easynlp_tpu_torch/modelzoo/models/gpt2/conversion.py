@@ -43,17 +43,23 @@ def state_dict_from_jax(params, config):
     if "wte" in p:  # the captioning apps' GPT owns no token table
         put("wte.weight", p["wte"]["embedding"])
     put("wpe.weight", p["wpe"]["embedding"])
+    moe = "moe" in h
     for i in range(config.n_layer):
         base = "h.%d." % i
-        for name, tree, kind in (("ln_1", h["ln_1"], "ln"),
-                                 ("attn.c_attn", h["attn"]["c_attn"], "conv"),
-                                 ("attn.c_proj", h["attn"]["c_proj"], "conv"),
-                                 ("ln_2", h["ln_2"], "ln"),
-                                 ("mlp.c_fc", h["c_fc"], "conv"),
-                                 ("mlp.c_proj", h["c_proj"], "conv")):
+        parts = [("ln_1", h["ln_1"], "ln"),
+                 ("attn.c_attn", h["attn"]["c_attn"], "conv"),
+                 ("attn.c_proj", h["attn"]["c_proj"], "conv"),
+                 ("ln_2", h["ln_2"], "ln")]
+        if not moe:
+            parts += [("mlp.c_fc", h["c_fc"], "conv"),
+                      ("mlp.c_proj", h["c_proj"], "conv")]
+        for name, tree, kind in parts:
             put(base + name + ".weight",
                 tree["kernel" if kind == "conv" else "scale"][i])
             put(base + name + ".bias", tree["bias"][i])
+        if moe:  # Switch-MoE: the same names and layouts on both sides
+            for name in ("router", "wi", "wo", "bi", "bo"):
+                put(base + "moe." + name, h["moe"][name][i])
     put("ln_f.weight", p["ln_f"]["scale"])
     put("ln_f.bias", p["ln_f"]["bias"])
     return state

@@ -47,7 +47,12 @@ over the head dim, computed in the compute dtype as the JAX model does);
 reads dequantize the layer's slots in the compute dtype and then take the
 same kernels. It takes a shared write index only, as in JAX.
 
-Not ported: Switch-MoE layers (ROADMAP A24).
+With config.num_experts > 1 every block's MLP is a Switch-MoE FFN
+(ops/moe.py, JAX modeling_gpt2.py:203-214) under the name `moe`, and the
+model returns `moe_aux_loss`: router_aux_loss_coef times the mean of the
+layers' load-balancing losses (:278-290). Over a sequence axis
+parallelize makes the layers attend by the ring (:76): each rank runs its
+S/n tokens and the output is gathered whole (parallel/sequence.py).
 """
 
 import torch
@@ -59,6 +64,12 @@ from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
     layer_norm,
 )
 from easynlp_tpu_torch.ops.attention import attention
+from easynlp_tpu_torch.ops.moe import SwitchMoE
+from easynlp_tpu_torch.parallel.sequence import (
+    gather_tokens,
+    local_tokens,
+    sequence_group,
+)
 
 
 class Conv1D(nn.Module):
@@ -115,6 +126,11 @@ def init_gpt2_weights(module, std, generator):
     for m in module.modules():
         if isinstance(m, (Conv1D, nn.Embedding)):
             truncated_normal_(m.weight, std, generator)
+        if isinstance(m, SwitchMoE):
+            for p in (m.router, m.wi, m.wo):
+                truncated_normal_(p, std, generator)
+            m.bi.zero_()
+            m.bo.zero_()
         if isinstance(m, Conv1D):
             m.bias.zero_()
         elif isinstance(m, nn.LayerNorm):
@@ -128,6 +144,7 @@ class GPT2Attention(nn.Module):
         e = config.n_embd
         self.dtype = dtype
         self.num_heads = config.n_head
+        self.impl = "auto"
         self.c_attn = Conv1D(e, 3 * e, device=device)
         self.c_proj = Conv1D(e, e, device=device)
         self.resid_dropout = nn.Dropout(config.resid_pdrop)
@@ -138,7 +155,8 @@ class GPT2Attention(nn.Module):
         qkv = self.c_attn(hidden, self.dtype).view(b, s, 3, h, e // h)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is None:
-            ctx = attention(q, k, v, kv_mask=kv_mask, causal=True)
+            ctx = attention(q, k, v, kv_mask=kv_mask, causal=True,
+                            impl=self.impl)
         elif torch.is_tensor(cache.index):
             ctx = self._per_slot(q, k, v, kv_mask, cache, layer_idx)
         else:
@@ -221,13 +239,28 @@ class GPT2Block(nn.Module):
         self.ln_1 = nn.LayerNorm(config.n_embd, eps=eps, device=device)
         self.attn = GPT2Attention(config, dtype=dtype, device=device)
         self.ln_2 = nn.LayerNorm(config.n_embd, eps=eps, device=device)
-        self.mlp = GPT2MLP(config, dtype=dtype, device=device)
+        if getattr(config, "num_experts", 0) > 1:
+            self.moe = SwitchMoE(
+                config.n_embd, config.n_inner, config.num_experts,
+                top_k=getattr(config, "moe_top_k", 1),
+                capacity_factor=getattr(config, "expert_capacity_factor",
+                                        1.25),
+                activation=ACT2FN[config.activation_function], dtype=dtype,
+                device=device)
+            self.dropout = nn.Dropout(config.resid_pdrop)
+        else:
+            self.mlp = GPT2MLP(config, dtype=dtype, device=device)
 
     def forward(self, hidden, kv_mask, cache=None, layer_idx=None):
+        """(the block's output, its MoE load-balancing loss or None)."""
         dt = self.dtype
         hidden = hidden + self.attn(layer_norm(self.ln_1, hidden, dt),
                                     kv_mask, cache, layer_idx)
-        return hidden + self.mlp(layer_norm(self.ln_2, hidden, dt))
+        normed = layer_norm(self.ln_2, hidden, dt)
+        if not hasattr(self, "moe"):
+            return hidden + self.mlp(normed), None
+        mlp, aux = self.moe(normed, deterministic=not self.training)
+        return hidden + self.dropout(mlp), aux
 
 
 class GPT2Model(nn.Module):
@@ -239,10 +272,6 @@ class GPT2Model(nn.Module):
 
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
-        if getattr(config, "num_experts", 0) > 1:
-            raise NotImplementedError(
-                "GPT-2 with Switch-MoE layers (num_experts=%d) is not ported "
-                "yet (ROADMAP A24)" % config.num_experts)
         self.config = config
         self.dtype = dtype
         self.wte = nn.Embedding(config.vocab_size, config.n_embd,
@@ -264,15 +293,35 @@ class GPT2Model(nn.Module):
                                         device=tokens.device)
         if position_ids is None:
             position_ids = (attention_mask.long().cumsum(-1) - 1).clamp(min=0)
+        group = None
+        if cache is None and self.h:
+            group = sequence_group(self.h[0].attn)
+        if group is not None:
+            tokens, attention_mask, position_ids = local_tokens(
+                group, tokens, attention_mask, position_ids)
+            if inputs_embeds is None:
+                input_ids = tokens
+            else:
+                inputs_embeds = tokens
         if inputs_embeds is None:
             inputs_embeds = self.wte(input_ids)
         hidden = inputs_embeds + self.wpe(position_ids)
         hidden = self.drop(hidden).to(self.dtype)
         kv_mask = (attention_mask if cache is None else cache.mask)
         kv_mask = kv_mask.to(torch.int32)
+        aux = []
         for i, block in enumerate(self.h):
-            hidden = block(hidden, kv_mask, cache, i)
-        out = {"last_hidden_state": layer_norm(self.ln_f, hidden, self.dtype)}
+            hidden, layer_aux = block(hidden, kv_mask, cache, i)
+            if layer_aux is not None:
+                aux.append(layer_aux)
+        hidden = layer_norm(self.ln_f, hidden, self.dtype)
+        if group is not None:
+            hidden = gather_tokens(hidden, group)
+        out = {"last_hidden_state": hidden}
+        if aux:
+            out["moe_aux_loss"] = (
+                float(getattr(self.config, "router_aux_loss_coef", 0.01))
+                * torch.stack(aux).mean())
         if cache is not None:
             # a new object for a per-slot index: the caller's tensor stays
             cache.index = cache.index + s

@@ -40,7 +40,8 @@ The JAX package routes BERT lengths below 256 to XLA on a TPU and reaches
 its flash kernel only from Skv = 8192. Those windows are TPU tunings, so
 here every Skv <= 512 takes the short kernels on a card and every longer
 one the flash kernels; the card's own thresholds come from its
-measurements (PERF.md). Ring attention is not ported yet (ROADMAP A24).
+measurements (PERF.md). `impl='ring'` splits the sequence over the
+mesh's `sequence` axis (ops/ring_attention.py, over B3-B5).
 """
 
 import ctypes
@@ -648,12 +649,16 @@ def attention(q, k, v, kv_mask=None, causal=False, scale=None, bias=None,
     impl: 'auto' (for a head dim and dtype the kernels take: the short path
     for Skv <= 512, the flash path above it, with or without a gradient;
     attention_reference otherwise), 'short' (the short path or an error),
-    'flash' (the flash path or an error), 'reference'. 'ring' is not ported
-    yet. An additive `bias` forces the reference path."""
-    if impl == "ring":
-        raise NotImplementedError(
-            "attention(impl='ring') is not ported yet (ROADMAP A24)")
-    if impl not in ("auto", "short", "flash", "reference"):
+    'flash' (the flash path or an error), 'reference', 'ring'
+    (sequence_parallel_attention: q/k/v are this rank's chunks of the
+    sequence). An additive `bias` forces the reference path."""
+    if impl == "ring" and bias is None:
+        if layout == "bhsd":
+            return sequence_parallel_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                kv_mask, causal, scale).transpose(1, 2)
+        return sequence_parallel_attention(q, k, v, kv_mask, causal, scale)
+    if impl not in ("auto", "short", "flash", "reference", "ring"):
         raise ValueError("unknown attention impl %r" % impl)
     if layout == "bhsd":
         out = attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -680,3 +685,22 @@ def attention(q, k, v, kv_mask=None, causal=False, scale=None, bias=None,
                                     _kernel_ready(v), kv_mask, causal, scale)
     return attention_reference(q, k, v, kv_mask=kv_mask, causal=causal,
                                scale=scale)
+
+
+def sequence_parallel_attention(q, k, v, kv_mask=None, causal=False,
+                                scale=None, group=None):
+    """Exact attention with the sequence split over the mesh's `sequence`
+    axis (JAX attention.py:687-717): q/k/v [B, S/n, H, D] and kv_mask
+    [B, S/n] are this rank's chunks, in rank order, and so is the result.
+    ops/ring_attention.py runs the ring over `group` (default: the global
+    mesh's sequence group); a one-member group takes the local
+    attention(), as JAX does."""
+    from easynlp_tpu_torch.parallel import comm
+    from easynlp_tpu_torch.parallel.mesh import axis_group
+    group = axis_group("sequence") if group is None else group
+    if comm.size(group) == 1:
+        return attention(q, k, v, kv_mask=kv_mask, causal=causal,
+                         scale=scale)
+    from easynlp_tpu_torch.ops.ring_attention import ring_attention
+    return ring_attention(q, k, v, kv_mask, group=group, causal=causal,
+                          scale=scale)

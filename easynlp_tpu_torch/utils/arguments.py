@@ -1,7 +1,9 @@
 """Argument parsing for the PyTorch port: its own copy of the JAX package's
 flag surface (easynlp_tpu/utils/arguments.py), so one command line drives
-either CLI. Flags the port does not implement yet are parsed all the same
-and refused where they would take effect (core/trainer.py)."""
+either CLI. The process index and count come from the flags, else from
+EASYNLP_PROCESS_INDEX/EASYNLP_NUM_PROCESSES, else from what torchrun sets
+(RANK, WORLD_SIZE); the mesh spec is parsed by
+parallel/mesh.parse_mesh_spec."""
 
 import argparse
 import os
@@ -100,8 +102,9 @@ def _add_easynlp_args(parser: argparse.ArgumentParser) -> None:
                        choices=["float32", "bfloat16"],
                        help="Compute dtype (params stay fp32)")
     group.add_argument("--mesh", default=None, type=str,
-                       help="Device mesh spec 'dp=4,fsdp=1,tp=2' (not "
-                            "ported: the port runs on one device)")
+                       help="Process mesh spec 'dp=4,fsdp=1,tp=2' over "
+                            "the processes, one device each (aliases dp, "
+                            "fsdp, tp, sp, ep, pp; one axis may be -1)")
     group.add_argument("--remat", default="none", type=str,
                        choices=["none", "full", "selective", "names"],
                        help="Activation rematerialisation policy (not "
@@ -136,7 +139,10 @@ def _add_easynlp_args(parser: argparse.ArgumentParser) -> None:
                             "ported). 0 disables.")
 
     group = parser.add_argument_group("distributed", "multi-host arguments")
-    group.add_argument("--coordinator_address", default=None, type=str)
+    group.add_argument("--coordinator_address", default=None, type=str,
+                       help="Rendezvous: host:port, tcp://host:port or "
+                            "file:///path (else torchrun's MASTER_ADDR and "
+                            "MASTER_PORT)")
     group.add_argument("--num_processes", default=None, type=int)
     group.add_argument("--process_index", default=None, type=int)
 

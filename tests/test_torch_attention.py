@@ -166,15 +166,15 @@ def test_short_kernel_routes_are_a_rule_on_dtype_and_shape(dtype, sq, skv,
 
 @pytest.mark.parametrize("impl", ["flash", "ring"])
 def test_unported_impls_raise(impl):
-    """'ring' is not ported and raises. 'flash' is, backward included
-    (FlashAttention): with an input that needs a gradient it now gives
-    attention_reference's gradient instead of raising."""
+    """Neither raises any more. 'flash' is ported, backward included
+    (FlashAttention): with an input that needs a gradient it gives
+    attention_reference's gradient. 'ring' is ported since slice 15
+    (ops/ring_attention.py; test_torch_ring_attention.py holds it to JAX
+    over four ranks): in one process, with no sequence group, it is the
+    local attention, as JAX's sequence_parallel_attention falls back to
+    (attention.py:698-699), and gives the same gradient."""
     tq, tk, tv = _torch(*_qkv(15, 1, 8, 8, 2, 8))
     tq.requires_grad_(True)
-    if impl == "ring":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            A.attention(tq, tk, tv, impl=impl)
-        return
     A.attention(tq, tk, tv, impl=impl).sum().backward()
     rq = tq.detach().clone().requires_grad_(True)
     A.attention_reference(rq, tk, tv).sum().backward()

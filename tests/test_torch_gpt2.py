@@ -248,14 +248,23 @@ def test_tokenizer_gives_the_jax_ids(tmp_path):
 
 
 def test_unported_model_features_raise():
-    """Switch-MoE layers (A24) raise. A per-slot cache index with a chunk
-    of s > 1 tokens (speculative verify), which raised until slice 11
-    ported it, gives each row what its own decode steps give (logits
-    within 1e-5; test_torch_continuous.py holds it to JAX). A per-slot
-    decode step and a chunk past index 0 are ported too: the two tests
-    below hold them to JAX."""
-    with pytest.raises(NotImplementedError, match="A24"):
-        GPT2LMHeadModel(GPT2Config(**dict(TINY, num_experts=4)))
+    """Switch-MoE layers, which raised until slice 15 ported them (A24),
+    build: every block holds a `moe` of 4 experts in place of its MLP and
+    the model returns its aux loss (test_torch_moe.py holds both to JAX).
+    A per-slot cache index with a chunk of s > 1 tokens (speculative
+    verify), which raised until slice 11 ported it, gives each row what
+    its own decode steps give (logits within 1e-5;
+    test_torch_continuous.py holds it to JAX). A per-slot decode step and
+    a chunk past index 0 are ported too: the two tests below hold them to
+    JAX."""
+    moe = GPT2LMHeadModel(GPT2Config(**dict(TINY, num_experts=4))).eval()
+    moe.init_weights(torch.Generator().manual_seed(0))
+    assert all(hasattr(b, "moe") and not hasattr(b, "mlp")
+               and b.moe.wi.shape[0] == 4 for b in moe.transformer.h)
+    with torch.no_grad():
+        out = moe(torch.tensor([[1, 2, 3, 4]]))
+    assert out["logits"].shape == (1, 4, TINY["vocab_size"])
+    assert float(out["moe_aux_loss"]) > 0
     model = GPT2LMHeadModel(GPT2Config(**TINY)).eval()
     model.init_weights(torch.Generator().manual_seed(0))
     tokens = torch.randint(1, 50, (2, 3), generator=torch.Generator()

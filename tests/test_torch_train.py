@@ -600,13 +600,39 @@ def test_lion_trains_through_the_cli(tiny):
 
 # --remat, --ema_decay and --async_save are ported
 # (test_torch_trainer_options.py); multi-process and mesh training (A23)
-# still raise
+# since slice 15 (test_torch_parallel.py): --mesh on one process trains,
+# and what the JAX package refuses is refused
 @pytest.mark.parametrize("flag", ["--num_processes=2", "--mesh=dp=1",
                                   "--mesh=dp=1,tp=2"])
 def test_unported_training_options_raise(tiny, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run_port(train_argv(tiny, os.path.join(tiny, "refused"),
-                             "--micro_batch_size=16", flag))
+    """--mesh=dp=1 starts a one-process group (gloo, an in-process
+    store) and trains as the run without it: the same losses and weights,
+    bit for bit. --num_processes=2 with no rendezvous raises naming the
+    flags that give one. --mesh=dp=1,tp=2 on one process raises the
+    device-count mismatch, as JAX's parse_mesh_spec does
+    (utils/arguments.py:220-222)."""
+    argv = train_argv(tiny, os.path.join(tiny, "mesh"),
+                      "--micro_batch_size=16", flag)
+    if flag == "--num_processes=2":
+        with pytest.raises(ValueError, match="coordinator_address"):
+            _run_port(argv)
+        return
+    if flag == "--mesh=dp=1,tp=2":
+        with pytest.raises(ValueError, match="uses 2 devices but 1"):
+            _run_port(argv)
+        return
+    meshed = _run_port(argv)
+    plain = _run_port(train_argv(tiny, os.path.join(tiny, "no_mesh"),
+                                 "--micro_batch_size=16"))
+    assert meshed.mesh is None and meshed.global_step == 4
+    assert [r["loss"] for r in meshed.step_records] == \
+        [r["loss"] for r in plain.step_records]
+    got = torch.load(os.path.join(tiny, "mesh", "pytorch_model.bin"),
+                     weights_only=True)
+    want = torch.load(os.path.join(tiny, "no_mesh", "pytorch_model.bin"),
+                      weights_only=True)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_host_prefetch_depth_is_refused(tiny):
