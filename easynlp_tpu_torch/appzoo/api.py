@@ -30,8 +30,9 @@ meta-teacher, trained by MetaTeacherTrainer), enable_fewshot (PET) and,
 for any app, enable_lora (adapters only: lora_rank, lora_alpha,
 lora_targets). The registries map each app to its variants, as the JAX
 package's do, and hold every app of the JAX package's. `--mode=export`
-and the backbones still unported raise NotImplementedError naming their
-ROADMAP items. The datasets are the port's
+writes a checkpoint's BERT backbone under HF names or as a TF checkpoint
+(utils/exporter.py); the backbones still unported raise
+NotImplementedError naming their ROADMAP items. The datasets are the port's
 copies of the JAX package's, so both packages featurise and batch the same
 rows the same way.
 """
@@ -255,9 +256,6 @@ PREDICTOR_REGISTRY = _apps(
     latent_diffusion={"default": "latent_diffusion.predictor:LDMPredictor"},
 )
 
-_NOT_PORTED_MODES = {
-    "export": "ROADMAP A26",
-}
 # the JAX package's variant switches, in its order (easynlp_tpu
 # appzoo/api.py::_variant_key)
 _VARIANT_KEYS = ("enable_metakd", "enable_distillation", "enable_fewshot",
@@ -311,11 +309,8 @@ def default_main_fn(args=None):
         return _evaluate_main(args, udp)
     if args.mode == "serve":
         return _serve_main(args, udp)
-    if args.mode in _NOT_PORTED_MODES:
-        raise NotImplementedError(
-            "--mode=%s is not ported yet (%s); the PyTorch port has "
-            "--mode=train|evaluate|predict|serve"
-            % (args.mode, _NOT_PORTED_MODES[args.mode]))
+    if args.mode == "export":
+        return _export_main(args, udp)
     raise ValueError("unknown mode %r" % args.mode)
 
 
@@ -442,6 +437,39 @@ def _evaluate_main(args, udp):
     for metric, score in results:
         logger.info("eval %s: %.6f", metric, score)
     return results
+
+
+def _export_main(args, udp):
+    """--mode=export (JAX api.py:667-691): the checkpoint's BERT backbone
+    as a PyTorch checkpoint under HF names (udp export_format=pytorch, the
+    default) or a Google-BERT TF v1 checkpoint (export_format=tf, which
+    needs TensorFlow), to --outputs or beside the checkpoint."""
+    from easynlp_tpu_torch.utils.exporter import (
+        export_bert_backbone_to_pytorch, export_tf_checkpoint)
+    model_cls = _resolve(MODEL_REGISTRY, args.app_name, udp)
+    ckpt = args.checkpoint_dir
+    num_labels = 2
+    label_path = os.path.join(ckpt, "label_mapping.json")
+    if io.exists(label_path):
+        with io.open(label_path) as f:
+            num_labels = max(len(json.load(f)), 2)
+    app = model_cls.from_pretrained(ckpt, args=args, dtype=_dtype(args),
+                                    device=args.device,
+                                    num_labels=num_labels)
+    backbone = getattr(app.module, "backbone", None)
+    if backbone is None:
+        raise ValueError(
+            "--mode=export currently exports BERT-family backbones; app %r "
+            "has no 'backbone' params subtree" % args.app_name)
+    fmt = str(udp.get("export_format", "pytorch"))
+    if fmt not in ("pytorch", "tf"):
+        raise ValueError("unknown export_format %r (pytorch|tf)" % fmt)
+    if fmt == "pytorch":
+        out = args.outputs or os.path.join(ckpt, "pytorch_model_export.bin")
+        return export_bert_backbone_to_pytorch(backbone, out)
+    out = args.outputs or os.path.join(ckpt, "tf_export", "bert_model.ckpt")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    return export_tf_checkpoint(backbone, out)
 
 
 def _predict_main(args, udp):

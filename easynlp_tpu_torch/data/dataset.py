@@ -2,8 +2,11 @@
 easynlp_tpu/data/dataset.py that it calls, with the same rows, features and
 batch order.
 
-- a dataset reads the non-blank rows of a local TSV (through the native
-  reader where it builds, else line by line) and featurises them once into
+- a dataset reads the non-blank rows of its table as JAX dataset.py:49-75
+  does: a local TSV through lazy row views (the native reader where it
+  builds, else data/lazy_loader.LazyRows over an mmap), an odps:// table
+  through data/odps_reader.py (its per-process slice), any other path
+  through the io seam (utils/io_utils.py), and featurises them once into
   fixed-shape numpy arrays; with num_processes > 1 it keeps rows
   process_index::num_processes, as JAX dataset.py:32-56 (the api passes a
   rank's data-parallel index and count, appzoo/api.py);
@@ -32,15 +35,24 @@ class BaseDataset:
         self.num_processes = num_processes or 1
         self.kwargs = kwargs
         self.rows = self.read_rows(data_file)
-        if self.num_processes > 1:
+        # an odps table's reader returns this process's slice already
+        if self.num_processes > 1 and not str(data_file).startswith(
+                "odps://"):
             self.rows = self.rows[self.process_index::self.num_processes]
 
     def read_rows(self, data_file):
+        if str(data_file).startswith("odps://"):
+            from easynlp_tpu_torch.data.odps_reader import read_odps_rows
+            return read_odps_rows(str(data_file),
+                                  process_index=self.process_index,
+                                  num_processes=self.num_processes)
         if "://" not in str(data_file):
             from easynlp_tpu_torch.data.native_reader import (
                 NativeLazyRows, available)
             if available():
                 return NativeLazyRows(data_file)
+            from easynlp_tpu_torch.data.lazy_loader import LazyRows
+            return LazyRows(data_file)
         with io.open(data_file) as f:
             return [line.rstrip("\n") for line in f if line.strip()]
 
@@ -59,6 +71,13 @@ class BaseDataset:
 
     def __len__(self):
         return len(self.rows)
+
+
+def load_dataset(name, *args, **kwargs):
+    """The datahub's loading-script registry, then HF datasets (reference
+    appzoo/dataset.py:393-422; data/datahub.py)."""
+    from easynlp_tpu_torch.data.datahub import load_dataset as datahub_load
+    return datahub_load(name, *args, **kwargs)
 
 
 class DataLoader:

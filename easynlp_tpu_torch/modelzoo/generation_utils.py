@@ -20,7 +20,20 @@ comparable across the packages. The serving paths' per-row sampling
 (`rowwise_warp_and_sample`) draws from a counter-based stream instead, a
 pure function of (seed, position) as JAX's per-request stream is.
 `generate(speculative='prompt_lookup')` dispatches to
-modelzoo/speculative.py as the JAX generate does.
+modelzoo/speculative.py as the JAX generate does. `row_seeds` ([B]) makes
+greedy_or_sample draw from that counter-based stream too (row i's token at
+generated position n a pure function of (its logits, row_seeds[i], n)), so
+a row's draws do not depend on the batch it shares.
+
+On a mesh (the adapter's `prefill.mesh`, set from a model that
+parallel/sharding.parallelize split): the model's own collectives run the
+tensor axis, and generate() splits the batch's rows over the batch axes
+(mesh.BATCH_AXES, as the Trainer does), runs its block of rows and gathers
+the sequences, so every rank returns the whole batch's tokens. Tensor ranks
+see the same gathered logits bit for bit and so draw the same tokens from
+the per-row counter stream; a generator's stream is each rank's own, so
+sampling on a mesh takes `row_seeds` and refuses beam or speculative
+sampling.
 
 Model protocol: `prefill(input_ids, attention_mask)` and
 `decode(token [B,1], cache)` both -> (f32 logits [B,V] for the last
@@ -30,6 +43,9 @@ Decoder-only prompts are LEFT-padded (left_pad below).
 
 import numpy as np
 import torch
+
+from easynlp_tpu_torch.parallel import comm
+from easynlp_tpu_torch.parallel.mesh import BATCH_AXES, batch_sharding
 
 NEG_INF = -1.0e7
 
@@ -254,9 +270,11 @@ def _top_k(x, k):
 def greedy_or_sample(prefill, decode, input_ids, attention_mask, max_length,
                      do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
                      eos_token_id=None, pad_token_id=0, generator=None,
-                     **proc_config):
+                     row_seeds=None, **proc_config):
     """input_ids LEFT-padded [B, P]; returns (sequences [B, max_length],
-    valid [B, max_length]: 1 where a real token sits)."""
+    valid [B, max_length]: 1 where a real token sits). Sampling draws from
+    `generator`, or where `row_seeds` ([B]) is given by Gumbel-max over
+    counter_uniform(row_seeds, generated position)."""
     b, p = input_ids.shape
     t = max_length
     if t <= p:
@@ -274,7 +292,12 @@ def greedy_or_sample(prefill, decode, input_ids, attention_mask, max_length,
     finished = torch.zeros((b,), dtype=torch.bool, device=device)
     for step in range(p, t):
         logits = process_logits(logits, sequences, valid, step, proc)
-        if do_sample:
+        if do_sample and row_seeds is not None:
+            warped = _warp(logits, temperature, top_k, top_p)
+            u = counter_uniform(row_seeds, torch.full_like(
+                row_seeds, step - p), logits.shape[-1])
+            token = torch.argmax(warped - torch.log(-torch.log(u)), dim=-1)
+        elif do_sample:
             probs = torch.softmax(_warp(logits, temperature, top_k, top_p),
                                   dim=-1)
             token = torch.multinomial(probs, 1, generator=generator)[:, 0]
@@ -462,17 +485,54 @@ def beam_search(prefill, decode, input_ids, attention_mask, max_length,
 # public entry
 # -----------------------------------------------------------------------------
 
-_SAMPLING_KEYS = ("generator", "temperature", "top_k", "top_p")
+_SAMPLING_KEYS = ("generator", "temperature", "top_k", "top_p", "row_seeds")
 _BEAM_KEYS = ("num_beam_groups", "diversity_penalty", "length_penalty",
               "num_return_sequences")
 
 
 def generate(prefill, decode, input_ids, attention_mask, max_length=64,
-             num_beams=1, do_sample=False, speculative=None,
-             num_draft_tokens=8, ngram_size=2, **kwargs):
+             **kwargs):
     """Greedy / sample / beam / beam-sample / group-beam, as the JAX
     generate; returns sequences [B, max_length] (or [B, N, max_length] for
-    beams with num_return_sequences N > 1).
+    beams with num_return_sequences N > 1). On a mesh (`prefill.mesh`)
+    each rank runs its block of rows over the batch axes and every rank
+    returns the gathered batch (module docstring); a [B] `row_seeds` or a
+    [B, V] bad-words mask is split with the rows, and sampling there needs
+    `row_seeds` (ValueError otherwise, as for beam or speculative
+    sampling). Collective there: every rank calls
+    it with the same arguments."""
+    mesh = getattr(prefill, "mesh", None)
+    group = None
+    if (mesh is not None and mesh.world_size > 1 and kwargs.get("do_sample")
+            and (kwargs.get("row_seeds") is None
+                 or kwargs.get("num_beams", 1) > 1
+                 or kwargs.get("speculative"))):
+        # a generator's stream is each rank's own and restarts on each
+        # data rank's block of rows
+        raise ValueError(
+            "sampled generate() on a mesh draws only from the per-row "
+            "counter stream: pass row_seeds ([B]), without beams or "
+            "speculative decoding")
+    if mesh is not None and mesh.size(BATCH_AXES) > 1:
+        group = mesh.group(BATCH_AXES)
+        start, stop = batch_sharding(input_ids.shape[0], mesh)
+        input_ids = input_ids[start:stop]
+        attention_mask = attention_mask[start:stop]
+        if kwargs.get("row_seeds") is not None:
+            kwargs["row_seeds"] = kwargs["row_seeds"][start:stop]
+        bad = kwargs.get("bad_words_mask")
+        if bad is not None and bad.dim() == 2:
+            kwargs["bad_words_mask"] = bad[start:stop]
+    seqs = _generate(prefill, decode, input_ids, attention_mask, max_length,
+                     group=group, **kwargs)
+    return comm.all_gather(seqs, group)
+
+
+def _generate(prefill, decode, input_ids, attention_mask, max_length,
+              num_beams=1, do_sample=False, speculative=None,
+              num_draft_tokens=8, ngram_size=2, group=None, **kwargs):
+    """generate() on this rank's rows; `group` joins the ranks that split
+    the batch (the shared speculative acceptance reduces over it).
 
     speculative='prompt_lookup': prompt-lookup speculative decoding
     (modelzoo/speculative.py), token-exact vs plain greedy; greedy takes
@@ -511,7 +571,8 @@ def generate(prefill, decode, input_ids, attention_mask, max_length=64,
         seqs, _, _ = spec.speculative_greedy(
             prefill, decode.chunk, decode.rollback, input_ids,
             attention_mask, max_length, num_draft_tokens=num_draft_tokens,
-            ngram_size=ngram_size, do_sample=do_sample, **kwargs)
+            ngram_size=ngram_size, do_sample=do_sample, group=group,
+            **kwargs)
         return seqs
     if num_beams > 1:
         if not do_sample:

@@ -27,7 +27,12 @@ def make_gpt2_generation_fns(model, max_length, cache_dtype=None,
 
     cache_slack: KV slots past max_length, which a speculative verify
     chunk of K+1 tokens may fill before its rollback. kv_cache='int8': the
-    int8 cache with per-(token, head) scales."""
+    int8 cache with per-(token, head) scales.
+
+    A model that parallel/sharding.parallelize split carries its mesh
+    (`parallel_mesh`); `prefill.mesh` hands it to generate(), which splits
+    the batch's rows over the mesh's batch axes. The caches then hold the
+    rank's heads (GPT2LMHeadModel.init_cache)."""
     if kv_cache not in (None, "int8"):
         raise ValueError("kv_cache must be None or 'int8' (got %r)"
                          % (kv_cache,))
@@ -89,6 +94,7 @@ def make_gpt2_generation_fns(model, max_length, cache_dtype=None,
         return cache
 
     prefill.reindex_cache = KVCache.reindex
+    prefill.mesh = getattr(model, "parallel_mesh", None)
     decode.chunk = decode_chunk
     decode.rollback = rollback
     if kv_cache is None:

@@ -53,6 +53,13 @@ model returns `moe_aux_loss`: router_aux_loss_coef times the mean of the
 layers' load-balancing losses (:278-290). Over a sequence axis
 parallelize makes the layers attend by the ring (:76): each rank runs its
 S/n tokens and the output is gathered whole (parallel/sequence.py).
+
+Over a tensor axis (parallel/sharding.py, JAX's logical axes at
+:70/:175/:217-220/:245) each Conv1D becomes column- or row-parallel, the
+attention keeps its rank's heads (`num_heads` is the local count; the head
+dim stays n_embd // n_head), the decode caches hold those heads only, and
+`wte` is vocab-parallel: the head gathers every rank's logit columns, so
+each rank holds the whole row with the padding of an odd vocabulary cut.
 """
 
 import torch
@@ -65,15 +72,27 @@ from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
 )
 from easynlp_tpu_torch.ops.attention import attention
 from easynlp_tpu_torch.ops.moe import SwitchMoE
+from easynlp_tpu_torch.parallel import comm
 from easynlp_tpu_torch.parallel.sequence import (
     gather_tokens,
     local_tokens,
     sequence_group,
 )
+from easynlp_tpu_torch.parallel.sharding import tied_logits
 
 
 class Conv1D(nn.Module):
-    """HF's GPT-2 projection: weight [in, out], y = x @ W + b."""
+    """HF's GPT-2 projection: weight [in, out], y = x @ W + b.
+
+    Under a tensor group (`tensor_parallel` = ('column' | 'row', group),
+    set by parallel/sharding.py) the weight holds this rank's output
+    columns (its input's gradient is summed over the group) or its input
+    rows (the partial products are summed over the group, then the bias is
+    added once)."""
+
+    # the weight is [in, out] (nn.Linear's is [out, in]): sharding reads it
+    weight_in_out = True
+    tensor_parallel = None
 
     def __init__(self, n_in, n_out, device=None):
         super().__init__()
@@ -83,9 +102,18 @@ class Conv1D(nn.Module):
     def forward(self, x, dtype):
         """Applied in `dtype`, as flax Dense with dtype=`dtype` and f32
         params does."""
-        return torch.addmm(self.bias.to(dtype), x.reshape(-1, x.shape[-1])
-                           .to(dtype), self.weight.to(dtype)).view(
-            *x.shape[:-1], self.weight.shape[1])
+        shape = (*x.shape[:-1], self.weight.shape[1])
+        w, b = self.weight.to(dtype), self.bias.to(dtype)
+        if self.tensor_parallel is None:
+            return torch.addmm(b, x.reshape(-1, x.shape[-1]).to(dtype),
+                               w).view(shape)
+        kind, group = self.tensor_parallel
+        if kind == "column":
+            x = comm.copy_to_group(x, group)
+            return torch.addmm(b, x.reshape(-1, x.shape[-1]).to(dtype),
+                               w).view(shape)
+        out = torch.mm(x.reshape(-1, x.shape[-1]).to(dtype), w).view(shape)
+        return comm.reduce_from_group(out, group) + b
 
 
 class KVCache:
@@ -139,20 +167,24 @@ def init_gpt2_weights(module, std, generator):
 
 
 class GPT2Attention(nn.Module):
+    # parallelize divides num_heads by the tensor group's size
+    tensor_parallel_heads = True
+
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         e = config.n_embd
         self.dtype = dtype
         self.num_heads = config.n_head
+        self.head_dim = e // config.n_head
         self.impl = "auto"
         self.c_attn = Conv1D(e, 3 * e, device=device)
         self.c_proj = Conv1D(e, e, device=device)
         self.resid_dropout = nn.Dropout(config.resid_pdrop)
 
     def forward(self, hidden, kv_mask, cache=None, layer_idx=None):
-        b, s, e = hidden.shape
-        h = self.num_heads
-        qkv = self.c_attn(hidden, self.dtype).view(b, s, 3, h, e // h)
+        b, s = hidden.shape[:2]
+        h, d = self.num_heads, self.head_dim
+        qkv = self.c_attn(hidden, self.dtype).view(b, s, 3, h, d)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is None:
             ctx = attention(q, k, v, kv_mask=kv_mask, causal=True,
@@ -189,7 +221,7 @@ class GPT2Attention(nn.Module):
                 # so q_offset = index (the JAX model's bias k_pos <= q_pos)
                 ctx = attention(q, k_read, v_read, kv_mask=kv_mask[:, :end],
                                 causal=True)
-        out = self.c_proj(ctx.reshape(b, s, e), self.dtype)
+        out = self.c_proj(ctx.reshape(b, s, h * d), self.dtype)
         return self.resid_dropout(out)
 
     def _per_slot(self, q, k, v, kv_mask, cache, layer_idx):
@@ -343,14 +375,20 @@ class GPT2LMHeadModel(nn.Module):
     def init_weights(self, generator):
         init_gpt2_weights(self, self.config.initializer_range, generator)
 
+    def cache_heads(self):
+        """(heads, head dim) of one layer's K/V on this rank: the heads
+        of its tensor-parallel share."""
+        attn = self.transformer.h[0].attn
+        return attn.num_heads, attn.head_dim
+
     def init_cache(self, batch_size, max_length, dtype=None,
                    quantize=False):
         """An empty KVCache of max_length slots (dtype: the compute dtype
         unless given); quantize=True: int8 K/V with f32 per-(token, head)
-        scales."""
+        scales. It holds this rank's heads (cache_heads)."""
         c = self.config
         device = self.transformer.wte.weight.device
-        shape = (batch_size, max_length, c.n_head, c.n_embd // c.n_head)
+        shape = (batch_size, max_length, *self.cache_heads())
         dtype = torch.int8 if quantize else dtype or self.dtype
 
         def per_layer(shape, dtype):
@@ -366,9 +404,9 @@ class GPT2LMHeadModel(nn.Module):
                        0, *scales)
 
     def logits(self, hidden):
-        """The tied head: hidden [..., E] @ wte^T in the compute dtype."""
-        wte = self.transformer.wte.weight.to(self.dtype)
-        return torch.matmul(hidden, wte.t())
+        """The tied head: hidden [..., E] @ wte^T in the compute dtype
+        (every rank's columns of a vocab-parallel wte, gathered)."""
+        return tied_logits(self.transformer.wte, hidden, self.dtype)
 
     def forward(self, input_ids, attention_mask=None, position_ids=None,
                 cache=None):

@@ -26,14 +26,21 @@ appzoo/sequence_generation/glm.py):
 - decode.chunk_rowwise(tokens, cache) for a cache whose index is [B]
   (`speculative_greedy_rowwise`).
 
+Over ranks that split the batch's rows (generate() on a mesh), the shared
+accepted count and the loop's end are MIN all-reduces over their group:
+the cross-device reduction GSPMD inserts for the JAX loop. The per-row
+variant needs none.
+
 Only position-static processors run under speculation (min_length,
 bad_words_mask, EOS, and the sampling warps); repetition_penalty and
 no_repeat_ngram_size raise here (generate() falls back to the plain loop).
 """
 
 import torch
+import torch.distributed as dist
 
 from easynlp_tpu_torch.modelzoo.generation_utils import NEG_INF, _warp
+from easynlp_tpu_torch.parallel import comm
 
 
 def _windows(sequences, valid, n):
@@ -151,13 +158,15 @@ def speculative_greedy(prefill, decode_chunk, rollback, input_ids,
                        attention_mask, max_length, num_draft_tokens=8,
                        ngram_size=2, eos_token_id=None, pad_token_id=0,
                        do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
-                       generator=None, **proc_config):
+                       generator=None, group=None, **proc_config):
     """Greedy (or ancestral-sampling) decoding with prompt-lookup drafts
     and ONE accepted length shared by the batch (the minimum over live
     rows), so the cache keeps one write index. input_ids LEFT-padded
     [B, P]. Returns (sequences [B, max_length], valid [B, max_length],
     stats {accepted_drafts, verify_rounds, generated, read_backs}). The
-    cache needs num_draft_tokens + 1 slots past max_length."""
+    cache needs num_draft_tokens + 1 slots past max_length. `group`: the
+    ranks holding the batch's other rows, over which the accepted count
+    and the end are reduced (collective: they step together)."""
     _refuse_content_processors(proc_config)
     b, p = input_ids.shape
     t, k = max_length, num_draft_tokens
@@ -185,7 +194,12 @@ def speculative_greedy(prefill, decode_chunk, rollback, input_ids,
     valid[:, p] = 1
     pending = torch.where(finished, pad_token_id, g0)
     step, accepted, rounds = p + 1, 0, 0
-    done = bool(finished.all())
+
+    def everywhere_min(t):
+        """A 0-d tensor's minimum over the group's ranks."""
+        return comm.all_reduce(t.reshape(1), group, op=dist.ReduceOp.MIN)[0]
+
+    done = bool(everywhere_min(finished.all().long()))
     read_backs = 1
     cidx = torch.arange(k + 1, device=device)
     while step < t and not done:
@@ -198,7 +212,7 @@ def speculative_greedy(prefill, decode_chunk, rollback, input_ids,
         match = (draft == g[:, :-1]).to(torch.int32)
         acc_row = torch.cumprod(match, dim=1).sum(dim=1)
         acc_row = torch.where(finished, k, acc_row)   # dead rows don't bind
-        a = acc_row.min()
+        a = everywhere_min(acc_row.min())
         committed = cidx <= a                                   # [K+1]
         if eos_token_id is not None:
             is_eos = (g == eos_token_id) & committed[None]
@@ -217,8 +231,8 @@ def speculative_greedy(prefill, decode_chunk, rollback, input_ids,
         pending = torch.where(finished, pad_token_id, bonus)
         # the one read-back of the round: the shared accepted count (the
         # rollback and the next write position need it) and the loop's end
-        a_host, done = torch.stack([a.long(), finished.all().long()]) \
-            .tolist()
+        a_host, done = torch.stack([a.long(), everywhere_min(
+            finished.all().long())]).tolist()
         read_backs += 1
         # of the K+1 entries just written ([pending, d_1..d_K]) keep the
         # pending token and the a accepted drafts

@@ -11,14 +11,17 @@ end fails; `chip_diag/collectives.py` shows it on an H100). So under the
 gloo backend, and only there, `ring_shift` copies CUDA tensors into pinned
 host memory, exchanges those and copies the result back; `STAGED_BYTES`
 counts the bytes it copies each way, by operation. NCCL and CPU tensors
-never take that path.
+never take that path. gloo's own collectives copy CUDA tensors through
+host memory inside the library; `STAGED_BYTES` counts those bytes too
+(all_reduce and all_gather: the input's bytes to the host, the result's
+back).
 """
 
 import torch
 import torch.distributed as dist
 
 # bytes copied through host memory under gloo, by operation
-STAGED_BYTES = {"ring_shift": 0}
+STAGED_BYTES = {"ring_shift": 0, "all_reduce": 0, "all_gather": 0}
 
 
 def reset_staged_bytes():
@@ -37,6 +40,8 @@ def rank(group):
 def all_reduce(t, group, op=dist.ReduceOp.SUM):
     """t reduced over the group, in place; t is returned."""
     if group is not None:
+        if _staged(t, group):
+            STAGED_BYTES["all_reduce"] += 2 * t.numel() * t.element_size()
         dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -48,6 +53,8 @@ def all_gather(t, group, dim=0):
         return t
     t = t.movedim(dim, 0).contiguous()
     out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+    if _staged(t, group):
+        STAGED_BYTES["all_gather"] += (1 + n) * t.numel() * t.element_size()
     dist.all_gather_into_tensor(out, t, group=group)
     return out.movedim(0, dim)
 

@@ -277,6 +277,27 @@ def build_mesh(axis_sizes, device_type="cpu"):
     return Mesh(shape, rank, device_mesh, groups)
 
 
+def host_group(mesh, axes, timeout):
+    """A gloo process group over this rank's group along the axes, for
+    host-side messages (the serving plans), whose every wait ends after
+    `timeout` seconds. Collective over the world: each rank makes every
+    such group, in the same order."""
+    import datetime
+    key = _key(axes, mesh.shape)
+    mine, seen = None, []
+    for r in range(mesh.world_size):
+        ranks = _group_ranks(key, mesh.shape,
+                             dict(zip(AXIS_ORDER, _unravel(r, mesh.shape))))
+        if ranks in seen:
+            continue
+        seen.append(ranks)
+        group = dist.new_group(ranks, backend="gloo",
+                               timeout=datetime.timedelta(seconds=timeout))
+        if mesh.rank in ranks:
+            mine = group
+    return mine
+
+
 def set_global_mesh(mesh):
     global _GLOBAL_MESH
     _GLOBAL_MESH = mesh

@@ -79,10 +79,22 @@ FAMILY_AXES = {
         (r"dense_h_to_4h\.bias$", ("mlp",)),
         (r"dense_4h_to_h\.weight$", ("embed", "mlp")),
     ),
+    # JAX modeling_gpt2.py:70, :175, :217-220, :245. HF's Conv1D holds
+    # [in, out] as flax does, so the axes keep JAX's order
     "gpt2": (
         (r"moe\.(wi|wo|bi|bo)$", ("expert",)),
+        (r"wte\.weight$", ("vocab", "embed")),
+        (r"attn\.c_attn\.weight$", ("embed", "joined_kv")),
+        (r"attn\.c_attn\.bias$", ("joined_kv",)),
+        (r"attn\.c_proj\.weight$", ("joined_kv", "embed")),
+        (r"mlp\.c_fc\.weight$", ("embed", "mlp")),
+        (r"mlp\.c_fc\.bias$", ("mlp",)),
+        (r"mlp\.c_proj\.weight$", ("mlp", "embed")),
     ),
 }
+
+# the families whose modules run under a tensor axis
+TENSOR_FAMILIES = ("bert", "glm", "gpt2")
 
 
 def filter_rules_for_mesh(mesh, rules=DEFAULT_RULES):
@@ -205,9 +217,12 @@ def mesh_axes_of(mesh, rules=DEFAULT_RULES):
 @torch.no_grad()
 def apply_tensor_parallel(module, mesh, family):
     """Split the module's parameters whose logical axes the rules map to
-    the mesh's tensor axis (the family's table gives the axes); a Linear
-    split on its output features (dim 0) is column-parallel, on its input
-    features row-parallel. Returns {name: TensorSpec}."""
+    the mesh's tensor axis (the family's table gives the axes); a layer
+    split on its output features is column-parallel, on its input features
+    row-parallel. The output features are dim 0 of an nn.Linear's weight
+    [out, in] and dim 1 of a GPT-2 Conv1D's [in, out] (`weight_in_out`);
+    a fused q|k|v splits by head inside its sections only where the joined
+    axis is the output. Returns {name: TensorSpec}."""
     tp = mesh.size("tensor")
     index = mesh.index("tensor")
     group = mesh.group("tensor")
@@ -220,10 +235,13 @@ def apply_tensor_parallel(module, mesh, family):
         if not axes or not split.intersection(axes):
             continue
         dim = next(i for i, a in enumerate(axes) if a in split)
-        sections = 3 if axes[dim] == "joined_kv" else 1
-        spec = TensorSpec(dim, tp, p.shape[dim], sections)
         owner_name, _, attr = name.rpartition(".")
         owner = modules[owner_name]
+        out_dim = 1 if (attr == "weight"
+                        and getattr(owner, "weight_in_out", False)) else 0
+        column = dim == out_dim
+        sections = 3 if axes[dim] == "joined_kv" and column else 1
+        spec = TensorSpec(dim, tp, p.shape[dim], sections)
         if axes[dim] == "vocab":
             emb = VocabParallelEmbedding(
                 -(-spec.full // tp), p.shape[1], device=p.device)
@@ -233,8 +251,8 @@ def apply_tensor_parallel(module, mesh, family):
             setattr(modules[parent_name], child, emb)
         else:
             setattr(owner, attr, nn.Parameter(spec.shard(p.data, index)))
-            if isinstance(owner, nn.Linear) and attr == "weight":
-                owner.tensor_parallel = ("column" if dim == 0 else "row",
+            if attr == "weight":
+                owner.tensor_parallel = ("column" if column else "row",
                                          group)
         specs[name] = spec
     for m in module.modules():
@@ -278,11 +296,12 @@ def parallelize(module, mesh):
         return module
     family = family_of(module)
     axes = mesh_axes_of(mesh)
+    module.parallel_mesh = mesh
     if "tensor" in axes.get("heads", ()):
-        if family not in ("bert", "glm"):
+        if family not in TENSOR_FAMILIES:
             raise NotImplementedError(
-                "tensor parallelism is written for BERT and GLM; this "
-                "module is %s" % family)
+                "tensor parallelism is written for %s; this module is %s"
+                % (", ".join(TENSOR_FAMILIES), family))
         module.parallel_specs = apply_tensor_parallel(module, mesh, family)
     if mesh.size("sequence") > 1:
         # the one trigger of sequence parallelism: the layers attend by the

@@ -26,8 +26,27 @@ DeviceContinuousDecoder drives the same admit and chunk functions
 synchronously (PyTorch has no while_loop to compile); its speculative
 variant runs verify rounds of [SLOTS, K+1] tokens over the per-slot chunk
 path (modeling_gpt2.py), drafts from each slot's own token history.
+
+Under a tensor mesh (a model that parallel/sharding.parallelize split over
+`tensor`) every tensor rank holds its heads of the slot caches and runs the
+same forwards, whose collectives join the ranks. DeviceContinuousDecoder
+needs nothing more: each rank runs the same deterministic schedule on the
+same host data and reads the same tokens back. The thread batcher's
+schedule depends on when requests arrive, so the group's first rank (the
+lead) owns the queue and the schedule: each scheduler pass it sends its
+plan (the admits' prompt ids, slots and sampling parameters, the chunk's
+active slots and budgets, or stop) to the other ranks over a host-side
+gloo group before it dispatches, and they replay it through the same
+_admit_rows and _decode_chunk calls (`follow()`). Every wait has a limit:
+a follower's wait for the next plan ends after PLAN_TIMEOUT_S seconds
+(the lead sends an empty plan each HEARTBEAT_S seconds while idle), the
+model's
+collectives end at their process group's timeout, and a rank whose process
+ends fails the others' pending collectives at once (gloo closes the
+connection), so the lead fails its pending requests instead of hanging.
 """
 
+import pickle
 import queue
 import threading
 import time
@@ -36,6 +55,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from easynlp_tpu_torch.modelzoo.generation_utils import (
     left_pad,
@@ -45,6 +65,7 @@ from easynlp_tpu_torch.modelzoo.models.gpt2.modeling_gpt2 import KVCache
 from easynlp_tpu_torch.modelzoo.speculative import (
     prompt_lookup_drafts_rowwise,
 )
+from easynlp_tpu_torch.parallel.mesh import host_group
 from easynlp_tpu_torch.utils.logger import logger
 
 # end-of-stream sentinel for _Pending.stream_q (distinct from any token id
@@ -52,6 +73,9 @@ from easynlp_tpu_torch.utils.logger import logger
 _STREAM_END = object()
 # the kernels a serving model runs, built before the first request
 SERVING_KERNELS = ("short_attention_fwd", "flash_attention_fwd")
+# a tensor group's plan channel: a follower's longest wait for the next
+# plan, and how often an idle lead sends an empty one
+PLAN_TIMEOUT_S, HEARTBEAT_S = 60.0, 1.0
 
 
 def build_kernels(device):
@@ -221,13 +245,13 @@ def _prefill_prefix(model, prefix_ids):
 
 
 class _SlotState:
-    """The fixed-slot decode state: per-layer k, v [SLOTS, T, H, D], mask
-    [SLOTS, T] int32, the write index [SLOTS] and the last token [SLOTS]
-    (int64)."""
+    """The fixed-slot decode state: per-layer k, v [SLOTS, T, H, D] (H this
+    rank's heads), mask [SLOTS, T] int32, the write index [SLOTS] and the
+    last token [SLOTS] (int64)."""
 
     def __init__(self, model, slots, t, pad, device):
         c = model.config
-        shape = (slots, t, c.n_head, c.n_embd // c.n_head)
+        shape = (slots, t, *model.cache_heads())
         self.k = [torch.zeros(shape, dtype=model.dtype, device=device)
                   for _ in range(c.n_layer)]
         self.v = [torch.zeros(shape, dtype=model.dtype, device=device)
@@ -244,6 +268,12 @@ class ContinuousBatcher:
     a background thread steps the shared batch while slots are occupied.
     start=False builds the batcher without its thread (DeviceContinuous-
     Decoder drives it synchronously).
+
+    On a tensor mesh (module docstring) every rank of the tensor group
+    builds the batcher with the same arguments (collective: it makes the
+    plan group). The lead (`is_lead`, the group's first rank) takes
+    submits and runs the scheduler thread; every other rank calls
+    `follow()`, which replays the lead's plans until the lead stops.
     """
 
     def __init__(self, model, max_slots=4, max_length=128,
@@ -294,7 +324,17 @@ class ContinuousBatcher:
         self._wake = threading.Event()
         self._dead: Optional[BaseException] = None
         self._thread = None
-        if start:
+        # the tensor group's plan channel (thread batcher on a mesh only)
+        self._plan_group, self._lead_rank = None, None
+        self.is_lead = True
+        self.plan_bytes = 0
+        self._last_plan = 0.0
+        mesh = getattr(model, "parallel_mesh", None)
+        if start and mesh is not None and mesh.size("tensor") > 1:
+            self._plan_group = host_group(mesh, "tensor", PLAN_TIMEOUT_S)
+            self._lead_rank = mesh.ranks("tensor")[0]
+            self.is_lead = mesh.rank == self._lead_rank
+        if start and self.is_lead:
             self._thread = threading.Thread(target=self._run, daemon=True)
             self._thread.start()
 
@@ -306,6 +346,9 @@ class ContinuousBatcher:
         """Queue one request. Sampling is per-request: its tokens are a pure
         function of (prompt, seed). `stream=True` also exposes tokens
         through `handle.iter_tokens()` as the scheduler commits them."""
+        if not self.is_lead:
+            raise RuntimeError("submit to the tensor group's lead rank; "
+                               "this rank follows its plans (follow())")
         ids = list(int(x) for x in prompt_ids)
         # fail loudly rather than silently truncate: truncation would break
         # the token-exactness guarantee (output == standalone greedy decode)
@@ -366,18 +409,26 @@ class ContinuousBatcher:
 
     # -- device functions -----------------------------------------------------
 
-    def _sampling_args(self, reqs, positions):
-        """Per-row sampling tensors for rowwise_warp_and_sample."""
-        dev = self.device
-        return dict(
-            do_sample=_to_device([r.do_sample for r in reqs], torch.bool,
-                                 dev),
-            temperature=_to_device([r.temperature for r in reqs],
-                                   torch.float32, dev),
-            top_k=_to_device([r.top_k for r in reqs], torch.long, dev),
-            top_p=_to_device([r.top_p for r in reqs], torch.float32, dev),
-            seeds=_to_device([r.seed for r in reqs], torch.long, dev),
-            positions=_to_device(positions, torch.long, dev))
+    @staticmethod
+    def _sampling_lists(reqs, positions):
+        """Per-row sampling parameters (host lists, as a plan carries
+        them) for rowwise_warp_and_sample."""
+        return dict(do_sample=[r.do_sample for r in reqs],
+                    temperature=[r.temperature for r in reqs],
+                    top_k=[r.top_k for r in reqs],
+                    top_p=[r.top_p for r in reqs],
+                    seeds=[r.seed for r in reqs], positions=list(positions))
+
+    _SAMPLING_DTYPES = dict(do_sample=torch.bool, temperature=torch.float32,
+                            top_k=torch.long, top_p=torch.float32,
+                            seeds=torch.long, positions=torch.long)
+
+    def _sampling_args(self, lists):
+        """The sampling lists as tensors on the device (None: greedy)."""
+        if lists is None:
+            return None
+        return {k: _to_device(v, self._SAMPLING_DTYPES[k], self.device)
+                for k, v in lists.items()}
 
     def _pick(self, logits, sampling, positions=None):
         if sampling is None:
@@ -470,17 +521,16 @@ class ContinuousBatcher:
     # -- the scheduler --------------------------------------------------------
 
     def _admit_wave(self, wave):
-        """Admit a list of (req, slot) pairs: one dispatch per prompt bucket
-        represented in the wave, no host sync: the first tokens come back
-        through the pipelined result stream, consumed in dispatch order with
-        the chunk results. Slot occupancy and budgets update here, at
-        dispatch time. Returns the in-flight items to consume later."""
+        """Plan the admits of a list of (req, slot) pairs: one dispatch per
+        prompt bucket represented in the wave, no host sync: the first
+        tokens come back through the pipelined result stream, consumed in
+        dispatch order with the chunk results. Slot occupancy and budgets
+        update here, at dispatch time. Returns [(plan op, group)]."""
         by_bucket = {}
         for req, slot in wave:
             by_bucket.setdefault(self._bucket(len(req.ids)), []).append(
                 (req, slot))
-        items = []
-        dev = self.device
+        planned = []
         for p, group in by_bucket.items():
             taken = [slot for _, slot in group]
             spare = [s for s in range(self.slots) if s not in taken]
@@ -493,19 +543,74 @@ class ContinuousBatcher:
             if any(req.do_sample for req, _ in group):
                 reqs = [req for req, _ in group]
                 reqs += [reqs[0]] * (self.slots - len(reqs))
-                sampling = self._sampling_args(reqs, [0] * self.slots)
-            first = self._admit_rows(
-                p, _to_device(ids, torch.long, dev),
-                _to_device(mask, torch.int32, dev),
-                _to_device(sidx, torch.long, dev),
-                _to_device(valid, torch.bool, dev), sampling)
+                sampling = self._sampling_lists(reqs, [0] * self.slots)
             for req, slot in group:
                 self._occupants[slot] = req
                 req.slot = slot
                 req.index0 = self._p0 + p
                 req.dispatched = 1  # the prefill's first token
-            items.append(("admit", _Fetch(first), list(group)))
-        return items
+            planned.append((("admit", p, ids, mask, sidx, valid, sampling),
+                            list(group)))
+        return planned
+
+    def _run_op(self, op):
+        """Dispatch one plan op on the device: an admit returns the first
+        tokens [SLOTS], a chunk the tokens [chunk, SLOTS] (on the device)."""
+        dev = self.device
+        if op[0] == "admit":
+            _, p, ids, mask, sidx, valid, sampling = op
+            return self._admit_rows(
+                p, _to_device(ids, torch.long, dev),
+                _to_device(mask, torch.int32, dev),
+                _to_device(sidx, torch.long, dev),
+                _to_device(valid, torch.bool, dev),
+                self._sampling_args(sampling))
+        _, active, remaining, sampling = op
+        return self._decode_chunk(_to_device(active, torch.bool, dev),
+                                  _to_device(remaining, torch.long, dev),
+                                  self._sampling_args(sampling))
+
+    # -- the tensor group's plans -------------------------------------------
+
+    def _publish(self, ops):
+        """The lead sends one pass's plan (a list of ops, or "stop") to the
+        group before dispatching it; an empty plan only as a heartbeat."""
+        if self._plan_group is None:
+            return
+        now = time.monotonic()
+        if not ops and now - self._last_plan < HEARTBEAT_S:
+            return
+        self._last_plan = now
+        data = pickle.dumps(ops)
+        self.plan_bytes += len(data)
+        size = torch.tensor([len(data)], dtype=torch.long)
+        dist.broadcast(size, self._lead_rank, group=self._plan_group)
+        dist.broadcast(torch.frombuffer(bytearray(data), dtype=torch.uint8),
+                       self._lead_rank, group=self._plan_group)
+
+    def _receive(self):
+        size = torch.zeros(1, dtype=torch.long)
+        dist.broadcast(size, self._lead_rank, group=self._plan_group)
+        data = torch.empty(int(size[0]), dtype=torch.uint8)
+        dist.broadcast(data, self._lead_rank, group=self._plan_group)
+        self.plan_bytes += int(size[0])
+        return pickle.loads(data.numpy().tobytes())
+
+    def follow(self):
+        """A follower's loop (every tensor rank but the lead): replay the
+        lead's plans until it sends stop. A wait past PLAN_TIMEOUT_S, a
+        failed dispatch or a lost peer raises; ending the process then
+        fails the lead's pending collectives, and so its requests."""
+        if self._plan_group is None or self.is_lead:
+            raise RuntimeError("follow() runs on a tensor group's other "
+                               "ranks (the lead schedules)")
+        with torch.inference_mode():
+            while True:
+                ops = self._receive()
+                if ops == "stop":
+                    return
+                for op in ops:
+                    self._run_op(op)
 
     def _consume_admit(self, first, group):
         first = first.numpy()  # one wait for the whole bucket group
@@ -536,10 +641,15 @@ class ContinuousBatcher:
                     if not self._schedule_once(inflight):
                         self._wake.wait(timeout=0.05)
                         self._wake.clear()
+            self._publish("stop")
         except Exception as exc:  # the thread's boundary: tell the waiters
             logger.exception("continuous batcher: the scheduler failed")
             self._dead = exc
             self._fail_all(exc)
+            try:  # the followers stop too, where the channel still works
+                self._publish("stop")
+            except Exception:  # noqa: BLE001 - a lost peer; already failing
+                pass
 
     def _consume(self, item):
         """Apply one in-flight result. Chunk tokens go to the requests
@@ -598,8 +708,7 @@ class ContinuousBatcher:
             if req is None:
                 break
             wave.append((req, slot))
-        if wave:
-            inflight.extend(self._admit_wave(wave))
+        planned = self._admit_wave(wave) if wave else []
         active_flags = [
             req is not None and req.dispatched < req.max_new_tokens
             and req.index0 + req.dispatched < self._window_end
@@ -614,19 +723,21 @@ class ContinuousBatcher:
                    if is_a):
                 # stream position of each slot's next token = steps sent
                 # for its request so far (prefill = position 0)
-                sampling = self._sampling_args(
+                sampling = self._sampling_lists(
                     occ, [r.dispatched for r in occ])
-            toks = self._decode_chunk(
-                _to_device(active_flags, torch.bool, self.device),
-                _to_device(remaining, torch.long, self.device), sampling)
             snapshot = [req if is_a else None for req, is_a
                         in zip(self._occupants, active_flags)]
             for req, is_a in zip(self._occupants, active_flags):
                 if is_a:
                     req.dispatched = min(req.dispatched + self.chunk,
                                          req.max_new_tokens)
-            inflight.append(("chunk", _Fetch(toks), snapshot))
-        elif not inflight:
+            planned.append((("chunk", active_flags, remaining, sampling),
+                            snapshot))
+        ops = [op for op, _ in planned]
+        self._publish(ops)
+        for op, owners in planned:
+            inflight.append((op[0], _Fetch(self._run_op(op)), owners))
+        if not any(active_flags) and not inflight:
             return bool(wave)
         # drain down to the pipeline depth; when every occupant has
         # exhausted its dispatch budget, drain fully to learn the outcomes

@@ -626,14 +626,26 @@ class GenerationServer:
             self.stop()
 
 
+def serve_tensor_parallel(batcher, **server_kwargs):
+    """This rank's part of /generate over a tensor group's ContinuousBatcher
+    (serving/continuous.py): the lead rank starts a GenerationServer over
+    it and returns it, listening; every other rank follows the lead's
+    plans until the lead's batcher stops, then returns None."""
+    if batcher.is_lead:
+        return GenerationServer(batcher, **server_kwargs).start()
+    batcher.follow()
+    return None
+
+
 def serve(task_or_model_path, host="127.0.0.1", port=8080, max_batch_size=32,
           max_delay_ms=5.0, blocking=True, request_timeout_s=600.0,
           **pipeline_kwargs):
     """Build a pipeline() and serve it over HTTP.
 
     `task_or_model_path` follows pipeline() semantics: a model dir infers
-    the task from its train_config.json (task names resolve through the
-    model registry, ROADMAP A26). The pipeline is built, and on a card its
+    the task from its train_config.json, and task and registered model
+    names resolve through the model registry (utils/zoo_registry.py). The
+    pipeline is built, and on a card its
     kernels too, before the server starts.
     """
     from easynlp_tpu_torch.pipelines import pipeline

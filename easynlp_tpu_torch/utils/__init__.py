@@ -1,5 +1,5 @@
 """Row-schema parsing and pretrained-model path resolution for the PyTorch
-port (its own copy of easynlp_tpu/utils/__init__.py's local part)."""
+port (its own copy of easynlp_tpu/utils/__init__.py)."""
 
 import os
 
@@ -41,19 +41,22 @@ MODELZOO_CACHE_ENV = "EASYNLP_MODELZOO_BASE_DIR"
 
 
 def get_pretrain_model_path(name_or_path):
-    """Resolve a pretrained model name to a local directory: an existing
-    path, then $EASYNLP_MODELZOO_BASE_DIR/<name>, then
-    ~/.easynlp_tpu/modelzoo/<name>; otherwise the name itself, with a
-    warning. Remote paths (oss:// and the like) and the JAX package's model
-    zoo registry are not ported: a remote path raises."""
+    """Resolve a pretrained model name to a local directory, in the JAX
+    package's order (easynlp_tpu/utils/__init__.py:54-100): an existing
+    path; a remote directory (oss:// and the like, through the io seam's
+    registered backend) fetched once by the model zoo registry
+    (utils/zoo_registry.py::fetch_remote_dir); then
+    $EASYNLP_MODELZOO_BASE_DIR/<name>, ~/.easynlp_tpu/modelzoo/<name>; then
+    the registry's mapping (whose remote root is $EASYNLP_REMOTE_MODELZOO);
+    otherwise the name itself, with a warning."""
     if not name_or_path:
         return name_or_path
     if os.path.exists(name_or_path):
         return name_or_path
+    from easynlp_tpu_torch.utils.zoo_registry import (
+        fetch_remote_dir, resolve_pretrained_name)
     if "://" in str(name_or_path):
-        raise NotImplementedError(
-            "remote model path %r: the port reads local directories only"
-            % name_or_path)
+        return fetch_remote_dir(str(name_or_path))
     candidates = []
     base = os.environ.get(MODELZOO_CACHE_ENV)
     if base:
@@ -63,6 +66,9 @@ def get_pretrain_model_path(name_or_path):
     for cand in candidates:
         if os.path.isdir(cand):
             return cand
+    resolved = resolve_pretrained_name(name_or_path)
+    if resolved:
+        return resolved
     logger.warning("pretrained model %r not found locally; treating as "
                    "config name", name_or_path)
     return name_or_path

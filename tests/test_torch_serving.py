@@ -123,28 +123,29 @@ def test_pipeline_by_task_name_and_params_dtype(ckpt, port_pipe):
                 if name.endswith("query.bias")) == torch.float32
 
 
-@pytest.mark.parametrize("call,match", [
+@pytest.mark.parametrize("call,error,match", [
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
-        "text_classify"), "A26"),
+        "text_classify"), RuntimeError, "not an existing pre-defined model"),
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
-        "bert-base-sst-registered-name"), "A26"),
+        "bert-base-sst-registered-name"), ValueError, "cannot infer task"),
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
-        p, quantize="int4", device="cpu"), "quantize must be 'int8'"),
-    # text2image_generation is ported (slice 14): ARTIST's registered
-    # model name resolves through the unported registry
+        p, quantize="int4", device="cpu"), ValueError,
+     "quantize must be 'int8'"),
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
-        "artist-base-zh"), "A26"),
-    # the diffusion tasks are ported (slice 13): without model_path they
-    # too resolve a default model through the unported registry
+        "artist-base-zh"), ValueError, "cannot infer task"),
     (lambda p: __import__("easynlp_tpu_torch.pipelines").pipelines.pipeline(
-        "chinese-ldm-general"), "A26"),
+        "chinese-ldm-general"), ValueError, "needs model_path"),
 ], ids=["default-model", "registered-name", "int8", "multimodal",
         "diffusion"])
-def test_unported_pipeline_routes_raise(ckpt, call, match):
-    """The routes still to be ported raise naming their ROADMAP item; a
+def test_unported_pipeline_routes_raise(ckpt, call, error, match,
+                                        monkeypatch, tmp_path):
+    """With an empty model registry (slice 16 ported it,
+    utils/zoo_registry.py) a task's default model, a registered name and a
+    diffusion task without model_path raise the JAX package's errors; a
     quantize other than "int8" raises ValueError, as in JAX (int8 itself,
     which raised until slice 11, is held to JAX below)."""
-    error = ValueError if "quantize" in match else NotImplementedError
+    monkeypatch.setenv("EASYNLP_CACHE_ROOT", str(tmp_path / "cache"))
+    monkeypatch.delenv("EASYNLP_REMOTE_MODELZOO", raising=False)
     with pytest.raises(error, match=match):
         call(ckpt[0])
 

@@ -228,7 +228,11 @@ def test_device_cuda_never_falls_back_to_cpu():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode=export"], "ROADMAP"),  # train is ported: export still raises
+    # --mode=export is ported (slice 16, tests/test_torch_a26.py): an
+    # export format it does not write raises the JAX api's ValueError
+    pytest.param(["--mode=export",
+                  "--user_defined_parameters=export_format=onnx"],
+                 "unknown export_format", id="argv0-ROADMAP"),
     # every app is ported (text2image_generation since slice 14:
     # tests/test_torch_text2image.py); vectorization has no evaluator, in
     # the port as in the JAX package
@@ -244,7 +248,8 @@ def test_unported_modes_and_apps_raise(fixture_dir, argv, match):
     _fresh_args()
     args = initialize_easynlp(args_list=argv + [
         "--device=cpu", "--checkpoint_dir=%s/model" % fixture_dir])
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if "export" in match else NotImplementedError
+    with pytest.raises(error, match=match):
         default_main_fn(args)
 
 

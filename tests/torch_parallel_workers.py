@@ -77,7 +77,8 @@ def child(task, rank, world, workdir):
     torch.set_num_threads(1)
     spec = torch.load(os.path.join(workdir, "payload.pt"),
                       weights_only=False)
-    global DEVICE
+    global DEVICE, WORKDIR
+    WORKDIR = workdir
     DEVICE = torch.device(spec["device"], 0)
     if DEVICE.type == "cuda":
         torch.cuda.set_device(DEVICE)
@@ -93,6 +94,7 @@ def child(task, rank, world, workdir):
 
 
 DEVICE = torch.device("cpu")
+WORKDIR = None
 
 
 def _t(a, **kw):
@@ -354,6 +356,126 @@ def vocab_ce(cases):
     return out
 
 
+def _tp_gpt2(p):
+    """GPT-2 from the payload's config and state, split over the mesh."""
+    from easynlp_tpu_torch.modelzoo.models.gpt2 import (GPT2Config,
+                                                        GPT2LMHeadModel)
+    from easynlp_tpu_torch.parallel import sharding
+    from easynlp_tpu_torch.parallel.mesh import get_global_mesh
+    model = GPT2LMHeadModel(GPT2Config(**p["config"])).eval().to(DEVICE)
+    model.load_state_dict({k: _t(v) for k, v in p["state"].items()})
+    return sharding.parallelize(model, get_global_mesh())
+
+
+def gpt2_tp_decoding(p):
+    """GPT-2 split over the mesh: its logits and gathered parameters, then
+    each of p["generate"]'s generate() calls ({name: (max_length, slack,
+    kwargs)}; `shared` drops the per-row speculative chunk), those of
+    p["refused"] ({name: (max_length, kwargs)}: the tokens, or the
+    ValueError's message where generate() refuses the call), the device
+    decoder over p["decoder"] and the thread batcher's requests
+    p["batcher"] (submitted on the tensor group's lead; the others
+    follow). Returns {name: result}."""
+    from easynlp_tpu_torch.modelzoo.generation_utils import generate
+    from easynlp_tpu_torch.modelzoo.models.gpt2.generation import (
+        make_gpt2_generation_fns)
+    from easynlp_tpu_torch.parallel import sharding
+    from easynlp_tpu_torch.parallel.mesh import get_global_mesh
+    from easynlp_tpu_torch.serving.continuous import (
+        ContinuousBatcher, DeviceContinuousDecoder)
+    from easynlp_tpu_torch.ops import attention as A
+    model = _tp_gpt2(p)
+    out = {}
+    wrappers = ("short_attention_fwd", "flash_attention_fwd")
+    for w in wrappers:
+        getattr(A, w).launches = 0
+    with torch.no_grad():
+        if "input_ids" in p:
+            out["logits"] = model(_t(p["input_ids"]), attention_mask=_t(
+                p["attention_mask"]))["logits"].cpu()
+            out["params"] = {k: v.cpu() for k, v in sharding.full_state(
+                model, get_global_mesh()).items()}
+            out["local_shapes"] = {k: tuple(v.shape)
+                                   for k, v in model.named_parameters()}
+        for name, (max_length, slack, kw) in p.get("generate", {}).items():
+            kw = dict(kw)
+            prefill, decode = make_gpt2_generation_fns(model, max_length,
+                                                       cache_slack=slack)
+            if kw.pop("shared", False):
+                del decode.chunk_rowwise
+            if "row_seeds" in kw:
+                kw["row_seeds"] = _t(kw["row_seeds"])
+            out[name] = generate(prefill, decode, _t(kw.pop("ids")),
+                                 _t(kw.pop("mask")), max_length=max_length,
+                                 **kw).cpu()
+        for name, (max_length, kw) in p.get("refused", {}).items():
+            kw = dict(kw)
+            prefill, decode = make_gpt2_generation_fns(model, max_length)
+            if "row_seeds" in kw:
+                kw["row_seeds"] = _t(kw["row_seeds"])
+            try:
+                out[name] = generate(prefill, decode, _t(kw.pop("ids")),
+                                     _t(kw.pop("mask")),
+                                     max_length=max_length, **kw).cpu()
+            except ValueError as exc:
+                out[name] = str(exc)
+    out["launches"] = {w: getattr(A, w).launches for w in wrappers}
+    if "decoder" in p:
+        d = p["decoder"]
+        dec = DeviceContinuousDecoder(model, **d["init"])
+        out["decoder"] = dec(d["prompts"], **d["call"])
+    if "batcher" in p:
+        b = p["batcher"]
+        batcher = ContinuousBatcher(model, **b["init"])
+        if batcher.is_lead:
+            handles = [batcher.submit(ids, **kw) for ids, kw in b["requests"]]
+            out["batcher"] = [h.result(timeout=60) for h in handles]
+            batcher.stop()
+        else:
+            batcher.follow()
+        out["plan_bytes"] = batcher.plan_bytes
+    return out
+
+
+def gpt2_tp_follower_fails(p):
+    """The thread batcher on a tensor group whose follower fails at its
+    second decode chunk: the follower ends its process (after writing its
+    result); the lead's requests must fail, not hang."""
+    from easynlp_tpu_torch.serving.continuous import ContinuousBatcher
+    model = _tp_gpt2(p)
+    batcher = ContinuousBatcher(model, **p["init"])
+    if not batcher.is_lead:
+        calls = []
+        chunk = batcher._decode_chunk
+
+        def failing(*args):
+            calls.append(1)
+            if len(calls) == 2:
+                raise RuntimeError("injected follower failure")
+            return chunk(*args)
+
+        batcher._decode_chunk = failing
+        try:
+            batcher.follow()
+            err = None
+        except RuntimeError as exc:
+            err = str(exc)
+        rank = torch.distributed.get_rank()
+        torch.save({"error": err}, os.path.join(WORKDIR, "out%d.pt" % rank))
+        os._exit(0)  # the process ends: the lead's collectives fail now
+    start = time.monotonic()
+    handles = [batcher.submit(ids, **kw) for ids, kw in p["requests"]]
+    errors = []
+    for h in handles:
+        try:
+            h.result(timeout=60)
+            errors.append(None)
+        except RuntimeError as exc:
+            errors.append(repr(exc.__cause__))
+    batcher.stop()
+    return {"errors": errors, "seconds": time.monotonic() - start}
+
+
 def several(jobs):
     """Several tasks on one group, in turn: [(task, payload), ...] -> their
     results (one process start for checks that share a mesh)."""
@@ -363,5 +485,6 @@ def several(jobs):
 TASKS = {"ring": ring, "bert_step": bert_step, "bert_forward": bert_forward,
          "bert_ema_resume": bert_ema_resume,
          "glm_forward": glm_forward, "moe_forward": moe_forward,
-         "gpt2_forward": gpt2_forward,
+         "gpt2_forward": gpt2_forward, "gpt2_tp_decoding": gpt2_tp_decoding,
+         "gpt2_tp_follower_fails": gpt2_tp_follower_fails,
          "gpipe": gpipe_run, "vocab_ce": vocab_ce, "several": several}
