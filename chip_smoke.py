@@ -174,12 +174,22 @@ process, token for token (a row may depart only where the departing
 step's top-2 margin is below the runs' largest logit difference); the
 B1 and B3 launches of each rank, ms per output token and the bytes staged
 through host memory printed. Phase 2 adds its per-rank shapes (8 x 256
-causal, 8 x 1 x 1024). Every phase raises on
+causal, 8 x 1 x 1024). Phase 22, on two more gloo ranks started beside
+phase 21's, holds every other family the JAX package annotates under
+tensor=2 to one process at published widths (depth cut, f32): BART-base
+CLI training at --mesh=tp=2 and 4-beam generate, T5-base, bloom-560m
+(the ALiBi slopes of each rank's heads), Chinese-CLIP ViT-B/16 with its
+text tower, ARTIST-base (the codebook split over codes: the image codes
+and greedy codes equal), and the SD v1 UNet's make_train_loss steps
+through the Trainer at data=2; phase 20's ranks add BERT-base's
+--remat=full + Adafactor at dp=2 and tp=2 and LoRA at tp=2 with a save
+and a resume (its (f)). Phase 2 adds phase 22's per-rank shapes (8 x
+1024 and 16 x 197 at 6 heads). Every phase raises on
 failure, so any failure exits non-zero. `--only 2`, `--only 19`,
-`--only 20` or `--only 21` runs the build and that phase alone. The last
-line is {"ok": true, "device": {...}}; the
+`--only 20`, `--only 21` or `--only 22` runs the build and that phase
+alone. The last line is {"ok": true, "device": {...}}; the
 line before it lists the kernels with their launches in the BART
-training run and phase 11's to 21's runs, errors, times (kernel, plain
+training run and phase 11's to 22's runs, errors, times (kernel, plain
 twin, the PyTorch library call) and bounds. Imports nothing of JAX or of
 the JAX package.
 """
@@ -895,6 +905,21 @@ def tp_cases(rng):
     ]
 
 
+def p22_cases(rng):
+    """Phase 22's per-rank shapes (as seq2seq_cases) at 6 of 12 heads, D
+    64, forward and backward: BART-base's encoder over tensor=2, 8 x 1024
+    with half the rows padded to 512 (B3, B4/B5); the CLIP ViT-B/16 tower
+    over tensor=2, 16 x 197 unmasked (B1, B2)."""
+    import numpy as np
+    return [
+        ("p22-bart-encoder", "flash", 8, 1024, 1024, 6, 64,
+         np.r_[1024, 512, rng.randint(600, 1025, size=6)], False, None,
+         True),
+        ("p22-vit", "short", 16, 197, 197, 6, 64, np.full(16, 197), False,
+         None, True),
+    ]
+
+
 def diffusion_cases(rng):
     """Phase 18's attention shapes (as seq2seq_cases), at Stable Diffusion
     v1's UNet on 512-pixel images (64 x 64 latents) over 8 heads, batch 2,
@@ -1011,8 +1036,8 @@ def _check_profiled_cases(torch, A, case_rng, cases, worst, timings, tag):
 
 def _check_seq2seq_cases(torch, A, seed, worst, timings):
     """Phase 15's shapes (seq2seq_cases), phase 16's (slice11_cases),
-    phase 20's ring hop (parallel_cases) and phase 21's per-rank shapes
-    (tp_cases), each from a stream of its own, through
+    phase 20's ring hop (parallel_cases) and phases 21's and 22's per-rank
+    shapes (tp_cases, p22_cases), each from a stream of its own, through
     _check_attention_cases."""
     import numpy as np
     case_rng = np.random.RandomState(seed + 6)
@@ -1027,6 +1052,9 @@ def _check_seq2seq_cases(torch, A, seed, worst, timings):
     case_rng = np.random.RandomState(seed + 11)
     _check_attention_cases(torch, A, case_rng, tp_cases(case_rng), worst,
                            timings, "p21")
+    case_rng = np.random.RandomState(seed + 12)
+    _check_attention_cases(torch, A, case_rng, p22_cases(case_rng), worst,
+                           timings, "p22")
 
 
 def _check_attention_cases(torch, A, case_rng, cases, worst, timings, tag):
@@ -6546,14 +6574,16 @@ PEGASUS_SP_PIECES = 96000  # pegasus-large's; + the 103 offset ids
 # CLI's SequenceGenerationDataset fixes max_target_length at 64, as JAX's)
 # (sequence length, batch, training steps, rows): T5's and the dialogue's
 # 8 steps until slice 14
-S2S_RUNS = {"t5": (512, 8, 4, 8), "mt5": (512, 8, 0, 8),
-            "pegasus": (1024, 4, 4, 4), "randeng": (512, 8, 0, 8),
-            "dialogue": (128, 16, 4, 16)}
-# Pegasus-large and mT5-base run their first 4 encoder and 4 decoder
-# layers at full width (16 + 16 and 12 + 12 until slice 12): T5-base's and
-# GLM-large's steps measure full depth, and these paths differ from them
-# in widths and vocabularies, not in depth
-S2S_CUT_LAYERS = 4
+# 4 steps and twice the rows until slice 17
+S2S_RUNS = {"t5": (512, 8, 2, 4), "mt5": (512, 8, 0, 4),
+            "pegasus": (1024, 4, 2, 2), "randeng": (512, 8, 0, 4),
+            "dialogue": (128, 16, 2, 8)}
+# Pegasus-large and mT5-base run their first 2 encoder and 2 decoder
+# layers at full width (16 + 16 and 12 + 12 until slice 12, 4 + 4 until
+# slice 17: 0.36 GiB less written): T5-base's and GLM-large's steps
+# measure full depth, and these paths differ from them in widths and
+# vocabularies, not in depth
+S2S_CUT_LAYERS = 2
 S2S_TARGET_TOKENS = 64
 S2S_LR = 5e-5
 # Training, kernel run against the --use_flash_attention=false run, per
@@ -7024,7 +7054,8 @@ GLM_LARGE = {  # JAX GLMConfig's defaults: glm-large-chinese's widths at
     "output_dropout_prob": 0.0,
 }
 GLM_SP_PIECES = GLM_LARGE["vocab_size"] - 8   # + the 8 command tokens
-GLM_SEQ_LEN, GLM_TARGET, GLM_BATCH, GLM_STEPS = 512, 64, 8, 8
+GLM_SEQ_LEN, GLM_TARGET, GLM_BATCH, GLM_STEPS = 512, 64, 8, 4  # 8 steps
+# until slice 17
 GLM_SRC_LEN = GLM_SEQ_LEN - GLM_TARGET - 3     # src, gMASK, sop, tgt, eop
 GLM_UDP = "enable_glm=true src_len=%d tgt_len=%d" % (GLM_SRC_LEN, GLM_TARGET)
 GLM_LM_STEPS, GLM_DEV_ROWS = 4, 16
@@ -7589,7 +7620,8 @@ CLIP_DIR, I2T_DIR, WUKONG_DIR = ("chinese-clip-b16-random",
                                  "clip-gpt-i2t-b16-random",
                                  "wukong-b16-random")
 CLIP_TEXT_LEN = 32          # --sequence_length of the captions
-CLIP_BATCH, CLIP_STEPS, CLIP_DEV_ROWS = 32, 4, 64
+CLIP_BATCH, CLIP_STEPS, CLIP_DEV_ROWS = 32, 2, 32  # 4 steps, 64 rows
+# until slice 17
 VIDEOS, VIDEO_FRAMES = 8, 12
 I2T_BATCH, I2T_STEPS, I2T_PRED_ROWS, I2T_TEXT_LEN = 16, 4, 16, 32
 V2T_FRAMES = 3
@@ -7881,8 +7913,9 @@ def phase_multimodal(torch, seed, workdir, cjk):
                 "--append_cols=text"] + _clip_argv("clip", use_kernel,
                                                    "float32")
         manager, sec = cli("clip predict (f32)", argv, use_kernel,
-                           {"short_attention_fwd": 2 * (vit_layers
-                                                        + text_layers),
+                           {"short_attention_fwd": -(-CLIP_DEV_ROWS
+                                                     // CLIP_BATCH)
+                            * (vit_layers + text_layers),
                             "short_attention_bwd": 0,
                             "flash_attention_fwd": 0,
                             "flash_attention_bwd": 0})
@@ -8086,8 +8119,9 @@ SD_V1 = {  # CompVis configs/stable-diffusion/v1-inference.yaml as an
 }
 SD_DIR = "sd-v1-random"
 SD_TEXT_LEN = 32              # --sequence_length: the prompts' tokens
-SD_PROMPTS, SD_STEPS, SD_GUIDANCE = 2, 8, 7.5    # 20 steps until slice 14,
-                                                # 10 until slice 16
+SD_PROMPTS, SD_STEPS, SD_GUIDANCE = 2, 4, 7.5    # 20 steps until slice 14,
+                                                # 10 until slice 16, 8
+                                                # until slice 17
 SD_FAST_STEPS = 4             # PLMS, DPM-Solver++ and the extras (10
                               # until slice 14, 5 until slice 15)
 SD_TRAIN_BATCH, SD_TRAIN_STEPS, SD_DEV_ROWS = 2, 3, 4
@@ -8594,7 +8628,8 @@ ARTIST_BASE = {  # ARTIST-base: ARTISTConfig's text side (bert-base-chinese's
 ARTIST_DIR = "artist-base-random"
 ARTIST_TEXT_LEN = 32          # --sequence_length: the captions' tokens
 ARTIST_SIZE = 256             # pixels a side: 16 x 16 codes
-ARTIST_BATCH, ARTIST_STEPS, ARTIST_PROMPTS = 8, 4, 4
+ARTIST_BATCH, ARTIST_STEPS, ARTIST_PROMPTS = 8, 2, 2  # 4 and 4 until
+# slice 17
 I2T_VQ_STEPS = 3
 # bf16 training, kernel run against plain run, every step: phase 15's
 # bounds (S2S_LOSS_ATOL, S2S_GNORM_RTOL). The VQGAN's losses take no
@@ -9190,6 +9225,136 @@ def _max_abs(torch, a, b):
     return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
 
 
+# phase 22 (f), run by phase 20's ranks on their process group: the CLI's
+# text_classify at PARALLEL_CLI_LAYERS layers with --remat=full and
+# Adafactor together at dp=2 and tp=2, each alone at tp=2 (Adafactor at
+# its lr, --remat=full under phase 20's AdamW), and LoRA at tp=2 trained
+# PARALLEL_STEPS - 1 steps, saved (the one checkpoint), resumed for the
+# last step and deleted. Each run meets phase 20's bounds against the
+# one-rank run of its flags: losses P22_LOSS_RTOL (relative), the
+# gradient norms PARALLEL_GNORM_RTOL and the weights' displacement
+# PARALLEL_STEP_RTOL; under Adafactor the gradient norms after the first
+# step meet P22_ADAFACTOR_GNORM_RTOL. Adafactor divides each gradient
+# element by its row's and column's rms, so a row or column whose
+# gradient is tiny (a unit whose activation saturates) takes a full step
+# that carries the f32 rounding of its elements, which differs between
+# two summation orders (a row-parallel layer's all-reduce against one
+# process's sum): from identical gradient norms at the first step (6.4e-8
+# apart) the tp=2 run's norms moved 3.5e-4 and 1.25e-3 from one rank's at
+# steps 2 and 3 with the losses within 1e-6 (NVIDIA H100 80GB HBM3,
+# 700.00 W; the dp=2 run 6.1e-6, AdamW's tp=2 run 1.3e-7)
+P22_ADAFACTOR_GNORM_RTOL = 1e-2
+P22_F_ADAFACTOR = ("--optimizer_type=Adafactor", "--learning_rate=1e-3")
+P22_F_RUNS = (("--remat=full Adafactor",
+               ("--remat=full",) + P22_F_ADAFACTOR, ("dp=2", "tp=2")),
+              ("Adafactor", P22_F_ADAFACTOR, ("tp=2",)),
+              ("--remat=full AdamW", ("--remat=full",), ("tp=2",)))
+P22_F_LORA = ("--user_defined_parameters=" + LORA_UDP,
+              "--learning_rate=1e-3")
+
+
+def _p22_f(torch, rank, workdir, argv, cli, params, norm, check, count,
+           dev):
+    """Phase 22 (f) on phase 20's ranks (phase_parallel_rank's helpers):
+    each run of P22_F_RUNS against this rank's own one-rank run of the
+    same flags, losses within P22_LOSS_RTOL, the gradient norms within
+    PARALLEL_GNORM_RTOL (after the first step under Adafactor,
+    P22_ADAFACTOR_GNORM_RTOL) and the weights' displacement from their
+    initial values within PARALLEL_STEP_RTOL (relative); LoRA's resumed
+    last step against the one-rank run's third, losses and gradient norms
+    as above."""
+    import shutil
+    import torch.distributed as dist
+    from easynlp_tpu_torch.parallel import sharding
+    from easynlp_tpu_torch.parallel import mesh as M
+
+    def group_flags(spec):
+        return ["--mesh=" + spec, "--num_processes=2",
+                "--process_index=%d" % rank,
+                "--coordinator_address=file://" + os.path.join(workdir,
+                                                               "rdzv"),
+                "--dist_backend=gloo"]
+
+    def records(tr):
+        return ([r["loss"] for r in tr.step_records],
+                [r["grad_norm"] for r in tr.step_records])
+
+    def close(tag, losses, gnorms, want, rel=None):
+        dl = max(abs(a - b) / abs(b) for a, b in zip(losses, want[0]))
+        dgs = [abs(a - b) / b for a, b in zip(gnorms, want[1])]
+        dg = max(dgs)
+        later = (P22_ADAFACTOR_GNORM_RTOL if "Adafactor" in tag
+                 else PARALLEL_GNORM_RTOL)
+        ok = (len(losses) == len(want[0]) and dl <= P22_LOSS_RTOL
+              and dgs[0] <= PARALLEL_GNORM_RTOL
+              and max(dgs[1:]) <= later
+              and (rel is None or rel <= PARALLEL_STEP_RTOL))
+        extra = {} if rel is None else {"displacement_rdiff": rel}
+        check("(f) rank %d %s" % (rank, tag), ok, losses=losses,
+              one_rank_losses=want[0], grad_norms=gnorms,
+              one_rank_grad_norms=want[1], max_loss_rdiff=dl,
+              loss_bound=P22_LOSS_RTOL, grad_norm_rdiffs=dgs,
+              max_grad_norm_rdiff=dg,
+              grad_norm_bounds=[PARALLEL_GNORM_RTOL, later],
+              displacement_bound=PARALLEL_STEP_RTOL, **extra)
+        log("phase 22 (f) rank %d %s: ok %s, losses %s, one rank %s, "
+            "grad norms %s, one rank %s (rdiff %.2e)%s" % (
+                rank, tag, ok, losses, want[0], gnorms, want[1], dg,
+                "" if rel is None else ", displacement rdiff %.3e" % rel))
+    p0 = None
+    for kind, flags, meshes in P22_F_RUNS:
+        M.set_global_mesh(None)
+        one = cli(argv(("one.tsv",)) + list(flags))
+        want = records(one)
+        ref = params(one.app.module)
+        del one
+        for spec in meshes:
+            t0 = time.perf_counter()
+            tables = ("dp.tsv" if spec.startswith("dp") else "one.tsv",)
+            tr = count("(f) %s %s" % (kind, spec), lambda: cli(
+                argv(tables) + list(flags) + group_flags(spec)))
+            got = sharding.full_state(tr.app.module, M.get_global_mesh())
+            if p0 is None:
+                from easynlp_tpu_torch.appzoo.sequence_classification.model \
+                    import SequenceClassification
+                p0 = params(SequenceClassification.from_pretrained(
+                    os.path.join(workdir, PARALLEL_CLI_DIR),
+                    dtype=torch.float32, device=dev, num_labels=2).module)
+            moved = norm({k: ref[k] - p0[k] for k in p0})
+            rel = norm({k: got[k] - ref[k] for k in p0}) / moved
+            close("%s --mesh=%s" % (kind, spec), *records(tr), want, rel)
+            del tr, got
+            dist.barrier()
+            log("phase 22 (f) rank %d %s --mesh=%s: %.1f s" % (
+                rank, kind, spec, time.perf_counter() - t0))
+    # LoRA at tp=2: PARALLEL_STEPS - 1 steps and a save, then a resume
+    t0 = time.perf_counter()
+    M.set_global_mesh(None)
+    one = cli(argv(("one.tsv",)) + list(P22_F_LORA))
+    want = records(one)
+    del one
+    ckpt = os.path.join(workdir, "ckpt_p22_lora")
+    first = count("(f) lora tp=2", lambda: cli(
+        argv(("one.tsv",)) + list(P22_F_LORA) + group_flags("tp=2") + [
+            "--epoch_num=%r" % ((PARALLEL_STEPS - 1) / PARALLEL_STEPS),
+            "--checkpoint_dir=" + ckpt]))
+    head = records(first)
+    del first
+    dist.barrier()
+    tail = count("(f) lora tp=2 resumed", lambda: cli(
+        argv(("one.tsv",)) + list(P22_F_LORA) + group_flags("tp=2") + [
+            "--resume_from_checkpoint=" + ckpt]))
+    rest = records(tail)
+    del tail
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    close("LoRA --mesh=tp=2, saved after %d steps and resumed" % (
+        PARALLEL_STEPS - 1), head[0] + rest[0], head[1] + rest[1], want)
+    log("phase 22 (f) rank %d LoRA tp=2 with a save and a resume: %.1f s"
+        % (rank, time.perf_counter() - t0))
+
+
 def phase_parallel_rank(torch, seed, rank, workdir):
     """One of phase 20's two `gloo` ranks on cuda:0. (1) The CLI: the
     one-rank text_classify runs this rank holds the others to, then
@@ -9317,6 +9482,7 @@ def phase_parallel_rank(torch, seed, rank, workdir):
         dist.barrier()
         out["seconds"]["CLI " + spec] = time.perf_counter() - t0
     del ref, p0
+    _p22_f(torch, rank, workdir, argv, cli, params, norm, check, count, dev)
     # the op-level checks below run on the CLI's process group
     M.set_global_mesh(None)
 
@@ -10118,6 +10284,485 @@ def phase_tp(torch, seed, workdir, ranks=None):
     return total
 
 
+# -- phase 22: every family under a tensor mesh, the Trainer on a mesh -----
+# Published widths, depth cut as the earlier phases cut it; f32; weights
+# from the seed. (f), BERT-base text_classify's --remat=full + Adafactor at
+# dp=2 and tp=2 and LoRA at tp=2 with a save and a resume, runs in phase
+# 20's ranks (phase_parallel_rank), which start its process group anyway.
+P22_BART_LAYERS = 2          # + 2 decoder layers
+P22_BART_DIR = "bart-base-random-2-layers"
+P22_BART_STEPS = 3           # 3 x 8 rows of 1024 / 64 tokens
+P22_BEAMS = 4
+P22_T5 = dict(T5_BASE, num_layers=2, num_decoder_layers=2)
+P22_T5_SHAPE = (8, 512, 64)  # rows, source, target tokens
+P22_BLOOM = {"n_layer": 2}   # BloomConfig's defaults are bloom-560m's
+P22_BLOOM_SHAPE = (4, 256)
+P22_CLIP_LAYERS = 2          # each tower
+P22_CLIP_ROWS = 16           # 224 x 224 images, 32-token captions
+P22_ARTIST_LAYERS = 2
+P22_ARTIST_ROWS = 2          # 256 x 256 images: 256 codes each
+P22_ARTIST_CODES = 8         # greedy codes generated
+P22_SD_TEXT_LAYERS = 2
+P22_SD = dict(SD_V1, num_res_blocks=1, text_config=dict(
+    SD_V1["text_config"], num_hidden_layers=P22_SD_TEXT_LAYERS))
+P22_SD_ROWS, P22_SD_SIZE, P22_SD_STEPS = 2, 256, 2
+P22_LOSS_RTOL = 1e-5
+P22_TIMEOUT = 600
+P22_DEVICE = "cuda"   # both ranks on device 0 of this type
+P22_WRAPPERS = ("short_attention_fwd", "short_attention_bwd",
+                "flash_attention_fwd", "flash_attention_bwd")
+
+
+def _p22_bart_data(torch, seed, workdir):
+    """Phase 22 (a)'s files under workdir/p22: phase 6's BART-base cut to
+    P22_BART_LAYERS encoder and decoder layers, and P22_BART_STEPS x
+    BART_BATCH rows of phase 6's training TSV."""
+    d = os.path.join(workdir, "p22")
+    os.makedirs(d, exist_ok=True)
+    cut = os.path.join(d, P22_BART_DIR)
+    depth_cut(torch, os.path.join(workdir, BART_MODEL_DIR), cut,
+              P22_BART_LAYERS, "encoder_layers")
+    with open(os.path.join(cut, "config.json")) as f:
+        config = json.load(f)
+    config["decoder_layers"] = P22_BART_LAYERS
+    with open(os.path.join(cut, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    with open(os.path.join(workdir, "bart_train.tsv"), encoding="utf-8") as f:
+        lines = f.read().splitlines(True)
+    with open(os.path.join(d, "bart.tsv"), "w", encoding="utf-8") as f:
+        f.writelines(lines[:P22_BART_STEPS * BART_BATCH])
+    return d
+
+
+def _p22_workload(torch, seed, d, rank):
+    """Phase 22's parts (a)-(e) and (g) in this process: rank None is the
+    one-process run, ranks 0 and 1 the gloo ranks (whose first part, the
+    CLI, starts their group: initialize_easynlp with --mesh=tp=2,
+    --num_processes, --process_index, a file:// --coordinator_address,
+    --dist_backend=gloo). Each part's model is built from the seed on the
+    card, split over the rank's mesh (parallel/sharding.parallelize), and
+    run through the entry points a user calls; its launches are counted
+    from 0. Returns {part: results}."""
+    import numpy as np
+    from easynlp_tpu_torch.appzoo.api import default_main_fn
+    from easynlp_tpu_torch.ops import attention as A
+    from easynlp_tpu_torch.parallel import sharding
+    from easynlp_tpu_torch.parallel import mesh as M
+    from easynlp_tpu_torch.utils.initializer import initialize_easynlp
+    dev = torch.device(P22_DEVICE, 0)
+    out = {"launches": {}, "seconds": {}}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def part(name, mesh_axes, fn):
+        """fn() on a mesh of mesh_axes over the two ranks (none in one
+        process), its launches counted from 0."""
+        if rank is not None and mesh_axes is not None:
+            M.set_global_mesh(M.build_mesh(mesh_axes, dev.type))
+        for w in P22_WRAPPERS:
+            getattr(A, w).launches = 0
+        t0 = time.perf_counter()
+        try:
+            out[name] = fn()
+            sync()
+        finally:
+            out["launches"][name] = {w: getattr(A, w).launches
+                                     for w in P22_WRAPPERS}
+            out["seconds"][name] = time.perf_counter() - t0
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def mesh():
+        m = M.get_global_mesh()
+        return m if m is not None and m.world_size > 1 else None
+
+    def gen(s):
+        return torch.Generator(device=dev).manual_seed(seed + s)
+
+    def grad_norm(module):
+        grads = {n: p.grad for n, p in module.named_parameters()
+                 if p.grad is not None}
+        if mesh() is not None:
+            grads = sharding.full_state(module, mesh(), grads)
+        return float(torch.stack([g.float().norm() for g in grads.values()])
+                     .norm())
+
+    # (a) BART-base through the CLI at tp=2, then 4-beam generate
+    def bart():
+        argv = ["--mode=train", "--app_name=sequence_generation",
+                "--tables=" + os.path.join(d, "bart.tsv"),
+                "--pretrained_model_name_or_path=" + os.path.join(
+                    d, P22_BART_DIR),
+                "--epoch_num=1", "--learning_rate=%g" % BART_LR,
+                "--optimizer_type=AdamW", "--logging_steps=1",
+                "--random_seed=%d" % seed, "--device=" + (
+                    "cuda:0" if dev.type == "cuda" else dev.type),
+                "--dtype=float32", "--sequence_length=%d" % BART_SEQ_LEN,
+                "--micro_batch_size=%d" % BART_BATCH,
+                "--input_schema=id:str:1,article:str:1,summary:str:1",
+                "--first_sequence=article", "--second_sequence=summary",
+                "--use_flash_attention=auto"]
+        if rank is not None:
+            argv += ["--mesh=tp=2", "--num_processes=2",
+                     "--process_index=%d" % rank,
+                     "--coordinator_address=file://" + os.path.join(
+                         d, "rdzv22"), "--dist_backend=gloo"]
+        trainer = default_main_fn(initialize_easynlp(args_list=argv))
+        from easynlp_tpu_torch.modelzoo.seq2seq_generation import (
+            encoder_decoder_generate)
+        rng = np.random.RandomState(seed + 22)
+        ids = torch.tensor(rng.randint(4, BART_BASE["vocab_size"],
+                                       (BART_BATCH, BART_SEQ_LEN)),
+                           device=dev)
+        mask = torch.ones_like(ids, dtype=torch.int32)
+        mask[1::2, BART_SEQ_LEN // 2:] = 0   # half the rows padded
+        model = trainer.app.module.eval()
+        with torch.inference_mode():
+            tokens = encoder_decoder_generate(
+                model, ids, mask, max_length=BART_TARGET_TOKENS,
+                num_beams=P22_BEAMS)
+        return {"losses": [r["loss"] for r in trainer.step_records],
+                "grad_norms": [r["grad_norm"] for r in trainer.step_records],
+                "tokens": tokens.cpu().tolist(),
+                "heads": model.model.encoder.layers[0].self_attn.num_heads}
+    part("a BART-base", None, bart)
+
+    def lm_step(model, forward, loss_of):
+        """(logits-like output, loss, whole gradient norm, loss after one
+        SGD step of 1e-3): forward() -> output, loss_of(output) -> loss."""
+        got = forward()
+        loss = loss_of(got)
+        loss.backward()
+        gn = grad_norm(model)
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.sub_(1e-3 * p.grad)
+                    p.grad = None
+            again = float(loss_of(forward()))
+        return got, float(loss.detach()), gn, again
+
+    # (b) T5-base: logits and one step at 8 x 512 / 64
+    def t5():
+        from easynlp_tpu_torch.modelzoo.models.t5 import (
+            T5Config, T5ForConditionalGeneration)
+        cfg = T5Config(**P22_T5)
+        model = T5ForConditionalGeneration(cfg, device=dev)
+        model.init_weights(gen(1))
+        sharding.parallelize(model, mesh())
+        b, s, t = P22_T5_SHAPE
+        rng = np.random.RandomState(seed + 23)
+        src = torch.tensor(rng.randint(2, cfg.vocab_size, (b, s)),
+                           device=dev)
+        tgt = torch.tensor(rng.randint(2, cfg.vocab_size, (b, t)),
+                           device=dev)
+
+        def forward():
+            return model(src, torch.ones_like(src), tgt)["logits"]
+
+        def loss_of(logits):
+            return torch.nn.functional.cross_entropy(
+                logits[:, :-1].float().flatten(0, 1), tgt[:, 1:].flatten())
+        logits, loss, gn, again = lm_step(model, forward, loss_of)
+        return {"logits": logits[:, ::8].detach().cpu(), "loss": loss,
+                "grad_norm": gn, "loss_after_step": again}
+    part("b T5-base", {"tensor": 2}, t5)
+
+    # (c) bloom-560m: logits at 4 x 256
+    def bloom():
+        from easynlp_tpu_torch.modelzoo.models.bloom.modeling_bloom import (
+            BloomConfig, BloomForCausalLM)
+        cfg = BloomConfig(**P22_BLOOM)
+        model = BloomForCausalLM(cfg, device=dev)
+        model.init_weights(gen(2))
+        sharding.parallelize(model, mesh())
+        b, s = P22_BLOOM_SHAPE
+        rng = np.random.RandomState(seed + 24)
+        ids = torch.tensor(rng.randint(3, cfg.vocab_size, (b, s)),
+                           device=dev)
+        mask = torch.ones_like(ids)
+        mask[1, s // 2:] = 0
+        with torch.inference_mode():
+            logits = model.eval()(ids, mask)["logits"]
+        return {"logits": logits[:, ::16].cpu()}
+    part("c bloom-560m", {"tensor": 2}, bloom)
+
+    # (d) Chinese-CLIP ViT-B/16 and its text tower: one step
+    def clip():
+        from easynlp_tpu_torch.appzoo.clip.model import CLIPApp
+        from easynlp_tpu_torch.modelzoo.models.clip import CLIPConfig
+        c = dict(CHINESE_CLIP_B16)
+        c["vision_config"] = dict(CLIP_VISION,
+                                  num_hidden_layers=P22_CLIP_LAYERS)
+        c["text_config"] = dict(c["text_config"],
+                                num_hidden_layers=P22_CLIP_LAYERS)
+        cfg = CLIPConfig(**{k: v for k, v in c.items()
+                            if k != "model_type"})
+        module = CLIPApp.build_module(cfg, dtype=torch.float32, device=dev)
+        module.init_weights(gen(3))
+        sharding.parallelize(module, mesh())
+        app = CLIPApp(module, cfg, dev)
+        rng = np.random.RandomState(seed + 25)
+        n, s = P22_CLIP_ROWS, CLIP_TEXT_LEN
+        batch = {"input_ids": torch.tensor(rng.randint(
+                     1, cfg.text_config.vocab_size, (n, s)), device=dev),
+                 "attention_mask": torch.ones((n, s), dtype=torch.int64,
+                                              device=dev),
+                 "token_type_ids": torch.zeros((n, s), dtype=torch.int64,
+                                               device=dev),
+                 "pixel_values": torch.tensor(
+                     rng.rand(n, CLIP_VISION["image_size"],
+                              CLIP_VISION["image_size"], 3),
+                     dtype=torch.float32, device=dev)}
+
+        def forward():
+            return app.forward(batch)
+        got, loss, gn, again = lm_step(
+            module, forward, lambda o: app.loss_fn(o, batch)["loss"])
+        return {"logits": got["logits_per_text"].detach().cpu(),
+                "loss": loss, "grad_norm": gn, "loss_after_step": again}
+    part("d CLIP ViT-B/16", {"tensor": 2}, clip)
+
+    # (e) ARTIST-base: one step and greedy codes
+    def artist():
+        from easynlp_tpu_torch.appzoo.text2image_generation.model import (
+            TextImageGeneration)
+        from easynlp_tpu_torch.modelzoo.models.artist.modeling_artist import (
+            ARTISTConfig)
+        c = {k: v for k, v in ARTIST_BASE.items() if k != "model_type"}
+        c["gpt_config"] = dict(c["gpt_config"], n_layer=P22_ARTIST_LAYERS)
+        cfg = ARTISTConfig(**c)
+        module = TextImageGeneration.build_module(cfg, dtype=torch.float32,
+                                                  device=dev)
+        module.init_weights(gen(4))
+        sharding.parallelize(module, mesh())
+        app = TextImageGeneration(module, cfg, dev)
+        rng = np.random.RandomState(seed + 26)
+        n, s = P22_ARTIST_ROWS, ARTIST_TEXT_LEN
+        batch = {"input_ids": torch.tensor(rng.randint(
+                     1, cfg.text_vocab_size, (n, s)), device=dev),
+                 "attention_mask": torch.ones((n, s), dtype=torch.int64,
+                                              device=dev),
+                 "pixel_values": torch.tensor(
+                     rng.rand(n, ARTIST_SIZE, ARTIST_SIZE, 3) * 2 - 1,
+                     dtype=torch.float32, device=dev)}
+        codes = []
+
+        def forward():
+            o = app.forward(batch)
+            codes.append(o["image_codes"].cpu())
+            return o
+        got, loss, gn, again = lm_step(
+            module, forward, lambda o: app.loss_fn(o, batch)["loss"])
+        module.eval()
+        cfg.image_token_length = P22_ARTIST_CODES
+        greedy = app.generate(batch["input_ids"], batch["attention_mask"],
+                              do_sample=False)
+        return {"logits": got["logits"][:, ::16].detach().cpu(),
+                "codes": codes[0].tolist(), "loss": loss, "grad_norm": gn,
+                "loss_after_step": again, "greedy": greedy.cpu().tolist()}
+    part("e ARTIST-base", {"tensor": 2}, artist)
+
+    # (g) the SD v1 UNet: make_train_loss steps through the Trainer at dp=2
+    def unet():
+        from easynlp_tpu_torch.appzoo.latent_diffusion.model import (
+            LatentDiffusion, LDMConfig)
+        from easynlp_tpu_torch.core.trainer import Trainer
+        from easynlp_tpu_torch.utils.arguments import parse_args
+        cfg = LDMConfig(**{k: v for k, v in P22_SD.items()
+                           if k != "model_type"})
+        module = LatentDiffusion.build_module(cfg, dtype=torch.float32,
+                                              device=dev)
+        module.init_weights(gen(5))
+        app = LatentDiffusion(module, cfg, dev)
+        world = 1 if rank is None else 2
+        args = parse_args(args_list=[
+            "--dtype=float32", "--logging_steps=1000",
+            "--micro_batch_size=%d" % P22_SD_ROWS,
+            "--learning_rate=1e-5", "--lr_scheduler=constant",
+            "--random_seed=%d" % seed, "--num_processes=%d" % world,
+            "--process_index=%d" % (rank or 0)])
+
+        class Rows:
+            def __len__(self):
+                return P22_SD_ROWS * P22_SD_STEPS // world
+        trainer = Trainer(app, Rows(), args=args)
+        rng = np.random.RandomState(seed + 27)
+        lo, hi = M.batch_sharding(P22_SD_ROWS)
+        metrics = []
+        for _ in range(P22_SD_STEPS):
+            ids = rng.randint(1, cfg.text_config.vocab_size,
+                              (P22_SD_ROWS, SD_TEXT_LEN))
+            pixels = rng.rand(P22_SD_ROWS, P22_SD_SIZE, P22_SD_SIZE, 3) \
+                * 2 - 1
+            batch = {"input_ids": torch.tensor(ids[lo:hi], device=dev),
+                     "attention_mask": torch.ones_like(torch.tensor(
+                         ids[lo:hi], device=dev)),
+                     "pixel_values": torch.tensor(pixels[lo:hi],
+                                                  dtype=torch.float32,
+                                                  device=dev)}
+            names, values = trainer._train_step(batch)
+            metrics.append(dict(zip(names, values.tolist())))
+        return {"losses": [m["loss"] for m in metrics],
+                "grad_norms": [m["grad_norm"] for m in metrics]}
+    part("g SD v1 UNet", {"data": 2}, unet)
+    if rank is not None:
+        M.destroy()
+    return out
+
+
+def phase_p22_rank(torch, seed, rank, workdir):
+    """One of phase 22's processes on cuda:0: rank -1 the one-process run,
+    which writes workdir/p22_one.pt; ranks 0 and 1 the gloo ranks, which
+    start once it is written and write workdir/p22_rank<r>.pt."""
+    if P22_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+        # f32 convolutions in f32: cuDNN's TF32 rounds (g)'s UNet and
+        # VAE convolutions to 10-bit mantissas, differently for the ranks'
+        # one row than for the one process's two
+        torch.backends.cudnn.allow_tf32 = False
+    if rank < 0:
+        out = _p22_workload(torch, seed, workdir, None)
+        torch.save(out, os.path.join(workdir, "p22_one.tmp"))
+        os.replace(os.path.join(workdir, "p22_one.tmp"),
+                   os.path.join(workdir, "p22_one.pt"))
+        return
+    go = os.path.join(workdir, "p22_one.pt")
+    deadline = time.monotonic() + P22_TIMEOUT
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise TimeoutError("phase 22 rank %d: the one-process run "
+                               "wrote nothing in %d s" % (rank, P22_TIMEOUT))
+        time.sleep(0.1)
+    out = _p22_workload(torch, seed, workdir, rank)
+    torch.save(out, os.path.join(workdir, "p22_rank%d.pt" % rank))
+
+
+def start_p22_ranks(torch, seed, workdir):
+    """Phase 22's files (_p22_bart_data) and processes (phase_p22_rank):
+    the one-process run (rank -1) and the two ranks, which go once it is
+    done. Returns ([rank 0, rank 1, rank -1], their directory)."""
+    d = _p22_bart_data(torch, seed, workdir)
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--p22-rank=%d" % r, "--p22-dir", d], env=env,
+        stdout=open(os.path.join(d, "rank%d.log" % r), "w"),
+        stderr=subprocess.STDOUT) for r in (0, 1, -1)]
+    return procs, d
+
+
+def phase_p22(torch, seed, workdir, ranks=None):
+    """Phase 22: every family the JAX package annotates under a tensor
+    mesh, and the Trainer on a mesh, at published widths with depth cut,
+    f32, on two gloo ranks on cuda:0 against one process (phase_p22_rank):
+    (a) BART-base (2 + 2 layers) sequence_generation train through the CLI
+    at --mesh=tp=2, 3 steps of 8 x 1024 / 64, then 4-beam generate on 8
+    sources of 1024 tokens; (b) T5-base (2 + 2): logits and one step at 8
+    x 512 / 64; (c) bloom-560m (2 layers): logits at 4 x 256; (d)
+    Chinese-CLIP ViT-B/16 and its text tower (2 layers each): one step at
+    16 x 224^2; (e) ARTIST-base (2 GPT layers): one step at 2 x 256^2 and
+    8 greedy codes; (g) the SD v1 UNet (num_res_blocks 1, a 2-layer text
+    tower): 2 make_train_loss steps of 2 x 256^2 at dp=2 through the
+    Trainer. (f) runs in phase 20. Logits within TP_LOGITS_ATOL, losses
+    within P22_LOSS_RTOL, gradient norms within PARALLEL_GNORM_RTOL, tokens
+    and codes equal.
+    Returns the ranks' launches by wrapper."""
+    log("== phase 22: BART, T5, BLOOM, CLIP, ARTIST under tensor=2 and the "
+        "UNet's diffusion loss at data=2 (two gloo ranks on cuda:0), each "
+        "against one process")
+    t_phase = time.perf_counter()
+    procs, d = ranks or start_p22_ranks(torch, seed, workdir)
+    deadline = time.monotonic() + P22_TIMEOUT
+    try:
+        procs[2].wait(timeout=max(1.0, deadline - time.monotonic()))
+        if procs[2].returncode == 0:
+            for p in procs[:2]:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in zip((0, 1, -1), procs):
+        if p.returncode != 0:
+            with open(os.path.join(d, "rank%d.log" % r)) as f:
+                text = f.read()
+            raise AssertionError("phase 22 rank %d exited %s:\n%s" % (
+                r, p.returncode, text[-4000:]))
+    one = torch.load(os.path.join(d, "p22_one.pt"), weights_only=False)
+    ranks = [torch.load(os.path.join(d, "p22_rank%d.pt" % r),
+                        weights_only=False) for r in range(2)]
+    failed = []
+
+    def rel(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+    for name in sorted(one["launches"]):
+        want = one[name]
+        notes = []
+        for r, rk in enumerate(ranks):
+            got = rk[name]
+            # losses within P22_LOSS_RTOL, gradient norms within
+            # PARALLEL_GNORM_RTOL (phase 20's bound), both relative
+            for key in ("losses", "loss", "loss_after_step", "grad_norms",
+                        "grad_norm"):
+                if key not in want:
+                    continue
+                pair = (got[key], want[key]) if isinstance(want[key], list) \
+                    else ([got[key]], [want[key]])
+                e = rel(*pair)
+                notes.append("%s rdiff %.2e" % (key, e))
+                if not e <= (PARALLEL_GNORM_RTOL if "grad" in key
+                             else P22_LOSS_RTOL):
+                    failed.append("%s rank %d %s %s vs %s" % (
+                        name, r, key, got[key], want[key]))
+            if "logits" in want:
+                e = float((got["logits"] - want["logits"]).abs().max())
+                notes.append("logit diff %.3e" % e)
+                if not e <= TP_LOGITS_ATOL:
+                    failed.append("%s rank %d logits differ by %.3e" % (
+                        name, r, e))
+            for key in ("tokens", "codes", "greedy"):
+                if key in want:
+                    same = sum(a == b for a, b in zip(got[key], want[key]))
+                    notes.append("%s %d/%d rows equal" % (key, same,
+                                                          len(want[key])))
+                    if got[key] != want[key]:
+                        failed.append("%s rank %d: %s differ" % (name, r,
+                                                                  key))
+        log("phase 22 %-16s %s; launches a rank %s; seconds one %.1f, "
+            "ranks %s" % (name, "; ".join(notes[:len(notes) // 2]),
+                          [rk["launches"][name] for rk in ranks],
+                          one["seconds"][name],
+                          ["%.1f" % rk["seconds"][name] for rk in ranks]))
+    heads = ranks[0]["a BART-base"]["heads"]
+    if heads != BART_BASE["encoder_attention_heads"] // 2:
+        failed.append("(a) %d heads a rank" % heads)
+    total = dict.fromkeys(P22_WRAPPERS, 0)
+    for r, rk in enumerate(ranks):
+        for launches in rk["launches"].values():
+            for w, n in launches.items():
+                total[w] += n
+    for w, n in total.items():
+        if not n:
+            failed.append("no %s launch on the ranks" % w)
+    if failed:
+        raise AssertionError("phase 22 failed: %s" % failed)
+    log("phase 22 B1-B5 launches over both ranks %s; %d heads a rank in "
+        "(a); seconds %.1f; written so far (wchar) %s" % (
+            total, heads, time.perf_counter() - t_phase,
+            "%.2f GiB" % (_written_gib() or 0.0)))
+    if P22_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    total["flash_attention_bwd_dkdv"] = total["flash_attention_bwd"]
+    total["flash_attention_bwd_dq"] = total["flash_attention_bwd"]
+    return total
+
+
 def _dtype_key(key):
     """A (..., dtype) key as text ("...|bfloat16") and back."""
     import torch
@@ -10177,8 +10822,10 @@ def main():
     parser.add_argument("--parallel-dir", help=argparse.SUPPRESS)
     parser.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--tp-dir", help=argparse.SUPPRESS)
+    parser.add_argument("--p22-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--p22-dir", help=argparse.SUPPRESS)
     parser.add_argument(
-        "--only", choices=("2", "19", "20", "21"),
+        "--only", choices=("2", "19", "20", "21", "22"),
         help="run phase 0, the build and this phase alone (phase 19 on a "
         "vocabulary of its own), to iterate on it; the full run is the "
         "smoke test")
@@ -10197,6 +10844,9 @@ def main():
         return 0
     if cli.tp_rank is not None:  # one of phase 21's ranks
         phase_tp_rank(torch, seed, cli.tp_rank, cli.tp_dir)
+        return 0
+    if cli.p22_rank is not None:  # one of phase 22's processes
+        phase_p22_rank(torch, seed, cli.p22_rank, cli.p22_dir)
         return 0
     phase_device(torch)
     if cli.kernels_json:  # phase 2 alone, for phase_kernel_in_child
@@ -10225,6 +10875,16 @@ def main():
                 phase_parallel(torch, seed, workdir)
             elif cli.only == "21":
                 phase_tp(torch, seed, workdir)
+            elif cli.only == "22":
+                # phase 6's BART-base directory and TSV, which (a) cuts
+                model_dir = os.path.join(workdir, BART_MODEL_DIR)
+                make_bart_model_dir(torch, model_dir, seed)
+                from easynlp_tpu_torch.modelzoo.models.gpt2 import (
+                    GPT2Tokenizer)
+                make_bart_tsv(os.path.join(workdir, "bart_train.tsv"),
+                              GPT2Tokenizer.from_pretrained(model_dir),
+                              seed + 5, BART_BATCH * BART_STEPS)
+                phase_p22(torch, seed, workdir)
             else:
                 tokens, cjk = _vocab()
                 os.makedirs(os.path.join(workdir, MODEL_DIR))
@@ -10289,24 +10949,29 @@ def main():
         t0 = time.perf_counter()
         sd_launches = phase_diffusion(torch, seed, workdir, cjk)
         seconds["18 latent diffusion"] = time.perf_counter() - t0
-        # phase 21's processes start now: their work overlaps phases 19
-        # and 20
+        # phase 21's and 22's processes start now: their work overlaps
+        # phases 19 and 20
         tp_ranks = start_tp_ranks(seed, workdir)
+        p22_ranks = start_p22_ranks(torch, seed, workdir)
         try:
             t0 = time.perf_counter()
             artist_launches = phase_artist(torch, seed, workdir, cjk)
             seconds["19 ARTIST, TextCNN, BLOOM"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             parallel_launches = phase_parallel(torch, seed, workdir)
+            seconds["20 multi-GPU"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tp_launches = phase_tp(torch, seed, workdir, tp_ranks)
         except BaseException:
-            for p in tp_ranks[0]:
+            for p in tp_ranks[0] + p22_ranks[0]:
                 p.kill()
                 p.wait()
             raise
-        seconds["20 multi-GPU"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        tp_launches = phase_tp(torch, seed, workdir, tp_ranks)
         seconds["21 GPT-2 under tensor=2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p22_launches = phase_p22(torch, seed, workdir, p22_ranks)
+        seconds["22 families under tensor=2, Trainer on a mesh"] = \
+            time.perf_counter() - t0
     log("phase seconds: %s" % ", ".join("%s %.1f" % kv
                                         for kv in seconds.items()))
     written = _written_gib()
@@ -10331,7 +10996,7 @@ def main():
             + s2s_launches[name] + s11_launches[name]
             + mm_launches[name] + sd_launches[name]
             + artist_launches[name] + parallel_launches[name]
-            + tp_launches[name],
+            + tp_launches[name] + p22_launches[name],
             "max_abs_err": worst[name][(case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

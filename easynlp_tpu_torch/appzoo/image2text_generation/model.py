@@ -130,7 +130,9 @@ class CLIPGPTImageTextModule(nn.Module):
     def init_lm_cache(self, batch_size, max_length):
         gc = self.gpt_config
         device = self.wte.weight.device
-        shape = (batch_size, max_length, gc.n_head, gc.n_embd // gc.n_head)
+        # the rank's own heads over a tensor axis
+        shape = (batch_size, max_length, self.gpt.h[0].attn.num_heads,
+                 gc.n_embd // gc.n_head)
         return KVCache(
             [torch.zeros(shape, dtype=self.dtype, device=device)
              for _ in range(gc.n_layer)],

@@ -85,12 +85,9 @@ class ControlNetApplication:
 
     def make_train_loss(self):
         def loss_fn(batch, generator):
-            hw = batch["pixel_values"].shape[1] // 2 ** (
-                len(self.config.vae_channel_mult) - 1)
-            draws = self.inner.draw_training_noise(
-                batch["input_ids"].shape[0], generator, hw)
             return {"loss": self.inner.diffusion_loss(
-                batch, draws, control=self._control(batch))}
+                batch, self.inner.draw_step_noise(batch, generator),
+                control=self._control(batch))}
         return loss_fn
 
     def per_sample_eval_loss(self, batch, draws):

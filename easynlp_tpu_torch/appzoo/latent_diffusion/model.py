@@ -255,15 +255,26 @@ class LatentDiffusion(Application):
             return err.reshape(err.shape[0], -1).mean(-1)
         return err.mean()
 
+    def draw_step_noise(self, batch, generator):
+        """A training step's draws for `batch`, this rank's rows of the
+        global batch: the draws of every data-parallel rank's rows are
+        made from the step's generator in one go and each rank takes its
+        block, so a step on a data mesh draws what one process draws."""
+        from easynlp_tpu_torch.parallel.mesh import (batch_sharding,
+                                                     data_parallel_size)
+        hw = batch["pixel_values"].shape[1] // 2 ** (
+            len(self.config.vae_channel_mult) - 1)
+        n = batch["input_ids"].shape[0] * data_parallel_size()
+        draws = self.draw_training_noise(n, generator, hw)
+        start, stop = batch_sharding(n)
+        return {k: v[start:stop] for k, v in draws.items()}
+
     def make_train_loss(self):
         """The Trainer's loss: loss_fn(batch, generator) -> {"loss": ...}
         (the counterpart of the JAX app's make_train_loss)."""
         def loss_fn(batch, generator):
-            hw = batch["pixel_values"].shape[1] // 2 ** (
-                len(self.config.vae_channel_mult) - 1)
-            draws = self.draw_training_noise(batch["input_ids"].shape[0],
-                                             generator, hw)
-            return {"loss": self.diffusion_loss(batch, draws)}
+            return {"loss": self.diffusion_loss(
+                batch, self.draw_step_noise(batch, generator))}
         return loss_fn
 
     @staticmethod

@@ -45,17 +45,28 @@ BASE_WEIGHTS_NAME = "pytorch_model_base.bin"
 
 class _Merged(nn.Module):
     """The parametrization of one adapted weight: W -> W + s * delta. The
-    adapter is held in a tuple, so it stays a parameter of LoRAModule and
-    not of the inner module."""
+    adapter is read from LoRAModule's lists (held in a tuple, so they stay
+    parameters of LoRAModule and not of the inner module), whatever
+    tensors those hold now (whole ones while a mesh run exports). Over a
+    tensor axis the factor the split leaves whole (`whole`: 'a' or 'b')
+    passes through copy_to_group, so its gradient sums every rank's
+    part."""
 
-    def __init__(self, adapter, scale, transposed):
+    def __init__(self, lists, index, scale, transposed):
         super().__init__()
-        self.adapter = (adapter["a"], adapter["b"])
+        self.lists, self.index = lists, index
         self.scale = scale
         self.transposed = transposed
+        self.whole, self.group = None, None
 
     def forward(self, w):
-        a, b = self.adapter
+        a, b = (t[self.index] for t in self.lists)
+        if self.whole is not None:
+            from easynlp_tpu_torch.parallel import comm
+            if self.whole == "a":
+                a = comm.copy_to_group(a, self.group)
+            else:
+                b = comm.copy_to_group(b, self.group)
         return merge_weight(w, {"a": a, "b": b}, self.scale,
                             self.transposed)
 
@@ -77,9 +88,39 @@ class LoRAModule(nn.Module):
         for p in inner.parameters():
             p.requires_grad_(False)
         self.inner = inner
-        self._merges = {n: _Merged(lora[n], scale, is_transposed(inner, n))
-                        for n in self.names}
+        lists = (self.lora_a, self.lora_b)
+        self._merges = {n: _Merged(lists, i, scale, is_transposed(inner, n))
+                        for i, n in enumerate(self.names)}
         self._attach()
+
+    def tensor_parallel_split(self, prefix, specs, mesh):
+        """After the inner module's split (sharding.apply_tensor_parallel),
+        the adapters of the split weights: a column-split weight's merged
+        W + s (A B)^T splits B's output features, a row-split one's A's
+        input features, each as the weight's dim (sections and all); the
+        other factor stays whole. Returns their specs."""
+        from easynlp_tpu_torch.parallel.sharding import TensorSpec
+        out = {}
+        tp, index = mesh.size("tensor"), mesh.index("tensor")
+        for i, name in enumerate(self.names):
+            owner, attr = name.rsplit(".", 1)
+            spec = specs.get("%sinner.%s.parametrizations.%s.original"
+                             % (prefix, owner, attr))
+            if spec is None:
+                continue
+            merge = self._merges[name]
+            out_dim = 0 if merge.transposed else 1
+            if spec.dim == out_dim:
+                key, lst, dim, merge.whole = "lora_b.%d" % i, self.lora_b, \
+                    1, "a"
+            else:
+                key, lst, dim, merge.whole = "lora_a.%d" % i, self.lora_a, \
+                    0, "b"
+            part = TensorSpec(dim, tp, lst[i].shape[dim], spec.sections)
+            lst[i] = nn.Parameter(part.shard(lst[i].data, index))
+            merge.group = mesh.group("tensor")
+            out[key] = part
+        return out
 
     @property
     def lora(self):

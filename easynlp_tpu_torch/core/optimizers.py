@@ -38,6 +38,8 @@ import math
 
 import torch
 
+from easynlp_tpu_torch.parallel import comm
+
 NO_DECAY_SUBSTRINGS = ("bias", "LayerNorm", "layer_norm", "_ln", "ln_")
 
 
@@ -100,9 +102,17 @@ def decays(name):
     return not any(sub in name for sub in NO_DECAY_SUBSTRINGS)
 
 
+def norms(tensors):
+    """Each tensor's L2 norm, a 1-D f64 tensor: summed in f64, as the
+    CPU's f32 sum over a table of millions of elements (BERT's word
+    embeddings) drifts from the exact norm where a split of the table,
+    summed in parts, does not (tests/test_torch_mesh_trainer.py)."""
+    return torch.stack(torch._foreach_norm(tensors, dtype=torch.float64))
+
+
 def global_norm(tensors):
     """sqrt of the sum of squares over all tensors, as a 0-d f32 tensor."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    return torch.linalg.vector_norm(norms(tensors)).float()
 
 
 def _zeros_unless(apply, tensors):
@@ -124,9 +134,11 @@ class Optimizer:
     `_update(grads, lr, coef)` and their state; `coef` holds their
     `coefficients` ((value, identity) pairs: the identity leaves the state
     as it is) as a 1-D f32 tensor, the values or, on a skipped step, the
-    identities."""
+    identities. State under `replicated_keys` is whole on every rank of a
+    mesh (neither split nor gathered at save and resume)."""
 
     state_keys = ()
+    replicated_keys = ()
     coefficients = ()
 
     def __init__(self, named_params, schedule_fn, weight_decay=0.0,
@@ -334,38 +346,85 @@ class Adafactor(Optimizer):
     layout gives the same update. Where the step is skipped, the decay is
     switched to 1, and a 1 added to the moments before their inverse root
     keeps the zeroed gradient's update at 0 even before the first real
-    step."""
+    step.
+
+    On a mesh (`splits`: each parameter's sharding.DimSplit list) every
+    statistic is the whole parameter's, as JAX computes them on the global
+    arrays: the factoring is decided on the whole shape, a mean over a
+    split dim is summed over the group that split it, the factored state
+    is whole on every rank (`replicated_keys`: JAX's _opt_state_shardings
+    replicates it) and each rank takes its part of it, and the update's
+    and the parameter's rms sum their squares over every group that split
+    the parameter."""
 
     state_keys = ()  # set once the buffers, of other shapes, are built
+    replicated_keys = ("v_row", "v_col")
     coefficients = ((1.0, 0.0),)  # on; 0 on a skipped step
 
     def __init__(self, named_params, schedule_fn, decay_rate=0.8,
                  eps=1e-30, min_dim_size_to_factor=128, clipping_threshold=1.0,
-                 min_scale=1e-3, num_steps=1):
+                 min_scale=1e-3, num_steps=1, splits=None):
         self.decay_rate, self.eps = decay_rate, eps
         self.clipping_threshold, self.min_scale = clipping_threshold, min_scale
         super().__init__(named_params, schedule_fn, num_steps=num_steps)
-        self.factored = [_factored_dims(p.shape, min_dim_size_to_factor)
-                         for p in self.params]
+        self.splits = splits or [[] for _ in self.params]
+        for name, s in zip(self.names, self.splits):
+            if len({x.dim for x in s}) < len(s):
+                raise NotImplementedError(
+                    "Adafactor: %s is split twice along one dim" % name)
+        shapes = [_whole_shape(p.shape, s)
+                  for p, s in zip(self.params, self.splits)]
+        self.factored = [_factored_dims(shape, min_dim_size_to_factor)
+                         for shape in shapes]
         self.state = {"v_row": [], "v_col": [], "v": []}
-        for p, dims in zip(self.params, self.factored):
+        for p, shape, dims in zip(self.params, shapes, self.factored):
             if dims is None:
                 self.state["v"].append(torch.zeros_like(p))
                 continue
             d1, d0 = dims
             self.state["v_row"].append(p.new_zeros(
-                [n for i, n in enumerate(p.shape) if i != d0]))
+                [n for i, n in enumerate(shape) if i != d0]))
             self.state["v_col"].append(p.new_zeros(
-                [n for i, n in enumerate(p.shape) if i != d1]))
+                [n for i, n in enumerate(shape) if i != d1]))
         self.state_keys = ("v_row", "v_col", "v")
         self._root_sizes = torch.tensor(
-            [math.sqrt(p.numel()) for p in self.params],
+            [math.sqrt(math.prod(shape)) for shape in shapes],
             dtype=torch.float32, device=self.count.device)
+        self._split_groups = []  # (group, mask of the parameters it split)
+        for s in {id(x.group): x for ss in self.splits for x in ss}.values():
+            mask = torch.tensor([any(x.group is s.group for x in ss)
+                                 for ss in self.splits],
+                                device=self.count.device)
+            self._split_groups.append((s.group, mask))
 
     def _state_names(self, key):
         factored = key != "v"
         return [n for n, dims in zip(self.names, self.factored)
                 if (dims is not None) == factored]
+
+    def _whole_mean(self, t, dim, splits):
+        """mean over dim of t (a parameter's local part), the whole
+        parameter's: summed over the group that split dim."""
+        split = next((s for s in splits if s.dim == dim), None)
+        if split is None:
+            return t.mean(dim)
+        return comm.all_reduce(t.sum(dim), split.group) / split.full
+
+    @staticmethod
+    def _whole(t, splits, removed):
+        """The whole of t, a statistic of a local part without its dim
+        `removed`: gathered along the split dims it kept."""
+        for s in splits:
+            if s.dim != removed:
+                t = s.gather(t, s.dim - (s.dim > removed))
+        return t
+
+    @staticmethod
+    def _local(t, splits, removed, fill):
+        for s in splits:
+            if s.dim != removed:
+                t = s.local(t, s.dim - (s.dim > removed), fill)
+        return t
 
     def _update(self, grads, lr, coef):
         on = coef[0]
@@ -376,6 +435,8 @@ class Adafactor(Optimizer):
         grads_f = [g for g, d in zip(grads, self.factored) if d is not None]
         grads_v = [g for g, d in zip(grads, self.factored) if d is None]
         dims = [d for d in self.factored if d is not None]
+        splits = [s for s, d in zip(self.splits, self.factored)
+                  if d is not None]
         updates_f = updates_v = []
         if grads_f:
             # factored: the row (mean over the largest dim) and column
@@ -384,10 +445,12 @@ class Adafactor(Optimizer):
             sq = torch._foreach_mul(grads_f, grads_f)
             torch._foreach_add_(sq, self.eps)
             v_row, v_col = self.state["v_row"], self.state["v_col"]
-            _moment(v_row, [s.mean(d0) for s, (_, d0) in zip(sq, dims)],
-                    decay, weight)
-            _moment(v_col, [s.mean(d1) for s, (d1, _) in zip(sq, dims)],
-                    decay, weight)
+            _moment(v_row, [
+                self._whole(self._whole_mean(s, d0, sp), sp, d0)
+                for s, (_, d0), sp in zip(sq, dims, splits)], decay, weight)
+            _moment(v_col, [
+                self._whole(self._whole_mean(s, d1, sp), sp, d1)
+                for s, (d1, _), sp in zip(sq, dims, splits)], decay, weight)
             row = torch._foreach_add(v_row, pad)
             col = torch._foreach_add(v_col, pad)
             row_factor = torch._foreach_div(row, [
@@ -395,6 +458,10 @@ class Adafactor(Optimizer):
                 for r, (d1, d0) in zip(row, dims)])
             torch._foreach_pow_(row_factor, -0.5)
             torch._foreach_pow_(col, -0.5)
+            row_factor = [self._local(r, sp, d0, 1.0) for r, (_, d0), sp
+                          in zip(row_factor, dims, splits)]
+            col = [self._local(k, sp, d1, 1.0) for k, (d1, _), sp
+                   in zip(col, dims, splits)]
             updates_f = [g * r.unsqueeze(d0) * k.unsqueeze(d1) for g, r, k,
                          (d1, d0) in zip(grads_f, row_factor, col, dims)]
         if grads_v:
@@ -410,13 +477,27 @@ class Adafactor(Optimizer):
         # clip_by_block_rms, lr and scale_by_param_block_rms (optax's
         # safe_root_mean_squares: the rms, min_scale at or below it) as one
         # factor per tensor, computed for all tensors at once
-        rms = torch.stack(torch._foreach_norm(updates)) / self._root_sizes
-        p_rms = torch.stack(torch._foreach_norm(self.params)) \
-            / self._root_sizes
+        rms = self._whole_norms(updates) / self._root_sizes
+        p_rms = self._whole_norms(self.params) / self._root_sizes
         factor = lr * torch.clamp(p_rms, min=self.min_scale) / torch.clamp(
             rms / self.clipping_threshold, min=1.0)
         torch._foreach_mul_(updates, list(factor.unbind()))
         torch._foreach_sub_(self.params, updates)
+
+    def _whole_norms(self, tensors):
+        """Each whole parameter's norm: the squares of its parts summed
+        over every group that split it."""
+        sq = norms(tensors).square()
+        for group, mask in self._split_groups:
+            sq = torch.where(mask, comm.all_reduce(sq * mask, group), sq)
+        return sq.sqrt().float()
+
+
+def _whole_shape(shape, splits):
+    shape = list(shape)
+    for s in splits:
+        shape[s.dim] = s.full
+    return shape
 
 
 def _factored_dims(shape, min_dim_size_to_factor):
@@ -449,9 +530,12 @@ def get_optimizer(named_params, optimizer_type="AdamW", learning_rate=5e-5,
                   warmup_proportion=0.1, lr_scheduler="warmup_linear",
                   epoch_num=3.0, steps_per_epoch=100,
                   gradient_accumulation_steps=1, weight_decay=0.01,
-                  max_grad_norm=1.0, b1=0.9, b2=0.999, eps=1e-8):
+                  max_grad_norm=1.0, b1=0.9, b2=0.999, eps=1e-8,
+                  splits=None):
     """(optimizer over named_params, schedule_fn, t_total), with
-    t_total = ceil(steps_per_epoch / grad_accum) * epochs."""
+    t_total = ceil(steps_per_epoch / grad_accum) * epochs. splits: each
+    parameter's sharding.DimSplit list on a mesh (Adafactor reads them;
+    the element-wise optimizers need none)."""
     t_total = int(math.ceil(steps_per_epoch / gradient_accumulation_steps)
                   * epoch_num)
     if lr_scheduler not in SCHEDULES:
@@ -476,7 +560,8 @@ def get_optimizer(named_params, optimizer_type="AdamW", learning_rate=5e-5,
         opt = Lion(named_params, schedule_fn, weight_decay=weight_decay,
                    max_grad_norm=max_grad_norm, num_steps=t_total)
     elif optimizer_type == "Adafactor":
-        opt = Adafactor(named_params, schedule_fn, num_steps=t_total)
+        opt = Adafactor(named_params, schedule_fn, num_steps=t_total,
+                        splits=splits)
     else:
         raise ValueError("unknown optimizer %r" % optimizer_type)
     return opt, schedule_fn, t_total

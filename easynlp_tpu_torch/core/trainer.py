@@ -40,9 +40,15 @@ process mesh (parallel/mesh.py):
   checkpoint trained on a mesh loads into one process under the usual
   file names (JAX :408-428, :501-507); resume loads the full weights
   (and the EMA weights) before the split and splits the optimizer state
-  and the EMA shadow as their parameters.
-  Adafactor's factored state, LoRA/ControlNet and remat are not split:
-  the Trainer raises for them on a mesh;
+  and the EMA shadow as their parameters. Every app trains there:
+  an app's own resume (`restore_params`: LoRA's base and adapters,
+  ControlNet's) loads the whole weights before the split, LoRA's adapters
+  split with their weights (core/lora_app.py), a loss that draws its own
+  randomness (`make_train_loss`) draws the global batch's and takes the
+  rank's rows, --remat recomputes the layers' collectives in the
+  backward, and Adafactor reduces its statistics over the groups that
+  split each parameter (core/optimizers.py), its factored state whole on
+  every rank;
 - `--remat` (modeling_bert.set_remat: activation checkpointing of each
   BERT and BART layer under the JAX package's policies);
 - `--ema_decay`: an f32 EMA of the trained parameters on the device
@@ -83,7 +89,8 @@ import time
 
 import torch
 
-from easynlp_tpu_torch.core.optimizers import get_optimizer, global_norm
+from easynlp_tpu_torch.core.optimizers import (get_optimizer, global_norm,
+                                               norms)
 from easynlp_tpu_torch.data.dataset import DataLoader
 from easynlp_tpu_torch.data.prefetch import device_prefetch
 from easynlp_tpu_torch.modelzoo.modeling_utils import (
@@ -168,6 +175,10 @@ class Trainer:
         # the module's own parameters (DTensors under FSDP2); the optimizer
         # and self.params hold their local parts
         self.module_params = [p for _, p in trained]
+        # where each parameter is split (Adafactor's statistics reduce over
+        # it; the element-wise optimizers ignore it)
+        splits = sharding.param_splits(self.app.module, self.mesh,
+                                       self.param_names)
         trained = [(n, sharding.local(p)) for n, p in trained]
         self.optimizer, self.schedule_fn, self.t_total = get_optimizer(
             trained,
@@ -180,7 +191,8 @@ class Trainer:
             gradient_accumulation_steps=1,  # accumulation is inside the step
             weight_decay=args.weight_decay,
             max_grad_norm=0.0,  # the step clips, sharing the guard's norm
-            b1=args.adam_beta1, b2=args.adam_beta2, eps=args.adam_epsilon)
+            b1=args.adam_beta1, b2=args.adam_beta2, eps=args.adam_epsilon,
+            splits=splits)
         self.max_grad_norm = float(args.max_grad_norm or 0.0)
         self.params = self.optimizer.params
         self.custom_loss = (self.app.make_train_loss()
@@ -217,13 +229,9 @@ class Trainer:
     # ----------------------------------------------------------------- mesh
     def _place_state(self, args):
         """Split the module over the mesh (JAX _place_state): the full
-        weights to resume from go in first, then parallelize."""
-        if getattr(self.app, "restore_params", None) is not None \
-                or getattr(self.app, "make_train_loss", None) is not None \
-                or self.remat != "none" or args.optimizer_type == "Adafactor":
-            raise NotImplementedError(
-                "on a mesh the Trainer splits plain modules under AdamW, "
-                "BertAdam, Adam, SGD or Lion without --remat")
+        weights to resume from go in first (through the app's own
+        restore_params where it has one, JAX :523-527), then
+        parallelize."""
         ckpt = args.resume_from_checkpoint
         self._ema_resume = None
         if ckpt and io.exists(os.path.join(ckpt, META_NAME)):
@@ -238,8 +246,12 @@ class Trainer:
                 self._ema_resume = {
                     n: p.detach().clone()
                     for n, p in self.app.module.named_parameters()}
-            self.app.load_state_dict(self.app.module,
-                                     load_pytorch_state_dict(ckpt))
+            restore = getattr(self.app, "restore_params", None)
+            if restore is not None:
+                restore(ckpt)
+            else:
+                self.app.load_state_dict(self.app.module,
+                                         load_pytorch_state_dict(ckpt))
         sharding.parallelize(self.app.module, self.mesh)
 
     def _reduce_gradients(self, grads):
@@ -285,11 +297,11 @@ class Trainer:
         for axes, gs in parts.items():
             if not gs:
                 continue
-            sq = torch.stack(torch._foreach_norm(gs)).square().sum()
+            sq = norms(gs).square().sum()
             if axes:
                 comm.all_reduce(sq, mesh.group(axes))
             total = sq if total is None else total + sq
-        return comm.all_reduce(total, mesh.group("fsdp")).sqrt()
+        return comm.all_reduce(total, mesh.group("fsdp")).sqrt().float()
 
     # ------------------------------------------------------------------ step
     def _train_step(self, inputs):
@@ -493,8 +505,9 @@ class Trainer:
             if ema is not None:
                 ema = sharding.full_state(module, self.mesh, ema)
             for key in self.optimizer.state_keys:
-                opt_state[key] = sharding.full_state(module, self.mesh,
-                                                     opt_state[key])
+                if key not in self.optimizer.replicated_keys:
+                    opt_state[key] = sharding.full_state(module, self.mesh,
+                                                         opt_state[key])
             exportable = sharding.full_parameters(module, self.mesh)
         else:
             exportable = contextlib.nullcontext()
@@ -629,6 +642,8 @@ class Trainer:
                 specs = getattr(self.app.module, "parallel_specs", {})
                 params = dict(zip(self.param_names, self.module_params))
                 for key in self.optimizer.state_keys:
+                    if key in self.optimizer.replicated_keys:
+                        continue  # whole on every rank
                     state[key] = {
                         name: sharding.shard_like(params[name], full,
                                                   specs.get(name), self.mesh)

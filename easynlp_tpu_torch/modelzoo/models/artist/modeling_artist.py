@@ -54,6 +54,7 @@ from easynlp_tpu_torch.modelzoo.models.latent_diffusion.autoencoder import (
     make_group_norm,
     silu_to,
 )
+from easynlp_tpu_torch.parallel import comm, sharding
 
 
 class ARTISTConfig(PretrainedConfig):
@@ -86,7 +87,11 @@ class ARTISTConfig(PretrainedConfig):
 
 class VectorQuantizer(nn.Module):
     """Nearest codebook row per position, with the straight-through
-    estimator."""
+    estimator. Over a tensor axis the codebook is split over its codes
+    (JAX `("vocab", "kv")`): each rank takes the first minimum among its
+    own rows, and the minimum over the ranks, the lowest global index on a
+    tie, is jnp.argmin's code over the whole book; its row is looked up as
+    a vocab-parallel embedding's."""
 
     def __init__(self, num_codes, code_dim, commitment_cost=0.25,
                  device=None):
@@ -94,6 +99,41 @@ class VectorQuantizer(nn.Module):
         self.commitment_cost = commitment_cost
         self.codebook = nn.Parameter(torch.empty(num_codes, code_dim,
                                                  device=device))
+        self.group, self.start, self.num_codes = None, 0, num_codes
+
+    def tensor_parallel_split(self, prefix, specs, mesh):
+        """The codebook was split (sharding.apply_tensor_parallel): this
+        rank holds codes [start, start + rows), padding rows past
+        num_codes."""
+        self.group = mesh.group("tensor")
+        self.start = mesh.index("tensor") * self.codebook.shape[0]
+        return {}
+
+    def lookup(self, codes):
+        """The codebook rows of codes (any shape) -> [..., D]."""
+        if self.group is None:
+            return self.codebook[codes]
+        return sharding.vocab_parallel_lookup(self.codebook, codes,
+                                              self.start, self.group)
+
+    @torch.no_grad()
+    def nearest(self, flat):
+        """The code of each row of flat [N, D] f32: the first minimum of
+        |z|^2 - 2 z.C^T + |C|^2 over the whole book."""
+        cb = self.codebook.float()
+        dist = (flat.pow(2).sum(1, keepdim=True) - 2 * flat @ cb.t()
+                + cb.pow(2).sum(1)[None])
+        if self.group is None:
+            return torch.argmin(dist, dim=-1)
+        rows = torch.arange(self.start, self.start + cb.shape[0],
+                            device=flat.device)
+        dist = dist.masked_fill(rows[None] >= self.num_codes, float("inf"))
+        best, code = dist.min(dim=-1)
+        best = comm.all_gather(best[None].clone(), self.group)
+        code = comm.all_gather((code + self.start)[None], self.group)
+        lowest = best.min(dim=0, keepdim=True).values
+        return torch.where(best == lowest, code,
+                           torch.full_like(code, self.num_codes)).amin(0)
 
     def forward(self, z):
         """z [B, D, h, w] -> (quantised [B, D, h, w] f32 with the
@@ -101,11 +141,8 @@ class VectorQuantizer(nn.Module):
         b, d, h, w = z.shape
         z = z.float()
         flat = z.permute(0, 2, 3, 1).reshape(-1, d)
-        cb = self.codebook.float()
-        dist = (flat.pow(2).sum(1, keepdim=True) - 2 * flat @ cb.t()
-                + cb.pow(2).sum(1)[None])
-        codes = torch.argmin(dist, dim=-1)
-        quantised = self.codebook[codes].view(b, h, w, d).permute(0, 3, 1, 2)
+        codes = self.nearest(flat)
+        quantised = self.lookup(codes).view(b, h, w, d).permute(0, 3, 1, 2)
         commit = torch.mean((quantised.detach() - z) ** 2)
         embed = torch.mean((quantised - z.detach()) ** 2)
         vq_loss = embed + self.commitment_cost * commit
@@ -189,6 +226,8 @@ class ARTISTModel(nn.Module):
     [text; image-code] sequence (or [codes; text] with image_first), and
     the VQGAN's tokenize/decode."""
 
+    tensor_table = "artist"
+
     def __init__(self, config, dtype=torch.float32, device=None,
                  image_first=False):
         super().__init__()
@@ -229,17 +268,20 @@ class ARTISTModel(nn.Module):
 
     def decode_codes(self, codes):
         """codes [B, h, w] -> pixels [B, H, W, 3] (f32, unclipped)."""
-        quantised = self.quantizer.codebook[codes.long()].permute(0, 3, 1, 2)
+        quantised = self.quantizer.lookup(codes.long()).permute(0, 3, 1, 2)
         return self.vq_decoder(quantised).permute(0, 2, 3, 1)
 
     def lm_logits(self, hidden):
-        """The f32 head (JAX's Dense with dtype f32)."""
-        return F.linear(hidden.float(), self.lm_head.weight)
+        """The f32 head (JAX's Dense with dtype f32), column-parallel over
+        the vocabulary on a tensor axis (its columns gathered)."""
+        return sharding.linear(self.lm_head, hidden.float(), torch.float32)
 
     def init_lm_cache(self, batch_size, max_length):
         gc = self.gpt_config
         device = self.lm_head.weight.device
-        shape = (batch_size, max_length, gc.n_head, gc.n_embd // gc.n_head)
+        # the rank's own heads over a tensor axis
+        shape = (batch_size, max_length, self.gpt.h[0].attn.num_heads,
+                 gc.n_embd // gc.n_head)
         return KVCache(
             [torch.zeros(shape, dtype=self.dtype, device=device)
              for _ in range(gc.n_layer)],

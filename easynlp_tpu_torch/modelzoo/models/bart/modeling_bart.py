@@ -54,6 +54,7 @@ from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
     remat_call,
 )
 from easynlp_tpu_torch.ops.attention import attention
+from easynlp_tpu_torch.parallel.sharding import tied_logits
 
 LN_EPS = 1e-5
 
@@ -89,6 +90,12 @@ class Seq2SeqCache:
 
 
 class BartAttention(nn.Module):
+    """q/k/v, the attention and out_proj; over a tensor axis it holds
+    num_heads / tp heads (q/k/v column-parallel, out_proj row-parallel:
+    parallel/sharding.py)."""
+
+    tensor_parallel_heads = True
+
     def __init__(self, config, num_heads, dtype=torch.float32, device=None):
         super().__init__()
         e = config.d_model
@@ -102,10 +109,10 @@ class BartAttention(nn.Module):
 
     def kv(self, kv_hidden):
         """K and V [B,S,H,D] of kv_hidden [B,S,E] in the compute dtype."""
-        b, s, e = kv_hidden.shape
+        b, s, _ = kv_hidden.shape
         h = self.num_heads
-        return (dense(self.k_proj, kv_hidden, self.dtype).view(b, s, h, e // h),
-                dense(self.v_proj, kv_hidden, self.dtype).view(b, s, h, e // h))
+        return (dense(self.k_proj, kv_hidden, self.dtype).view(b, s, h, -1),
+                dense(self.v_proj, kv_hidden, self.dtype).view(b, s, h, -1))
 
     def forward(self, hidden, kv_hidden, kv_mask, causal=False, static_kv=None,
                 cache=None, layer_idx=None):
@@ -113,9 +120,9 @@ class BartAttention(nn.Module):
         cross K/V), or, with a cache, the layer's self cache after this
         step's K/V are written at the cache index (kv_mask then covers its
         T slots)."""
-        b, s, e = hidden.shape
+        b, s, _ = hidden.shape
         h = self.num_heads
-        q = dense(self.q_proj, hidden, self.dtype).view(b, s, h, e // h)
+        q = dense(self.q_proj, hidden, self.dtype).view(b, s, h, -1)
         k, v = static_kv if static_kv is not None else self.kv(kv_hidden)
         if cache is not None:
             end = cache.index + s
@@ -127,7 +134,7 @@ class BartAttention(nn.Module):
                 k, v, kv_mask = k[:, :end], v[:, :end], kv_mask[:, :end]
             causal = s > 1
         ctx = attention(q, k, v, kv_mask=kv_mask, causal=causal)
-        return self.dropout(dense(self.out_proj, ctx.reshape(b, s, e),
+        return self.dropout(dense(self.out_proj, ctx.reshape(b, s, -1),
                                   self.dtype))
 
 
@@ -271,7 +278,11 @@ class BartModel(nn.Module):
 
 class BartForConditionalGeneration(nn.Module):
     """BartModel under `model`, the head tied to the decoder's token
-    embedding, and `final_logits_bias` [1,V] (HF's shape)."""
+    embedding, and `final_logits_bias` [1,V] (HF's shape). Over a tensor
+    axis the token embeddings are vocab-parallel, `final_logits_bias`
+    splits with the vocabulary and the caches hold each rank's heads."""
+
+    tensor_table = "bart"
 
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
@@ -308,9 +319,8 @@ class BartForConditionalGeneration(nn.Module):
     def logits(self, hidden):
         """The tied head: hidden @ decoder.embed_tokens^T + final_logits_bias,
         in the compute dtype."""
-        emb = self.model.decoder.embed_tokens.weight.to(self.dtype)
-        return torch.matmul(hidden, emb.t()) \
-            + self.final_logits_bias.to(self.dtype)
+        return tied_logits(self.model.decoder.embed_tokens, hidden,
+                           self.dtype, self.final_logits_bias)
 
     def decode(self, decoder_input_ids, enc_hidden, enc_mask,
                decoder_mask=None, cache=None):
@@ -342,8 +352,10 @@ class BartForConditionalGeneration(nn.Module):
     def init_cache(self, batch_size, max_length, dtype=None):
         """An empty Seq2SeqCache of max_length self-attention slots."""
         c = self.config
-        h = c.decoder_attention_heads
-        shape = (batch_size, max_length, h, c.d_model // h)
+        # the rank's own heads over a tensor axis
+        h = self.model.decoder.layers[0].self_attn.num_heads
+        shape = (batch_size, max_length, h,
+                 c.d_model // c.decoder_attention_heads)
         device = self.final_logits_bias.device
         dtype = dtype or self.dtype
         return Seq2SeqCache(

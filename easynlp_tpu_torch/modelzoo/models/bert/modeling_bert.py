@@ -456,6 +456,8 @@ class BertModel(nn.Module):
     with output_attentions 'attentions' [L,B,H,S,S], the masked pre-softmax
     scores in f32. pre_layer_norm=True is MegatronBERT's pre-LN layout."""
 
+    tensor_table = "bert"
+
     def __init__(self, config, dtype=torch.float32, add_pooling_layer=True,
                  device=None, output_hidden_states=False,
                  output_attentions=False, pre_layer_norm=False):
@@ -573,15 +575,20 @@ class BertMLMHead(nn.Module):
                                              device=device))
 
     def forward(self, hidden, word_embeddings):
+        """word_embeddings: the embedding module (vocab-parallel over a
+        tensor axis, the bias then split with it)."""
+        from easynlp_tpu_torch.parallel.sharding import tied_logits
         dt = self.dtype
         h = layer_norm(self.LayerNorm, self.act(dense(self.dense, hidden,
                                                       dt)), dt)
-        return torch.matmul(h, word_embeddings.to(dt).t()) + self.bias.to(dt)
+        return tied_logits(word_embeddings, h, dt, self.bias)
 
 
 class BertForMaskedLM(nn.Module):
     """BertModel without a pooler and the tied MLM head. Returns {'logits':
     [B,S,V], 'last_hidden_state': [B,S,E]}, both in `dtype`."""
+
+    tensor_table = "bert"
 
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
@@ -607,5 +614,5 @@ class BertForMaskedLM(nn.Module):
         out = self.bert(input_ids, attention_mask, token_type_ids,
                         position_ids)
         logits = self.cls(out["last_hidden_state"],
-                          self.bert.embeddings.word_embeddings.weight)
+                          self.bert.embeddings.word_embeddings)
         return {"logits": logits, **out}

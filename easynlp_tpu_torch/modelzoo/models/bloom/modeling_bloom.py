@@ -36,6 +36,7 @@ from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
     layer_norm,
 )
 from easynlp_tpu_torch.ops.attention import attention
+from easynlp_tpu_torch.parallel.sharding import tied_logits
 
 # the MLP's activation (ACT2FN key): BLOOM's tanh GELU; "gelu" gives the
 # JAX module's (reference fault 38)
@@ -75,18 +76,27 @@ def alibi_slopes(n_heads):
     return np.asarray(slopes, np.float32)
 
 
-def alibi_bias(attention_mask, n_heads):
+def alibi_bias(attention_mask, n_heads, heads=None):
     """ALiBi's additive bias [B, H, 1, S], f32: each key's position among
     the row's real tokens (0 at padding) times the head's slope, whatever
-    the query (HF's formulation)."""
-    slopes = torch.from_numpy(alibi_slopes(n_heads)).to(
-        attention_mask.device)
+    the query (HF's formulation). `heads` (start, count) takes the slopes
+    of those heads of the n_heads (a tensor rank's own)."""
+    slopes = alibi_slopes(n_heads)
+    if heads is not None:
+        slopes = slopes[heads[0]:heads[0] + heads[1]]
+    slopes = torch.from_numpy(slopes).to(attention_mask.device)
     mask = attention_mask.long()
     positions = ((mask.cumsum(-1) - 1) * mask).float()
     return slopes[None, :, None, None] * positions[:, None, None, :]
 
 
 class BloomAttention(nn.Module):
+    """HF's fused query_key_value ([H, 3, D] over its output features),
+    the causal attention under the ALiBi bias, and dense; over a tensor
+    axis it holds num_heads / tp heads (whole groups of 3D rows)."""
+
+    tensor_parallel_heads = True
+
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         e = config.hidden_size
@@ -96,14 +106,14 @@ class BloomAttention(nn.Module):
         self.dense = nn.Linear(e, e, device=device)
 
     def forward(self, hidden, bias, kv_mask):
-        b, s, e = hidden.shape
+        b, s, _ = hidden.shape
         h = self.num_heads
         # HF's fused layout: [..., H, 3, D] over the output features
         qkv = dense(self.query_key_value, hidden, self.dtype).view(
-            b, s, h, 3, e // h)
+            b, s, h, 3, -1)
         ctx = attention(qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :],
                         kv_mask=kv_mask, causal=True, bias=bias)
-        return dense(self.dense, ctx.reshape(b, s, e), self.dtype)
+        return dense(self.dense, ctx.reshape(b, s, -1), self.dtype)
 
 
 class BloomMLP(nn.Module):
@@ -141,7 +151,11 @@ class BloomBlock(nn.Module):
 
 
 class BloomModel(nn.Module):
-    """Returns {'last_hidden_state': [B, S, E] in the compute dtype}."""
+    """Returns {'last_hidden_state': [B, S, E] in the compute dtype}. Over
+    a tensor axis word_embeddings is vocab-parallel and the ALiBi bias
+    takes the slopes of the rank's own heads."""
+
+    tensor_table = "bloom"
 
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
@@ -165,7 +179,9 @@ class BloomModel(nn.Module):
             attention_mask = torch.ones_like(input_ids)
         hidden = layer_norm(self.word_embeddings_layernorm,
                             self.word_embeddings(input_ids), self.dtype)
-        bias = alibi_bias(attention_mask, self.config.n_head)
+        attn = self.h[0].self_attention
+        bias = alibi_bias(attention_mask, self.config.n_head,
+                          (getattr(attn, "head_start", 0), attn.num_heads))
         kv_mask = attention_mask.to(torch.int32)
         for block in self.h:
             hidden = block(hidden, bias, kv_mask)
@@ -189,8 +205,8 @@ class BloomForCausalLM(nn.Module):
 
     def forward(self, input_ids, attention_mask=None):
         out = self.transformer(input_ids, attention_mask)
-        wte = self.transformer.word_embeddings.weight.to(self.dtype)
-        out["logits"] = torch.matmul(out["last_hidden_state"], wte.t())
+        out["logits"] = tied_logits(self.transformer.word_embeddings,
+                                    out["last_hidden_state"], self.dtype)
         return out
 
 

@@ -40,7 +40,7 @@ class CKBertForPreTraining(BertForMaskedLM):
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):
         out = self.bert(input_ids, attention_mask, token_type_ids)
         logits = self.cls(out["last_hidden_state"],
-                          self.bert.embeddings.word_embeddings.weight)
+                          self.bert.embeddings.word_embeddings)
         result = {"logits": logits,
                   "cls_view1": out["last_hidden_state"][:, 0]}
         if self.training:

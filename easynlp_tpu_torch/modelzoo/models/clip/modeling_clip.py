@@ -48,6 +48,11 @@ from easynlp_tpu_torch.ops.attention import attention
 
 
 class ViTAttention(nn.Module):
+    """Over a tensor axis it holds num_heads / tp heads (q/k/v
+    column-parallel, out_proj row-parallel: the "vit" table)."""
+
+    tensor_parallel_heads = True
+
     def __init__(self, config, device=None):
         super().__init__()
         e = config.hidden_size
@@ -58,11 +63,11 @@ class ViTAttention(nn.Module):
         self.out_proj = nn.Linear(e, e, device=device)
 
     def forward(self, x, dtype):
-        b, s, e = x.shape
+        b, s, _ = x.shape
         h = self.num_heads
-        q, k, v = (dense(p, x, dtype).view(b, s, h, e // h)
+        q, k, v = (dense(p, x, dtype).view(b, s, h, -1)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
-        return dense(self.out_proj, attention(q, k, v).reshape(b, s, e),
+        return dense(self.out_proj, attention(q, k, v).reshape(b, s, -1),
                      dtype)
 
 
@@ -147,6 +152,8 @@ class ViTTransformer(nn.Module):
 class ViTEncoder(nn.Module):
     """pixels [B, H, W, 3] -> {'last_hidden_state': [B, 1 + N, E],
     'pooler_output': [B, E]}, both in `dtype`."""
+
+    tensor_table = "vit"
 
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()

@@ -36,6 +36,8 @@ class TextCNNConfig(PretrainedConfig):
 
 
 class TextCNNModel(nn.Module):
+    tensor_table = "cnn"
+
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         self.config = config

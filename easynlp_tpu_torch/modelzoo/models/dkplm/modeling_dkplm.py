@@ -75,6 +75,8 @@ class DKPLMForPreTraining(nn.Module):
     """DKPLMModel without a pooler and BERT's MLM head tied to its word
     embeddings. Returns {'logits' [B,S,V], 'last_hidden_state' [B,S,E]}."""
 
+    tensor_table = "bert"
+
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         self.config = config
@@ -100,7 +102,7 @@ class DKPLMForPreTraining(nn.Module):
                         insert_know_emb=insert_know_emb,
                         insert_know_position_mask=insert_know_position_mask)
         out["logits"] = self.cls(out["last_hidden_state"],
-                                 self.bert.embeddings.word_embeddings.weight)
+                                 self.bert.embeddings.word_embeddings)
         return out
 
 

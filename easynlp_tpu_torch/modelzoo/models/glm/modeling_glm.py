@@ -229,6 +229,8 @@ class GLMStack(nn.Module):
 
 
 class GLMModel(nn.Module):
+    tensor_table = "glm"
+
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         self.config = config

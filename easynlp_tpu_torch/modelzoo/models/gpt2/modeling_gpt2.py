@@ -302,6 +302,8 @@ class GPT2Model(nn.Module):
     captioning apps feed a visual prefix; their model sets `wte` to None
     and owns the token table)."""
 
+    tensor_table = "gpt2"
+
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         self.config = config

@@ -109,7 +109,11 @@ class KangarooLayer(BertLayer):
     (`attention.self_ent`, `attention.output_ent`, ent_size wide) and
     `norm` and `mix` the entity stream's FFN parts
     (`intermediate.dense_ent`, `output.dense_ent`, `output.LayerNorm_ent`).
+    Over a tensor axis the entity attention keeps its share of ent_heads,
+    as the text attention of num_heads (the "kangaroo" table).
     """
+
+    tensor_parallel_heads = ("ent_heads",)
 
     def __init__(self, config, layer_type, dtype=torch.float32,
                  device=None):
@@ -152,7 +156,7 @@ class KangarooLayer(BertLayer):
             q, k, v = a.self_ent.heads(hidden_ent, self.ent_heads, dt)
             ctx = attention(q, k, v, kv_mask=ent_kv_mask)
             attn_ent = a.output_ent(hidden_ent, ctx.reshape(
-                hidden_ent.shape), dt) * keep
+                hidden_ent.shape[:2] + (-1,)), dt) * keep
         else:
             attn_ent = hidden_ent * keep
         inter = self.act(inter + dense(self.intermediate.dense_ent,
@@ -193,6 +197,8 @@ class KangarooModel(nn.Module):
     given the samples, 'positive_ent' [B,S,ent_size] (in dtype) and
     'negative_ent' [B,S,sample_num-1,ent_size] (f32, or None when
     sample_num is 1)."""
+
+    tensor_table = "kangaroo"
 
     def __init__(self, config, dtype=torch.float32, add_pooling_layer=True,
                  device=None):
@@ -300,6 +306,8 @@ class KangarooForPreTraining(nn.Module):
     samples with sample_num > 1, 'cos_score' [B,S,sample_num] (f32) and
     'sample_label' [B,S] (0 at entity tokens, -100 elsewhere)."""
 
+    tensor_table = "kangaroo"
+
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         self.config = config
@@ -322,7 +330,7 @@ class KangarooForPreTraining(nn.Module):
             concept_emb=concept_emb)
         last = out["last_hidden_state"]
         result = {"logits": self.cls.predictions(
-            last, self.kangaroo.embeddings.word_embeddings.weight),
+            last, self.kangaroo.embeddings.word_embeddings),
             "last_hidden_state": last}
         if out.get("negative_ent") is not None:
             tok = self.cls.token_emb(last.float())

@@ -42,7 +42,6 @@ on the initialiser.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from easynlp_tpu_torch.modelzoo.modeling_utils import one_hot_rows
@@ -52,6 +51,7 @@ from easynlp_tpu_torch.modelzoo.models.bert.modeling_bert import (
     remat_call,
 )
 from easynlp_tpu_torch.ops.attention import attention
+from easynlp_tpu_torch.parallel import sharding
 
 NEG_BIAS = -1e30
 # the JAX model's activation for each of the config's dense_act_fn
@@ -60,8 +60,9 @@ _FFN_ACT = {"relu": "relu", "gelu": "gelu_new", "gelu_new": "gelu_new",
 
 
 def _linear(layer, x, dtype):
-    """A bias-free f32 nn.Linear applied in `dtype`."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype))
+    """A bias-free f32 nn.Linear applied in `dtype` (with its collective
+    where it is split over a tensor axis)."""
+    return sharding.linear(layer, x, dtype)
 
 
 class T5LayerNorm(nn.Module):
@@ -139,6 +140,12 @@ class T5RelativeBias(nn.Embedding):
 
 
 class T5Attention(nn.Module):
+    """q/k/v, the unscaled attention and o; over a tensor axis it holds
+    num_heads / tp heads, and the relative table its heads' columns (JAX
+    `(None, "heads")`)."""
+
+    tensor_parallel_heads = True
+
     def __init__(self, config, has_relative_bias=False, bidirectional=True,
                  dtype=torch.float32, device=None):
         super().__init__()
@@ -315,6 +322,12 @@ class T5Stack(nn.Module):
 
 
 class T5ForConditionalGeneration(nn.Module):
+    """Over a tensor axis `shared` is vocab-parallel, mT5's `lm_head`
+    column-parallel over the vocabulary (its columns gathered) and the
+    caches hold each rank's heads."""
+
+    tensor_table = "t5"
+
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         self.config = config
@@ -358,8 +371,8 @@ class T5ForConditionalGeneration(nn.Module):
         lm_head in f32."""
         if self.config.tie_word_embeddings:
             hidden = hidden * (self.config.d_model ** -0.5)
-            return torch.matmul(hidden, self.shared.weight.to(self.dtype).t())
-        return F.linear(hidden.float(), self.lm_head.weight)
+            return sharding.tied_logits(self.shared, hidden, self.dtype)
+        return _linear(self.lm_head, hidden.float(), torch.float32)
 
     def decode(self, decoder_input_ids, enc_hidden, enc_mask,
                decoder_mask=None, cache=None):
@@ -389,7 +402,9 @@ class T5ForConditionalGeneration(nn.Module):
     def init_cache(self, batch_size, max_length, dtype=None):
         """An empty Seq2SeqCache of max_length self-attention slots."""
         c = self.config
-        shape = (batch_size, max_length, c.num_heads, c.d_kv)
+        # the rank's own heads over a tensor axis
+        heads = self.decoder.block[0].layer[0].SelfAttention.num_heads
+        shape = (batch_size, max_length, heads, c.d_kv)
         device = self.shared.weight.device
         dtype = dtype or self.dtype
         return Seq2SeqCache(

@@ -111,7 +111,11 @@ def _bart(policy, seed=3):
         {"labels": labels}
 
 
+# the loss bound: an absolute floor plus 4 f32 ulps of the loss (2**-23
+# of its magnitude each), since XLA:CPU's and the port's sums may land a
+# few ulps apart, by host CPU, at losses near 9
 MODELS = {"bert": (_bert, 1e-6, 1e-6), "bart": (_bart, 1e-6, 1e-5)}
+LOSS_ULPS = 4 * 2.0 ** -23
 
 
 def _port_loss_grads(port_app, tmodule, inputs, batch, policy, train):
@@ -153,7 +157,8 @@ def test_remat_matches_none_and_jax(model, policy):
     want_loss, want_grads = jax.value_and_grad(jax_loss)(params)
     loss, grads = _port_loss_grads(port_app, tmodule, inputs, batch, policy,
                                    False)
-    assert abs(float(loss) - float(want_loss)) <= loss_atol
+    assert abs(float(loss) - float(want_loss)) \
+        <= loss_atol + LOSS_ULPS * abs(float(want_loss))
     want = port_app.state_dict_from_jax(
         jax.tree.map(np.asarray, want_grads), tmodule.config)
     for n, g in grads.items():

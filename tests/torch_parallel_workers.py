@@ -482,9 +482,20 @@ def several(jobs):
     return [TASKS[task](payload) for task, payload in jobs]
 
 
+def _mesh_task(name):
+    """tests/torch_mesh_tasks.py's task `name` (that module imports this
+    one, so it is imported when the task runs)."""
+    def run(payload):
+        import torch_mesh_tasks
+        return getattr(torch_mesh_tasks, name)(payload)
+    return run
+
+
 TASKS = {"ring": ring, "bert_step": bert_step, "bert_forward": bert_forward,
          "bert_ema_resume": bert_ema_resume,
          "glm_forward": glm_forward, "moe_forward": moe_forward,
          "gpt2_forward": gpt2_forward, "gpt2_tp_decoding": gpt2_tp_decoding,
          "gpt2_tp_follower_fails": gpt2_tp_follower_fails,
-         "gpipe": gpipe_run, "vocab_ce": vocab_ce, "several": several}
+         "gpipe": gpipe_run, "vocab_ce": vocab_ce, "several": several,
+         "mesh_cases": _mesh_task("cases"),
+         "trainer_jobs": _mesh_task("trainer_jobs")}
